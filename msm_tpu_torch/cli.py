@@ -1,0 +1,77 @@
+"""Command-line interface of the port.
+
+    python -m msm_tpu_torch simulate --toml path.toml --device cuda|cpu
+        [--data-root DIR] [--precision f32|f64] [--verbose]
+
+Counterpart of msm_tpu/cli.py's `simulate` (`simulator/src/main.rs:9-17`)
+on the port's path: the batched ensemble with optimistic dt. The device
+is named, never guessed. The JAX CLI's other flags (dt modes, resume,
+online synthesis, meshes, ...) are not ported yet, so argparse rejects
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+import torch
+
+
+def cmd_simulate(args) -> int:
+    from . import config as cfg
+    from . import simulator
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but CUDA is not available")
+    dtype = torch.complex128 if args.precision == "f64" else torch.complex64
+    toml = cfg.read_toml(args.toml)
+    start = time.monotonic()
+    simulator.run_config(
+        toml,
+        dtype=dtype,
+        device=args.device,
+        data_root=args.data_root,
+        verbose=args.verbose,
+    )
+    if cfg.stream_count(toml) > 1:
+        print(f"Finished all streams in {time.monotonic() - start:.1f} seconds")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="msm_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    sim = sub.add_parser("simulate", help="run the simulator (msm-simulator)")
+    sim.add_argument("--toml", required=True, help="path to the simulation toml")
+    sim.add_argument(
+        "--data-root", default="sim-data", help="output root (default sim-data)"
+    )
+    sim.add_argument(
+        "--precision",
+        choices=("f32", "f64"),
+        default="f32",
+        help="complex64 (f32, time in float32) or complex128 (f64)",
+    )
+    sim.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        required=True,
+        help="cuda: the CUDA kernels on the card; cpu: their plain versions",
+    )
+    sim.add_argument("--verbose", "-v", action="store_true")
+    sim.set_defaults(fn=cmd_simulate)
+    return parser
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,169 @@
+"""The step's elementwise phase kernels, dispatched by device.
+
+Counterparts of msm_tpu/ops/pallas_kernels.py:
+
+  kinetic_phase : z * exp(i * scale_b * q^2), q^2 from indices   (K19)
+  phase_rotate  : z * exp(i * coeff_b * field)                    (K21)
+
+A CUDA tensor goes to the hand-written Hopper kernel in
+`csrc/phase_kernels.cu` (built by `ops.build`); a CPU tensor goes to the
+plain torch version beside it, which is the same math. There is no other
+route: a failed build or launch raises, and nothing on the CUDA path calls
+a plain version. Unlike the TPU kernels (cube grids, N % 128 == 0, dims 2
+or 3: a lane-tiling rule), these take any even N and dims 1-3.
+
+`launches` counts kernel launches per wrapper, so a run can show that its
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+from .phase import apply_potential_phase, rotate
+
+launches = {"kinetic_phase": 0, "phase_rotate": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def kinetic_scale(coeff, size: int, dx: float):
+    """Fold the physical k-grid scaling into the kinetic coefficient."""
+    return coeff * (2.0 * math.pi / (size * dx)) ** 2
+
+
+def poisson_scale(poisson_coeff: float, size: int, dx: float) -> float:
+    """Fold the k-grid scaling into the Poisson coefficient (negated)."""
+    return -poisson_coeff * (size * dx / (2.0 * math.pi)) ** 2
+
+
+def freq_sq(size: int, dims: int, device) -> torch.Tensor:
+    """Integer q^2 grid, q(i) = i for i < size/2 else i - size (the integer
+    fftfreq numerator, `simulator/src/utils/fft.rs:100-120`), summed over
+    the axes in the order z, y, x."""
+    i = torch.arange(size, device=device)
+    q2 = torch.where(i < size // 2, i, i - size).square()
+    out = torch.zeros((1,) * dims, dtype=q2.dtype, device=device)
+    for axis in range(dims):
+        shape = [1] * dims
+        shape[axis] = size
+        out = out + q2.view(shape)
+    return out
+
+
+def _bcast(x: torch.Tensor, dims: int) -> torch.Tensor:
+    return x.reshape((-1,) + (1,) * dims)
+
+
+def kinetic_phase_plain(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
+    """Plain torch version of `kinetic_phase`."""
+    rdtype = z.real.dtype
+    q2 = freq_sq(z.shape[-1], dims, z.device).to(rdtype)
+    return rotate(z, _bcast(scale.to(rdtype), dims) * q2)
+
+
+def phase_rotate_plain(
+    z: torch.Tensor, field: torch.Tensor, coeff: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch version of `phase_rotate`."""
+    return apply_potential_phase(z, field, _bcast(coeff, z.ndim - 1))
+
+
+def _check_complex(z: torch.Tensor) -> int:
+    """Validate a kernel operand; returns is_double."""
+    if z.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"expected complex64/complex128, got {z.dtype}")
+    if z.shape[0] > 65535:
+        raise ValueError(f"batch {z.shape[0]} exceeds the launch grid (65535)")
+    if z[0].numel() >= 2**31:
+        raise ValueError(f"grid of {z[0].numel()} cells exceeds 2^31 - 1")
+    return int(z.dtype == torch.complex128)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
+    """z * exp(i * scale_b * q^2) with q^2 built from indices in-kernel.
+
+    z: (B, *grid) complex with `dims` cubic grid axes of even size N;
+    scale: (B,) = coeff_b * (2*pi / (N*dx))^2 (`kinetic_scale`).
+    """
+    if z.device.type == "cpu":
+        return kinetic_phase_plain(z, scale, dims)
+    if z.device.type != "cuda":
+        raise ValueError(f"no kinetic_phase kernel for device {z.device}")
+    if z.ndim != dims + 1 or any(s != z.shape[-1] for s in z.shape[1:]):
+        raise ValueError(f"expected (B, N^{dims}) cube, got {tuple(z.shape)}")
+    n = z.shape[-1]
+    if n % 2:
+        raise ValueError(f"grid size must be even, got {n}")
+    is_double = _check_complex(z)
+    z = z.contiguous()
+    sc = scale.to(device=z.device, dtype=z.real.dtype).reshape(-1).contiguous()
+    if sc.numel() != z.shape[0]:
+        raise ValueError(f"scale has {sc.numel()} entries for batch {z.shape[0]}")
+    out = torch.empty_like(z)
+    lib = build.load()
+    with torch.cuda.device(z.device):
+        rc = lib.msm_kinetic_phase(
+            z.data_ptr(),
+            out.data_ptr(),
+            sc.data_ptr(),
+            z.shape[0],
+            n,
+            dims,
+            is_double,
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
+    _raise_on(rc, "kinetic_phase")
+    launches["kinetic_phase"] += 1
+    return out
+
+
+def phase_rotate(
+    z: torch.Tensor, field: torch.Tensor, coeff: torch.Tensor
+) -> torch.Tensor:
+    """z * exp(i * coeff_b * field).
+
+    z: (B, *grid) complex; field: (B, *grid) real of z's precision;
+    coeff: (B,).
+    """
+    if z.device.type == "cpu":
+        return phase_rotate_plain(z, field, coeff)
+    if z.device.type != "cuda":
+        raise ValueError(f"no phase_rotate kernel for device {z.device}")
+    if field.shape != z.shape:
+        raise ValueError(f"field {tuple(field.shape)} != z {tuple(z.shape)}")
+    if field.dtype != z.real.dtype or field.device != z.device:
+        raise TypeError(f"field is {field.dtype} on {field.device}")
+    is_double = _check_complex(z)
+    z = z.contiguous()
+    field = field.contiguous()
+    cf = coeff.to(device=z.device, dtype=z.real.dtype).reshape(-1).contiguous()
+    if cf.numel() != z.shape[0]:
+        raise ValueError(f"coeff has {cf.numel()} entries for batch {z.shape[0]}")
+    out = torch.empty_like(z)
+    lib = build.load()
+    with torch.cuda.device(z.device):
+        rc = lib.msm_phase_rotate(
+            z.data_ptr(),
+            field.data_ptr(),
+            out.data_ptr(),
+            cf.data_ptr(),
+            z.shape[0],
+            z[0].numel(),
+            is_double,
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
+    _raise_on(rc, "phase_rotate")
+    launches["phase_rotate"] += 1
+    return out

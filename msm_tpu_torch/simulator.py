@@ -1,0 +1,239 @@
+"""Batched stream-ensemble runner.
+
+Counterpart of msm_tpu/simulator.py's `run_config` batched path
+(`simulator/src/main.rs:21-89`): every stream of a config plus the
+mean-field (MFT) run advance as ONE batched state, dump boundary to dump
+boundary, and the host writes the npy dumps and manifests. A config
+without `[sampling]` is a batch of one and raises FourierAliasingError on
+aliasing, as `run_single` does; in an ensemble an aliased stream is
+frozen and reported instead of killing the batch (the reference panics:
+`simulation_object.rs:607-617`).
+
+Not here yet: resume, online synthesis, device meshes, remote storage,
+interval blocking and speculative dispatch.
+"""
+
+from __future__ import annotations
+
+import logging
+import time as _time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import SimulationParameters, TomlParameters, iter_stream_parameters
+from .errors import FourierAliasingError
+from .io.checkpoint import write_manifest
+from .io.npy import AsyncGridWriter, dump_dir, psi_path
+from .models.ics import build_ics
+from .models.sampling import sample_stream_batch
+from .stepper import SimState, Stepper
+from .utils.profiling import ProgressReporter, StepTimer
+
+log = logging.getLogger(__name__)
+
+
+def _dump_array(psi_np: np.ndarray, params: SimulationParameters) -> np.ndarray:
+    """Reshape a grid to the 4-D npy dump shape (io.rs:34-97)."""
+    return np.ascontiguousarray(psi_np).reshape(params.dump_shape)
+
+
+class SimulationRun:
+    """One named simulation run: its dump directory, psi dumps (through the
+    shared async writer), manifest."""
+
+    def __init__(
+        self, params: SimulationParameters, data_root: str, writer: AsyncGridWriter
+    ):
+        self.params = params
+        self.dir = dump_dir(params.sim_name, data_root)
+        self.writer = writer
+
+    def dump_field(self, psi_np: np.ndarray, dump_index: int, field: str = "psi"):
+        arr = _dump_array(psi_np, self.params)
+        self.writer.submit(psi_path(self.dir, dump_index, field), arr)
+
+    def write_manifest(self, state_slice: dict):
+        write_manifest(self.dir, **state_slice)
+
+
+def _telemetry_suffix(d_steps: int, dt_min: float, dt_max: float, replays: int) -> str:
+    """Per-dump step telemetry for --verbose lines (the reference's
+    per-update visibility, `simulation_object.rs:482,1210-1222`)."""
+    if d_steps <= 0:
+        return ""
+    s = f" [{d_steps} steps, dt {dt_min:.3g}..{dt_max:.3g}"
+    if replays:
+        s += f", replays {replays}"
+    return s + "]"
+
+
+_SCALARS = (
+    "time",
+    "tau",
+    "a",
+    "current_dumps",
+    "n_steps",
+    "just_dumped",
+    "aliased",
+    "alias_mass",
+    "dt_min",
+    "dt_max",
+    "replays",
+)
+
+
+class _EnsembleHostView:
+    """Host copy of a batched state's per-stream scalars (one transfer)
+    and, on first use, of its psi batch."""
+
+    def __init__(self, state: SimState):
+        self.state = state
+        self.scalars = {name: getattr(state, name).cpu().numpy() for name in _SCALARS}
+        self._psi: Optional[np.ndarray] = None
+
+    def scalar(self, name: str) -> np.ndarray:
+        return self.scalars[name]
+
+    def psi(self, i: int) -> np.ndarray:
+        if self._psi is None:
+            self._psi = self.state.psi.cpu().numpy()
+        return self._psi[i]
+
+    def run_scalars(self, i: int) -> dict:
+        return {
+            "current_dumps": int(self.scalar("current_dumps")[i]),
+            "time": float(self.scalar("time")[i]),
+            "tau": float(self.scalar("tau")[i]),
+            "a": float(self.scalar("a")[i]),
+            "n_steps": int(self.scalar("n_steps")[i]),
+            "aliased": bool(self.scalar("aliased")[i]),
+            "replays": int(self.scalar("replays")[i]),
+        }
+
+
+def _report_aliasing(params: SimulationParameters, mass: float, strict: bool):
+    err = FourierAliasingError(
+        threshold=params.alias_threshold,
+        k2_cutoff=params.k2_cutoff,
+        p_mass=mass,
+        stream=params.sim_name,
+    )
+    if strict:
+        raise err
+    log.error("%s", err)
+
+
+def run_config(
+    toml: TomlParameters,
+    dtype: torch.dtype = torch.complex64,
+    *,
+    device: "torch.device | str",
+    data_root: str = "sim-data",
+    verbose: bool = False,
+) -> SimState:
+    """Run every stream of a config plus the MFT as one batch on `device`;
+    returns the final batched state (streams in seed order, MFT last)."""
+    if toml.remote_storage_parameters is not None:
+        raise NotImplementedError("[remote_storage_parameters] is not ported yet")
+    all_params = list(iter_stream_parameters(toml))
+    n = len(all_params)
+    mft_params = all_params[-1]
+    stream_params = all_params[:-1]
+    stepper = Stepper(mft_params, dtype, device)
+
+    base_psi = torch.as_tensor(build_ics(mft_params)).to(stepper.device, dtype)
+    if stream_params:
+        seeds = [p.sampling.seed for p in stream_params]
+        scheme = stream_params[0].sampling.scheme
+        sampled = sample_stream_batch(base_psi, mft_params, seeds, scheme)
+        batch = torch.cat([sampled, base_psi[None]])
+    else:
+        batch = base_psi[None]
+    state = stepper.init_state(batch)
+    del batch, base_psi
+
+    if verbose:
+        scheme_txt = f"{stream_params[0].sampling.scheme} " if stream_params else ""
+        print(
+            f"Running {len(stream_params)} {scheme_txt}"
+            f"streams + MFT as one batch of {n} on {stepper.device}"
+        )
+    strict_alias = n == 1
+    reported_alias = [False] * n
+    t_start = _time.monotonic()
+    progress = ProgressReporter(
+        total_dumps=toml.num_data_dumps, sim_name=toml.sim_name, enabled=verbose
+    )
+    timer = StepTimer(cells_per_step=n * toml.size**toml.dims)
+    timer.start()
+    with AsyncGridWriter() as writer:
+        runs = [SimulationRun(p, data_root, writer) for p in all_params]
+
+        def dump_potentials(mask: np.ndarray, dumps_idx: np.ndarray):
+            """Dump phi for runs with output_potential
+            (simulation_object.rs:1166-1180)."""
+            if not toml.output_potential:
+                return
+            pot = stepper.potential(state.psi).cpu().numpy()
+            cdtype = np.complex64 if pot.dtype == np.float32 else np.complex128
+            for i in range(n):
+                if mask[i]:
+                    runs[i].dump_field(pot[i].astype(cdtype), int(dumps_idx[i]), "potential")
+
+        view = _EnsembleHostView(state)
+        for i, r in enumerate(runs):
+            r.dump_field(view.psi(i), 0)
+            r.write_manifest(view.run_scalars(i))
+        dump_potentials(np.ones(n, bool), np.zeros(n, int))
+
+        total_steps = 0
+        prev_steps_batch = 0
+        while stepper.not_finished(state):
+            raw = stepper.evolve_to_next_dump(state)
+            state = stepper.snap_after_dump(raw)
+            pre = _EnsembleHostView(raw)
+            total_steps = int(pre.scalar("n_steps").max())
+            aliased = pre.scalar("aliased")
+            just_dumped = pre.scalar("just_dumped")
+            view = _EnsembleHostView(state)
+            dumps_np = view.scalar("current_dumps")
+            for i, r in enumerate(runs):
+                if aliased[i]:
+                    if not reported_alias[i]:
+                        reported_alias[i] = True
+                        # manifest before the (possibly raising) report, so
+                        # the run's record shows aliased=True
+                        r.write_manifest(view.run_scalars(i))
+                        _report_aliasing(
+                            all_params[i],
+                            float(view.scalar("alias_mass")[i]),
+                            strict_alias,
+                        )
+                    continue
+                if just_dumped[i]:
+                    r.dump_field(view.psi(i), int(dumps_np[i]))
+                    scalars = view.run_scalars(i)
+                    scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
+                    r.write_manifest(scalars)
+            if just_dumped.any():
+                dump_potentials(just_dumped & ~aliased, dumps_np)
+            extra = _telemetry_suffix(
+                total_steps - prev_steps_batch,
+                float(pre.scalar("dt_min").min()),
+                float(pre.scalar("dt_max").max()),
+                int(pre.scalar("replays").sum()),
+            )
+            prev_steps_batch = max(prev_steps_batch, total_steps)
+            progress.update(
+                int(dumps_np.min()),
+                sim_time=float(view.scalar("time").min()),
+                extra=extra,
+            )
+        timer.stop(n_steps=total_steps)
+        if verbose:
+            print(timer.summary(), flush=True)
+        progress.finish()
+    return state
+

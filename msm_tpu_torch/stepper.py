@@ -1,0 +1,410 @@
+"""Split-step (kick-drift-kick) pseudo-spectral Schrodinger-Poisson stepper.
+
+Counterpart of msm_tpu/stepper.py's static, optimistic-dt, single-device
+path with `MSM_FFT=xla` and `MSM_USE_PALLAS=1` (`SimulationObject::update`,
+`simulator/src/simulation_object.rs:475-661`; `get_timestep` :878-934;
+`calculate_potential` :1031-1110; `check_alias` :1249-1293).
+
+- The state is a dataclass of tensors with a leading stream-batch axis on
+  every field (`SimState`); one step is `_step`.
+- Transforms are torch.fft (cuFFT on the card); the Poisson solve is the
+  half-spectrum rfft/irfft pair. The two elementwise phase passes of the
+  step run through `ops.kernels`: the CUDA kernels K19 (kinetic phase,
+  q^2 from indices) and K21 (potential rotation) on the card, their plain
+  versions on the CPU.
+- dt is optimistic: proposed from the carried max|phi| and validated after
+  the step against the step's own midpoint max|phi|; an invalid step is
+  discarded per stream and replayed with the corrected bound.
+- Torch has no on-device while loop, so `evolve_to_next_dump` steps on the
+  host. Each iteration makes ONE device->host read: the per-stream active
+  mask (it ends the loop and decides whether the per-stream freeze blend
+  is needed, skipped when every stream is active, as `lax.cond` does in
+  the JAX loop) together with whether any stream's step lands on a dump
+  (which decides the closing half-kick, the JAX `_finalize_step` cond).
+- Streams that reach their dump boundary (or alias) are frozen by a
+  per-stream select; one stream aliasing does not stop the batch, unlike
+  the reference panic (`simulation_object.rs:607-617`).
+
+Not here yet: exact and lagged dt, expanding mode, the fused engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import SimulationParameters
+from .constants import POIS_CONST
+from .grid import spec_grid as build_spec_grid
+from .ops import fft as fft_ops
+from .ops import kernels
+
+
+@dataclasses.dataclass
+class SimState:
+    """Per-stream integrator state; every field has a leading stream axis.
+
+    Between dumps the stored psik lacks the deferred closing half-kick
+    exp(i pending_k k^2) and psi is stale (both are refreshed on steps that
+    land on a dump); states leaving `evolve_to_next_dump` have pending_k
+    == 0 and consistent psi/psik.
+    Field names and meanings follow msm_tpu.stepper.SimState.
+    """
+
+    psi: torch.Tensor
+    psik: torch.Tensor
+    time: torch.Tensor
+    tau: torch.Tensor  # supercomoving time (expanding mode; 0 here)
+    a: torch.Tensor  # scale factor (expanding mode; 1 here)
+    current_dumps: torch.Tensor  # int32
+    n_steps: torch.Tensor  # int32
+    just_dumped: torch.Tensor  # bool: last step landed exactly on a dump
+    aliased: torch.Tensor  # bool: Fourier aliasing detected (frozen)
+    alias_mass: torch.Tensor
+    # optimistic proposal bound: the PREDICTED next-midpoint max|phi|
+    phi_max: torch.Tensor
+    phi_ref: torch.Tensor  # fresh midpoint max|phi| of the last accepted step
+    norm0: torch.Tensor  # initial sum|psik|^2 dk^d
+    max_norm_err: torch.Tensor  # unitarity monitor (stays 0: no debug checks)
+    dt_min: torch.Tensor  # dt range over the current dump interval
+    dt_max: torch.Tensor
+    replays: torch.Tensor  # int32: cumulative optimistic-dt replays
+    pending_k: torch.Tensor  # deferred closing half-kick coefficient
+
+
+@dataclasses.dataclass
+class StepConsts:
+    """Grid constants of the step (natural k order).
+
+    alias_mask: 1 where k^2 > k2_cutoff * k2_max (`simulation_object.rs:
+    1262-1277`). poisson_r: -poisson_coeff / k^2 on the rfft half spectrum,
+    k = 0 zeroed. The kinetic phase needs no k^2 grid: q^2 is built from
+    indices (ops.kernels).
+    """
+
+    alias_mask: torch.Tensor
+    poisson_r: torch.Tensor
+
+
+@dataclasses.dataclass
+class _Advance:
+    """The step's scalar prologue (per stream)."""
+
+    dt: torch.Tensor
+    is_dump: torch.Tensor
+    kcoeff: torch.Tensor
+    vcoeff: torch.Tensor
+    time: torch.Tensor
+
+
+# Optimistic-dt constants, the JAX stepper's defaults (msm_tpu.stepper):
+# the proposal's safety factor on the potential bound (each consecutive
+# replay inflates the carried bound by 1/DT_SAFETY, so replay cascades end
+# geometrically) and the per-step decay of the carried bound (hysteresis
+# against replay churn near the kinetic/potential crossover).
+DT_SAFETY = 0.95
+DT_DECAY = 0.99
+
+
+def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
+    """c / x rounded once (Python's ``c / tensor`` multiplies by 1/x)."""
+    return torch.full_like(x, c) / x
+
+
+class Stepper:
+    """Stepper for one resolved static configuration on one device.
+
+    dtype: complex64 or complex128; rdtype follows it. tdtype, the dtype
+    of time bookkeeping, defaults to float64 for complex128 and float32 for
+    complex64 (what the JAX CLI gets: x64 only for --precision f64).
+    """
+
+    def __init__(
+        self,
+        params: SimulationParameters,
+        dtype: torch.dtype,
+        device: "torch.device | str",
+        tdtype: "torch.dtype | None" = None,
+    ):
+        if params.expanding:
+            raise NotImplementedError("expanding mode is not ported yet")
+        if dtype not in (torch.complex64, torch.complex128):
+            raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
+        self.params = params
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not available")
+        self.dtype = dtype
+        self.rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
+        if tdtype is None:
+            tdtype = self.rdtype
+        self.tdtype = tdtype
+
+        p = params
+        # k2_max from the separable 1-D table: max(sum_i k_i^2) = dims *
+        # max(k_1d^2), identical to the full grid's max
+        self.k2_max = float(build_spec_grid(p.dx, 1, p.size).max()) * p.dims
+        spec = build_spec_grid(p.dx, p.dims, p.size)
+        mask = (spec > p.k2_cutoff * self.k2_max).astype(np.float64)
+        spec_r = torch.as_tensor(spec[..., : p.size // 2 + 1], dtype=self.rdtype)
+        inv_k2 = torch.where(spec_r > 0.0, 1.0, 0.0) / torch.where(
+            spec_r > 0.0, spec_r, 1.0
+        )
+        self.density_prefactor = p.total_mass
+        self.poisson_coeff = POIS_CONST
+        self.consts = StepConsts(
+            alias_mask=torch.as_tensor(mask, dtype=self.rdtype, device=self.device),
+            poisson_r=(-self.poisson_coeff * inv_k2).to(self.device),
+        )
+        # Dump schedule: t_dump[i] = t0 + i * T / num_dumps (final_sim_time
+        # is the DURATION from t0; PARITY.md).
+        self.t0 = float(p.time)
+        self.dump_dt = p.final_sim_time / p.num_data_dumps
+        # dt bounds as Python floats (get_timestep :905-920)
+        self.kinetic_dt = p.cfl * 2.0 * p.axis_length / (np.sqrt(self.k2_max) * p.hbar_)
+        self.potential_num = p.cfl * 2.0 * np.pi * p.hbar_
+
+    # ------------------------------------------------------------------
+    # Grid helpers
+    # ------------------------------------------------------------------
+
+    @property
+    def _spatial_axes(self) -> tuple[int, ...]:
+        return fft_ops.spatial_axes(self.params.dims)
+
+    def _bcast(self, scalar: torch.Tensor) -> torch.Tensor:
+        """Broadcast a per-stream scalar over the spatial axes."""
+        return scalar.reshape(scalar.shape + (1,) * self.params.dims)
+
+    def _fwd(self, x):
+        return fft_ops.forward(x, self.params.dims)
+
+    def _inv(self, xk):
+        return fft_ops.inverse(xk, self.params.dims)
+
+    def _apply_kinetic(self, psik, coeff):
+        """psik * exp(i * coeff * k^2) (K19); coeff per stream."""
+        p = self.params
+        scale = kernels.kinetic_scale(coeff, p.size, p.dx)
+        return kernels.kinetic_phase(psik, scale, p.dims)
+
+    def _abs2(self, z):
+        return (z * z.conj()).real
+
+    # ------------------------------------------------------------------
+    # State construction
+    # ------------------------------------------------------------------
+
+    def init_state(self, psi0: torch.Tensor) -> SimState:
+        """Initial state for a (B, *grid) batch of fields; psik = F[psi]."""
+        p = self.params
+        if psi0.ndim != p.dims + 1:
+            raise ValueError(f"expected a (B, *grid) batch, got {tuple(psi0.shape)}")
+        psi = psi0.to(device=self.device, dtype=self.dtype)
+        psik = self._fwd(psi)
+        b = psi.shape[0]
+
+        def full(value, dtype):
+            return torch.full((b,), value, dtype=dtype, device=self.device)
+
+        pm0 = torch.amax(self.potential(psi).abs(), dim=self._spatial_axes).to(
+            self.tdtype
+        )
+        return SimState(
+            psi=psi,
+            psik=psik,
+            time=full(self.t0, self.tdtype),
+            tau=full(0.0, self.tdtype),
+            a=full(1.0, self.tdtype),
+            current_dumps=full(0, torch.int32),
+            n_steps=full(0, torch.int32),
+            just_dumped=full(False, torch.bool),
+            aliased=full(False, torch.bool),
+            alias_mass=full(0.0, self.rdtype),
+            phi_max=pm0,
+            phi_ref=pm0,
+            norm0=self._norm_measure(psik),
+            max_norm_err=full(0.0, self.rdtype),
+            dt_min=full(float("inf"), self.tdtype),
+            dt_max=full(0.0, self.tdtype),
+            replays=full(0, torch.int32),
+            pending_k=full(0.0, self.rdtype),
+        )
+
+    def _norm_measure(self, psik):
+        """sum|psik|^2 dk^d — equals the real-space norm (ortho + dk = dx)."""
+        p = self.params
+        return torch.sum(self._abs2(psik), dim=self._spatial_axes) * p.dk**p.dims
+
+    # ------------------------------------------------------------------
+    # Physics pieces
+    # ------------------------------------------------------------------
+
+    def potential(self, psi):
+        """Spectral Poisson solve on the half spectrum (calculate_potential,
+        :1031-1110): rho = prefactor |psi|^2; phi_k = -coeff rho_k / k^2
+        (k = 0 zeroed); phi = irfft(phi_k)."""
+        axes = self._spatial_axes
+        rho = self.density_prefactor * self._abs2(psi)
+        rho_k = torch.fft.rfftn(rho, dim=axes)
+        phi_k = self.consts.poisson_r * rho_k
+        return torch.fft.irfftn(
+            phi_k, s=(self.params.size,) * self.params.dims, dim=axes
+        ).to(self.rdtype)
+
+    def _scalar_advance(self, state: SimState) -> _Advance:
+        """dt = min(kinetic, safety * potential(carried max|phi|), to next
+        dump) (get_timestep :878-934), the dump flag, kick coefficients
+        kcoeff = -dt/4*hbar_ and vcoeff = -dt/hbar_ (:504-516, :535-545)."""
+        p = self.params
+        next_idx = torch.clamp(state.current_dumps + 1, max=p.num_data_dumps)
+        potential = _rdiv(self.potential_num, 2.0 * state.phi_max) * DT_SAFETY
+        to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
+        dt = torch.minimum(torch.clamp(potential, max=self.kinetic_dt), to_next)
+        return _Advance(
+            dt=dt,
+            is_dump=dt == to_next,
+            kcoeff=(-dt / 4.0 * p.hbar_).to(self.rdtype),
+            vcoeff=(-dt / p.hbar_).to(self.rdtype),
+            time=state.time + dt,
+        )
+
+    def _predict_bound(self, pm_fresh, state: SimState):
+        """Optimistic proposal bound for the next step: the fresh midpoint
+        max|phi| extrapolated by the per-step growth ratio (clipped to
+        [1, 2]), floored by the slowly decaying previous bound. The floor
+        of the division is finfo(dtype).tiny: a literal 1e-300 is 0 in
+        float32, and a zero-potential stream would then give 0/0 = NaN."""
+        ref = torch.clamp(state.phi_ref, min=torch.finfo(state.phi_ref.dtype).tiny)
+        growth = torch.clamp(pm_fresh / ref, 1.0, 2.0)
+        return torch.maximum(pm_fresh * growth, state.phi_max * DT_DECAY)
+
+    def _dt_invalid(self, dt, phi_max_fresh):
+        """Did dt violate the CFL potential bound against the FRESH midpoint
+        max|phi|? NaN in phi_max gives False: a blown-up stream is accepted
+        and caught by the monitors, never replayed forever."""
+        lhs = dt * (2.0 * phi_max_fresh.to(self.tdtype))
+        return lhs > self.potential_num
+
+    def _alias_mass(self, psik):
+        """Probability mass above the alias cutoff (check_alias, :1249-1293)."""
+        p = self.params
+        mass = torch.sum(self._abs2(psik) * self.consts.alias_mask, dim=self._spatial_axes)
+        return mass * p.dk**p.dims
+
+    # ------------------------------------------------------------------
+    # One KDK step (batched)
+    # ------------------------------------------------------------------
+
+    def _step(self, state: SimState, adv: _Advance, any_dump: bool) -> SimState:
+        """One static KDK step (update, :475-661) with optimistic-dt
+        validation. `any_dump` (whether any stream's dt lands on a dump)
+        chooses between applying the closing half-kick and materializing
+        psi, or deferring the kick into pending_k."""
+        # opening half kick merged with the deferred one (K19), then the
+        # potential kick at the half step (K21)
+        psi = self._inv(self._apply_kinetic(state.psik, state.pending_k + adv.kcoeff))
+        phi = self.potential(psi)
+        phi_max = torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
+        psik = self._fwd(kernels.phase_rotate(psi, phi, adv.vcoeff))
+        alias_mass = self._alias_mass(psik)
+        if any_dump:
+            psik = self._apply_kinetic(psik, adv.kcoeff)
+            psi = self._inv(psik)
+            pending = torch.zeros_like(adv.kcoeff)
+        else:
+            psi = state.psi
+            pending = adv.kcoeff
+        return self._finish_step(state, adv, psi, psik, alias_mass, phi_max, pending)
+
+    def _finish_step(
+        self, state: SimState, adv: _Advance, psi, psik, alias_mass, pm_fresh, pending
+    ) -> SimState:
+        """Assemble the advanced state; a stream whose dt fails validation
+        keeps its old state, adopts the fresh bound inflated by 1/safety
+        and counts a replay."""
+        p = self.params
+        new = dataclasses.replace(
+            state,
+            psi=psi,
+            psik=psik,
+            time=adv.time,
+            n_steps=state.n_steps + 1,
+            just_dumped=adv.is_dump,
+            aliased=state.aliased | (alias_mass > p.alias_threshold),
+            alias_mass=alias_mass,
+            phi_max=self._predict_bound(pm_fresh, state),
+            phi_ref=pm_fresh,
+            pending_k=pending,
+            dt_min=torch.minimum(state.dt_min, adv.dt),
+            dt_max=torch.maximum(state.dt_max, adv.dt),
+        )
+        invalid = self._dt_invalid(adv.dt, pm_fresh)
+        rev = dataclasses.replace(
+            state,
+            phi_max=torch.where(
+                invalid,
+                torch.maximum(pm_fresh, state.phi_max) / DT_SAFETY,
+                state.phi_max,
+            ),
+            replays=state.replays + invalid.to(torch.int32),
+        )
+        return self._select(~invalid, new, rev)
+
+    # ------------------------------------------------------------------
+    # Dump-to-dump evolution (host loop)
+    # ------------------------------------------------------------------
+
+    def _active(self, state: SimState, finished):
+        return ~(state.just_dumped | state.aliased | finished)
+
+    def _select(self, mask, new: SimState, old: SimState) -> SimState:
+        """Per-stream select: take `new` where mask, else `old`."""
+        gmask = self._bcast(mask)
+
+        def pick(f: dataclasses.Field):
+            n, o = getattr(new, f.name), getattr(old, f.name)
+            return torch.where(gmask if n.ndim == gmask.ndim else mask, n, o)
+
+        return SimState(**{f.name: pick(f) for f in dataclasses.fields(SimState)})
+
+    def evolve_to_next_dump(self, state: SimState) -> SimState:
+        """Advance every active stream until its step lands on the next dump
+        boundary (or it aliases). The dump counter increment and time snap
+        happen in `snap_after_dump`, as in update() (:620-631)."""
+        finished = state.current_dumps >= self.params.num_data_dumps
+        while True:
+            mask = self._active(state, finished)
+            adv = self._scalar_advance(state)
+            # the loop's one device->host read
+            any_active, all_active, any_dump = torch.stack(
+                [mask.any(), mask.all(), adv.is_dump.any()]
+            ).tolist()
+            if not any_active:
+                return state
+            new = self._step(state, adv, any_dump)
+            state = new if all_active else self._select(mask, new, state)
+
+    def snap_after_dump(self, state: SimState) -> SimState:
+        """Increment the dump counter and snap time onto the dump grid
+        (`simulation_object.rs:620-631`). A stream that aliased on its dump
+        step does not count that dump (it is never written)."""
+        counted = state.just_dumped & ~state.aliased
+        dumps = state.current_dumps + counted.to(torch.int32)
+        snapped_t = self.t0 + dumps.to(self.tdtype) * self.dump_dt
+        return dataclasses.replace(
+            state,
+            current_dumps=dumps,
+            time=torch.where(counted, snapped_t, state.time),
+            just_dumped=torch.zeros_like(state.just_dumped),
+            dt_min=torch.where(counted, float("inf"), state.dt_min),
+            dt_max=torch.where(counted, 0.0, state.dt_max),
+        )
+
+    def not_finished(self, state: SimState) -> bool:
+        """Whether any stream still has evolution left (not_finished,
+        :1226-1228)."""
+        done = (state.current_dumps >= self.params.num_data_dumps) | state.aliased
+        return not bool(done.all())

@@ -1,0 +1,90 @@
+"""The port runs without JAX: importing it loads neither jax nor msm_tpu,
+and a device it cannot use is refused rather than replaced."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from msm_tpu_torch import cli
+from msm_tpu_torch import config as cfg
+from msm_tpu_torch.stepper import Stepper
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = (
+    "msm_tpu_torch",
+    "msm_tpu_torch.cli",
+    "msm_tpu_torch.config",
+    "msm_tpu_torch.constants",
+    "msm_tpu_torch.convert",
+    "msm_tpu_torch.errors",
+    "msm_tpu_torch.grid",
+    "msm_tpu_torch.io",
+    "msm_tpu_torch.io.checkpoint",
+    "msm_tpu_torch.io.native",
+    "msm_tpu_torch.io.npy",
+    "msm_tpu_torch.models.ics",
+    "msm_tpu_torch.models.sampling",
+    "msm_tpu_torch.ops.build",
+    "msm_tpu_torch.ops.fft",
+    "msm_tpu_torch.ops.kernels",
+    "msm_tpu_torch.ops.phase",
+    "msm_tpu_torch.simulator",
+    "msm_tpu_torch.stepper",
+    "msm_tpu_torch.utils.profiling",
+)
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'msm_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _params():
+    return cfg.resolve_parameters(cfg.TomlParameters(
+        axis_length=30.0, final_sim_time=1.0, cfl=0.5, num_data_dumps=1,
+        total_mass=1e8, sim_name="t", k2_cutoff=0.95, alias_threshold=0.5,
+        dims=1, size=16, ics=cfg.ColdGauss(mean=(15.0,), std=(3.0,)), hbar_=0.05,
+    ))
+
+
+def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Stepper(_params(), torch.complex64, "cuda")
+    toml = tmp_path / "t.toml"
+    toml.write_text("")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["simulate", "--toml", str(toml), "--device", "cuda"])
+
+
+def test_cli_requires_device():
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["simulate", "--toml", "x.toml"])
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--resume"], ["--dt-mode", "exact"], ["--online-synthesis"], ["--mesh", "auto"]],
+)
+def test_cli_rejects_unported_flags(extra):
+    """Flags of the JAX CLI that the port does not implement yet are
+    rejected, not silently ignored."""
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(
+            ["simulate", "--toml", "x.toml", "--device", "cpu"] + extra
+        )
