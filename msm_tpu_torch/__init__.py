@@ -6,11 +6,13 @@ torch and numpy, never JAX and never the JAX package.
 Public surface:
   config      - TOML schema (reference-compatible), parameter resolution
   grid        - k-grids, spectral grids, normalization
-  ops         - FFTs (torch.fft) and the CUDA phase kernels (ops.kernels)
+  ops         - FFTs (torch.fft, or the engine's CUDA FFT kernels in
+                ops.mxu_fft) and the CUDA phase kernels (ops.kernels)
   models      - initial conditions + quantum sampling schemes
   stepper     - the batched static KDK stepper (optimistic dt)
   simulator   - the batched-ensemble runner (npy dumps + manifests)
-  convert     - state carried between numpy/JAX and the port
+  convert     - state carried between numpy/JAX and the port (and the
+                engine's k order)
   io          - npy pair dumps, async writer, manifests
 """
 

@@ -8,12 +8,18 @@ on the port's path: the batched ensemble with optimistic dt. The device
 is named, never guessed. The JAX CLI's other flags (dt modes, resume,
 online synthesis, meshes, ...) are not ported yet, so argparse rejects
 them.
+
+`MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
+command runs: `xla` (torch.fft; the default on either device) or `mxu`
+(the engine's FFT kernels; 3-D also needs `MSM_FUSE_PHASES=0`, since the
+fused engine the JAX CLI runs by default on a TPU is not ported yet).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -23,19 +29,25 @@ import torch
 def cmd_simulate(args) -> int:
     from . import config as cfg
     from . import simulator
+    from .ops import fft as fft_ops
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")
     dtype = torch.complex128 if args.precision == "f64" else torch.complex64
     toml = cfg.read_toml(args.toml)
     start = time.monotonic()
-    simulator.run_config(
-        toml,
-        dtype=dtype,
-        device=args.device,
-        data_root=args.data_root,
-        verbose=args.verbose,
-    )
+    mode = fft_ops.default_mode()
+    fft_ops.set_default_mode(os.environ.get("MSM_FFT", mode))
+    try:
+        simulator.run_config(
+            toml,
+            dtype=dtype,
+            device=args.device,
+            data_root=args.data_root,
+            verbose=args.verbose,
+        )
+    finally:
+        fft_ops.set_default_mode(mode)
     if cfg.stream_count(toml) > 1:
         print(f"Finished all streams in {time.monotonic() - start:.1f} seconds")
     return 0
@@ -45,7 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="msm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    sim = sub.add_parser("simulate", help="run the simulator (msm-simulator)")
+    sim = sub.add_parser(
+        "simulate",
+        help="run the simulator (msm-simulator)",
+        epilog="MSM_FFT=xla|mxu chooses the transforms (default xla on both "
+        "devices; the fused 3-D engine is not ported yet, so 3-D mxu needs "
+        "MSM_FUSE_PHASES=0).",
+    )
     sim.add_argument("--toml", required=True, help="path to the simulation toml")
     sim.add_argument(
         "--data-root", default="sim-data", help="output root (default sim-data)"

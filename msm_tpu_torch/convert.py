@@ -5,6 +5,11 @@ one across by field name, so a JAX state fetched with ``np.asarray`` per
 field starts the port, and the port's state comes back for comparison.
 Dtypes are kept as they are (int32 counters, bool flags, the time and
 field precisions of the source).
+
+A JAX stepper in `MSM_FFT=mxu` mode keeps psik in the MXU engine's
+residue-major k order (msm_tpu/ops/mxu_fft.py:24-31); the port keeps
+natural fftn order. `to_natural` / `to_engine` map a k-space array between
+the two, so such a state can start the port and be compared with it.
 """
 
 from __future__ import annotations
@@ -14,9 +19,40 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.mxu_fft import LEAF
 from .stepper import SimState
 
 FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+
+
+def engine_perm(size: int) -> np.ndarray:
+    """natural_k[p] = engine_perm(size)[p] for stored index p:
+    p = r*128 + c holds k = R*c + r (R = size // 128)."""
+    p = np.arange(size)
+    return (size // LEAF) * (p % LEAF) + p // LEAF
+
+
+def inverse_perm(size: int) -> np.ndarray:
+    """inv[natural_k] = stored index p."""
+    inv = np.empty(size, dtype=np.int64)
+    inv[engine_perm(size)] = np.arange(size)
+    return inv
+
+
+def to_natural(xk: np.ndarray, dims: int) -> np.ndarray:
+    """Engine-order k-space over the last `dims` axes -> natural order."""
+    xk = np.asarray(xk)
+    for ax in range(xk.ndim - dims, xk.ndim):
+        xk = np.take(xk, inverse_perm(xk.shape[ax]), axis=ax)
+    return xk
+
+
+def to_engine(xk: np.ndarray, dims: int) -> np.ndarray:
+    """Natural-order k-space over the last `dims` axes -> engine order."""
+    xk = np.asarray(xk)
+    for ax in range(xk.ndim - dims, xk.ndim):
+        xk = np.take(xk, engine_perm(xk.shape[ax]), axis=ax)
+    return xk
 
 
 def state_from_numpy(d: dict, device: "torch.device | str") -> SimState:

@@ -2,11 +2,13 @@
 
 The repo's native idiom (`native/Makefile`, `io/native.py`): a shared
 library with a plain C interface, loaded with ctypes. `load()` compiles
-`csrc/phase_kernels.cu` with nvcc on first use into `ops/_build/`, keyed
-by a hash of the source and of `nvcc --version`, so an edited source or
-another toolkit builds anew. The library is written under a temporary
-name and renamed into place, so two processes never load a half-written
-file. A failed build raises; nothing falls back to the CPU.
+every source in `csrc/` on first use into one library in `ops/_build/`,
+keyed by a hash of the sources, of `nvcc --version` and of the flags, so
+an edited source or another toolkit builds anew. Each source is compiled
+by its own nvcc, all started together, and the objects are linked into the
+library. The library is written under a temporary name and renamed into
+place, so two processes never load a half-written file. A failed build
+raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -20,12 +22,33 @@ import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "phase_kernels.cu")
+SOURCES = tuple(
+    os.path.join(_HERE, "csrc", name) for name in ("phase_kernels.cu", "fft_kernels.cu")
+)
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-O3", "-std=c++17", "-arch=sm_90a", "-shared", "-Xcompiler", "-fPIC")
+ARCH = "-arch=sm_90a"
+COMPILE_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-c")
+LINK_FLAGS = (ARCH, "-shared")
 
 _lib: "ctypes.CDLL | None" = None
 _lock = threading.Lock()
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# entry point -> argtypes (every one returns a cudaError_t as int)
+_SIGNATURES = {
+    # z, out, scale, batch, n, dims, is_double, stream
+    "msm_kinetic_phase": [_P, _P, _P, _I64, _I, _I, _I, _P],
+    # z, field, out, coeff, batch, cells, is_double, stream
+    "msm_phase_rotate": [_P, _P, _P, _P, _I64, _I64, _I, _P],
+    # in, out, b1, log_n, lanes, inverse, is_double, stream
+    "msm_fft_axis": [_P, _P, _I64, _I, _I64, _I, _I, _P],
+    # in, out, m, log_n, inverse, is_double, stream
+    "msm_fft_plane": [_P, _P, _I64, _I, _I, _I, _P],
+    # in, out, m, log_n, is_double, stream
+    "msm_fft_plane_real_fwd": [_P, _P, _I64, _I, _I, _P],
+    # in, tmp, out, m, log_n, is_double, stream
+    "msm_fft_plane_real_inv": [_P, _P, _P, _I64, _I, _I, _P],
+}
 
 
 def nvcc_path() -> str:
@@ -40,40 +63,54 @@ def nvcc_path() -> str:
 
 
 def library_path() -> str:
-    """Path of the built library for this source and this nvcc."""
+    """Path of the built library for these sources and this nvcc."""
     version = subprocess.run(
         [nvcc_path(), "--version"], check=True, capture_output=True, text=True
     ).stdout
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(version.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"phase_kernels_{h.hexdigest()[:16]}.so")
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"msm_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run(procs: list) -> None:
+    """Wait for every (source, Popen) pair; raise on the first failure."""
+    failed = []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> str:
-    """Compile the kernels if this source/toolkit pair has no library yet."""
+    """Compile the kernels if these sources/toolkit have no library yet."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
-            )
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objects = [
+            os.path.join(work, os.path.basename(src) + ".o") for src in SOURCES
+        ]
+        _run([
+            (src, subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+            for src, obj in zip(SOURCES, objects)
+        ])
+        tmp = os.path.join(work, "lib.so")
+        _run([("link", subprocess.Popen(
+            [nvcc, *LINK_FLAGS, "-o", tmp, *objects],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return out
 
 
@@ -83,27 +120,15 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.msm_kinetic_phase.restype = ctypes.c_int
-            lib.msm_kinetic_phase.argtypes = [
-                ctypes.c_void_p,  # z
-                ctypes.c_void_p,  # out
-                ctypes.c_void_p,  # scale
-                ctypes.c_int64,  # batch
-                ctypes.c_int,  # n
-                ctypes.c_int,  # dims
-                ctypes.c_int,  # is_double
-                ctypes.c_void_p,  # stream
-            ]
-            lib.msm_phase_rotate.restype = ctypes.c_int
-            lib.msm_phase_rotate.argtypes = [
-                ctypes.c_void_p,  # z
-                ctypes.c_void_p,  # field
-                ctypes.c_void_p,  # out
-                ctypes.c_void_p,  # coeff
-                ctypes.c_int64,  # batch
-                ctypes.c_int64,  # cells
-                ctypes.c_int,  # is_double
-                ctypes.c_void_p,  # stream
-            ]
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
         return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on the nonzero cudaError_t an entry point returned."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

@@ -1,0 +1,349 @@
+// Hopper (sm_90a) FFT kernels for the MXU engine's unfused transform path,
+// bound to Python through a plain C interface (msm_tpu_torch/ops/build.py
+// compiles this file with nvcc and loads it with ctypes).
+//
+//   msm_fft_axis           : ortho DFT along a non-last axis of a (b1, n, lanes)
+//                            view; replaces msm_tpu/ops/mxu_fft.py
+//                            _axis_pass_sublane / _sublane_kernel (K5).
+//   msm_fft_plane          : ortho 2-axis DFT over the last two axes of
+//                            (m, n, n); replaces _axis_pass_fused2 /
+//                            _fused_kernel (K6).
+//   msm_fft_plane_real_fwd : the same forward from a real input; replaces
+//                            _axis_pass_fused2_real(inverse=False) /
+//                            _fused_kernel_real_fwd (K17).
+//   msm_fft_plane_real_inv : Re of the 2-axis inverse, real plane out;
+//                            replaces _axis_pass_fused2_real(inverse=True) /
+//                            _fused_kernel_real_inv (K9).
+//
+// Data are interleaved complex (torch.view_as_real layout), k in natural
+// fftn order. The TPU kernels' radix-R butterfly plus 128-point DFT matmul,
+// their separate re/im planes and their residue-major k order exist only for
+// the MXU, Pallas's lack of a complex type and a TPU that must never shuffle
+// data; none of them is carried over.
+//
+// What bounds them: every pass reads and writes the grid once (16 bytes per
+// complex64 cell, 32 per complex128), so they are memory-bound at 3.35 TB/s
+// as long as the in-shared-memory transform keeps up. Two geometries:
+//
+//   axis pass (axis_fft_kernel): one block loads an n x W tile of W
+//     contiguous columns (W * sizeof(complex) = 128 bytes of each row, so
+//     every row segment is one coalesced 128-byte run), runs an in-place
+//     radix-2 decimation-in-time FFT down each column in shared memory (the
+//     bit-reversal permutation is applied while storing the tile: a row of W
+//     elements lands in one bit-reversed row, so the stores stay free of bank
+//     conflicts) and writes the tile back in natural order. At n = 1024 the
+//     tile is 128 KB, above the 48 KB default, so it is dynamic shared memory
+//     raised with cudaFuncSetAttribute.
+//   row pass (row_fft_kernel): a block takes whole contiguous rows (2048
+//     elements) and runs a radix-2 Stockham FFT on each row between two
+//     shared-memory buffers (natural order in and out, no bit reversal, whose
+//     scattered accesses along a row would conflict on every bank).
+//
+// A 256^2 complex64 plane is 512 KB, more than the 227 KB a block may hold,
+// so the TPU's one-pass two-axis fusion is split into a row pass and an axis
+// pass with the intermediate in device memory (mostly served from the 50 MB
+// L2); a one-pass form with thread-block clusters is later work.
+//
+// Accuracy: FP32 (or FP64) CUDA-core arithmetic only, no tensor cores.
+// Twiddles are computed per block with double-precision sincospi and rounded
+// once to the kernel's precision; the file is built without --use_fast_math.
+// The ortho 1/sqrt(n) of each axis is applied as the pass writes.
+// Offsets are 64-bit (batch * n^3 passes 2^31 at 1024^3). Every entry point
+// launches on the stream it is given and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+template <typename T>
+struct Complex;
+template <>
+struct Complex<float> {
+  using type = float2;
+};
+template <>
+struct Complex<double> {
+  using type = double2;
+};
+
+template <typename C>
+__device__ __forceinline__ C cadd(C a, C b) {
+  C r;
+  r.x = a.x + b.x;
+  r.y = a.y + b.y;
+  return r;
+}
+
+template <typename C>
+__device__ __forceinline__ C csub(C a, C b) {
+  C r;
+  r.x = a.x - b.x;
+  r.y = a.y - b.y;
+  return r;
+}
+
+template <typename C>
+__device__ __forceinline__ C cmul(C a, C b) {
+  C r;
+  r.x = a.x * b.x - a.y * b.y;
+  r.y = a.x * b.y + a.y * b.x;
+  return r;
+}
+
+template <typename C, typename T>
+__device__ __forceinline__ C cscale(C a, T s) {
+  C r;
+  r.x = a.x * s;
+  r.y = a.y * s;
+  return r;
+}
+
+// tw[m] = exp(sign * 2 pi i m / n) for m < n/2, sign -1 forward, +1 inverse.
+template <typename T>
+__device__ void fill_twiddles(typename Complex<T>::type* tw, int n, bool inverse) {
+  for (int m = threadIdx.x; m < n / 2; m += blockDim.x) {
+    double s, c;
+    sincospi(2.0 * m / n, &s, &c);
+    tw[m].x = static_cast<T>(c);
+    tw[m].y = static_cast<T>(inverse ? s : -s);
+  }
+}
+
+// Columns per axis-pass tile: 128 bytes of a row (16 complex64, 8 complex128).
+template <typename T>
+__host__ __device__ constexpr int log_tile_width() {
+  return sizeof(T) == 4 ? 4 : 3;
+}
+
+template <typename T, bool INV>
+__global__ void __launch_bounds__(1024)
+    axis_fft_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
+                    int log_n, int64_t lanes, int64_t tiles_per_batch, T scale) {
+  // in may equal out: the whole tile is read before any of it is written.
+  using C = typename Complex<T>::type;
+  constexpr int log_w = log_tile_width<T>();
+  constexpr int w = 1 << log_w;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = 1 << log_n;
+  C* tile = reinterpret_cast<C*>(smem);  // tile[row * w + col]
+  C* tw = tile + (n << log_w);
+  const int64_t b = blockIdx.x / tiles_per_batch;
+  const int64_t col0 = (blockIdx.x - b * tiles_per_batch) << log_w;
+  const int64_t base = b * n * lanes + col0;
+  const int total = n << log_w;
+
+  fill_twiddles<T>(tw, n, INV);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & (w - 1);
+    const int r = i >> log_w;
+    const int rr = static_cast<int>(__brev(static_cast<unsigned>(r)) >> (32 - log_n));
+    tile[(rr << log_w) + c] = in[base + r * lanes + c];
+  }
+  __syncthreads();
+  // stage with butterfly half-width h: x[i0], x[i0 + h] with twiddle
+  // exp(sign 2 pi i k / 2h) = tw[k * n / 2h]
+  for (int h = 1, step = n >> 1; h < n; h <<= 1, step >>= 1) {
+    for (int i = threadIdx.x; i < total / 2; i += blockDim.x) {
+      const int c = i & (w - 1);
+      const int j = i >> log_w;
+      const int k = j & (h - 1);
+      const int i0 = ((j - k) << 1) + k;
+      C* p0 = tile + (i0 << log_w) + c;
+      C* p1 = p0 + (h << log_w);
+      const C a = *p0;
+      const C bw = cmul(*p1, tw[k * step]);
+      *p0 = cadd(a, bw);
+      *p1 = csub(a, bw);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & (w - 1);
+    const int r = i >> log_w;
+    out[base + r * lanes + c] = cscale(tile[i], scale);
+  }
+}
+
+// Elements per row-pass block: whole rows, n <= 1024 divides it.
+constexpr int kRowTile = 2048;
+constexpr int kRowThreads = 256;
+
+template <typename T, bool INV, bool IN_REAL, bool OUT_REAL>
+__global__ void __launch_bounds__(kRowThreads)
+    row_fft_kernel(const void* in, void* out, int log_n, int64_t rows, T scale) {
+  using C = typename Complex<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = 1 << log_n;
+  const int half = n >> 1;
+  C* x = reinterpret_cast<C*>(smem);
+  C* y = x + kRowTile;
+  C* tw = y + kRowTile;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kRowTile;
+  const int64_t left = (rows << log_n) - first;
+  const int count = left < kRowTile ? static_cast<int>(left) : kRowTile;
+
+  fill_twiddles<T>(tw, n, INV);
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    if constexpr (IN_REAL) {
+      x[i].x = static_cast<const T*>(in)[first + i];
+      x[i].y = T(0);
+    } else {
+      x[i] = static_cast<const C*>(in)[first + i];
+    }
+  }
+  __syncthreads();
+  // Stockham radix-2 (decimation in frequency, self-sorting): at stride
+  // s = 2^log_s, y[q + s*2p] = a + b and y[q + s*(2p+1)] = (a - b) w^p with
+  // a = x[q + s*p], b = x[q + s*(p + n/2)] and w = exp(sign 2 pi i s / n).
+  for (int log_s = 0; log_s < log_n; ++log_s) {
+    const int s = 1 << log_s;
+    for (int i = threadIdx.x; i < count / 2; i += blockDim.x) {
+      const int row = i >> (log_n - 1);
+      const int bf = i & (half - 1);
+      const int q = bf & (s - 1);
+      const int p = bf >> log_s;
+      const C* xr = x + (row << log_n);
+      C* yr = y + (row << log_n);
+      const C a = xr[bf];
+      const C b = xr[bf + half];
+      yr[q + ((2 * p) << log_s)] = cadd(a, b);
+      yr[q + ((2 * p + 1) << log_s)] = cmul(csub(a, b), tw[p << log_s]);
+    }
+    __syncthreads();
+    C* t = x;
+    x = y;
+    y = t;
+  }
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    if constexpr (OUT_REAL) {
+      static_cast<T*>(out)[first + i] = x[i].x * scale;
+    } else {
+      static_cast<C*>(out)[first + i] = cscale(x[i], scale);
+    }
+  }
+}
+
+template <typename T>
+T ortho_scale(int log_n) {
+  return static_cast<T>(1.0 / std::sqrt(static_cast<double>(1 << log_n)));
+}
+
+// (b1, n, lanes): transform the middle axis. lanes % W == 0.
+template <typename T, bool INV>
+cudaError_t launch_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                        cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  constexpr int log_w = log_tile_width<T>();
+  const int n = 1 << log_n;
+  const size_t smem = ((static_cast<size_t>(n) << log_w) + n / 2) * sizeof(C);
+  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // one thread per 8 butterflies of a stage, 256..1024 threads
+  int threads = (n << log_w) / 16;
+  if (threads < 256) threads = 256;
+  if (threads > 1024) threads = 1024;
+  const int64_t tiles = lanes >> log_w;
+  axis_fft_kernel<T, INV><<<static_cast<unsigned>(b1 * tiles), threads, smem, stream>>>(
+      static_cast<const C*>(in), static_cast<C*>(out), log_n, lanes, tiles,
+      ortho_scale<T>(log_n));
+  return cudaGetLastError();
+}
+
+// rows of length n, contiguous.
+template <typename T, bool INV, bool IN_REAL, bool OUT_REAL>
+cudaError_t launch_rows(const void* in, void* out, int64_t rows, int log_n,
+                        cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  const int n = 1 << log_n;
+  const size_t smem = (2 * static_cast<size_t>(kRowTile) + n / 2) * sizeof(C);
+  cudaError_t err = cudaFuncSetAttribute(row_fft_kernel<T, INV, IN_REAL, OUT_REAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = ((rows << log_n) + kRowTile - 1) / kRowTile;
+  row_fft_kernel<T, INV, IN_REAL, OUT_REAL>
+      <<<static_cast<unsigned>(blocks), kRowThreads, smem, stream>>>(
+          in, out, log_n, rows, ortho_scale<T>(log_n));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                 bool inverse, cudaStream_t stream) {
+  return inverse ? launch_axis<T, true>(in, out, b1, log_n, lanes, stream)
+                 : launch_axis<T, false>(in, out, b1, log_n, lanes, stream);
+}
+
+// Rows (last axis) into out, then the columns (axis -2) in place in out.
+template <typename T>
+cudaError_t plane(const void* in, void* out, int64_t m, int log_n, bool inverse,
+                  cudaStream_t stream) {
+  const int64_t rows = m << log_n;
+  cudaError_t err = inverse ? launch_rows<T, true, false, false>(in, out, rows, log_n, stream)
+                            : launch_rows<T, false, false, false>(in, out, rows, log_n, stream);
+  if (err != cudaSuccess) return err;
+  return axis<T>(out, out, m, log_n, int64_t(1) << log_n, inverse, stream);
+}
+
+template <typename T>
+cudaError_t plane_real_fwd(const void* in, void* out, int64_t m, int log_n,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_rows<T, false, true, false>(in, out, m << log_n, log_n, stream);
+  if (err != cudaSuccess) return err;
+  return axis<T>(out, out, m, log_n, int64_t(1) << log_n, false, stream);
+}
+
+// Columns into tmp (complex), then the rows into the real out.
+template <typename T>
+cudaError_t plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int log_n,
+                           cudaStream_t stream) {
+  cudaError_t err = axis<T>(in, tmp, m, log_n, int64_t(1) << log_n, true, stream);
+  if (err != cudaSuccess) return err;
+  return launch_rows<T, true, false, true>(tmp, out, m << log_n, log_n, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K5. in, out: (b1, 2^log_n, lanes) interleaved complex, lanes a multiple of
+// the tile width (16 complex64, 8 complex128); transform along the middle
+// axis. in == out is allowed.
+int msm_fft_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                 int inverse, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double ? axis<double>(in, out, b1, log_n, lanes, inverse, s)
+                                    : axis<float>(in, out, b1, log_n, lanes, inverse, s));
+}
+
+// K6. in, out: (m, n, n) interleaved complex, n = 2^log_n; in != out.
+int msm_fft_plane(const void* in, void* out, int64_t m, int log_n, int inverse,
+                  int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double ? plane<double>(in, out, m, log_n, inverse, s)
+                                    : plane<float>(in, out, m, log_n, inverse, s));
+}
+
+// K17. in: (m, n, n) real; out: (m, n, n) interleaved complex.
+int msm_fft_plane_real_fwd(const void* in, void* out, int64_t m, int log_n, int is_double,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double ? plane_real_fwd<double>(in, out, m, log_n, s)
+                                    : plane_real_fwd<float>(in, out, m, log_n, s));
+}
+
+// K9. in, tmp: (m, n, n) interleaved complex (tmp is scratch); out: (m, n, n)
+// real, the real part of the inverse.
+int msm_fft_plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int log_n,
+                           int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double ? plane_real_inv<double>(in, tmp, out, m, log_n, s)
+                                    : plane_real_inv<float>(in, tmp, out, m, log_n, s));
+}
+
+}  // extern "C"

@@ -86,11 +86,6 @@ def _check_complex(z: torch.Tensor) -> int:
     return int(z.dtype == torch.complex128)
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
     """z * exp(i * scale_b * q^2) with q^2 built from indices in-kernel.
 
@@ -124,7 +119,7 @@ def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tens
             is_double,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
-    _raise_on(rc, "kinetic_phase")
+    build.check(rc, "kinetic_phase")
     launches["kinetic_phase"] += 1
     return out
 
@@ -164,6 +159,6 @@ def phase_rotate(
             is_double,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
-    _raise_on(rc, "phase_rotate")
+    build.check(rc, "phase_rotate")
     launches["phase_rotate"] += 1
     return out

@@ -160,6 +160,10 @@ def run_config(
             f"Running {len(stream_params)} {scheme_txt}"
             f"streams + MFT as one batch of {n} on {stepper.device}"
         )
+        print(
+            f"Transforms: {'mxu (engine FFT kernels)' if stepper.use_mxu else 'xla (torch.fft)'}"
+            f" at {mft_params.size}^{mft_params.dims}"
+        )
     strict_alias = n == 1
     reported_alias = [False] * n
     t_start = _time.monotonic()

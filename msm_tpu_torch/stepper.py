@@ -1,17 +1,25 @@
 """Split-step (kick-drift-kick) pseudo-spectral Schrodinger-Poisson stepper.
 
 Counterpart of msm_tpu/stepper.py's static, optimistic-dt, single-device
-path with `MSM_FFT=xla` and `MSM_USE_PALLAS=1` (`SimulationObject::update`,
-`simulator/src/simulation_object.rs:475-661`; `get_timestep` :878-934;
-`calculate_potential` :1031-1110; `check_alias` :1249-1293).
+path (`SimulationObject::update`, `simulator/src/simulation_object.rs:
+475-661`; `get_timestep` :878-934; `calculate_potential` :1031-1110;
+`check_alias` :1249-1293) in two of its configurations, chosen by the
+transform mode (`ops.fft.get_mode`):
 
+- `xla` (with `MSM_USE_PALLAS=1` in JAX): transforms are torch.fft (cuFFT
+  on the card); the Poisson solve is the half-spectrum rfft/irfft pair.
+- `mxu`, unfused (2-D, or 3-D with `MSM_FUSE_PHASES=0`; `_step_static`
+  :878-885): transforms are the engine's (`ops.mxu_fft`: the CUDA FFT
+  kernels K5, K6 on the card), and the Poisson solve is the engine's
+  full-spectrum route (`_potential` :682-690): real forward (K17, K5),
+  x -coeff/k^2 over the full grid, real inverse (K5, K9). k stays in
+  natural order, so the constants are the `xla` mode's.
+- In both, the two elementwise phase passes of the step run through
+  `ops.kernels`: the CUDA kernels K19 (kinetic phase, q^2 from indices)
+  and K21 (potential rotation) on the card. Every kernel's plain version
+  runs on the CPU.
 - The state is a dataclass of tensors with a leading stream-batch axis on
   every field (`SimState`); one step is `_step`.
-- Transforms are torch.fft (cuFFT on the card); the Poisson solve is the
-  half-spectrum rfft/irfft pair. The two elementwise phase passes of the
-  step run through `ops.kernels`: the CUDA kernels K19 (kinetic phase,
-  q^2 from indices) and K21 (potential rotation) on the card, their plain
-  versions on the CPU.
 - dt is optimistic: proposed from the carried max|phi| and validated after
   the step against the step's own midpoint max|phi|; an invalid step is
   discarded per stream and replayed with the corrected bound.
@@ -25,12 +33,14 @@ path with `MSM_FFT=xla` and `MSM_USE_PALLAS=1` (`SimulationObject::update`,
   per-stream select; one stream aliasing does not stop the batch, unlike
   the reference panic (`simulation_object.rs:607-617`).
 
-Not here yet: exact and lagged dt, expanding mode, the fused engine.
+Not here yet: exact and lagged dt, expanding mode, the fused engine
+(3-D `mxu` with fused phases, the JAX default there: refused).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -40,6 +50,7 @@ from .constants import POIS_CONST
 from .grid import spec_grid as build_spec_grid
 from .ops import fft as fft_ops
 from .ops import kernels
+from .ops import mxu_fft
 
 
 @dataclasses.dataclass
@@ -79,13 +90,13 @@ class StepConsts:
     """Grid constants of the step (natural k order).
 
     alias_mask: 1 where k^2 > k2_cutoff * k2_max (`simulation_object.rs:
-    1262-1277`). poisson_r: -poisson_coeff / k^2 on the rfft half spectrum,
-    k = 0 zeroed. The kinetic phase needs no k^2 grid: q^2 is built from
-    indices (ops.kernels).
+    1262-1277`). poisson_map: -poisson_coeff / k^2, k = 0 zeroed, on the
+    rfft half spectrum (`xla`) or the full grid (`mxu`). The kinetic phase
+    needs no k^2 grid: q^2 is built from indices (ops.kernels).
     """
 
     alias_mask: torch.Tensor
-    poisson_r: torch.Tensor
+    poisson_map: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -143,20 +154,42 @@ class Stepper:
         self.tdtype = tdtype
 
         p = params
+        # The MXU engine's transforms (stepper.py:238-242); its fused-phase
+        # form is what 3-D grids run unless MSM_FUSE_PHASES=0 (:293-298),
+        # read here at construction as JAX reads it.
+        self.use_mxu = fft_ops.get_mode(p.size) == "mxu"
+        if self.use_mxu and p.dims == 1:
+            raise NotImplementedError(
+                "1-D mxu transforms need the lane kernels K14-K16 "
+                "(ROADMAP Queue 1, item 9)"
+            )
+        if (
+            self.use_mxu
+            and p.dims == 3
+            and os.environ.get("MSM_FUSE_PHASES", "1") not in ("0", "false")
+        ):
+            raise NotImplementedError(
+                "3-D mxu runs the fused-phase engine, which is not ported yet "
+                "(ROADMAP Queue 1, the fused engine); set MSM_FUSE_PHASES=0 "
+                "for the unfused engine path"
+            )
         # k2_max from the separable 1-D table: max(sum_i k_i^2) = dims *
         # max(k_1d^2), identical to the full grid's max
         self.k2_max = float(build_spec_grid(p.dx, 1, p.size).max()) * p.dims
         spec = build_spec_grid(p.dx, p.dims, p.size)
         mask = (spec > p.k2_cutoff * self.k2_max).astype(np.float64)
-        spec_r = torch.as_tensor(spec[..., : p.size // 2 + 1], dtype=self.rdtype)
-        inv_k2 = torch.where(spec_r > 0.0, 1.0, 0.0) / torch.where(
-            spec_r > 0.0, spec_r, 1.0
+        # -coeff / k^2 on the spectrum the Poisson solve transforms to
+        if not self.use_mxu:
+            spec = spec[..., : p.size // 2 + 1]
+        spec_t = torch.as_tensor(spec, dtype=self.rdtype)
+        inv_k2 = torch.where(spec_t > 0.0, 1.0, 0.0) / torch.where(
+            spec_t > 0.0, spec_t, 1.0
         )
         self.density_prefactor = p.total_mass
         self.poisson_coeff = POIS_CONST
         self.consts = StepConsts(
             alias_mask=torch.as_tensor(mask, dtype=self.rdtype, device=self.device),
-            poisson_r=(-self.poisson_coeff * inv_k2).to(self.device),
+            poisson_map=(-self.poisson_coeff * inv_k2).to(self.device),
         )
         # Dump schedule: t_dump[i] = t0 + i * T / num_dumps (final_sim_time
         # is the DURATION from t0; PARITY.md).
@@ -179,9 +212,13 @@ class Stepper:
         return scalar.reshape(scalar.shape + (1,) * self.params.dims)
 
     def _fwd(self, x):
+        if self.use_mxu:
+            return mxu_fft.forward_engine(x, self.params.dims)
         return fft_ops.forward(x, self.params.dims)
 
     def _inv(self, xk):
+        if self.use_mxu:
+            return mxu_fft.inverse_engine(xk, self.params.dims)
         return fft_ops.inverse(xk, self.params.dims)
 
     def _apply_kinetic(self, psik, coeff):
@@ -243,13 +280,19 @@ class Stepper:
     # ------------------------------------------------------------------
 
     def potential(self, psi):
-        """Spectral Poisson solve on the half spectrum (calculate_potential,
-        :1031-1110): rho = prefactor |psi|^2; phi_k = -coeff rho_k / k^2
-        (k = 0 zeroed); phi = irfft(phi_k)."""
+        """Spectral Poisson solve (calculate_potential, :1031-1110):
+        rho = prefactor |psi|^2; phi_k = -coeff rho_k / k^2 (k = 0 zeroed);
+        phi = Re F^-1[phi_k]. `mxu`: the engine's real-input forward and
+        real-output inverse over the full spectrum; `xla`: rfft/irfft on the
+        half spectrum."""
         axes = self._spatial_axes
         rho = self.density_prefactor * self._abs2(psi)
+        if self.use_mxu:
+            dims = self.params.dims
+            rho_k = mxu_fft.forward_engine_real(rho, dims)
+            return mxu_fft.inverse_engine_real(self.consts.poisson_map * rho_k, dims)
         rho_k = torch.fft.rfftn(rho, dim=axes)
-        phi_k = self.consts.poisson_r * rho_k
+        phi_k = self.consts.poisson_map * rho_k
         return torch.fft.irfftn(
             phi_k, s=(self.params.size,) * self.params.dims, dim=axes
         ).to(self.rdtype)
@@ -297,6 +340,12 @@ class Stepper:
     # ------------------------------------------------------------------
     # One KDK step (batched)
     # ------------------------------------------------------------------
+
+    def step(self, state: SimState) -> SimState:
+        """One step of every stream, with no freeze mask (msm_tpu's
+        Stepper.step)."""
+        adv = self._scalar_advance(state)
+        return self._step(state, adv, bool(adv.is_dump.any()))
 
     def _step(self, state: SimState, adv: _Advance, any_dump: bool) -> SimState:
         """One static KDK step (update, :475-661) with optimistic-dt

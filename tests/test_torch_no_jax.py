@@ -31,6 +31,7 @@ MODULES = (
     "msm_tpu_torch.ops.build",
     "msm_tpu_torch.ops.fft",
     "msm_tpu_torch.ops.kernels",
+    "msm_tpu_torch.ops.mxu_fft",
     "msm_tpu_torch.ops.phase",
     "msm_tpu_torch.simulator",
     "msm_tpu_torch.stepper",
