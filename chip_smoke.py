@@ -18,32 +18,43 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             kernels K5 axis_pass (axis 1), K6 plane_pass, K17
             plane_pass_real_fwd and K9 plane_pass_real_inv (on the
             (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3)
+            the fused engine's kernels K1 axis_roundtrip_kick, K2
+            plane_inv_density, K3 axis_roundtrip_poisson, K4
+            plane_potkick_fwd, K7 plane_density_fwd and K8
+            axis_roundtrip_map at (9, 256^3) and (3, 512^3), every output
+            (fields, K1's sums, K4's maxima) against the plain version
   3 e2e     the kernel path against the CPU plain path, end to end: the
             tophat-collapse physics at 64^3, MFT only, complex128, 2 dumps
             (identical step/replay counts, psi at every dump within 1e-10);
             the golden config on the card against its frozen fixture; and
-            the same comparison on the `mxu` path (MSM_FFT=mxu,
-            MSM_FUSE_PHASES=0) at 128^3 over t = 20
+            the same comparison on the unfused `mxu` path (MSM_FFT=mxu,
+            MSM_FUSE_PHASES=0) and on the fused, skewed engine (MSM_FFT=mxu
+            alone) at 128^3 over t = 20
   4 main    `python -m msm_tpu_torch simulate --device cuda --verbose` run
-            in-process (so the kernels' launch counts can be read), once
-            with MSM_FFT=xla and once with MSM_FFT=mxu and
-            MSM_FUSE_PHASES=0: the tophat-collapse physics at 256^3,
-            8 Wigner streams + MFT, complex64, 3 dumps over the example's 40
-            time units; checks every dump's shape, finiteness and norm, the
-            manifests, and that each path launched each of its kernels
+            in-process (so the kernels' launch counts can be read) three
+            times: MSM_FFT=xla, MSM_FFT=mxu with MSM_FUSE_PHASES=0, and
+            MSM_FFT=mxu alone (the fused engine): the tophat-collapse
+            physics at 256^3, 8 Wigner streams + MFT, complex64, 3 dumps
+            over the example's 40 time units; checks every dump's shape,
+            finiteness and norm, the manifests, and that each path launched
+            each of its kernels; then compares the three paths
 
-It then prints the kernels record, the card's name and power limit as
-nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
-CUDA device, or outside a checkout, it exits 1 and prints no result.
+It then prints the kernels record (each kernel's launches from the main
+run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, the fused
+kernels the fused run), the card's name and power limit as nvidia-smi
+gives them, and last `{"ok": true, "device": {...}}`. Without a CUDA
+device, or outside a checkout, it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +66,7 @@ import torch
 
 PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
+FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
@@ -63,6 +75,22 @@ KERNELS = {
     "plane_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
     "plane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
     "plane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
+    "axis_roundtrip_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:565"),
+    "plane_inv_density": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
+    "axis_roundtrip_poisson": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
+    "plane_potkick_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
+    "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
+    "axis_roundtrip_map": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
+}
+# the main run whose launches each kernel reports: the path it was ported for
+PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
+FFT_KERNELS = ("axis_pass", "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv")
+FUSED_KERNELS = tuple(k for k in KERNELS if KERNELS[k][0] == FUSED_SOURCE)
+# the kernels each main run must launch
+PATH_KERNELS = {
+    "xla": PHASE_KERNELS,
+    "mxu": PHASE_KERNELS + FFT_KERNELS,
+    "fused": FUSED_KERNELS + ("axis_pass", "plane_pass", "plane_pass_real_inv"),
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -75,6 +103,23 @@ FFT_SHAPES = (MAIN_SHAPE, (2, 1024, 1024), (3, 512, 512, 512))
 # the limits leave about an order of magnitude above that, and a wrong
 # index or twiddle gives errors of order 1.
 FFT_LIMITS = {torch.complex128: 1e-12, torch.complex64: 1e-5}
+FUSED_SHAPES = (MAIN_SHAPE, (3, 512, 512, 512))
+# Fused kernels, every output (fields, K1's sums, K4's maxima): max |kernel
+# - plain| <= limit * max |plain|. Each is two transforms deep: a round trip
+# (K1, K3, K8) is 2 log2 N levels, a plane kernel (K2, K4) 2 log2 N^2
+# levels around its elementwise stage, so <= 36 levels at 512^3, twice the
+# FFT kernels' depth; hence twice their limits. The stages between add
+# little: K2's |psi|^2 doubles psi's relative error, K4's rotation adds
+# |c| * |delta phi| with |c phi| <= 2 here (the step's CFL bound keeps it
+# below pi * cfl), the sums are over |y|^2 in double in the kernel.
+FUSED_LIMITS = {torch.complex128: 2e-12, torch.complex64: 2e-5}
+# Bounds (the least time the card could take): the larger of the bytes a
+# function must move (each input read once, each output written once) at
+# the H100's 3.35 TB/s and its floating-point operations at its 67 TFLOP/s
+# of float32 outside the tensor cores (the published peaks at 700 W). An
+# FFT of length n counts 5 n log2 n operations; a sincos counts 20.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -136,6 +181,21 @@ def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     return statistics.median(times)
 
 
+def bound(inputs, outputs, ops: float) -> dict:
+    """The bound of one call from its tensors and operation count."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def fft_ops(shape, axes: int) -> float:
+    """Operations of a complex FFT along `axes` of the last axes of shape."""
+    return 5.0 * math.prod(shape) * axes * math.log2(shape[-1])
+
+
 def phase_env(card: dict) -> None:
     from msm_tpu_torch.ops import build
 
@@ -188,25 +248,32 @@ def phase_kernels(card: dict) -> dict:
             scale = torch.as_tensor(rng.uniform(-4 * math.pi, 4 * math.pi, batch) / max_q2, dtype=rdtype).to(dev)
             field = torch.as_tensor(rng.uniform(-1.0, 1.0, shape), dtype=rdtype).to(dev)
             coeff = torch.as_tensor(rng.uniform(-4 * math.pi, 4 * math.pi, batch), dtype=rdtype).to(dev)
+            cells = math.prod(shape)
+            # q^2 (5), its scale (1), sincos (20), the complex product (6)
             cases = {
                 "kinetic_phase": (
                     lambda: kernels.kinetic_phase(z, scale, dims),
                     lambda: kernels.kinetic_phase_plain(z, scale, dims),
+                    [z, scale], 32.0 * cells,
                 ),
                 "phase_rotate": (
                     lambda: kernels.phase_rotate(z, field, coeff),
                     lambda: kernels.phase_rotate_plain(z, field, coeff),
+                    [z, field, coeff], 27.0 * cells,
                 ),
             }
-            for name, (kernel, plain) in cases.items():
-                err = (kernel() - plain()).abs().max().item()
+            for name, (kernel, plain, inputs, ops) in cases.items():
+                got = kernel()
+                err = (got - plain()).abs().max().item()
                 torch.cuda.synchronize()
                 ms, plain_ms = median_ms(kernel), median_ms(plain)
                 rec = {
                     "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
                     "shape": list(shape), "max_abs_err": err, "limit": LIMITS[cdtype],
-                    "ms": ms, "plain_ms": plain_ms, **card,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **bound(inputs, [got], ops), **card,
                 }
+                del got
                 emit(rec)
                 check(err <= LIMITS[cdtype], f"{name} {cdtype} {shape}: error {err}")
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
@@ -229,37 +296,44 @@ def phase_fft_kernels(card: dict) -> dict:
             z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
             planes = z.reshape((-1,) + shape[-2:])
             x = planes.real.contiguous()
+            # the plain versions are one torch.fft (cuFFT) call each, so
+            # they are also the library yardstick
             cases = {
                 "axis_pass": (
                     lambda: mxu_fft.axis_pass(z, 1, False),
                     lambda: mxu_fft.axis_pass_plain(z, 1, False),
+                    [z], fft_ops(shape[:2], 1) * math.prod(shape[2:]),
                 ),
                 "plane_pass": (
                     lambda: mxu_fft.plane_pass(planes, False),
                     lambda: mxu_fft.plane_pass_plain(planes, False),
+                    [planes], fft_ops(planes.shape, 2),
                 ),
                 "plane_pass_real_fwd": (
                     lambda: mxu_fft.plane_pass_real_fwd(x),
                     lambda: mxu_fft.plane_pass_real_fwd_plain(x),
+                    [x], fft_ops(planes.shape, 2),
                 ),
                 "plane_pass_real_inv": (
                     lambda: mxu_fft.plane_pass_real_inv(planes),
                     lambda: mxu_fft.plane_pass_real_inv_plain(planes),
+                    [planes], fft_ops(planes.shape, 2),
                 ),
             }
-            for name, (kernel, plain) in cases.items():
+            for name, (kernel, plain, inputs, ops) in cases.items():
                 got = kernel()
                 torch.cuda.synchronize()
                 want = plain()
                 scale = want.abs().max().item()
                 err = (got - want).abs().max().item()
+                bnd = bound(inputs, [got], ops)
                 del got, want
                 ms, plain_ms = median_ms(kernel), median_ms(plain)
                 rec = {
                     "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
                     "shape": list(shape), "max_abs_err": err, "max_abs_plain": scale,
                     "limit": FFT_LIMITS[cdtype] * scale, "ms": ms, "plain_ms": plain_ms,
-                    **card,
+                    "library_ms": plain_ms, **bnd, **card,
                 }
                 emit(rec)
                 check(err <= FFT_LIMITS[cdtype] * scale, f"{name} {cdtype} {shape}: error {err}")
@@ -270,15 +344,139 @@ def phase_fft_kernels(card: dict) -> dict:
     return main
 
 
+def _fused_cases(shape, cdtype, gen) -> dict:
+    """name -> (kernel, plain, inputs, ops) for the fused engine's kernels
+    on one (B, N, N, N) shape: inputs as the fused step gives them (the
+    natural k^2 tables, the -1/k^2 map, per-stream coefficients)."""
+    from msm_tpu_torch.grid import spec_grid
+    from msm_tpu_torch.ops import mxu_fft
+
+    b, n = shape[0], shape[-1]
+    rdtype = torch.float32 if cdtype == torch.complex64 else torch.float64
+    z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+    w = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+    s1d = spec_grid(30.0 / n, 1, n)
+    s0 = torch.as_tensor(s1d, dtype=rdtype).cuda()
+    s12 = (s0[:, None] + s0[None, :]).reshape(-1)
+    spec = spec_grid(30.0 / n, 3, n)
+    pmap = torch.as_tensor(
+        np.where(spec > 0.0, -1.0, 0.0) / np.where(spec > 0.0, spec, 1.0), dtype=rdtype
+    ).cuda()
+    del spec
+    kcoeff = (torch.rand(b, dtype=rdtype, device="cuda", generator=gen) - 0.5) * 0.1
+    vcoeff = (torch.rand(b, dtype=rdtype, device="cuda", generator=gen) - 0.5) * 0.6
+    cut = 0.95 * 3 * float(s1d.max())
+    f0, f12 = mxu_fft.kick_factors(kcoeff, s0, s12)
+    cells = math.prod(shape)
+    trip = fft_ops(shape, 1) * 2  # a forward and an inverse along one axis
+    plane2 = fft_ops(shape, 2) * 2  # a 2-axis inverse and a 2-axis forward
+    return {
+        # the epilogue: |y|^2 and its sums (5), the band test (2), the two
+        # factors' product and the complex product (12)
+        "axis_roundtrip_kick": (
+            lambda: mxu_fft.axis_roundtrip_kick(z, s0, s12, kcoeff, cut),
+            lambda: mxu_fft.axis_roundtrip_kick_plain(z, s0, s12, f0, f12, cut),
+            [z, s0, s12, f0, f12], trip + 19.0 * cells,
+        ),
+        # psi written, rho = pref |psi|^2 (4)
+        "plane_inv_density": (
+            lambda: mxu_fft.plane_inv_density(z, 2.0),
+            lambda: mxu_fft.plane_inv_density_plain(z, 2.0),
+            [z], plane2 + 4.0 * cells,
+        ),
+        # k^2 (1), the division (1), the scaling (2)
+        "axis_roundtrip_poisson": (
+            lambda: mxu_fft.axis_roundtrip_poisson(z, s0, s12, 1.0),
+            lambda: mxu_fft.axis_roundtrip_poisson_plain(z, s0, s12, 1.0),
+            [z, s0, s12], trip + 4.0 * cells,
+        ),
+        # |phi| and its max (2), c phi (1), sincos (20), the rotation (6)
+        "plane_potkick_fwd": (
+            lambda: mxu_fft.plane_potkick_fwd(z, w, vcoeff),
+            lambda: mxu_fft.plane_potkick_fwd_plain(z, w, vcoeff),
+            [z, w, vcoeff], plane2 + 29.0 * cells,
+        ),
+        # rho = pref |psi|^2 (4), one 2-axis forward
+        "plane_density_fwd": (
+            lambda: mxu_fft.plane_density_fwd(w, 2.0),
+            lambda: mxu_fft.plane_density_fwd_plain(w, 2.0),
+            [w], plane2 / 2 + 4.0 * cells,
+        ),
+        # the map's scaling (2)
+        "axis_roundtrip_map": (
+            lambda: mxu_fft.axis_roundtrip_map(z, pmap),
+            lambda: mxu_fft.axis_roundtrip_map_plain(z, pmap),
+            [z, pmap], trip + 2.0 * cells,
+        ),
+    }
+
+
+def phase_fused_kernels(card: dict) -> dict:
+    """K1-K4, K7, K8 vs plain on the card, every output; returns the
+    main-shape complex64 measurements."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2025)
+    main = {}
+    for cdtype in (torch.complex64, torch.complex128):
+        for shape in FUSED_SHAPES:
+            cases = _fused_cases(shape, cdtype, gen)
+            for name, (kernel, plain, inputs, ops) in cases.items():
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                errs, scales = [], []
+                for g, p in zip(got, want):
+                    check(g.shape == p.shape and g.dtype == p.dtype,
+                          f"{name}: {tuple(g.shape)} {g.dtype} against {tuple(p.shape)} {p.dtype}")
+                    errs.append((g - p).abs().max().item())
+                    scales.append(p.abs().max().item())
+                bnd = bound(inputs, list(got), ops)
+                del got, want
+                ms, plain_ms = median_ms(kernel), median_ms(plain)
+                rec = {
+                    "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
+                    # max_abs_err: the field's (the first output); errs: every
+                    # output's, K1's sums and K4's maxima after it
+                    "shape": list(shape), "max_abs_err": errs[0], "errs": errs,
+                    "max_abs_plain": scales, "limit_rel": FUSED_LIMITS[cdtype],
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd, **card,
+                }
+                emit(rec)
+                for e, sc in zip(errs, scales):
+                    check(e <= FUSED_LIMITS[cdtype] * sc,
+                          f"{name} {cdtype} {shape}: error {e} against max {sc}")
+                if shape == MAIN_SHAPE and cdtype == torch.complex64:
+                    main[name] = rec
+            del cases
+            torch.cuda.empty_cache()
+    return main
+
+
+# path -> (MSM_FFT, MSM_FUSE_PHASES; None leaves it and MSM_SKEW_STEP unset)
+PATHS = {"xla": ("xla", "0"), "mxu": ("mxu", "0"), "fused": ("mxu", None)}
+# the kernel each path launches once per loop iteration
+ITERATION_KERNEL = {"xla": "phase_rotate", "mxu": "phase_rotate", "fused": "axis_roundtrip_poisson"}
+TRANSFORMS_LINE = {"xla": "Transforms: xla", "mxu": "Transforms: mxu (engine",
+                   "fused": "Transforms: mxu (fused, skewed engine"}
+
+
 @contextlib.contextmanager
-def _fft_mode(mode: str):
-    """MSM_FFT / MSM_FUSE_PHASES and the port's transform mode for a block."""
+def fft_mode(path: str):
+    """MSM_FFT / MSM_FUSE_PHASES / MSM_SKEW_STEP and the port's transform
+    mode of one path for a block."""
     from msm_tpu_torch.ops import fft
 
-    env = {"MSM_FFT": mode, "MSM_FUSE_PHASES": "0"}
+    mode, fuse = PATHS[path]
+    env = {"MSM_FFT": mode, "MSM_FUSE_PHASES": fuse, "MSM_SKEW_STEP": None}
     saved = {k: os.environ.get(k) for k in env}
     prev = fft.default_mode()
-    os.environ.update(env)
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     fft.set_default_mode(mode)
     try:
         yield
@@ -300,19 +498,19 @@ def _load_dumps(root: str, name: str, n_dumps: int) -> list:
     ]
 
 
-def _cuda_vs_cpu(card: dict, work: str, mode: str, size: int, final: float) -> None:
+def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float) -> None:
     """One config through the CUDA kernels and through the plain versions on
     the CPU: identical step/replay counts, psi at every dump within 1e-10."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch import simulator
     from msm_tpu_torch.io.checkpoint import load_manifest
 
-    name = f"e2e-{mode}"
+    name = f"e2e-{path}"
     toml = cfg.parse_toml_str(TOPHAT.format(final=final, dumps=2, name=name, size=size))
     outs = {}
-    with _fft_mode(mode):
+    with fft_mode(path):
         for device in ("cuda", "cpu"):
-            root = os.path.join(work, mode, device)
+            root = os.path.join(work, path, device)
             t0 = time.perf_counter()
             simulator.run_config(toml, torch.complex128, device=device, data_root=root)
             outs[device] = (
@@ -323,17 +521,17 @@ def _cuda_vs_cpu(card: dict, work: str, mode: str, size: int, final: float) -> N
     (psi_g, man_g, wall_g), (psi_c, man_c, wall_c) = outs["cuda"], outs["cpu"]
     err = max(float(np.abs(a - b).max()) for a, b in zip(psi_g, psi_c))
     emit({
-        "phase": "e2e", "mode": mode,
+        "phase": "e2e", "path": path,
         "config": f"tophat-collapse {size}^3 MFT c128, 2 dumps over t={final}",
         "n_steps": [man_g["n_steps"], man_c["n_steps"]],
         "replays": [man_g["replays"], man_c["replays"]],
         "max_abs_psi_err": err, "limit": 1e-10,
         "wall_s": {"cuda": wall_g, "cpu": wall_c}, **card,
     })
-    check(man_g["n_steps"] == man_c["n_steps"], f"e2e {mode}: step counts differ")
-    check(man_g["replays"] == man_c["replays"], f"e2e {mode}: replay counts differ")
-    check(man_g["n_steps"] >= 20, f"e2e {mode}: too few steps to compare")
-    check(err <= 1e-10, f"e2e {mode}: psi differs by {err}")
+    check(man_g["n_steps"] == man_c["n_steps"], f"e2e {path}: step counts differ")
+    check(man_g["replays"] == man_c["replays"], f"e2e {path}: replay counts differ")
+    check(man_g["n_steps"] >= 20, f"e2e {path}: too few steps to compare")
+    check(err <= 1e-10, f"e2e {path}: psi differs by {err}")
 
 
 def phase_e2e(card: dict) -> None:
@@ -344,6 +542,7 @@ def phase_e2e(card: dict) -> None:
     with tempfile.TemporaryDirectory() as work:
         _cuda_vs_cpu(card, work, "xla", 64, 40)
         _cuda_vs_cpu(card, work, "mxu", 128, 20)
+        _cuda_vs_cpu(card, work, "fused", 128, 20)
 
         golden = cfg.parse_toml_dict({
             "axis_length": 30, "final_sim_time": 1.0, "cfl": 0.5, "num_data_dumps": 2,
@@ -360,9 +559,10 @@ def phase_e2e(card: dict) -> None:
         check(gerr <= 1e-12, f"golden fixture differs by {gerr}")
 
 
-def phase_main(card: dict, mode: str, kernel_names: tuple) -> dict:
-    """The port's CLI on the card at 256^3 x (8 streams + MFT); checks that
-    the path launched each of `kernel_names`."""
+def phase_main(card: dict, path: str) -> dict:
+    """The port's CLI on the card at 256^3 x (8 streams + MFT) on one path;
+    the launch counts are set to 0 just before and read just after, and
+    the path must have launched each of its kernels."""
     from msm_tpu_torch import cli
     from msm_tpu_torch.io.checkpoint import load_manifest
     from msm_tpu_torch.io.npy import read_npy_exact
@@ -380,7 +580,8 @@ def phase_main(card: dict, mode: str, kernel_names: tuple) -> dict:
                 "--data-root", data, "--verbose"]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with _fft_mode(mode):
+        out = io.StringIO()
+        with fft_mode(path), contextlib.redirect_stdout(out):
             kernels.reset_launches()
             mxu_fft.reset_launches()
             t0 = time.perf_counter()
@@ -388,9 +589,15 @@ def phase_main(card: dict, mode: str, kernel_names: tuple) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {**kernels.launches, **mxu_fft.launches}
+        # the CLI's own report goes to stderr: stdout keeps the JSON lines
+        sys.stderr.write(out.getvalue())
         check(rc == 0, f"simulate returned {rc}")
-        for name in kernel_names:
-            check(launches[name] > 0, f"the {mode} main path launched {name} no time")
+        check(TRANSFORMS_LINE[path] in out.getvalue(), f"the {path} run took another path")
+        for name in PATH_KERNELS[path]:
+            check(launches[name] > 0, f"the {path} main path launched {name} no time")
+        timer = re.search(r"(\d+) steps in ([0-9.]+)s", out.getvalue())
+        check(timer is not None, "no StepTimer line in the verbose output")
+        iterations = launches[ITERATION_KERNEL[path]]
 
         runs = [f"tophat-collapse-stream{s:05d}" for s in range(1, 9)] + ["tophat-collapse"]
         dx3 = (30.0 / size) ** 3
@@ -403,20 +610,23 @@ def phase_main(card: dict, mode: str, kernel_names: tuple) -> dict:
             steps[run], replays[run] = m["n_steps"], m["replays"]
             for i in range(n_dumps + 1):
                 base = os.path.join(data, run, f"psi_{i:05d}")
-                re, im = read_npy_exact(base + "_real"), read_npy_exact(base + "_imag")
-                check(re.shape == im.shape == (size, size, size, 1), f"{base}: shape {re.shape}")
-                check(bool(np.isfinite(re).all() and np.isfinite(im).all()), f"{base}: not finite")
-                norm = float(np.sum(re.astype(np.float64) ** 2 + im.astype(np.float64) ** 2)) * dx3
+                re_, im_ = read_npy_exact(base + "_real"), read_npy_exact(base + "_imag")
+                check(re_.shape == im_.shape == (size, size, size, 1), f"{base}: shape {re_.shape}")
+                check(bool(np.isfinite(re_).all() and np.isfinite(im_).all()), f"{base}: not finite")
+                norm = float(np.sum(re_.astype(np.float64) ** 2 + im_.astype(np.float64) ** 2)) * dx3
                 norm_err = max(norm_err, abs(norm - 1.0))
         check(norm_err <= 1e-3, f"norm off by {norm_err}")
         total_steps = sum(steps.values())
         rec = {
-            "phase": "main", "mode": mode,
+            "phase": "main", "path": path,
             "config": "tophat-collapse 256^3, 8 Wigner + MFT, c64, 3 dumps over t=40",
             "runs": len(runs), "dumps_checked": len(runs) * (n_dumps + 1),
             "n_steps": steps["tophat-collapse"], "n_steps_all": total_steps,
             "replays": sum(replays.values()), "max_norm_err": norm_err,
             "wall_s": wall, "cell_updates_per_s": total_steps * size**3 / wall,
+            "iterations": iterations, "loop_s": float(timer.group(2)),
+            # the stepping loop's wall (dump writes included) per iteration
+            "loop_ms_per_iteration": float(timer.group(2)) * 1e3 / iterations,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": launches, **card,
         }
@@ -438,26 +648,33 @@ def main() -> int:
     phase_build(card)
     measured = phase_kernels(card)
     measured.update(phase_fft_kernels(card))
+    measured.update(phase_fused_kernels(card))
     phase_e2e(card)
-    xla = phase_main(card, "xla", ("kinetic_phase", "phase_rotate"))
-    mxu = phase_main(card, "mxu", tuple(KERNELS))
+    mains = {path: phase_main(card, path) for path in PATHS}
     emit({
         "phase": "main-compare",
-        "cell_updates_per_s": {"xla": xla["cell_updates_per_s"], "mxu": mxu["cell_updates_per_s"]},
-        "wall_s": {"xla": xla["wall_s"], "mxu": mxu["wall_s"]},
-        "n_steps_all": {"xla": xla["n_steps_all"], "mxu": mxu["n_steps_all"]},
+        **{key: {path: rec[key] for path, rec in mains.items()}
+           for key in ("cell_updates_per_s", "wall_s", "loop_ms_per_iteration", "peak_gib",
+                       "n_steps_all", "iterations")},
         **card,
     })
+    # each kernel's launches from the main run of the path it was ported for
+    own_path = {k: "xla" for k in PHASE_KERNELS}
+    own_path.update({k: "mxu" for k in FFT_KERNELS})
+    own_path.update({k: "fused" for k in FUSED_KERNELS})
     emit({"kernels": [
         {
             "name": k,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": mxu["launches"][k],
+            "launches": mains[own_path[k]]["launches"][k],
             "max_abs_err": measured[k]["max_abs_err"],
             "ms": measured[k]["ms"],
             "plain_ms": measured[k]["plain_ms"],
+            "bound_ms": measured[k]["bound_ms"],
+            "bound_by": measured[k]["bound_by"],
+            "library_ms": measured[k]["library_ms"],
         }
         for k, (source, replaces) in KERNELS.items()
     ]})

@@ -11,8 +11,10 @@ them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device) or `mxu`
-(the engine's FFT kernels; 3-D also needs `MSM_FUSE_PHASES=0`, since the
-fused engine the JAX CLI runs by default on a TPU is not ported yet).
+(the engine's FFT kernels). In 3-D, `mxu` runs the fused, skewed engine,
+as the JAX CLI does by default on a TPU; `MSM_FUSE_PHASES=0` runs the
+unfused engine path instead, and `MSM_SKEW_STEP=0` (the unskewed fused
+engine) is refused: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
         "simulate",
         help="run the simulator (msm-simulator)",
         epilog="MSM_FFT=xla|mxu chooses the transforms (default xla on both "
-        "devices; the fused 3-D engine is not ported yet, so 3-D mxu needs "
-        "MSM_FUSE_PHASES=0).",
+        "devices). 3-D mxu runs the fused, skewed engine; MSM_FUSE_PHASES=0 "
+        "runs the unfused engine path instead.",
     )
     sim.add_argument("--toml", required=True, help="path to the simulation toml")
     sim.add_argument(

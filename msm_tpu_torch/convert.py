@@ -10,6 +10,13 @@ A JAX stepper in `MSM_FFT=mxu` mode keeps psik in the MXU engine's
 residue-major k order (msm_tpu/ops/mxu_fft.py:24-31); the port keeps
 natural fftn order. `to_natural` / `to_engine` map a k-space array between
 the two, so such a state can start the port and be compared with it.
+
+The fused engine's skewed loop carries a mixed-space field instead of
+psik: q = F_z^-1[psik], z (axis -3) spatial and (y, x) in k. JAX keeps it
+as a planar (re, im) pair with (y, x) in engine order; the port keeps one
+complex tensor with (y, x) in natural order. `to_natural(q, 2)` (and
+`to_engine(q, 2)` back) maps the joined pair over the last two axes only,
+leaving z, which is spatial in both, as it is.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 The repo's native idiom (`native/Makefile`, `io/native.py`): a shared
 library with a plain C interface, loaded with ctypes. `load()` compiles
 every source in `csrc/` on first use into one library in `ops/_build/`,
-keyed by a hash of the sources, of `nvcc --version` and of the flags, so
-an edited source or another toolkit builds anew. Each source is compiled
+keyed by a hash of the sources and headers, of `nvcc --version` and of
+the flags, so an edited source or another toolkit builds anew. Each source is compiled
 by its own nvcc, all started together, and the objects are linked into the
 library. The library is written under a temporary name and renamed into
 place, so two processes never load a half-written file. A failed build
@@ -22,9 +22,13 @@ import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(
-    os.path.join(_HERE, "csrc", name) for name in ("phase_kernels.cu", "fft_kernels.cu")
+    os.path.join(_CSRC, name)
+    for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu")
 )
+# headers the sources include: part of the library's hash, not compiled alone
+HEADERS = (os.path.join(_CSRC, "fft_common.cuh"),)
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-arch=sm_90a"
 COMPILE_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-c")
@@ -33,7 +37,7 @@ LINK_FLAGS = (ARCH, "-shared")
 _lib: "ctypes.CDLL | None" = None
 _lock = threading.Lock()
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # entry point -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
     # z, out, scale, batch, n, dims, is_double, stream
@@ -48,6 +52,18 @@ _SIGNATURES = {
     "msm_fft_plane_real_fwd": [_P, _P, _I64, _I, _I, _P],
     # in, tmp, out, m, log_n, is_double, stream
     "msm_fft_plane_real_inv": [_P, _P, _P, _I64, _I, _I, _P],
+    # in, out, b1, log_n, lanes, s0, s12, f0, f12, cutoff, partials, is_double, stream
+    "msm_axis_roundtrip_kick": [_P, _P, _I64, _I, _I64, _P, _P, _P, _P, _D, _P, _I, _P],
+    # in, out, b1, log_n, lanes, s0, s12, coeff, is_double, stream
+    "msm_axis_roundtrip_poisson": [_P, _P, _I64, _I, _I64, _P, _P, _D, _I, _P],
+    # in, out, b1, log_n, lanes, map, is_double, stream
+    "msm_axis_roundtrip_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
+    # in, psi, rho, m, log_n, pref, is_double, stream
+    "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _P],
+    # phik, psi, out, maxes, coeff, m, planes_per_batch, log_n, is_double, stream
+    "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
+    # psi, out, m, log_n, pref, is_double, stream
+    "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _P],
 }
 
 
@@ -63,12 +79,12 @@ def nvcc_path() -> str:
 
 
 def library_path() -> str:
-    """Path of the built library for these sources and this nvcc."""
+    """Path of the built library for these sources, headers and nvcc."""
     version = subprocess.run(
         [nvcc_path(), "--version"], check=True, capture_output=True, text=True
     ).stdout
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(version.encode())

@@ -25,15 +25,8 @@
 // complex64 cell, 32 per complex128), so they are memory-bound at 3.35 TB/s
 // as long as the in-shared-memory transform keeps up. Two geometries:
 //
-//   axis pass (axis_fft_kernel): one block loads an n x W tile of W
-//     contiguous columns (W * sizeof(complex) = 128 bytes of each row, so
-//     every row segment is one coalesced 128-byte run), runs an in-place
-//     radix-2 decimation-in-time FFT down each column in shared memory (the
-//     bit-reversal permutation is applied while storing the tile: a row of W
-//     elements lands in one bit-reversed row, so the stores stay free of bank
-//     conflicts) and writes the tile back in natural order. At n = 1024 the
-//     tile is 128 KB, above the 48 KB default, so it is dynamic shared memory
-//     raised with cudaFuncSetAttribute.
+//   axis pass (axis_fft_kernel, fft_common.cuh): n x W column tiles, radix-2
+//     DIT in shared memory (see the header).
 //   row pass (row_fft_kernel): a block takes whole contiguous rows (2048
 //     elements) and runs a radix-2 Stockham FFT on each row between two
 //     shared-memory buffers (natural order in and out, no bit reversal, whose
@@ -51,125 +44,9 @@
 // Offsets are 64-bit (batch * n^3 passes 2^31 at 1024^3). Every entry point
 // launches on the stream it is given and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "fft_common.cuh"
 
 namespace {
-
-template <typename T>
-struct Complex;
-template <>
-struct Complex<float> {
-  using type = float2;
-};
-template <>
-struct Complex<double> {
-  using type = double2;
-};
-
-template <typename C>
-__device__ __forceinline__ C cadd(C a, C b) {
-  C r;
-  r.x = a.x + b.x;
-  r.y = a.y + b.y;
-  return r;
-}
-
-template <typename C>
-__device__ __forceinline__ C csub(C a, C b) {
-  C r;
-  r.x = a.x - b.x;
-  r.y = a.y - b.y;
-  return r;
-}
-
-template <typename C>
-__device__ __forceinline__ C cmul(C a, C b) {
-  C r;
-  r.x = a.x * b.x - a.y * b.y;
-  r.y = a.x * b.y + a.y * b.x;
-  return r;
-}
-
-template <typename C, typename T>
-__device__ __forceinline__ C cscale(C a, T s) {
-  C r;
-  r.x = a.x * s;
-  r.y = a.y * s;
-  return r;
-}
-
-// tw[m] = exp(sign * 2 pi i m / n) for m < n/2, sign -1 forward, +1 inverse.
-template <typename T>
-__device__ void fill_twiddles(typename Complex<T>::type* tw, int n, bool inverse) {
-  for (int m = threadIdx.x; m < n / 2; m += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * m / n, &s, &c);
-    tw[m].x = static_cast<T>(c);
-    tw[m].y = static_cast<T>(inverse ? s : -s);
-  }
-}
-
-// Columns per axis-pass tile: 128 bytes of a row (16 complex64, 8 complex128).
-template <typename T>
-__host__ __device__ constexpr int log_tile_width() {
-  return sizeof(T) == 4 ? 4 : 3;
-}
-
-template <typename T, bool INV>
-__global__ void __launch_bounds__(1024)
-    axis_fft_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
-                    int log_n, int64_t lanes, int64_t tiles_per_batch, T scale) {
-  // in may equal out: the whole tile is read before any of it is written.
-  using C = typename Complex<T>::type;
-  constexpr int log_w = log_tile_width<T>();
-  constexpr int w = 1 << log_w;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = 1 << log_n;
-  C* tile = reinterpret_cast<C*>(smem);  // tile[row * w + col]
-  C* tw = tile + (n << log_w);
-  const int64_t b = blockIdx.x / tiles_per_batch;
-  const int64_t col0 = (blockIdx.x - b * tiles_per_batch) << log_w;
-  const int64_t base = b * n * lanes + col0;
-  const int total = n << log_w;
-
-  fill_twiddles<T>(tw, n, INV);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & (w - 1);
-    const int r = i >> log_w;
-    const int rr = static_cast<int>(__brev(static_cast<unsigned>(r)) >> (32 - log_n));
-    tile[(rr << log_w) + c] = in[base + r * lanes + c];
-  }
-  __syncthreads();
-  // stage with butterfly half-width h: x[i0], x[i0 + h] with twiddle
-  // exp(sign 2 pi i k / 2h) = tw[k * n / 2h]
-  for (int h = 1, step = n >> 1; h < n; h <<= 1, step >>= 1) {
-    for (int i = threadIdx.x; i < total / 2; i += blockDim.x) {
-      const int c = i & (w - 1);
-      const int j = i >> log_w;
-      const int k = j & (h - 1);
-      const int i0 = ((j - k) << 1) + k;
-      C* p0 = tile + (i0 << log_w) + c;
-      C* p1 = p0 + (h << log_w);
-      const C a = *p0;
-      const C bw = cmul(*p1, tw[k * step]);
-      *p0 = cadd(a, bw);
-      *p1 = csub(a, bw);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & (w - 1);
-    const int r = i >> log_w;
-    out[base + r * lanes + c] = cscale(tile[i], scale);
-  }
-}
-
-// Elements per row-pass block: whole rows, n <= 1024 divides it.
-constexpr int kRowTile = 2048;
-constexpr int kRowThreads = 256;
 
 template <typename T, bool INV, bool IN_REAL, bool OUT_REAL>
 __global__ void __launch_bounds__(kRowThreads)
@@ -226,34 +103,6 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-template <typename T>
-T ortho_scale(int log_n) {
-  return static_cast<T>(1.0 / std::sqrt(static_cast<double>(1 << log_n)));
-}
-
-// (b1, n, lanes): transform the middle axis. lanes % W == 0.
-template <typename T, bool INV>
-cudaError_t launch_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                        cudaStream_t stream) {
-  using C = typename Complex<T>::type;
-  constexpr int log_w = log_tile_width<T>();
-  const int n = 1 << log_n;
-  const size_t smem = ((static_cast<size_t>(n) << log_w) + n / 2) * sizeof(C);
-  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // one thread per 8 butterflies of a stage, 256..1024 threads
-  int threads = (n << log_w) / 16;
-  if (threads < 256) threads = 256;
-  if (threads > 1024) threads = 1024;
-  const int64_t tiles = lanes >> log_w;
-  axis_fft_kernel<T, INV><<<static_cast<unsigned>(b1 * tiles), threads, smem, stream>>>(
-      static_cast<const C*>(in), static_cast<C*>(out), log_n, lanes, tiles,
-      ortho_scale<T>(log_n));
-  return cudaGetLastError();
-}
-
 // rows of length n, contiguous.
 template <typename T, bool INV, bool IN_REAL, bool OUT_REAL>
 cudaError_t launch_rows(const void* in, void* out, int64_t rows, int log_n,
@@ -270,13 +119,6 @@ cudaError_t launch_rows(const void* in, void* out, int64_t rows, int log_n,
       <<<static_cast<unsigned>(blocks), kRowThreads, smem, stream>>>(
           in, out, log_n, rows, ortho_scale<T>(log_n));
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                 bool inverse, cudaStream_t stream) {
-  return inverse ? launch_axis<T, true>(in, out, b1, log_n, lanes, stream)
-                 : launch_axis<T, false>(in, out, b1, log_n, lanes, stream);
 }
 
 // Rows (last axis) into out, then the columns (axis -2) in place in out.

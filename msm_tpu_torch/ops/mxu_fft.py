@@ -1,8 +1,8 @@
 """The MXU engine's transforms, on hand-written Hopper FFT kernels.
 
-Counterpart of msm_tpu/ops/mxu_fft.py on its unfused path (`MSM_FFT=mxu`,
-2-D, or 3-D with `MSM_FUSE_PHASES=0`). Four kernels, in
-`csrc/fft_kernels.cu`:
+Counterpart of msm_tpu/ops/mxu_fft.py. Its plain transforms, in
+`csrc/fft_kernels.cu`, which the unfused path (`MSM_FFT=mxu`, 2-D, or 3-D
+with `MSM_FUSE_PHASES=0`) runs:
 
   axis_pass           : ortho DFT along a non-last axis          (K5)
   plane_pass          : ortho DFT over the last two axes          (K6)
@@ -11,9 +11,28 @@ Counterpart of msm_tpu/ops/mxu_fft.py on its unfused path (`MSM_FFT=mxu`,
 
 and the engine transforms composed from them in the JAX engine's axis
 order: `forward_engine`, `inverse_engine`, `forward_engine_real`,
-`inverse_engine_real`. Unlike the JAX engine, k comes out in natural fftn
-order (the engine's residue-major order exists only so that a TPU never
-shuffles data; `convert.to_natural` / `to_engine` map between the two).
+`inverse_engine_real`. The fused, skewed engine (3-D `mxu`, the default
+there) adds six kernels with the step's elementwise work inside the
+transforms, in `csrc/fused_kernels.cu`:
+
+  axis_roundtrip_kick    : axis-1 fwd, sum|y|^2 and alias-band sums,
+                           x exp(i c_b k^2), axis-1 inv               (K1)
+  plane_inv_density      : 2-axis inv -> psi; 2-axis fwd of
+                           pref |psi|^2                               (K2)
+  axis_roundtrip_poisson : axis-1 fwd, x -coeff/k^2, axis-1 inv       (K3)
+  plane_potkick_fwd      : phi = Re 2-axis inv; max|phi| per plane;
+                           psi exp(i c_b phi); 2-axis fwd             (K4)
+  plane_density_fwd      : 2-axis fwd of pref |psi|^2                 (K7)
+  axis_roundtrip_map     : axis-1 fwd, x map, axis-1 inv              (K8)
+
+and the engine functions built on them: `poisson_solve` (K7, K8, K9),
+`skew_enter` (K5), `fused_step_3d_skewed` (K1-K4), `skew_exit` (K1, K5,
+K6), with the `SingleEngine` surface the stepper drives. Unlike the JAX
+engine, k comes out in natural fftn order (the engine's residue-major
+order exists only so that a TPU never shuffles data; `convert.to_natural`
+/ `to_engine` map between the two); k^2 along axis 1 is the 1-D table s0
+and over the two trailing axes the flattened s12 = s0[:, None] +
+s0[None, :], summed s0 + s12 as the JAX kernels sum them.
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain torch.fft version beside it; any other device raises. Sizes are the
@@ -38,7 +57,16 @@ launches = {
     "plane_pass": 0,
     "plane_pass_real_fwd": 0,
     "plane_pass_real_inv": 0,
+    "axis_roundtrip_kick": 0,
+    "plane_inv_density": 0,
+    "axis_roundtrip_poisson": 0,
+    "plane_potkick_fwd": 0,
+    "plane_density_fwd": 0,
+    "axis_roundtrip_map": 0,
 }
+# elements of one row block of the fused row kernel (kRowTile in
+# csrc/fft_common.cuh): plane_potkick_fwd leaves one max|phi| per block
+_ROW_TILE = 2048
 
 
 def reset_launches() -> None:
@@ -245,3 +273,370 @@ def inverse_engine_real(phik: torch.Tensor, dims: int) -> torch.Tensor:
     for ax in _outer_axes(phik, dims):
         phik = axis_pass(phik, ax, inverse=True)
     return plane_pass_real_inv(phik)
+
+
+# ---------------------------------------------------------------------------
+# The fused engine's kernels (csrc/fused_kernels.cu): plain versions
+# ---------------------------------------------------------------------------
+
+
+def _axis1(x: torch.Tensor) -> tuple[int, int, int, int]:
+    """(b1, n, lanes, log_n) of a round trip's operand: x is (b1, N, ...)
+    and the transform runs along axis 1 over the `lanes` trailing elements."""
+    if x.ndim < 3:
+        raise ValueError(f"expected (b1, N, ...) with trailing lanes, got {tuple(x.shape)}")
+    n = x.shape[1]
+    log_n = _log_size(n)
+    return x.shape[0], n, math.prod(x.shape[2:]), log_n
+
+
+def _k2(s0: torch.Tensor, s12: torch.Tensor) -> torch.Tensor:
+    """k^2 over (axis 1, lanes), summed s0 + s12 as the kernels sum it."""
+    return s0[:, None] + s12[None, :]
+
+
+def kick_factors(
+    coeff: torch.Tensor, s0: torch.Tensor, s12: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f0, f12) = (exp(i c_b s0), exp(i c_b s12)), (b1, N) and (b1, lanes):
+    the separable factors of the kinetic phase exp(i c_b k^2), built from
+    cos and sin of c * s outside the kernel, as msm_tpu builds them
+    (mxu_fft.py:1537-1543)."""
+    ang0 = coeff[:, None] * s0[None, :]
+    ang12 = coeff[:, None] * s12[None, :]
+    return (
+        torch.complex(torch.cos(ang0), torch.sin(ang0)),
+        torch.complex(torch.cos(ang12), torch.sin(ang12)),
+    )
+
+
+def _density(psi: torch.Tensor, prefactor: float) -> torch.Tensor:
+    return prefactor * (psi.real * psi.real + psi.imag * psi.imag)
+
+
+def axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff: float):
+    b1, n, lanes, _ = _axis1(x)
+    y = torch.fft.fft(x.reshape(b1, n, lanes), dim=1, norm="ortho")
+    p2 = y.real * y.real + y.imag * y.imag
+    norm = p2.sum(dim=(1, 2))
+    alias = torch.where(_k2(s0, s12) > cutoff, p2, 0.0).sum(dim=(1, 2))
+    y = y * (f0[:, :, None] * f12[:, None, :])
+    return torch.fft.ifft(y, dim=1, norm="ortho").reshape(x.shape), norm, alias
+
+
+def axis_roundtrip_poisson_plain(x, s0, s12, coeff: float):
+    b1, n, lanes, _ = _axis1(x)
+    k2 = _k2(s0, s12)
+    pos = k2 > 0.0
+    m = torch.where(pos, torch.full_like(k2, -coeff) / torch.where(pos, k2, 1.0), 0.0)
+    y = torch.fft.fft(x.reshape(b1, n, lanes), dim=1, norm="ortho") * m
+    return torch.fft.ifft(y, dim=1, norm="ortho").reshape(x.shape)
+
+
+def axis_roundtrip_map_plain(x, pmap):
+    b1, n, lanes, _ = _axis1(x)
+    y = torch.fft.fft(x.reshape(b1, n, lanes), dim=1, norm="ortho") * pmap.reshape(n, lanes)
+    return torch.fft.ifft(y, dim=1, norm="ortho").reshape(x.shape)
+
+
+def plane_inv_density_plain(x, prefactor: float):
+    psi = torch.fft.ifft2(x, dim=(-2, -1), norm="ortho")
+    return psi, torch.fft.fft2(_density(psi, prefactor), dim=(-2, -1), norm="ortho")
+
+
+def plane_potkick_fwd_plain(phik, psi, coeff):
+    m, n = phik.numel() // phik.shape[-1] ** 2, phik.shape[-1]
+    phi = torch.fft.ifft2(phik.reshape(m, n, n), dim=(-2, -1), norm="ortho").real
+    maxes = phi.abs().reshape(m, -1).amax(-1)
+    ang = coeff.repeat_interleave(m // coeff.numel()).reshape(m, 1, 1) * phi
+    cs, sn = torch.cos(ang), torch.sin(ang)
+    p = psi.reshape(m, n, n)
+    rot = torch.complex(p.real * cs - p.imag * sn, p.imag * cs + p.real * sn)
+    return torch.fft.fft2(rot, dim=(-2, -1), norm="ortho").reshape(phik.shape), maxes
+
+
+def plane_density_fwd_plain(psi, prefactor: float):
+    return torch.fft.fft2(_density(psi, prefactor), dim=(-2, -1), norm="ortho")
+
+
+# ---------------------------------------------------------------------------
+# The fused engine's kernels: wrappers
+# ---------------------------------------------------------------------------
+
+
+def _table(t: torch.Tensor, like: torch.Tensor, numel: int, name: str) -> torch.Tensor:
+    """A real table on `like`'s device and precision, flat and contiguous."""
+    t = t.to(device=like.device, dtype=like.real.dtype).reshape(-1).contiguous()
+    if t.numel() != numel:
+        raise ValueError(f"{name} has {t.numel()} entries, expected {numel}")
+    return t
+
+
+def _roundtrip_operand(x: torch.Tensor, name: str) -> tuple[torch.Tensor, int]:
+    """Validate a round trip's CUDA operand; returns (contiguous x, is_double)."""
+    is_double = _check_dtype(x, (torch.complex64, torch.complex128), name)
+    b1, _, lanes, _ = _axis1(x)
+    tile = _TILE_BYTES // x.element_size()
+    if lanes % tile:
+        raise ValueError(f"trailing extent {lanes} is not a multiple of {tile}")
+    if b1 * lanes // tile >= 2**31:
+        raise ValueError(f"{tuple(x.shape)} exceeds the launch grid")
+    return x.contiguous(), is_double
+
+
+def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float):
+    """K1: forward DFT of x (b1, N, ...) along axis 1; per batch element,
+    sum |y|^2 and the sum of |y|^2 where s0 + s12 > cutoff; y times
+    exp(i coeff_b k^2); inverse DFT. s0: (N,), s12: (lanes,), coeff: (b1,)
+    or one value. Returns (out, norm_sums, alias_sums), the sums (b1,)."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_roundtrip_kick")
+    s0 = _table(s0, x, n, "s0")
+    s12 = _table(s12, x, lanes, "s12")
+    c = coeff.to(device=x.device, dtype=x.real.dtype).reshape(-1).expand(b1)
+    f0, f12 = kick_factors(c, s0, s12)
+    if not on_card:
+        return axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff)
+    x, is_double = _roundtrip_operand(x, "axis_roundtrip_kick")
+    out = torch.empty_like(x)
+    partials = torch.empty(
+        (b1 * lanes // (_TILE_BYTES // x.element_size()), 2),
+        dtype=torch.float64, device=x.device,
+    )
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_axis_roundtrip_kick(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
+            f0.data_ptr(), f12.data_ptr(), float(cutoff), partials.data_ptr(), is_double,
+            _stream(x),
+        )
+    build.check(rc, "axis_roundtrip_kick")
+    launches["axis_roundtrip_kick"] += 1
+    sums = partials.view(b1, -1, 2).sum(dim=1).to(x.real.dtype)
+    return out, sums[:, 0], sums[:, 1]
+
+
+def axis_roundtrip_poisson(x, s0, s12, coeff: float):
+    """K3: forward DFT of x (b1, N, ...) along axis 1, times -coeff / k^2
+    with k^2 = s0 + s12 (0 where k^2 is 0), inverse DFT."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_roundtrip_poisson")
+    s0 = _table(s0, x, n, "s0")
+    s12 = _table(s12, x, lanes, "s12")
+    if not on_card:
+        return axis_roundtrip_poisson_plain(x, s0, s12, coeff)
+    x, is_double = _roundtrip_operand(x, "axis_roundtrip_poisson")
+    out = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_axis_roundtrip_poisson(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
+            float(coeff), is_double, _stream(x),
+        )
+    build.check(rc, "axis_roundtrip_poisson")
+    launches["axis_roundtrip_poisson"] += 1
+    return out
+
+
+def axis_roundtrip_map(x, pmap):
+    """K8: forward DFT of x (b1, N, ...) along axis 1, times the real map
+    (N, lanes) (shared by the batch), inverse DFT."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_roundtrip_map")
+    pmap = _table(pmap, x, n * lanes, "map")
+    if not on_card:
+        return axis_roundtrip_map_plain(x, pmap)
+    x, is_double = _roundtrip_operand(x, "axis_roundtrip_map")
+    out = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_axis_roundtrip_map(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, pmap.data_ptr(), is_double,
+            _stream(x),
+        )
+    build.check(rc, "axis_roundtrip_map")
+    launches["axis_roundtrip_map"] += 1
+    return out
+
+
+def plane_inv_density(x, prefactor: float):
+    """K2: psi = ortho inverse DFT of x over its last two axes; returns
+    (psi, the forward DFT of prefactor * |psi|^2 over the same axes)."""
+    m, log_n = _planes(x)
+    if not _route(x, "plane_inv_density"):
+        return plane_inv_density_plain(x, prefactor)
+    is_double = _check_dtype(x, (torch.complex64, torch.complex128), "plane_inv_density")
+    x = x.contiguous()
+    psi = torch.empty_like(x)
+    rho = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_plane_inv_density(
+            x.data_ptr(), psi.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor),
+            is_double, _stream(x),
+        )
+    build.check(rc, "plane_inv_density")
+    launches["plane_inv_density"] += 1
+    return psi, rho
+
+
+def plane_potkick_fwd(phik, psi, coeff):
+    """K4: phi = Re of the ortho inverse DFT of phik over its last two axes;
+    returns (the forward DFT over those axes of psi * exp(i coeff_b phi),
+    max|phi| per plane). The planes of phik and psi are (B, ..., N, N) with
+    coeff (B,): stream b owns the b-th run of planes."""
+    m, log_n = _planes(phik)
+    if psi.shape != phik.shape or psi.dtype != phik.dtype or psi.device != phik.device:
+        raise ValueError(f"psi {tuple(psi.shape)} {psi.dtype} does not match phik")
+    c = coeff.to(device=phik.device, dtype=phik.real.dtype).reshape(-1).contiguous()
+    if m % c.numel():
+        raise ValueError(f"{m} planes do not split over {c.numel()} streams")
+    if not _route(phik, "plane_potkick_fwd"):
+        return plane_potkick_fwd_plain(phik, psi, c)
+    is_double = _check_dtype(phik, (torch.complex64, torch.complex128), "plane_potkick_fwd")
+    phik = phik.contiguous()
+    psi = psi.contiguous()
+    out = torch.empty_like(phik)
+    maxes = torch.empty(
+        m * phik.shape[-1] ** 2 // _ROW_TILE, dtype=phik.real.dtype, device=phik.device
+    )
+    lib = build.load()
+    with torch.cuda.device(phik.device):
+        rc = lib.msm_plane_potkick_fwd(
+            phik.data_ptr(), psi.data_ptr(), out.data_ptr(), maxes.data_ptr(), c.data_ptr(),
+            m, m // c.numel(), log_n, is_double, _stream(phik),
+        )
+    build.check(rc, "plane_potkick_fwd")
+    launches["plane_potkick_fwd"] += 1
+    return out, maxes.view(m, -1).amax(dim=-1)
+
+
+def plane_density_fwd(psi, prefactor: float):
+    """K7: ortho forward DFT over the last two axes of prefactor * |psi|^2."""
+    m, log_n = _planes(psi)
+    if not _route(psi, "plane_density_fwd"):
+        return plane_density_fwd_plain(psi, prefactor)
+    is_double = _check_dtype(psi, (torch.complex64, torch.complex128), "plane_density_fwd")
+    psi = psi.contiguous()
+    out = torch.empty_like(psi)
+    lib = build.load()
+    with torch.cuda.device(psi.device):
+        rc = lib.msm_plane_density_fwd(
+            psi.data_ptr(), out.data_ptr(), m, log_n, float(prefactor), is_double,
+            _stream(psi),
+        )
+    build.check(rc, "plane_density_fwd")
+    launches["plane_density_fwd"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fused engine (msm_tpu/ops/mxu_fft.py:1665-1865, 2030-2155), 3-D,
+# batched (B, N, N, N), natural k order
+# ---------------------------------------------------------------------------
+
+
+def _batched_3d(x: torch.Tensor, what: str) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"the fused engine takes (B, N, N, N); {what} is {tuple(x.shape)}")
+
+
+def poisson_solve(psi, dims: int, prefactor: float, pmap):
+    """The spectral Poisson solve in three passes: K7 (density and its
+    (y, x) forward), K8 (z forward, x pmap, z inverse), K9 (Re of the
+    (y, x) inverse). pmap: -coeff / k^2 over the full (N, N, N) grid, k = 0
+    zeroed. rho, rho_k and phi_k never exist."""
+    if dims != 3:
+        raise NotImplementedError("the fused Poisson solve is 3-D only")
+    _batched_3d(psi, "psi")
+    rho_t = plane_density_fwd(psi, prefactor)
+    return plane_pass_real_inv(axis_roundtrip_map(rho_t, pmap))
+
+
+def skew_enter(psik, dims: int):
+    """psik -> the mixed-space carrier q = F_z^-1[psik] (K5)."""
+    if dims != 3:
+        raise NotImplementedError("the skewed engine is 3-D only")
+    _batched_3d(psik, "psik")
+    return axis_pass(psik, 1, inverse=True)
+
+
+def fused_step_3d_skewed(
+    q, s0, s12, kcoeff, vcoeff, poisson_coeff: float, alias_cutoff: float,
+    prefactor: float,
+):
+    """The KDK step interior skewed by half a pass, on the mixed-space field
+    q with F_z(q) == psik (any deferred half-kick folded into kcoeff):
+
+      K1  z forward (closing the previous step), the norm and alias sums,
+          the kinetic kick exp(i kcoeff_b k^2), z inverse;
+      K2  (y, x) inverse -> psi; rho = prefactor |psi|^2 and its (y, x)
+          forward;
+      K3  z forward, x -poisson_coeff / k^2, z inverse;
+      K4  phi = Re (y, x) inverse, max|phi|, psi exp(i vcoeff_b phi),
+          (y, x) forward -> the next q.
+
+    Returns (q_next, norm_sums, alias_sums, phi_max), per stream; the sums
+    describe the INPUT state (one step late: the caller accounts them to
+    the previous step, and `skew_exit` gives the last step's)."""
+    _batched_3d(q, "q")
+    x, norm, alias = axis_roundtrip_kick(q, s0, s12, kcoeff, alias_cutoff)
+    psi, rho_t = plane_inv_density(x, prefactor)
+    del x
+    phi_t = axis_roundtrip_poisson(rho_t, s0, s12, poisson_coeff)
+    del rho_t
+    q_next, maxes = plane_potkick_fwd(phi_t, psi, vcoeff)
+    return q_next, norm, alias, maxes.view(q.shape[0], -1).amax(dim=-1)
+
+
+def skew_exit(q, s0, s12, pending, alias_cutoff: float):
+    """(psi, psik, norm_sums, alias_sums) from the carrier: K1 applies the
+    deferred kick exp(i pending_b k^2) (and gives the last step's sums),
+    then psik = F_z (K5) and psi = F_(y,x)^-1 (K6) of its output."""
+    _batched_3d(q, "q")
+    x, norm, alias = axis_roundtrip_kick(q, s0, s12, pending, alias_cutoff)
+    return plane_pass(x, inverse=True), axis_pass(x, 1, inverse=False), norm, alias
+
+
+class SingleEngine:
+    """The single-device fused engine with msm_tpu's `SingleEngine` surface
+    (mxu_fft.py:2099-2155). The JAX engine's planar (re, im) pairs are one
+    complex tensor here. `consts` carries spec_axis0 (s0, (N,)),
+    spec_axis12 (s12, flat (N*N,)) and the full-grid poisson_map."""
+
+    def __init__(self, dims: int, poisson_coeff: float, alias_cutoff: float, prefactor: float):
+        self.dims = dims
+        self.poisson_coeff = float(poisson_coeff)
+        self.alias_cutoff = float(alias_cutoff)
+        self.prefactor = float(prefactor)
+
+    def fused_step(self, psik, consts, kick, vcoeff):
+        raise NotImplementedError(
+            "the unskewed fused step needs K12/K13 (ROADMAP Queue 1, item 9)"
+        )
+
+    def exact_prefix(self, q, consts, pending):
+        raise NotImplementedError(
+            "the exact-dt prefix needs K10/K11 (ROADMAP Queue 1, item 3)"
+        )
+
+    def fused_step_skewed(self, q, consts, kick, vcoeff):
+        return fused_step_3d_skewed(
+            q, consts.spec_axis0, consts.spec_axis12, kick, vcoeff,
+            self.poisson_coeff, self.alias_cutoff, self.prefactor,
+        )
+
+    def skew_enter(self, psik):
+        return skew_enter(psik, self.dims)
+
+    def skew_exit(self, q, consts, pending):
+        return skew_exit(q, consts.spec_axis0, consts.spec_axis12, pending, self.alias_cutoff)
+
+    def forward(self, psi):
+        return forward_engine(psi, self.dims)
+
+    def inverse(self, psik):
+        return inverse_engine(psik, self.dims)
+
+    def poisson_solve(self, psi, consts):
+        return poisson_solve(psi, self.dims, self.prefactor, consts.poisson_map)

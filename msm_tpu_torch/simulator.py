@@ -160,10 +160,13 @@ def run_config(
             f"Running {len(stream_params)} {scheme_txt}"
             f"streams + MFT as one batch of {n} on {stepper.device}"
         )
-        print(
-            f"Transforms: {'mxu (engine FFT kernels)' if stepper.use_mxu else 'xla (torch.fft)'}"
-            f" at {mft_params.size}^{mft_params.dims}"
-        )
+        if stepper.fuse_phases:
+            transforms = "mxu (fused, skewed engine: K1-K4, K7, K8 + K5, K6, K9)"
+        elif stepper.use_mxu:
+            transforms = "mxu (engine FFT kernels)"
+        else:
+            transforms = "xla (torch.fft)"
+        print(f"Transforms: {transforms} at {mft_params.size}^{mft_params.dims}")
     strict_alias = n == 1
     reported_alias = [False] * n
     t_start = _time.monotonic()

@@ -16,8 +16,21 @@ transform mode (`ops.fft.get_mode`):
   natural order, so the constants are the `xla` mode's.
 - In both, the two elementwise phase passes of the step run through
   `ops.kernels`: the CUDA kernels K19 (kinetic phase, q^2 from indices)
-  and K21 (potential rotation) on the card. Every kernel's plain version
-  runs on the CPU.
+  and K21 (potential rotation) on the card.
+- `mxu`, fused and skewed (3-D with `MSM_FUSE_PHASES` and `MSM_SKEW_STEP`
+  unset, the JAX default there; :293-311): the fused engine
+  (`mxu_fft.SingleEngine`). The state's Poisson solve is three passes
+  (K7, K8, K9; `_potential` :671-681). Between dumps the loop carries the
+  mixed-space field q (z spatial, (y, x) in k) with F_z(q) = psik times
+  the deferred kick, and each iteration is four kernels (K1-K4) that never
+  write psik, rho or phi; entering an interval costs one z inverse (K5),
+  leaving it one round trip (K1), a z forward (K5) and a (y, x) inverse
+  (K6) (`_make_skew_body` :1050-1153, `_evolve_to_next_dump_skewed`
+  :1155-1220). The kinetic phase, the Poisson map and the alias band come
+  from the separable k^2 tables s0 and s12 (natural order). Its unskewed
+  form (`MSM_SKEW_STEP=0`) needs K12/K13 and is refused, and so is a
+  single `step()`, which JAX runs unskewed.
+- Every kernel's plain version runs on the CPU.
 - The state is a dataclass of tensors with a leading stream-batch axis on
   every field (`SimState`); one step is `_step`.
 - dt is optimistic: proposed from the carried max|phi| and validated after
@@ -29,12 +42,15 @@ transform mode (`ops.fft.get_mode`):
   is needed, skipped when every stream is active, as `lax.cond` does in
   the JAX loop) together with whether any stream's step lands on a dump
   (which decides the closing half-kick, the JAX `_finalize_step` cond).
+  The skewed loop reads whether every stream advanced (the blend) and
+  whether any stream is still active after the iteration; it never needs
+  the dump flag.
 - Streams that reach their dump boundary (or alias) are frozen by a
   per-stream select; one stream aliasing does not stop the batch, unlike
   the reference panic (`simulation_object.rs:607-617`).
 
-Not here yet: exact and lagged dt, expanding mode, the fused engine
-(3-D `mxu` with fused phases, the JAX default there: refused).
+Not here yet: exact and lagged dt, expanding mode, the unskewed fused
+engine.
 """
 
 from __future__ import annotations
@@ -92,11 +108,16 @@ class StepConsts:
     alias_mask: 1 where k^2 > k2_cutoff * k2_max (`simulation_object.rs:
     1262-1277`). poisson_map: -poisson_coeff / k^2, k = 0 zeroed, on the
     rfft half spectrum (`xla`) or the full grid (`mxu`). The kinetic phase
-    needs no k^2 grid: q^2 is built from indices (ops.kernels).
+    needs no k^2 grid: q^2 is built from indices (ops.kernels). The fused
+    engine reads spec_axis0, the 1-D k^2 table s0 (N,), and spec_axis12,
+    s12 = s0[:, None] + s0[None, :] flattened (N*N,) (msm_tpu's
+    stepper.py:366-373 in natural order); None off that path.
     """
 
     alias_mask: torch.Tensor
     poisson_map: torch.Tensor
+    spec_axis0: "torch.Tensor | None" = None
+    spec_axis12: "torch.Tensor | None" = None
 
 
 @dataclasses.dataclass
@@ -117,6 +138,11 @@ class _Advance:
 # against replay churn near the kinetic/potential crossover).
 DT_SAFETY = 0.95
 DT_DECAY = 0.99
+
+
+def _env_off(name: str) -> bool:
+    """A switch that is on unless its variable says 0 or false."""
+    return os.environ.get(name, "1") in ("0", "false")
 
 
 def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
@@ -155,41 +181,60 @@ class Stepper:
 
         p = params
         # The MXU engine's transforms (stepper.py:238-242); its fused-phase
-        # form is what 3-D grids run unless MSM_FUSE_PHASES=0 (:293-298),
-        # read here at construction as JAX reads it.
+        # engine is what 3-D grids run unless MSM_FUSE_PHASES=0 (:293-298),
+        # skewed unless MSM_SKEW_STEP=0 (:309-311), both read here at
+        # construction as JAX reads them.
         self.use_mxu = fft_ops.get_mode(p.size) == "mxu"
         if self.use_mxu and p.dims == 1:
             raise NotImplementedError(
                 "1-D mxu transforms need the lane kernels K14-K16 "
                 "(ROADMAP Queue 1, item 9)"
             )
-        if (
-            self.use_mxu
-            and p.dims == 3
-            and os.environ.get("MSM_FUSE_PHASES", "1") not in ("0", "false")
-        ):
+        self.fuse_phases = (
+            self.use_mxu and p.dims == 3 and not _env_off("MSM_FUSE_PHASES")
+        )
+        self.skew = self.fuse_phases and not _env_off("MSM_SKEW_STEP")
+        if self.fuse_phases and not self.skew:
             raise NotImplementedError(
-                "3-D mxu runs the fused-phase engine, which is not ported yet "
-                "(ROADMAP Queue 1, the fused engine); set MSM_FUSE_PHASES=0 "
-                "for the unfused engine path"
+                "the unskewed fused engine (MSM_SKEW_STEP=0) needs K12/K13 "
+                "(ROADMAP Queue 1, item 9)"
             )
         # k2_max from the separable 1-D table: max(sum_i k_i^2) = dims *
         # max(k_1d^2), identical to the full grid's max
-        self.k2_max = float(build_spec_grid(p.dx, 1, p.size).max()) * p.dims
+        s1d = build_spec_grid(p.dx, 1, p.size)
+        self.k2_max = float(s1d.max()) * p.dims
         spec = build_spec_grid(p.dx, p.dims, p.size)
         mask = (spec > p.k2_cutoff * self.k2_max).astype(np.float64)
-        # -coeff / k^2 on the spectrum the Poisson solve transforms to
-        if not self.use_mxu:
-            spec = spec[..., : p.size // 2 + 1]
-        spec_t = torch.as_tensor(spec, dtype=self.rdtype)
-        inv_k2 = torch.where(spec_t > 0.0, 1.0, 0.0) / torch.where(
-            spec_t > 0.0, spec_t, 1.0
-        )
         self.density_prefactor = p.total_mass
         self.poisson_coeff = POIS_CONST
+        spec_axis0 = spec_axis12 = None
+        self.engine = None
+        if self.fuse_phases:
+            # the full-grid map as msm_tpu builds it (:362-365: float64,
+            # rounded once), and the separable tables (:366-373)
+            inv_k2 = np.where(spec > 0.0, 1.0, 0.0) / np.where(spec > 0.0, spec, 1.0)
+            poisson_map = torch.as_tensor(-self.poisson_coeff * inv_k2, dtype=self.rdtype)
+            spec_axis0 = torch.as_tensor(s1d, dtype=self.rdtype, device=self.device)
+            spec_axis12 = torch.as_tensor(
+                (s1d[:, None] + s1d[None, :]).reshape(-1), dtype=self.rdtype, device=self.device
+            )
+            self.engine = mxu_fft.SingleEngine(
+                p.dims, self.poisson_coeff, p.k2_cutoff * self.k2_max, self.density_prefactor
+            )
+        else:
+            # -coeff / k^2 on the spectrum the Poisson solve transforms to
+            if not self.use_mxu:
+                spec = spec[..., : p.size // 2 + 1]
+            spec_t = torch.as_tensor(spec, dtype=self.rdtype)
+            inv_k2 = torch.where(spec_t > 0.0, 1.0, 0.0) / torch.where(
+                spec_t > 0.0, spec_t, 1.0
+            )
+            poisson_map = -self.poisson_coeff * inv_k2
         self.consts = StepConsts(
             alias_mask=torch.as_tensor(mask, dtype=self.rdtype, device=self.device),
-            poisson_map=(-self.poisson_coeff * inv_k2).to(self.device),
+            poisson_map=poisson_map.to(self.device),
+            spec_axis0=spec_axis0,
+            spec_axis12=spec_axis12,
         )
         # Dump schedule: t_dump[i] = t0 + i * T / num_dumps (final_sim_time
         # is the DURATION from t0; PARITY.md).
@@ -282,9 +327,11 @@ class Stepper:
     def potential(self, psi):
         """Spectral Poisson solve (calculate_potential, :1031-1110):
         rho = prefactor |psi|^2; phi_k = -coeff rho_k / k^2 (k = 0 zeroed);
-        phi = Re F^-1[phi_k]. `mxu`: the engine's real-input forward and
-        real-output inverse over the full spectrum; `xla`: rfft/irfft on the
-        half spectrum."""
+        phi = Re F^-1[phi_k]. Fused engine: the three-pass solve (K7, K8,
+        K9); `mxu`: the engine's real-input forward and real-output inverse
+        over the full spectrum; `xla`: rfft/irfft on the half spectrum."""
+        if self.fuse_phases:
+            return self.engine.poisson_solve(psi, self.consts)
         axes = self._spatial_axes
         rho = self.density_prefactor * self._abs2(psi)
         if self.use_mxu:
@@ -344,6 +391,12 @@ class Stepper:
     def step(self, state: SimState) -> SimState:
         """One step of every stream, with no freeze mask (msm_tpu's
         Stepper.step)."""
+        if self.fuse_phases:
+            raise NotImplementedError(
+                "a single fused step is the unskewed fused step, which needs "
+                "K12/K13 (ROADMAP Queue 1, item 9); the fused engine runs "
+                "through evolve_to_next_dump"
+            )
         adv = self._scalar_advance(state)
         return self._step(state, adv, bool(adv.is_dump.any()))
 
@@ -415,6 +468,8 @@ class Stepper:
 
         def pick(f: dataclasses.Field):
             n, o = getattr(new, f.name), getattr(old, f.name)
+            if n is o:  # a field the step did not touch (the skewed loop's psi)
+                return n
             return torch.where(gmask if n.ndim == gmask.ndim else mask, n, o)
 
         return SimState(**{f.name: pick(f) for f in dataclasses.fields(SimState)})
@@ -423,6 +478,8 @@ class Stepper:
         """Advance every active stream until its step lands on the next dump
         boundary (or it aliases). The dump counter increment and time snap
         happen in `snap_after_dump`, as in update() (:620-631)."""
+        if self.skew:
+            return self._evolve_to_next_dump_skewed(state)
         finished = state.current_dumps >= self.params.num_data_dumps
         while True:
             mask = self._active(state, finished)
@@ -435,6 +492,111 @@ class Stepper:
                 return state
             new = self._step(state, adv, any_dump)
             state = new if all_active else self._select(mask, new, state)
+
+    # ------------------------------------------------------------------
+    # The skewed loop of the fused engine
+    # ------------------------------------------------------------------
+
+    def _skew_body(self, s: SimState, finished) -> tuple[SimState, bool]:
+        """One iteration of the skewed loop (`_make_skew_body`, :1050-1153):
+        s.psik is the mixed-space carrier q, s.psi stays stale. Returns the
+        next carrier state and whether any stream is still active, read
+        with whether every stream advanced in the loop's one device->host
+        read."""
+        p = self.params
+        dkd = p.dk**p.dims
+        active = self._active(s, finished)
+        adv = self._scalar_advance(s)
+        q, _norm, alias, pm = self.engine.fused_step_skewed(
+            s.psik, self.consts, s.pending_k + adv.kcoeff, adv.vcoeff
+        )
+        # the sums describe the state ENTERING this iteration: a stream
+        # whose last step aliased must not advance (the aliased update
+        # completes, then the stream stops, :607-617); n_steps > 0 spares
+        # the initial conditions, which the reference never checks
+        mass_in = alias * dkd
+        newly = active & (mass_in > p.alias_threshold) & (s.n_steps > 0)
+        pm_fresh = pm.to(self.tdtype)
+        invalid = active & ~newly & self._dt_invalid(adv.dt, pm_fresh)
+        advance = active & ~newly & ~invalid
+        new = dataclasses.replace(
+            s,
+            psik=q,
+            time=adv.time,
+            n_steps=s.n_steps + 1,
+            just_dumped=adv.is_dump,
+            phi_max=self._predict_bound(pm_fresh, s),
+            phi_ref=pm_fresh,
+            pending_k=adv.kcoeff,
+            dt_min=torch.minimum(s.dt_min, adv.dt),
+            dt_max=torch.maximum(s.dt_max, adv.dt),
+        )
+        still = ~(
+            torch.where(advance, adv.is_dump, s.just_dumped) | s.aliased | newly | finished
+        )
+        all_advance, any_active = torch.stack([advance.all(), still.any()]).tolist()
+        out = new if all_advance else self._select(advance, new, s)
+        out = dataclasses.replace(
+            out,
+            aliased=s.aliased | newly,
+            alias_mass=torch.where(active, mass_in, s.alias_mass),
+            phi_max=torch.where(
+                invalid, torch.maximum(pm_fresh, s.phi_max) / DT_SAFETY, out.phi_max
+            ),
+            replays=out.replays + invalid.to(torch.int32),
+        )
+        return out, any_active
+
+    def _skew_exit(self, entry: SimState, final: SimState) -> SimState:
+        """Materialize psi and psik from the carrier and account the last
+        step's alias mass (:1186-1215); streams that never stepped keep
+        their entry fields."""
+        p = self.params
+        psi, psik, _norm, alias = self.engine.skew_exit(
+            final.psik, self.consts, final.pending_k
+        )
+        stepped = final.n_steps > entry.n_steps
+        mass = alias * p.dk**p.dims
+        gs = self._bcast(stepped)
+        return dataclasses.replace(
+            final,
+            psi=torch.where(gs, psi, entry.psi),
+            psik=torch.where(gs, psik, entry.psik),
+            aliased=final.aliased | (stepped & (mass > p.alias_threshold)),
+            alias_mass=torch.where(stepped, mass, final.alias_mass),
+            pending_k=torch.zeros_like(final.pending_k),
+        )
+
+    def _evolve_to_next_dump_skewed(self, state: SimState) -> SimState:
+        """The fused engine's evolve loop, skewed by half a pass
+        (`_evolve_to_next_dump_skewed`, :1155-1220): enter with one z
+        inverse, iterate `_skew_body` while any stream is active, exit with
+        `_skew_exit`. An interval where no stream is active returns the
+        state unchanged."""
+        finished = state.current_dumps >= self.params.num_data_dumps
+        if not bool(self._active(state, finished).any()):
+            return state
+        s = dataclasses.replace(state, psik=self.engine.skew_enter(state.psik))
+        more = True
+        while more:
+            s, more = self._skew_body(s, finished)
+        return self._skew_exit(state, s)
+
+    def _chain_n_steps(self, state: SimState, n: int) -> SimState:
+        """Exactly n iterations of the skewed loop's body (no dump or alias
+        exit), then its exit (msm_tpu's `_chain_n_steps`, :1524-1547): the
+        slope between two n measures the steady-state cost of an
+        iteration."""
+        if not self.skew:
+            raise NotImplementedError("_chain_n_steps runs the skewed loop only")
+        finished = state.current_dumps >= self.params.num_data_dumps
+        s = dataclasses.replace(state, psik=self.engine.skew_enter(state.psik))
+        for _ in range(n):
+            s, _ = self._skew_body(s, finished)
+        psi, psik, _, _ = self.engine.skew_exit(s.psik, self.consts, s.pending_k)
+        return dataclasses.replace(
+            s, psi=psi, psik=psik, pending_k=torch.zeros_like(s.pending_k)
+        )
 
     def snap_after_dump(self, state: SimState) -> SimState:
         """Increment the dump counter and snap time onto the dump grid

@@ -206,4 +206,4 @@ def test_cuda_kernels_match_plain(cuda_device, rng, cdtype, rtol, shape):
         want = plain()
         assert got.dtype == want.dtype and got.shape == want.shape, name
         assert (got - want).abs().max().item() <= rtol * want.abs().max().item(), name
-    assert set(mxu_fft.launches.values()) == {1}
+    assert {k: n for k, n in mxu_fft.launches.items() if n} == dict.fromkeys(cases, 1)

@@ -28,7 +28,7 @@ from msm_tpu_torch import simulator
 from msm_tpu_torch.convert import state_to_numpy, to_natural
 from msm_tpu_torch.io.npy import load_complex_pair
 from msm_tpu_torch.models import ics
-from msm_tpu_torch.ops import fft
+from msm_tpu_torch.ops import fft, mxu_fft
 from msm_tpu_torch.stepper import Stepper
 
 torch.set_num_threads(1)
@@ -120,15 +120,31 @@ def test_3d_unfused_steps_match_jax_mxu(mxu_mode, monkeypatch):
     assert state_to_numpy(ts)["just_dumped"].all()
 
 
-def test_3d_fused_default_is_refused(mxu_mode, monkeypatch):
-    """3-D mxu runs the fused engine unless MSM_FUSE_PHASES=0; the port does
-    not have it yet and says so instead of running the unfused path."""
+def test_3d_fused_mode_selection(mxu_mode, monkeypatch):
+    """3-D mxu with no variables set takes the fused, skewed engine, as JAX
+    does; MSM_FUSE_PHASES=0 keeps the unfused engine path. The unskewed
+    fused engine (MSM_SKEW_STEP=0) and a single fused `step()`, which JAX
+    runs unskewed, need K12/K13 and are refused. 2-D mxu never fuses."""
     monkeypatch.delenv("MSM_FUSE_PHASES", raising=False)
+    monkeypatch.delenv("MSM_SKEW_STEP", raising=False)
     tp = cfg.resolve_parameters(_toml(cfg, 3, 128))
-    with pytest.raises(NotImplementedError, match="Queue 1, the fused engine"):
+    st = Stepper(tp, torch.complex128, "cpu")
+    assert st.use_mxu and st.fuse_phases and st.skew
+    assert isinstance(st.engine, mxu_fft.SingleEngine)
+    with pytest.raises(NotImplementedError, match="K12/K13"):
+        st.step(st.init_state(torch.as_tensor(ics.build_ics(tp))[None]))
+    monkeypatch.setenv("MSM_SKEW_STEP", "0")
+    with pytest.raises(NotImplementedError, match="K12/K13"):
         Stepper(tp, torch.complex128, "cpu")
     monkeypatch.setenv("MSM_FUSE_PHASES", "0")
-    assert Stepper(tp, torch.complex128, "cpu").use_mxu
+    st = Stepper(tp, torch.complex128, "cpu")
+    assert st.use_mxu and not st.fuse_phases and not st.skew and st.engine is None
+    monkeypatch.delenv("MSM_FUSE_PHASES")
+    monkeypatch.delenv("MSM_SKEW_STEP")
+    assert not Stepper(cfg.resolve_parameters(_toml(cfg, 2, 128)), torch.complex128,
+                       "cpu").fuse_phases
+    fft.set_default_mode("xla")
+    assert not Stepper(tp, torch.complex128, "cpu").fuse_phases
 
 
 def test_mode_resolution(monkeypatch):
@@ -246,9 +262,11 @@ def test_cuda_mxu_stepper_matches_cpu(cuda_device, mxu_mode):
             s = st.snap_after_dump(st.evolve_to_next_dump(s))
         states[str(dev)] = state_to_numpy(s)
     cpu, gpu = states["cpu"], states[str(cuda_device)]
-    launched = {**kernels.launches, **mxu_fft.launches}
-    assert launched["axis_pass"] == 0  # 2-D runs no axis pass
-    assert all(n > 0 for k, n in launched.items() if k != "axis_pass"), launched
+    launched = {k: n for k, n in {**kernels.launches, **mxu_fft.launches}.items() if n}
+    # 2-D runs no axis pass, and the unfused path none of the fused kernels
+    path = {"kinetic_phase", "phase_rotate", "plane_pass", "plane_pass_real_fwd",
+            "plane_pass_real_inv"}
+    assert set(launched) == path, launched
     for k in ("n_steps", "replays", "current_dumps", "aliased"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
     np.testing.assert_allclose(gpu["psi"], cpu["psi"], atol=1e-10)
