@@ -21,29 +21,38 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
-            axis_roundtrip_map at (9, 256^3) and (3, 512^3), every output
-            (fields, K1's sums, K4's maxima) against the plain version
-  3 e2e     the kernel path against the CPU plain path, end to end: the
-            tophat-collapse physics at 64^3, MFT only, complex128, 2 dumps
-            (identical step/replay counts, psi at every dump within 1e-10);
-            the golden config on the card against its frozen fixture; and
-            the same comparison on the unfused `mxu` path (MSM_FFT=mxu,
-            MSM_FUSE_PHASES=0) and on the fused, skewed engine (MSM_FFT=mxu
-            alone) at 128^3 over t = 20
+            axis_roundtrip_map, the exact-dt prefix's K10
+            plane_inv_density_rho_only and K11 plane_real_inv_max (and K1
+            without its sums), and the unskewed step's K12 axis_inv_kick and
+            K13 axis_fwd_reduce at (9, 256^3) and (3, 512^3), every output
+            (fields, the sums, the maxima) against the plain version
+  3 e2e     the kernel path against the CPU plain path, end to end, with
+            identical step/replay counts and psi at every dump within
+            1e-10: the tophat-collapse physics at 64^3, MFT only,
+            complex128, 2 dumps, in optimistic and exact dt; the golden
+            config on the card against its frozen fixture; and at 128^3
+            over t = 20 the unfused `mxu` path (MSM_FFT=mxu,
+            MSM_FUSE_PHASES=0), the fused, skewed engine (MSM_FFT=mxu
+            alone) in optimistic, exact and lagged dt, and the unskewed
+            fused engine (MSM_SKEW_STEP=0) in exact and lagged dt
   4 main    `python -m msm_tpu_torch simulate --device cuda --verbose` run
-            in-process (so the kernels' launch counts can be read) three
-            times: MSM_FFT=xla, MSM_FFT=mxu with MSM_FUSE_PHASES=0, and
-            MSM_FFT=mxu alone (the fused engine): the tophat-collapse
-            physics at 256^3, 8 Wigner streams + MFT, complex64, 3 dumps
-            over the example's 40 time units; checks every dump's shape,
-            finiteness and norm, the manifests, and that each path launched
-            each of its kernels; then compares the three paths
+            in-process (so the kernels' launch counts can be read) five
+            times: MSM_FFT=xla, MSM_FFT=mxu with MSM_FUSE_PHASES=0,
+            MSM_FFT=mxu alone (the fused engine), the fused engine with
+            --dt-mode exact, and MSM_SKEW_STEP=0 --dt-mode lagged (the
+            unskewed fused engine): the tophat-collapse physics at 256^3,
+            8 Wigner streams + MFT, complex64, 3 dumps over the example's
+            40 time units; checks every dump's shape, finiteness and norm,
+            the manifests, that each run launched each of its kernels, and
+            that the exact run launched K10 and K11 and the unskewed run
+            K12 and K13 once per iteration; then compares the runs
 
 It then prints the kernels record (each kernel's launches from the main
-run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, the fused
-kernels the fused run), the card's name and power limit as nvidia-smi
-gives them, and last `{"ok": true, "device": {...}}`. Without a CUDA
-device, or outside a checkout, it exits 1 and prints no result.
+run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
+and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run),
+the card's name and power limit as nvidia-smi gives them, and last
+`{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
+checkout, it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -81,16 +90,33 @@ KERNELS = {
     "plane_potkick_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
     "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
     "axis_roundtrip_map": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
+    "plane_inv_density_rho_only": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
+    "plane_real_inv_max": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
+    "axis_inv_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
+    "axis_fwd_reduce": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
 }
-# the main run whose launches each kernel reports: the path it was ported for
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
 FFT_KERNELS = ("axis_pass", "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv")
-FUSED_KERNELS = tuple(k for k in KERNELS if KERNELS[k][0] == FUSED_SOURCE)
+SKEW_KERNELS = ("axis_roundtrip_kick", "plane_inv_density", "axis_roundtrip_poisson",
+                "plane_potkick_fwd", "plane_density_fwd", "axis_roundtrip_map")
+EXACT_KERNELS = ("plane_inv_density_rho_only", "plane_real_inv_max")
+UNSKEWED_KERNELS = ("axis_inv_kick", "axis_fwd_reduce")
 # the kernels each main run must launch
-PATH_KERNELS = {
+ENGINE_IO = ("axis_pass", "plane_pass", "plane_pass_real_inv")
+RUN_KERNELS = {
     "xla": PHASE_KERNELS,
     "mxu": PHASE_KERNELS + FFT_KERNELS,
-    "fused": FUSED_KERNELS + ("axis_pass", "plane_pass", "plane_pass_real_inv"),
+    "fused": SKEW_KERNELS + ENGINE_IO,
+    "fused-exact": SKEW_KERNELS + EXACT_KERNELS + ENGINE_IO,
+    "unskewed-lagged": UNSKEWED_KERNELS + SKEW_KERNELS[1:] + ENGINE_IO + ("kinetic_phase",),
+}
+# the main run whose launches each kernel reports: the path it was ported for
+OWN_RUN = {
+    **{k: "xla" for k in PHASE_KERNELS},
+    **{k: "mxu" for k in FFT_KERNELS},
+    **{k: "fused" for k in SKEW_KERNELS},
+    **{k: "fused-exact" for k in EXACT_KERNELS},
+    **{k: "unskewed-lagged" for k in UNSKEWED_KERNELS},
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -111,8 +137,11 @@ FUSED_SHAPES = (MAIN_SHAPE, (3, 512, 512, 512))
 # FFT kernels' depth; hence twice their limits. The stages between add
 # little: K2's |psi|^2 doubles psi's relative error, K4's rotation adds
 # |c| * |delta phi| with |c phi| <= 2 here (the step's CFL bound keeps it
-# below pi * cfl), the sums are over |y|^2 in double in the kernel.
+# below pi * cfl), the sums are over |y|^2 in double in the kernel. K10 and
+# K11 are two transforms deep as well (K11's maxima are of a K9-deep
+# field); K12 and K13 are one transform deep, with the FFT kernels' limits.
 FUSED_LIMITS = {torch.complex128: 2e-12, torch.complex64: 2e-5}
+ONE_TRANSFORM = ("axis_inv_kick", "axis_fwd_reduce")
 # Bounds (the least time the card could take): the larger of the bytes a
 # function must move (each input read once, each output written once) at
 # the H100's 3.35 TB/s and its floating-point operations at its 67 TFLOP/s
@@ -371,6 +400,37 @@ def _fused_cases(shape, cdtype, gen) -> dict:
     trip = fft_ops(shape, 1) * 2  # a forward and an inverse along one axis
     plane2 = fft_ops(shape, 2) * 2  # a 2-axis inverse and a 2-axis forward
     return {
+        # the exact-dt prefix's first pass: K1 without its sums, the kick
+        # (12)
+        "axis_roundtrip_kick/no_sums": (
+            lambda: mxu_fft.axis_roundtrip_kick(z, s0, s12, kcoeff, 0.0, with_reduce=False),
+            lambda: mxu_fft.axis_roundtrip_kick_plain(z, s0, s12, f0, f12, 0.0, False),
+            [z, s0, s12, f0, f12], trip + 12.0 * cells,
+        ),
+        # rho = pref |psi|^2 (4), psi not written
+        "plane_inv_density_rho_only": (
+            lambda: mxu_fft.plane_inv_density_rho_only(z, 2.0),
+            lambda: mxu_fft.plane_inv_density_rho_only_plain(z, 2.0),
+            [z], plane2 + 4.0 * cells,
+        ),
+        # one 2-axis inverse, |Re| and its max (2)
+        "plane_real_inv_max": (
+            lambda: mxu_fft.plane_real_inv_max(z),
+            lambda: mxu_fft.plane_real_inv_max_plain(z),
+            [z], plane2 / 2 + 2.0 * cells,
+        ),
+        # the two factors' product and the complex product (12), one inverse
+        "axis_inv_kick": (
+            lambda: mxu_fft.axis_inv_kick(z, s0, s12, kcoeff),
+            lambda: mxu_fft.axis_inv_kick_plain(z, f0, f12),
+            [z, f0, f12], trip / 2 + 12.0 * cells,
+        ),
+        # one forward, |y|^2 and its sums (5), the band test (2)
+        "axis_fwd_reduce": (
+            lambda: mxu_fft.axis_fwd_reduce(z, s0, s12, cut),
+            lambda: mxu_fft.axis_fwd_reduce_plain(z, s0, s12, cut),
+            [z, s0, s12], trip / 2 + 7.0 * cells,
+        ),
         # the epilogue: |y|^2 and its sums (5), the band test (2), the two
         # factors' product and the complex product (12)
         "axis_roundtrip_kick": (
@@ -412,8 +472,8 @@ def _fused_cases(shape, cdtype, gen) -> dict:
 
 
 def phase_fused_kernels(card: dict) -> dict:
-    """K1-K4, K7, K8 vs plain on the card, every output; returns the
-    main-shape complex64 measurements."""
+    """K1-K4, K7, K8, K10-K13 (and K1 without its sums) vs plain on the
+    card, every output; returns the main-shape complex64 measurements."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2025)
     main = {}
@@ -421,11 +481,13 @@ def phase_fused_kernels(card: dict) -> dict:
         for shape in FUSED_SHAPES:
             cases = _fused_cases(shape, cdtype, gen)
             for name, (kernel, plain, inputs, ops) in cases.items():
+                limit = (FFT_LIMITS if name in ONE_TRANSFORM else FUSED_LIMITS)[cdtype]
                 got = kernel()
                 torch.cuda.synchronize()
                 want = plain()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
+                check(len(got) == len(want), f"{name}: {len(got)} outputs against {len(want)}")
                 errs, scales = [], []
                 for g, p in zip(got, want):
                     check(g.shape == p.shape and g.dtype == p.dtype,
@@ -437,16 +499,16 @@ def phase_fused_kernels(card: dict) -> dict:
                 ms, plain_ms = median_ms(kernel), median_ms(plain)
                 rec = {
                     "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
-                    # max_abs_err: the field's (the first output); errs: every
-                    # output's, K1's sums and K4's maxima after it
+                    # max_abs_err: the first output's (K11's maxima, else the
+                    # field); errs: every output's, the sums and K4's maxima
+                    # after the field
                     "shape": list(shape), "max_abs_err": errs[0], "errs": errs,
-                    "max_abs_plain": scales, "limit_rel": FUSED_LIMITS[cdtype],
+                    "max_abs_plain": scales, "limit_rel": limit,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd, **card,
                 }
                 emit(rec)
                 for e, sc in zip(errs, scales):
-                    check(e <= FUSED_LIMITS[cdtype] * sc,
-                          f"{name} {cdtype} {shape}: error {e} against max {sc}")
+                    check(e <= limit * sc, f"{name} {cdtype} {shape}: error {e} against max {sc}")
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
                     main[name] = rec
             del cases
@@ -454,12 +516,30 @@ def phase_fused_kernels(card: dict) -> dict:
     return main
 
 
-# path -> (MSM_FFT, MSM_FUSE_PHASES; None leaves it and MSM_SKEW_STEP unset)
-PATHS = {"xla": ("xla", "0"), "mxu": ("mxu", "0"), "fused": ("mxu", None)}
-# the kernel each path launches once per loop iteration
-ITERATION_KERNEL = {"xla": "phase_rotate", "mxu": "phase_rotate", "fused": "axis_roundtrip_poisson"}
+# path -> (MSM_FFT, MSM_FUSE_PHASES, MSM_SKEW_STEP; None leaves it unset)
+PATHS = {
+    "xla": ("xla", "0", None),
+    "mxu": ("mxu", "0", None),
+    "fused": ("mxu", None, None),
+    "unskewed": ("mxu", None, "0"),
+}
+# the kernel each path launches once per loop iteration (K4 once in the
+# fused step of either engine, in every dt mode)
+ITERATION_KERNEL = {"xla": "phase_rotate", "mxu": "phase_rotate",
+                    "fused": "plane_potkick_fwd", "unskewed": "plane_potkick_fwd"}
 TRANSFORMS_LINE = {"xla": "Transforms: xla", "mxu": "Transforms: mxu (engine",
-                   "fused": "Transforms: mxu (fused, skewed engine"}
+                   "fused": "Transforms: mxu (fused, skewed engine",
+                   "unskewed": "Transforms: mxu (fused, unskewed engine"}
+# main run -> (path, dt mode)
+RUNS = {
+    "xla": ("xla", "optimistic"),
+    "mxu": ("mxu", "optimistic"),
+    "fused": ("fused", "optimistic"),
+    "fused-exact": ("fused", "exact"),
+    "unskewed-lagged": ("unskewed", "lagged"),
+}
+# kernels that must launch once in every iteration of a run
+PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
 
 
 @contextlib.contextmanager
@@ -468,8 +548,8 @@ def fft_mode(path: str):
     mode of one path for a block."""
     from msm_tpu_torch.ops import fft
 
-    mode, fuse = PATHS[path]
-    env = {"MSM_FFT": mode, "MSM_FUSE_PHASES": fuse, "MSM_SKEW_STEP": None}
+    mode, fuse, skew = PATHS[path]
+    env = {"MSM_FFT": mode, "MSM_FUSE_PHASES": fuse, "MSM_SKEW_STEP": skew}
     saved = {k: os.environ.get(k) for k in env}
     prev = fft.default_mode()
     for k, v in env.items():
@@ -498,21 +578,23 @@ def _load_dumps(root: str, name: str, n_dumps: int) -> list:
     ]
 
 
-def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float) -> None:
+def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
+                 dt_mode: str = "optimistic") -> None:
     """One config through the CUDA kernels and through the plain versions on
     the CPU: identical step/replay counts, psi at every dump within 1e-10."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch import simulator
     from msm_tpu_torch.io.checkpoint import load_manifest
 
-    name = f"e2e-{path}"
+    name = f"e2e-{path}-{dt_mode}"
     toml = cfg.parse_toml_str(TOPHAT.format(final=final, dumps=2, name=name, size=size))
     outs = {}
     with fft_mode(path):
         for device in ("cuda", "cpu"):
-            root = os.path.join(work, path, device)
+            root = os.path.join(work, name, device)
             t0 = time.perf_counter()
-            simulator.run_config(toml, torch.complex128, device=device, data_root=root)
+            simulator.run_config(toml, torch.complex128, device=device, data_root=root,
+                                 dt_mode=dt_mode)
             outs[device] = (
                 _load_dumps(root, name, 2),
                 load_manifest(os.path.join(root, name)),
@@ -521,17 +603,17 @@ def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float) -> N
     (psi_g, man_g, wall_g), (psi_c, man_c, wall_c) = outs["cuda"], outs["cpu"]
     err = max(float(np.abs(a - b).max()) for a, b in zip(psi_g, psi_c))
     emit({
-        "phase": "e2e", "path": path,
+        "phase": "e2e", "path": path, "dt_mode": dt_mode,
         "config": f"tophat-collapse {size}^3 MFT c128, 2 dumps over t={final}",
         "n_steps": [man_g["n_steps"], man_c["n_steps"]],
         "replays": [man_g["replays"], man_c["replays"]],
         "max_abs_psi_err": err, "limit": 1e-10,
         "wall_s": {"cuda": wall_g, "cpu": wall_c}, **card,
     })
-    check(man_g["n_steps"] == man_c["n_steps"], f"e2e {path}: step counts differ")
-    check(man_g["replays"] == man_c["replays"], f"e2e {path}: replay counts differ")
-    check(man_g["n_steps"] >= 20, f"e2e {path}: too few steps to compare")
-    check(err <= 1e-10, f"e2e {path}: psi differs by {err}")
+    check(man_g["n_steps"] == man_c["n_steps"], f"{name}: step counts differ")
+    check(man_g["replays"] == man_c["replays"], f"{name}: replay counts differ")
+    check(man_g["n_steps"] >= 20, f"{name}: too few steps to compare")
+    check(err <= 1e-10, f"{name}: psi differs by {err}")
 
 
 def phase_e2e(card: dict) -> None:
@@ -541,8 +623,11 @@ def phase_e2e(card: dict) -> None:
 
     with tempfile.TemporaryDirectory() as work:
         _cuda_vs_cpu(card, work, "xla", 64, 40)
+        _cuda_vs_cpu(card, work, "xla", 64, 40, "exact")
         _cuda_vs_cpu(card, work, "mxu", 128, 20)
-        _cuda_vs_cpu(card, work, "fused", 128, 20)
+        for path, dt_mode in (("fused", "optimistic"), ("fused", "exact"), ("fused", "lagged"),
+                              ("unskewed", "exact"), ("unskewed", "lagged")):
+            _cuda_vs_cpu(card, work, path, 128, 20, dt_mode)
 
         golden = cfg.parse_toml_dict({
             "axis_length": 30, "final_sim_time": 1.0, "cfl": 0.5, "num_data_dumps": 2,
@@ -559,15 +644,17 @@ def phase_e2e(card: dict) -> None:
         check(gerr <= 1e-12, f"golden fixture differs by {gerr}")
 
 
-def phase_main(card: dict, path: str) -> dict:
-    """The port's CLI on the card at 256^3 x (8 streams + MFT) on one path;
-    the launch counts are set to 0 just before and read just after, and
-    the path must have launched each of its kernels."""
+def phase_main(card: dict, run: str) -> dict:
+    """The port's CLI on the card at 256^3 x (8 streams + MFT) on one run's
+    path and dt mode; the launch counts are set to 0 just before and read
+    just after, and the run must have launched each of its kernels (the
+    exact run K10/K11 and the unskewed run K12/K13 once per iteration)."""
     from msm_tpu_torch import cli
     from msm_tpu_torch.io.checkpoint import load_manifest
     from msm_tpu_torch.io.npy import read_npy_exact
     from msm_tpu_torch.ops import kernels, mxu_fft
 
+    path, dt_mode = RUNS[run]
     size, n_dumps = 256, 3
     text = TOPHAT.format(final=40, dumps=n_dumps, name="tophat-collapse", size=size)
     text += '\n[sampling]\nseeds  = "1 to 8"\nscheme = "Wigner"\n'
@@ -577,7 +664,7 @@ def phase_main(card: dict, path: str) -> dict:
             f.write(text)
         data = os.path.join(work, "sim-data")
         argv = ["simulate", "--toml", toml_path, "--device", "cuda",
-                "--data-root", data, "--verbose"]
+                "--data-root", data, "--dt-mode", dt_mode, "--verbose"]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out = io.StringIO()
@@ -592,12 +679,16 @@ def phase_main(card: dict, path: str) -> dict:
         # the CLI's own report goes to stderr: stdout keeps the JSON lines
         sys.stderr.write(out.getvalue())
         check(rc == 0, f"simulate returned {rc}")
-        check(TRANSFORMS_LINE[path] in out.getvalue(), f"the {path} run took another path")
-        for name in PATH_KERNELS[path]:
-            check(launches[name] > 0, f"the {path} main path launched {name} no time")
+        check(TRANSFORMS_LINE[path] in out.getvalue(), f"the {run} run took another path")
+        check(f"dt {dt_mode}" in out.getvalue(), f"the {run} run took another dt mode")
+        for name in RUN_KERNELS[run]:
+            check(launches[name] > 0, f"the {run} main run launched {name} no time")
         timer = re.search(r"(\d+) steps in ([0-9.]+)s", out.getvalue())
         check(timer is not None, "no StepTimer line in the verbose output")
         iterations = launches[ITERATION_KERNEL[path]]
+        for name in PER_ITERATION.get(run, ()):
+            check(launches[name] == iterations,
+                  f"the {run} run launched {name} {launches[name]} times in {iterations} iterations")
 
         runs = [f"tophat-collapse-stream{s:05d}" for s in range(1, 9)] + ["tophat-collapse"]
         dx3 = (30.0 / size) ** 3
@@ -618,7 +709,7 @@ def phase_main(card: dict, path: str) -> dict:
         check(norm_err <= 1e-3, f"norm off by {norm_err}")
         total_steps = sum(steps.values())
         rec = {
-            "phase": "main", "path": path,
+            "phase": "main", "run": run, "path": path, "dt_mode": dt_mode,
             "config": "tophat-collapse 256^3, 8 Wigner + MFT, c64, 3 dumps over t=40",
             "runs": len(runs), "dumps_checked": len(runs) * (n_dumps + 1),
             "n_steps": steps["tophat-collapse"], "n_steps_all": total_steps,
@@ -650,25 +741,21 @@ def main() -> int:
     measured.update(phase_fft_kernels(card))
     measured.update(phase_fused_kernels(card))
     phase_e2e(card)
-    mains = {path: phase_main(card, path) for path in PATHS}
+    mains = {run: phase_main(card, run) for run in RUNS}
     emit({
         "phase": "main-compare",
-        **{key: {path: rec[key] for path, rec in mains.items()}
+        **{key: {run: rec[key] for run, rec in mains.items()}
            for key in ("cell_updates_per_s", "wall_s", "loop_ms_per_iteration", "peak_gib",
-                       "n_steps_all", "iterations")},
+                       "n_steps_all", "iterations", "replays")},
         **card,
     })
-    # each kernel's launches from the main run of the path it was ported for
-    own_path = {k: "xla" for k in PHASE_KERNELS}
-    own_path.update({k: "mxu" for k in FFT_KERNELS})
-    own_path.update({k: "fused" for k in FUSED_KERNELS})
     emit({"kernels": [
         {
             "name": k,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": mains[own_path[k]]["launches"][k],
+            "launches": mains[OWN_RUN[k]]["launches"][k],
             "max_abs_err": measured[k]["max_abs_err"],
             "ms": measured[k]["ms"],
             "plain_ms": measured[k]["plain_ms"],

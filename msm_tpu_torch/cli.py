@@ -1,20 +1,22 @@
 """Command-line interface of the port.
 
-    python -m msm_tpu_torch simulate --toml path.toml --device cuda|cpu
-        [--data-root DIR] [--precision f32|f64] [--verbose]
+    python -m msm_tpu_torch simulate --toml path.toml [--device cuda|cpu]
+        [--data-root DIR] [--precision f32|f64]
+        [--dt-mode optimistic|exact|lagged] [--fast-dt] [--verbose]
 
 Counterpart of msm_tpu/cli.py's `simulate` (`simulator/src/main.rs:9-17`)
-on the port's path: the batched ensemble with optimistic dt. The device
-is named, never guessed. The JAX CLI's other flags (dt modes, resume,
-online synthesis, meshes, ...) are not ported yet, so argparse rejects
-them.
+on the port's path: the batched ensemble in each of the three dt modes.
+It runs on the card unless `--device cpu` asks for the kernels' plain
+versions on the CPU; without a card, `cuda` raises and nothing falls back.
+The JAX CLI's other flags (resume, online synthesis, meshes, ...) are not
+ported yet, so argparse rejects them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device) or `mxu`
 (the engine's FFT kernels). In 3-D, `mxu` runs the fused, skewed engine,
 as the JAX CLI does by default on a TPU; `MSM_FUSE_PHASES=0` runs the
-unfused engine path instead, and `MSM_SKEW_STEP=0` (the unskewed fused
-engine) is refused: it is not ported yet.
+unfused engine path instead, and `MSM_SKEW_STEP=0` the unskewed fused
+engine.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ def cmd_simulate(args) -> int:
             device=args.device,
             data_root=args.data_root,
             verbose=args.verbose,
+            dt_mode="lagged" if args.fast_dt else args.dt_mode,
         )
     finally:
         fft_ops.set_default_mode(mode)
@@ -64,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="run the simulator (msm-simulator)",
         epilog="MSM_FFT=xla|mxu chooses the transforms (default xla on both "
         "devices). 3-D mxu runs the fused, skewed engine; MSM_FUSE_PHASES=0 "
-        "runs the unfused engine path instead.",
+        "runs the unfused engine path instead, MSM_SKEW_STEP=0 the unskewed "
+        "fused engine.",
     )
     sim.add_argument("--toml", required=True, help="path to the simulation toml")
     sim.add_argument(
@@ -79,8 +83,27 @@ def build_parser() -> argparse.ArgumentParser:
     sim.add_argument(
         "--device",
         choices=("cuda", "cpu"),
-        required=True,
-        help="cuda: the CUDA kernels on the card; cpu: their plain versions",
+        default="cuda",
+        help="cuda (default): the CUDA kernels on the card, which must be "
+        "there; cpu: their plain versions",
+    )
+    sim.add_argument(
+        "--dt-mode",
+        choices=("optimistic", "exact", "lagged"),
+        default="optimistic",
+        help="adaptive-dt semantics. optimistic (default): propose dt from "
+        "the carried max|phi| and VALIDATE it against the step's own fresh "
+        "midpoint potential, replaying the rare violating step — the CFL "
+        "bound holds against fresher data than the reference's pre-step "
+        "phi(t) at roughly half the exact mode's cost. exact: solve the "
+        "potential twice per step like the reference (update :497,:530). "
+        "lagged: bound dt with the previous step's potential, never "
+        "validated",
+    )
+    sim.add_argument(
+        "--fast-dt",
+        action="store_true",
+        help="alias for --dt-mode lagged (kept for compatibility)",
     )
     sim.add_argument("--verbose", "-v", action="store_true")
     sim.set_defaults(fn=cmd_simulate)

@@ -52,7 +52,8 @@ _SIGNATURES = {
     "msm_fft_plane_real_fwd": [_P, _P, _I64, _I, _I, _P],
     # in, tmp, out, m, log_n, is_double, stream
     "msm_fft_plane_real_inv": [_P, _P, _P, _I64, _I, _I, _P],
-    # in, out, b1, log_n, lanes, s0, s12, f0, f12, cutoff, partials, is_double, stream
+    # in, out, b1, log_n, lanes, s0, s12, f0, f12, cutoff, partials (or None),
+    # is_double, stream
     "msm_axis_roundtrip_kick": [_P, _P, _I64, _I, _I64, _P, _P, _P, _P, _D, _P, _I, _P],
     # in, out, b1, log_n, lanes, s0, s12, coeff, is_double, stream
     "msm_axis_roundtrip_poisson": [_P, _P, _I64, _I, _I64, _P, _P, _D, _I, _P],
@@ -64,6 +65,14 @@ _SIGNATURES = {
     "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     # psi, out, m, log_n, pref, is_double, stream
     "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _P],
+    # in, rho, m, log_n, pref, is_double, stream
+    "msm_plane_inv_density_rho_only": [_P, _P, _I64, _I, _D, _I, _P],
+    # in, tmp, maxes, m, log_n, is_double, stream
+    "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _P],
+    # in, out, b1, log_n, lanes, f0, f12, is_double, stream
+    "msm_axis_inv_kick": [_P, _P, _I64, _I, _I64, _P, _P, _I, _P],
+    # in, out, b1, log_n, lanes, s0, s12, cutoff, partials, is_double, stream
+    "msm_axis_fwd_reduce": [_P, _P, _I64, _I, _I64, _P, _P, _D, _P, _I, _P],
 }
 
 

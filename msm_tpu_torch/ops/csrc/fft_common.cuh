@@ -11,7 +11,9 @@
 //     elements lands in one bit-reversed row, so the stores stay free of bank
 //     conflicts) and writes the tile back in natural order. At n = 1024 the
 //     tile is 128 KB, above the 48 KB default, so it is dynamic shared memory
-//     raised with cudaFuncSetAttribute.
+//     raised with cudaFuncSetAttribute. With KICK, each element is multiplied
+//     as it is loaded by the separable kinetic phase f0[b, row] * f12[b, lane]
+//     (the unskewed fused step's first pass, K12).
 //
 // Twiddles are computed per block with double-precision sincospi and rounded
 // once to the kernel's precision. Offsets are 64-bit. Everything here has
@@ -101,10 +103,21 @@ int tile_threads(int log_n) {
   return threads;
 }
 
-template <typename T, bool INV>
+// The KICK prologue's tables: exp(i c_b s0[k]) (b1, n) and exp(i c_b s12[lane])
+// (b1, lanes), built outside the kernel; their product is the phase of
+// exp(i c_b k^2) with k^2 = s0 + s12, multiplied in the order the TPU kernel
+// multiplies it.
+template <typename T>
+struct AxisKick {
+  const typename Complex<T>::type* f0;
+  const typename Complex<T>::type* f12;
+};
+
+template <typename T, bool INV, bool KICK = false>
 __global__ void __launch_bounds__(1024)
     axis_fft_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
-                    int log_n, int64_t lanes, int64_t tiles_per_batch, T scale) {
+                    int log_n, int64_t lanes, int64_t tiles_per_batch, T scale,
+                    AxisKick<T> kick) {
   // in may equal out: the whole tile is read before any of it is written.
   using C = typename Complex<T>::type;
   constexpr int log_w = log_tile_width<T>();
@@ -123,7 +136,9 @@ __global__ void __launch_bounds__(1024)
     const int c = i & (w - 1);
     const int r = i >> log_w;
     const int rr = static_cast<int>(__brev(static_cast<unsigned>(r)) >> (32 - log_n));
-    tile[(rr << log_w) + c] = in[base + r * lanes + c];
+    C v = in[base + r * lanes + c];
+    if constexpr (KICK) v = cmul(v, cmul(kick.f0[b * n + r], kick.f12[b * lanes + col0 + c]));
+    tile[(rr << log_w) + c] = v;
   }
   __syncthreads();
   // stage with butterfly half-width h: x[i0], x[i0 + h] with twiddle
@@ -160,21 +175,22 @@ T ortho_scale(int log_n) {
 }
 
 // (b1, n, lanes): transform the middle axis. lanes % W == 0.
-template <typename T, bool INV>
+template <typename T, bool INV, bool KICK = false>
 cudaError_t launch_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, AxisKick<T> kick = {}) {
   using C = typename Complex<T>::type;
   constexpr int log_w = log_tile_width<T>();
   const int n = 1 << log_n;
   const size_t smem = ((static_cast<size_t>(n) << log_w) + n / 2) * sizeof(C);
-  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV>,
+  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV, KICK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int64_t tiles = lanes >> log_w;
-  axis_fft_kernel<T, INV><<<static_cast<unsigned>(b1 * tiles), tile_threads<T>(log_n), smem,
-                            stream>>>(static_cast<const C*>(in), static_cast<C*>(out), log_n,
-                                      lanes, tiles, ortho_scale<T>(log_n));
+  axis_fft_kernel<T, INV, KICK>
+      <<<static_cast<unsigned>(b1 * tiles), tile_threads<T>(log_n), smem, stream>>>(
+          static_cast<const C*>(in), static_cast<C*>(out), log_n, lanes, tiles,
+          ortho_scale<T>(log_n), kick);
   return cudaGetLastError();
 }
 

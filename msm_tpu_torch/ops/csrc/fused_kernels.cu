@@ -3,8 +3,10 @@
 // through a plain C interface (msm_tpu_torch/ops/build.py).
 //
 //   msm_axis_roundtrip_kick    : forward DFT along axis 1, sum |y|^2 and the
-//                                alias-band sum (k^2 > cutoff) per block,
-//                                y * exp(i c_b k^2), inverse DFT; replaces
+//                                alias-band sum (k^2 > cutoff) per block
+//                                (skipped when partials is null: the exact-dt
+//                                prefix's with_reduce=False), y * exp(i c_b
+//                                k^2), inverse DFT; replaces
 //                                msm_tpu/ops/mxu_fft.py
 //                                _axis_pass_sublane_roundtrip_kick_reduce_sep /
 //                                _sublane_kernel_roundtrip_kick_reduce_sep (K1).
@@ -24,6 +26,23 @@
 //   msm_axis_roundtrip_map     : forward DFT along axis 1, y * map[k, lane],
 //                                inverse DFT; replaces
 //                                _axis_pass_sublane_roundtrip_pmap (K8).
+//   msm_plane_inv_density_rho_only : K2 without the psi write: only the
+//                                2-axis forward of pref |psi|^2 leaves;
+//                                replaces
+//                                _axis_pass_fused2_inv_density_rho_only /
+//                                _fused_kernel_inv_density_rho_only (K10).
+//   msm_plane_real_inv_max     : max |Re 2-axis inverse DFT| per block, no
+//                                plane written; replaces
+//                                _axis_pass_fused2_real_inv_max /
+//                                _fused_kernel_real_inv_max (K11).
+//   msm_axis_inv_kick          : x exp(i c_b k^2) from the separable factor
+//                                tables, then the inverse DFT along axis 1;
+//                                replaces _axis_pass_sublane_inv_kphase_sep /
+//                                _sublane_kernel_inv_kphase_sep (K12).
+//   msm_axis_fwd_reduce        : forward DFT along axis 1, sum |y|^2 and the
+//                                alias-band sum per block; replaces
+//                                _axis_pass_sublane_fwd_reduce_sep /
+//                                _sublane_kernel_fwd_reduce_sep (K13).
 //
 // k^2 along axis 1 is s0[k] and over the other two axes the pre-summed
 // s12[lane], summed s0 + s12 as the TPU kernels sum them (membership in the
@@ -35,7 +54,9 @@
 // 1.21 GB, 0.36 ms at 3.35 TB/s. A round trip (K1, K3, K8) reads and writes
 // the grid once: 0.72 ms (K8 also reads a real N^3 map). The plane kernels
 // must read and write 3 grids (K2: x in, psi and rhoT out; K4: phi_k and psi
-// in, the next field out), 1.08 ms, and K7 2 grids, 0.72 ms.
+// in, the next field out), 1.08 ms, and K7 2 grids, 0.72 ms. K12 and K13
+// read and write the grid once, 0.72 ms; K10 reads one grid and writes one,
+// 0.72 ms; K11 reads one and writes only its maxima, 0.36 ms.
 //
 // Design:
 //   round trip (axis_roundtrip_kernel): the column tile of the axis pass
@@ -47,6 +68,11 @@
 //     are accumulated in double per thread and reduced per block in a fixed
 //     order (warp shuffles, then the warps in turn); the wrapper adds the
 //     per-block partials with torch. No atomics, so runs are reproducible.
+//     K13 is the same kernel stopped after the epilogue: it stores y at its
+//     natural row k and leaves its partials from the same loop in the same
+//     order as K1, so the unskewed step's sums are bit-identical to the ones
+//     the skewed loop's K1 takes of the same field. K12 is the column pass
+//     (axis_fft_kernel) with the kick multiplied in as the tile is loaded.
 //   plane kernels: a 256^2 complex64 plane is 512 KB, more than a block's
 //     227 KB of shared memory, so each is the split form of the engine's
 //     plane pass: a column pass (axis_fft_kernel), a fused row kernel
@@ -58,6 +84,9 @@
 //     row block (2048 elements) never straddles a plane for n in 128..1024,
 //     so K4 reads one stream's coefficient per block and leaves one max|phi|
 //     partial per block, which the wrapper reduces per plane with torch.
+//     K10 is K2's three launches with a row body that writes no psi (6 grids
+//     of traffic against K2's 7); K11 is K9's column inverse into a scratch
+//     grid and a row body that keeps only K4's max|Re| partials (3 grids).
 //
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic, twiddles from double
 // sincospi, accurate sincos, no fast math. Offsets are 64-bit. Every entry
@@ -84,7 +113,8 @@ __device__ __forceinline__ T nan_max(T m, T v) {
 // Axis round trip (K1, K3, K8)
 // ---------------------------------------------------------------------------
 
-enum RoundTrip { kKickReduce, kPoisson, kMap };
+// kFwdReduce: the forward half and the sums only (K13), y stored at row k.
+enum RoundTrip { kKickReduce, kPoisson, kMap, kFwdReduce };
 
 template <typename T>
 struct RoundTripArgs {
@@ -94,8 +124,9 @@ struct RoundTripArgs {
   const C* f0;       // (b1, n) exp(i c_b s0)
   const C* f12;      // (b1, lanes) exp(i c_b s12)
   const T* map;      // (n, lanes) real map
-  T param;           // kKickReduce: alias cutoff; kPoisson: -coeff
-  double* partials;  // kKickReduce: (blocks, 2) sum |y|^2, alias-band sum
+  T param;           // kKickReduce, kFwdReduce: alias cutoff; kPoisson: -coeff
+  double* partials;  // kKickReduce (or null: no sums), kFwdReduce: (blocks, 2)
+                     // sum |y|^2, alias-band sum
 };
 
 template <typename T, int MODE>
@@ -139,7 +170,11 @@ __global__ void __launch_bounds__(1024)
     }
     __syncthreads();
   }
-  // epilogue: row r holds k = bitrev(r)
+  // epilogue: row r holds k = bitrev(r). The sums are taken where they are
+  // asked for; a null K1 partials is the same for the whole launch, so the
+  // block's __syncthreads below is reached by all threads or by none.
+  constexpr bool kSums = MODE == kKickReduce || MODE == kFwdReduce;
+  const bool reduce = kSums && a.partials != nullptr;
   double ns = 0.0;
   double am = 0.0;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -147,40 +182,50 @@ __global__ void __launch_bounds__(1024)
     const int k = static_cast<int>(__brev(static_cast<unsigned>(r)) >> (32 - log_n));
     const int64_t lane = col0 + (i & (w - 1));
     C y = cscale(tile[i], scale);
+    if constexpr (kSums) {
+      if (reduce) {
+        const T p2 = y.x * y.x + y.y * y.y;
+        ns += p2;
+        if (a.s0[k] + a.s12[lane] > a.param) am += p2;
+      }
+    }
     if constexpr (MODE == kKickReduce) {
-      const T p2 = y.x * y.x + y.y * y.y;
-      ns += p2;
-      if (a.s0[k] + a.s12[lane] > a.param) am += p2;
       y = cmul(y, cmul(a.f0[b * n + k], a.f12[b * lanes + lane]));
     } else if constexpr (MODE == kPoisson) {
       const T k2 = a.s0[k] + a.s12[lane];
       y = cscale(y, k2 > T(0) ? a.param / k2 : T(0));
-    } else {
+    } else if constexpr (MODE == kMap) {
       y = cscale(y, a.map[k * lanes + lane]);
     }
-    tile[i] = y;
-  }
-  __syncthreads();
-  // inverse, decimation in time (as axis_fft_kernel, conjugate twiddles)
-  for (int h = 1, step = n >> 1; h < n; h <<= 1, step >>= 1) {
-    for (int i = threadIdx.x; i < total / 2; i += blockDim.x) {
-      const int c = i & (w - 1);
-      const int j = i >> log_w;
-      const int k = j & (h - 1);
-      const int i0 = ((j - k) << 1) + k;
-      C* p0 = tile + (i0 << log_w) + c;
-      C* p1 = p0 + (h << log_w);
-      const C u = *p0;
-      const C v = cmul(*p1, cconj(tw[k * step]));
-      *p0 = cadd(u, v);
-      *p1 = csub(u, v);
+    if constexpr (MODE == kFwdReduce) {
+      out[base + k * lanes + (i & (w - 1))] = y;
+    } else {
+      tile[i] = y;
     }
+  }
+  if constexpr (MODE != kFwdReduce) {
     __syncthreads();
+    // inverse, decimation in time (as axis_fft_kernel, conjugate twiddles)
+    for (int h = 1, step = n >> 1; h < n; h <<= 1, step >>= 1) {
+      for (int i = threadIdx.x; i < total / 2; i += blockDim.x) {
+        const int c = i & (w - 1);
+        const int j = i >> log_w;
+        const int k = j & (h - 1);
+        const int i0 = ((j - k) << 1) + k;
+        C* p0 = tile + (i0 << log_w) + c;
+        C* p1 = p0 + (h << log_w);
+        const C u = *p0;
+        const C v = cmul(*p1, cconj(tw[k * step]));
+        *p0 = cadd(u, v);
+        *p1 = csub(u, v);
+      }
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      out[base + (i >> log_w) * lanes + (i & (w - 1))] = cscale(tile[i], scale);
+    }
   }
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    out[base + (i >> log_w) * lanes + (i & (w - 1))] = cscale(tile[i], scale);
-  }
-  if constexpr (MODE == kKickReduce) {
+  if (reduce) {
     for (int off = 16; off > 0; off >>= 1) {
       ns += __shfl_down_sync(0xffffffffu, ns, off);
       am += __shfl_down_sync(0xffffffffu, am, off);
@@ -226,10 +271,12 @@ cudaError_t launch_roundtrip(const void* in, void* out, int64_t b1, int log_n, i
 }
 
 // ---------------------------------------------------------------------------
-// Fused row kernel (the row halves of K2, K4, K7)
+// Fused row kernel (the row halves of K2, K4, K7, K10, K11)
 // ---------------------------------------------------------------------------
 
-enum RowBody { kInvDensity, kPotKick, kDensity };
+// kRhoOnly: kInvDensity without the psi write (K10). kRealMax: the inverse,
+// max |Re| per block as kPotKick keeps it, and nothing written (K11).
+enum RowBody { kInvDensity, kPotKick, kDensity, kRhoOnly, kRealMax };
 
 template <typename T>
 struct RowArgs {
@@ -238,10 +285,10 @@ struct RowArgs {
   const C* psi_in;           // kPotKick, kDensity: psi rows
   C* psi_out;                // kInvDensity: psi rows written
   C* out;                    // the forward transform's rows
-  T* maxes;                  // kPotKick: (blocks,) max |phi|
+  T* maxes;                  // kPotKick, kRealMax: (blocks,) max |phi|
   const T* coeff;            // kPotKick: (batch,) kick coefficient
   int64_t planes_per_batch;  // kPotKick: planes of one stream
-  T pref;                    // kInvDensity, kDensity: density prefactor
+  T pref;                    // kInvDensity, kDensity, kRhoOnly: density prefactor
 };
 
 // Radix-2 Stockham (decimation in frequency, self-sorting) over every row of
@@ -283,6 +330,7 @@ __global__ void __launch_bounds__(kRowThreads)
     row_fused_kernel(int log_n, int64_t rows, T scale, RowArgs<T> a) {
   // a.in may equal a.out: a block reads all of its rows before it writes any.
   using C = typename Complex<T>::type;
+  constexpr bool kMax = BODY == kPotKick || BODY == kRealMax;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = 1 << log_n;
   C* x = reinterpret_cast<C*>(smem);
@@ -314,34 +362,37 @@ __global__ void __launch_bounds__(kRowThreads)
     if constexpr (BODY == kPotKick) c = a.coeff[(first >> (2 * log_n)) / a.planes_per_batch];
     for (int i = threadIdx.x; i < count; i += blockDim.x) {
       const C v = cscale(r[i], scale);
-      if constexpr (BODY == kInvDensity) {
-        a.psi_out[first + i] = v;
+      if constexpr (BODY == kInvDensity || BODY == kRhoOnly) {
+        if constexpr (BODY == kInvDensity) a.psi_out[first + i] = v;
         r[i].x = a.pref * (v.x * v.x + v.y * v.y);
         r[i].y = T(0);
       } else {
         const T phi = v.x;
         mx = nan_max(mx, phi < T(0) ? -phi : phi);
-        T sn, cs;
-        sincos_acc(c * phi, &sn, &cs);
-        const C p = a.psi_in[first + i];
-        r[i].x = p.x * cs - p.y * sn;
-        r[i].y = p.y * cs + p.x * sn;
+        if constexpr (BODY == kPotKick) {
+          T sn, cs;
+          sincos_acc(c * phi, &sn, &cs);
+          const C p = a.psi_in[first + i];
+          r[i].x = p.x * cs - p.y * sn;
+          r[i].y = p.y * cs + p.x * sn;
+        }
       }
     }
-    if constexpr (BODY == kPotKick) {
+    if constexpr (kMax) {
       for (int off = 16; off > 0; off >>= 1) {
         mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
       }
       if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
     }
     __syncthreads();
-    if constexpr (BODY == kPotKick) {
+    if constexpr (kMax) {
       if (threadIdx.x == 0) {
         T m = red[0];
         for (int q = 1; q < kRowThreads / 32; ++q) m = nan_max(m, red[q]);
         a.maxes[blockIdx.x] = m;
       }
     }
+    if constexpr (BODY == kRealMax) return;  // K11 writes no plane
   }
   r = stockham_rows<T, false>(r, o, tw, log_n, count);
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
@@ -424,6 +475,49 @@ cudaError_t plane_potkick_fwd(const void* phik, const void* psi, void* out, void
   return axis<T>(out, out, m, log_n, n, false, stream);
 }
 
+// K10: K2's launches with the kRhoOnly row body: columns inverse into rho
+// (as scratch), the rows (rho's row forward in place, no psi), rho's
+// columns forward in place.
+template <typename T>
+cudaError_t plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int log_n,
+                                       double pref, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  const int64_t n = int64_t(1) << log_n;
+  cudaError_t err = axis<T>(in, rho, m, log_n, n, true, stream);
+  if (err != cudaSuccess) return err;
+  RowArgs<T> a{};
+  a.in = static_cast<const C*>(rho);
+  a.out = static_cast<C*>(rho);
+  a.pref = static_cast<T>(pref);
+  err = launch_row_fused<T, kRhoOnly>(m, log_n, a, stream);
+  if (err != cudaSuccess) return err;
+  return axis<T>(rho, rho, m, log_n, n, false, stream);
+}
+
+// K11: K9's column inverse into tmp, then the rows' inverse reduced to one
+// max |Re| per row block.
+template <typename T>
+cudaError_t plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m, int log_n,
+                               cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  cudaError_t err = axis<T>(in, tmp, m, log_n, int64_t(1) << log_n, true, stream);
+  if (err != cudaSuccess) return err;
+  RowArgs<T> a{};
+  a.in = static_cast<const C*>(tmp);
+  a.maxes = static_cast<T*>(maxes);
+  return launch_row_fused<T, kRealMax>(m, log_n, a, stream);
+}
+
+// K12: the inverse column pass with the kick multiplied in on load.
+template <typename T>
+cudaError_t axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                          const void* f0, const void* f12, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  return launch_axis<T, true, true>(
+      in, out, b1, log_n, lanes, stream,
+      AxisKick<T>{static_cast<const C*>(f0), static_cast<const C*>(f12)});
+}
+
 template <typename T>
 RoundTripArgs<T> roundtrip_args(const void* s0, const void* s12, const void* f0,
                                 const void* f12, const void* map, double param,
@@ -446,7 +540,7 @@ extern "C" {
 
 // K1. in, out: (b1, 2^log_n, lanes) interleaved complex (in == out allowed);
 // s0: (n,) and s12: (lanes,) real; f0: (b1, n) and f12: (b1, lanes) complex
-// phase factors; partials: (b1 * lanes / W, 2) double.
+// phase factors; partials: (b1 * lanes / W, 2) double, or null for no sums.
 int msm_axis_roundtrip_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
                             const void* s0, const void* s12, const void* f0, const void* f12,
                             double cutoff, void* partials, int is_double, void* stream) {
@@ -519,6 +613,51 @@ int msm_plane_density_fwd(const void* psi, void* out, int64_t m, int log_n, doub
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_double ? plane_density_fwd<double>(psi, out, m, log_n, pref, s)
                                     : plane_density_fwd<float>(psi, out, m, log_n, pref, s));
+}
+
+// K13. as K1 without the kick and the inverse: out is the forward DFT along
+// axis 1 (in == out allowed); partials: (b1 * lanes / W, 2) double.
+int msm_axis_fwd_reduce(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                        const void* s0, const void* s12, double cutoff, void* partials,
+                        int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    return static_cast<int>(launch_roundtrip<double, kFwdReduce>(
+        in, out, b1, log_n, lanes,
+        roundtrip_args<double>(s0, s12, nullptr, nullptr, nullptr, cutoff, partials), s));
+  }
+  return static_cast<int>(launch_roundtrip<float, kFwdReduce>(
+      in, out, b1, log_n, lanes,
+      roundtrip_args<float>(s0, s12, nullptr, nullptr, nullptr, cutoff, partials), s));
+}
+
+// K12. in, out: (b1, 2^log_n, lanes) interleaved complex (in == out allowed);
+// f0: (b1, n), f12: (b1, lanes) complex phase factors.
+int msm_axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                      const void* f0, const void* f12, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_double ? axis_inv_kick<double>(in, out, b1, log_n, lanes, f0, f12, s)
+                : axis_inv_kick<float>(in, out, b1, log_n, lanes, f0, f12, s));
+}
+
+// K10. in, rho: (m, n, n) interleaved complex, distinct.
+int msm_plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int log_n,
+                                   double pref, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_double ? plane_inv_density_rho_only<double>(in, rho, m, log_n, pref, s)
+                : plane_inv_density_rho_only<float>(in, rho, m, log_n, pref, s));
+}
+
+// K11. in, tmp: (m, n, n) interleaved complex (tmp is scratch); maxes:
+// (m * n * n / 2048,) real, one max |Re| per row block.
+int msm_plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m, int log_n,
+                           int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double
+                              ? plane_real_inv_max<double>(in, tmp, maxes, m, log_n, s)
+                              : plane_real_inv_max<float>(in, tmp, maxes, m, log_n, s));
 }
 
 }  // extern "C"

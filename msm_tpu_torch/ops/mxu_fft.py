@@ -25,14 +25,25 @@ transforms, in `csrc/fused_kernels.cu`:
   plane_density_fwd      : 2-axis fwd of pref |psi|^2                 (K7)
   axis_roundtrip_map     : axis-1 fwd, x map, axis-1 inv              (K8)
 
-and the engine functions built on them: `poisson_solve` (K7, K8, K9),
-`skew_enter` (K5), `fused_step_3d_skewed` (K1-K4), `skew_exit` (K1, K5,
-K6), with the `SingleEngine` surface the stepper drives. Unlike the JAX
-engine, k comes out in natural fftn order (the engine's residue-major
-order exists only so that a TPU never shuffles data; `convert.to_natural`
-/ `to_engine` map between the two); k^2 along axis 1 is the 1-D table s0
-and over the two trailing axes the flattened s12 = s0[:, None] +
-s0[None, :], summed s0 + s12 as the JAX kernels sum them.
+and four that complete the 3-D engine: the exact-dt prefix's and the
+unskewed step's
+
+  plane_inv_density_rho_only : K2 without the psi write               (K10)
+  plane_real_inv_max     : max|Re 2-axis inv| per plane, no plane out (K11)
+  axis_inv_kick          : x exp(i c_b k^2), axis-1 inv               (K12)
+  axis_fwd_reduce        : axis-1 fwd, sum|y|^2 and alias-band sums   (K13)
+
+(K1 also runs without its sums, `with_reduce=False`, in the prefix). The
+engine functions built on them: `poisson_solve` (K7, K8, K9),
+`skew_enter` (K5), `fused_step_3d_skewed` (K1-K4),
+`fused_step_exact_prefix` (K1, K10, K3, K11), `fused_step_3d` (K12,
+K2-K4, K13), `skew_exit` (K1, K5, K6), with the `SingleEngine` surface
+the stepper drives. Unlike the JAX engine, k comes out in natural fftn
+order (the engine's residue-major order exists only so that a TPU never
+shuffles data; `convert.to_natural` / `to_engine` map between the two);
+k^2 along axis 1 is the 1-D table s0 and over the two trailing axes the
+flattened s12 = s0[:, None] + s0[None, :], summed s0 + s12 as the JAX
+kernels sum them.
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain torch.fft version beside it; any other device raises. Sizes are the
@@ -63,9 +74,14 @@ launches = {
     "plane_potkick_fwd": 0,
     "plane_density_fwd": 0,
     "axis_roundtrip_map": 0,
+    "plane_inv_density_rho_only": 0,
+    "plane_real_inv_max": 0,
+    "axis_inv_kick": 0,
+    "axis_fwd_reduce": 0,
 }
 # elements of one row block of the fused row kernel (kRowTile in
-# csrc/fft_common.cuh): plane_potkick_fwd leaves one max|phi| per block
+# csrc/fft_common.cuh): plane_potkick_fwd and plane_real_inv_max leave one
+# max|phi| per block
 _ROW_TILE = 2048
 
 
@@ -314,14 +330,37 @@ def _density(psi: torch.Tensor, prefactor: float) -> torch.Tensor:
     return prefactor * (psi.real * psi.real + psi.imag * psi.imag)
 
 
-def axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff: float):
+def _band_sums(y, s0, s12, cutoff: float):
+    """(sum |y|^2, sum of |y|^2 where s0 + s12 > cutoff) per batch element
+    of y (b1, N, lanes)."""
+    p2 = y.real * y.real + y.imag * y.imag
+    return p2.sum(dim=(1, 2)), torch.where(_k2(s0, s12) > cutoff, p2, 0.0).sum(dim=(1, 2))
+
+
+def _kick(y, f0, f12):
+    """y (b1, N, lanes) times exp(i c_b k^2) = f0[b, k] f12[b, lane]."""
+    return y * (f0[:, :, None] * f12[:, None, :])
+
+
+def axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff: float, with_reduce: bool = True):
     b1, n, lanes, _ = _axis1(x)
     y = torch.fft.fft(x.reshape(b1, n, lanes), dim=1, norm="ortho")
-    p2 = y.real * y.real + y.imag * y.imag
-    norm = p2.sum(dim=(1, 2))
-    alias = torch.where(_k2(s0, s12) > cutoff, p2, 0.0).sum(dim=(1, 2))
-    y = y * (f0[:, :, None] * f12[:, None, :])
-    return torch.fft.ifft(y, dim=1, norm="ortho").reshape(x.shape), norm, alias
+    out = torch.fft.ifft(_kick(y, f0, f12), dim=1, norm="ortho").reshape(x.shape)
+    if not with_reduce:
+        return out
+    return (out, *_band_sums(y, s0, s12, cutoff))
+
+
+def axis_inv_kick_plain(x, f0, f12):
+    b1, n, lanes, _ = _axis1(x)
+    y = _kick(x.reshape(b1, n, lanes), f0, f12)
+    return torch.fft.ifft(y, dim=1, norm="ortho").reshape(x.shape)
+
+
+def axis_fwd_reduce_plain(x, s0, s12, cutoff: float):
+    b1, n, lanes, _ = _axis1(x)
+    y = torch.fft.fft(x.reshape(b1, n, lanes), dim=1, norm="ortho")
+    return (y.reshape(x.shape), *_band_sums(y, s0, s12, cutoff))
 
 
 def axis_roundtrip_poisson_plain(x, s0, s12, coeff: float):
@@ -344,10 +383,23 @@ def plane_inv_density_plain(x, prefactor: float):
     return psi, torch.fft.fft2(_density(psi, prefactor), dim=(-2, -1), norm="ortho")
 
 
+def plane_inv_density_rho_only_plain(x, prefactor: float):
+    return plane_inv_density_plain(x, prefactor)[1]
+
+
+def _plane_max(phi: torch.Tensor) -> torch.Tensor:
+    """max|phi| of each (N, N) plane (NaN-keeping, as the kernels')."""
+    return phi.abs().reshape(-1, phi.shape[-1] ** 2).amax(-1)
+
+
+def plane_real_inv_max_plain(z):
+    return _plane_max(torch.fft.ifft2(z, dim=(-2, -1), norm="ortho").real)
+
+
 def plane_potkick_fwd_plain(phik, psi, coeff):
     m, n = phik.numel() // phik.shape[-1] ** 2, phik.shape[-1]
     phi = torch.fft.ifft2(phik.reshape(m, n, n), dim=(-2, -1), norm="ortho").real
-    maxes = phi.abs().reshape(m, -1).amax(-1)
+    maxes = _plane_max(phi)
     ang = coeff.repeat_interleave(m // coeff.numel()).reshape(m, 1, 1) * phi
     cs, sn = torch.cos(ang), torch.sin(ang)
     p = psi.reshape(m, n, n)
@@ -384,36 +436,103 @@ def _roundtrip_operand(x: torch.Tensor, name: str) -> tuple[torch.Tensor, int]:
     return x.contiguous(), is_double
 
 
-def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float):
-    """K1: forward DFT of x (b1, N, ...) along axis 1; per batch element,
-    sum |y|^2 and the sum of |y|^2 where s0 + s12 > cutoff; y times
-    exp(i coeff_b k^2); inverse DFT. s0: (N,), s12: (lanes,), coeff: (b1,)
-    or one value. Returns (out, norm_sums, alias_sums), the sums (b1,)."""
-    b1, n, lanes, log_n = _axis1(x)
-    on_card = _route(x, "axis_roundtrip_kick")
+def _kick_tables(x, s0, s12, coeff):
+    """(s0, s12, f0, f12) on x's device and precision for a (b1, N, ...)
+    operand: the k^2 tables and the kick's separable factors."""
+    b1, n, lanes, _ = _axis1(x)
     s0 = _table(s0, x, n, "s0")
     s12 = _table(s12, x, lanes, "s12")
     c = coeff.to(device=x.device, dtype=x.real.dtype).reshape(-1).expand(b1)
-    f0, f12 = kick_factors(c, s0, s12)
-    if not on_card:
-        return axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff)
-    x, is_double = _roundtrip_operand(x, "axis_roundtrip_kick")
-    out = torch.empty_like(x)
-    partials = torch.empty(
+    return (s0, s12, *kick_factors(c, s0, s12))
+
+
+def _partials(x: torch.Tensor) -> torch.Tensor:
+    """Per-block (sum |y|^2, alias-band sum) partials of a round-trip tile
+    geometry, in double."""
+    b1, _, lanes, _ = _axis1(x)
+    return torch.empty(
         (b1 * lanes // (_TILE_BYTES // x.element_size()), 2),
         dtype=torch.float64, device=x.device,
     )
+
+
+def _sums(partials: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    sums = partials.view(x.shape[0], -1, 2).sum(dim=1).to(x.real.dtype)
+    return sums[:, 0], sums[:, 1]
+
+
+def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float, with_reduce: bool = True):
+    """K1: forward DFT of x (b1, N, ...) along axis 1; per batch element,
+    sum |y|^2 and the sum of |y|^2 where s0 + s12 > cutoff; y times
+    exp(i coeff_b k^2); inverse DFT. s0: (N,), s12: (lanes,), coeff: (b1,)
+    or one value. Returns (out, norm_sums, alias_sums), the sums (b1,), or
+    out alone with with_reduce=False (the kernel then takes no sums)."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_roundtrip_kick")
+    s0, s12, f0, f12 = _kick_tables(x, s0, s12, coeff)
+    if not on_card:
+        return axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff, with_reduce)
+    x, is_double = _roundtrip_operand(x, "axis_roundtrip_kick")
+    out = torch.empty_like(x)
+    partials = _partials(x) if with_reduce else None
     lib = build.load()
     with torch.cuda.device(x.device):
         rc = lib.msm_axis_roundtrip_kick(
             x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
-            f0.data_ptr(), f12.data_ptr(), float(cutoff), partials.data_ptr(), is_double,
-            _stream(x),
+            f0.data_ptr(), f12.data_ptr(), float(cutoff),
+            None if partials is None else partials.data_ptr(), is_double, _stream(x),
         )
     build.check(rc, "axis_roundtrip_kick")
     launches["axis_roundtrip_kick"] += 1
-    sums = partials.view(b1, -1, 2).sum(dim=1).to(x.real.dtype)
-    return out, sums[:, 0], sums[:, 1]
+    if partials is None:
+        return out
+    return (out, *_sums(partials, x))
+
+
+def axis_inv_kick(x, s0, s12, coeff):
+    """K12: x (b1, N, ...), k along axis 1, times exp(i coeff_b k^2) with
+    k^2 = s0 + s12 (the factors built outside the kernel, as for K1), then
+    the inverse DFT along axis 1."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_inv_kick")
+    _s0, _s12, f0, f12 = _kick_tables(x, s0, s12, coeff)
+    if not on_card:
+        return axis_inv_kick_plain(x, f0, f12)
+    x, is_double = _roundtrip_operand(x, "axis_inv_kick")
+    out = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_axis_inv_kick(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, f0.data_ptr(), f12.data_ptr(),
+            is_double, _stream(x),
+        )
+    build.check(rc, "axis_inv_kick")
+    launches["axis_inv_kick"] += 1
+    return out
+
+
+def axis_fwd_reduce(x, s0, s12, cutoff: float):
+    """K13: forward DFT of x (b1, N, ...) along axis 1; per batch element,
+    sum |y|^2 and the sum of |y|^2 where s0 + s12 > cutoff, taken in K1's
+    order. Returns (y, norm_sums, alias_sums)."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_fwd_reduce")
+    s0 = _table(s0, x, n, "s0")
+    s12 = _table(s12, x, lanes, "s12")
+    if not on_card:
+        return axis_fwd_reduce_plain(x, s0, s12, cutoff)
+    x, is_double = _roundtrip_operand(x, "axis_fwd_reduce")
+    out = torch.empty_like(x)
+    partials = _partials(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_axis_fwd_reduce(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
+            float(cutoff), partials.data_ptr(), is_double, _stream(x),
+        )
+    build.check(rc, "axis_fwd_reduce")
+    launches["axis_fwd_reduce"] += 1
+    return (out, *_sums(partials, x))
 
 
 def axis_roundtrip_poisson(x, s0, s12, coeff: float):
@@ -478,6 +597,47 @@ def plane_inv_density(x, prefactor: float):
     build.check(rc, "plane_inv_density")
     launches["plane_inv_density"] += 1
     return psi, rho
+
+
+def plane_inv_density_rho_only(x, prefactor: float):
+    """K10: the forward DFT over the last two axes of prefactor * |psi|^2,
+    psi = the ortho inverse DFT of x over them; psi is never written."""
+    m, log_n = _planes(x)
+    if not _route(x, "plane_inv_density_rho_only"):
+        return plane_inv_density_rho_only_plain(x, prefactor)
+    is_double = _check_dtype(
+        x, (torch.complex64, torch.complex128), "plane_inv_density_rho_only"
+    )
+    x = x.contiguous()
+    rho = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_plane_inv_density_rho_only(
+            x.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor), is_double, _stream(x)
+        )
+    build.check(rc, "plane_inv_density_rho_only")
+    launches["plane_inv_density_rho_only"] += 1
+    return rho
+
+
+def plane_real_inv_max(z):
+    """K11: max |Re of the ortho inverse DFT of z over its last two axes|
+    per (N, N) plane, (m,); the real plane is never written."""
+    m, log_n = _planes(z)
+    if not _route(z, "plane_real_inv_max"):
+        return plane_real_inv_max_plain(z)
+    is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_real_inv_max")
+    z = z.contiguous()
+    tmp = torch.empty_like(z)
+    maxes = torch.empty(m * z.shape[-1] ** 2 // _ROW_TILE, dtype=z.real.dtype, device=z.device)
+    lib = build.load()
+    with torch.cuda.device(z.device):
+        rc = lib.msm_plane_real_inv_max(
+            z.data_ptr(), tmp.data_ptr(), maxes.data_ptr(), m, log_n, is_double, _stream(z)
+        )
+    build.check(rc, "plane_real_inv_max")
+    launches["plane_real_inv_max"] += 1
+    return maxes.view(m, -1).amax(dim=-1)
 
 
 def plane_potkick_fwd(phik, psi, coeff):
@@ -589,6 +749,60 @@ def fused_step_3d_skewed(
     return q_next, norm, alias, maxes.view(q.shape[0], -1).amax(dim=-1)
 
 
+def fused_step_3d(
+    psik, s0, s12, kcoeff, vcoeff, poisson_coeff: float, alias_cutoff: float,
+    prefactor: float,
+):
+    """The KDK step interior unskewed, in five passes from psik (k in all
+    three axes) to psik (msm_tpu's `fused_step_3d`, mxu_fft.py:1600-1649):
+
+      K12  the kinetic kick exp(i kcoeff_b k^2) (any deferred half-kick
+           folded into kcoeff), z inverse;
+      K2   (y, x) inverse -> psi; rho = prefactor |psi|^2 and its (y, x)
+           forward;
+      K3   z forward, x -poisson_coeff / k^2, z inverse;
+      K4   phi = Re (y, x) inverse, max|phi|, psi exp(i vcoeff_b phi),
+           (y, x) forward;
+      K13  z forward -> psik, with its norm and alias-band sums.
+
+    Returns (psi, psik_new, norm_sums, alias_sums, phi_max) per stream: psi
+    is the drift midpoint's field, the sums describe psik_new, and the
+    closing half-kick is NOT applied (the caller defers or applies it)."""
+    _batched_3d(psik, "psik")
+    x = axis_inv_kick(psik, s0, s12, kcoeff)
+    psi, rho_t = plane_inv_density(x, prefactor)
+    del x
+    phi_t = axis_roundtrip_poisson(rho_t, s0, s12, poisson_coeff)
+    del rho_t
+    q, maxes = plane_potkick_fwd(phi_t, psi, vcoeff)
+    del phi_t
+    psik_new, norm, alias = axis_fwd_reduce(q, s0, s12, alias_cutoff)
+    return psi, psik_new, norm, alias, maxes.view(psik.shape[0], -1).amax(dim=-1)
+
+
+def fused_step_exact_prefix(q, s0, s12, pending, poisson_coeff: float, prefactor: float):
+    """The exact-dt mode's pre-step potential bound on the skewed carrier q
+    in four passes (msm_tpu's `fused_step_exact_prefix`,
+    mxu_fft.py:1806-1837; the reference's first Poisson solve of the step,
+    update :497):
+
+      K1   (no sums) the deferred closing kick exp(i pending_b k^2):
+           q1, the carrier of psi(t);
+      K10  (y, x) inverse of q1, rho = prefactor |psi(t)|^2 and its (y, x)
+           forward, psi(t) never written;
+      K3   z forward, x -poisson_coeff / k^2, z inverse;
+      K11  max|Re (y, x) inverse| = max|phi(t)|, phi(t) never written.
+
+    Returns (q1, phi_max) per stream; q1 goes on into
+    `fused_step_3d_skewed` with the new step's kcoeff alone."""
+    _batched_3d(q, "q")
+    q1 = axis_roundtrip_kick(q, s0, s12, pending, 0.0, with_reduce=False)
+    rho_t = plane_inv_density_rho_only(q1, prefactor)
+    phi_t = axis_roundtrip_poisson(rho_t, s0, s12, poisson_coeff)
+    del rho_t
+    return q1, plane_real_inv_max(phi_t).view(q.shape[0], -1).amax(dim=-1)
+
+
 def skew_exit(q, s0, s12, pending, alias_cutoff: float):
     """(psi, psik, norm_sums, alias_sums) from the carrier: K1 applies the
     deferred kick exp(i pending_b k^2) (and gives the last step's sums),
@@ -611,13 +825,15 @@ class SingleEngine:
         self.prefactor = float(prefactor)
 
     def fused_step(self, psik, consts, kick, vcoeff):
-        raise NotImplementedError(
-            "the unskewed fused step needs K12/K13 (ROADMAP Queue 1, item 9)"
+        return fused_step_3d(
+            psik, consts.spec_axis0, consts.spec_axis12, kick, vcoeff,
+            self.poisson_coeff, self.alias_cutoff, self.prefactor,
         )
 
     def exact_prefix(self, q, consts, pending):
-        raise NotImplementedError(
-            "the exact-dt prefix needs K10/K11 (ROADMAP Queue 1, item 3)"
+        return fused_step_exact_prefix(
+            q, consts.spec_axis0, consts.spec_axis12, pending, self.poisson_coeff,
+            self.prefactor,
         )
 
     def fused_step_skewed(self, q, consts, kick, vcoeff):

@@ -125,23 +125,40 @@ def _report_aliasing(params: SimulationParameters, mass: float, strict: bool):
     log.error("%s", err)
 
 
+def _transforms(stepper: Stepper) -> str:
+    """The transform path and the kernels it runs, for the verbose line."""
+    exact = stepper.dt_mode == "exact"
+    if stepper.skew:
+        prefix = "K1, K10, K3, K11 + " if exact else ""
+        return f"mxu (fused, skewed engine: {prefix}K1-K4, K7, K8 + K5, K6, K9)"
+    if stepper.fuse_phases:
+        solve = "K7, K8, K9 (pre-step potential) + " if exact else "K7, K8, K9 + "
+        return f"mxu (fused, unskewed engine: K12, K2, K3, K4, K13, {solve}K19, K5, K6)"
+    if stepper.use_mxu:
+        return "mxu (engine FFT kernels: K5, K6, K17, K9 + K19, K21)"
+    return "xla (torch.fft + K19, K21)"
+
+
 def run_config(
     toml: TomlParameters,
     dtype: torch.dtype = torch.complex64,
     *,
-    device: "torch.device | str",
+    device: "torch.device | str" = "cuda",
     data_root: str = "sim-data",
     verbose: bool = False,
+    dt_mode: str = "optimistic",
 ) -> SimState:
-    """Run every stream of a config plus the MFT as one batch on `device`;
-    returns the final batched state (streams in seed order, MFT last)."""
+    """Run every stream of a config plus the MFT as one batch on `device`
+    (the card unless the caller asks for "cpu") in `dt_mode` (one of
+    stepper.DT_MODES); returns the final batched state (streams in seed
+    order, MFT last)."""
     if toml.remote_storage_parameters is not None:
         raise NotImplementedError("[remote_storage_parameters] is not ported yet")
     all_params = list(iter_stream_parameters(toml))
     n = len(all_params)
     mft_params = all_params[-1]
     stream_params = all_params[:-1]
-    stepper = Stepper(mft_params, dtype, device)
+    stepper = Stepper(mft_params, dtype, device, dt_mode=dt_mode)
 
     base_psi = torch.as_tensor(build_ics(mft_params)).to(stepper.device, dtype)
     if stream_params:
@@ -160,13 +177,8 @@ def run_config(
             f"Running {len(stream_params)} {scheme_txt}"
             f"streams + MFT as one batch of {n} on {stepper.device}"
         )
-        if stepper.fuse_phases:
-            transforms = "mxu (fused, skewed engine: K1-K4, K7, K8 + K5, K6, K9)"
-        elif stepper.use_mxu:
-            transforms = "mxu (engine FFT kernels)"
-        else:
-            transforms = "xla (torch.fft)"
-        print(f"Transforms: {transforms} at {mft_params.size}^{mft_params.dims}")
+        print(f"Transforms: {_transforms(stepper)} at {mft_params.size}^{mft_params.dims}, "
+              f"dt {stepper.dt_mode}")
     strict_alias = n == 1
     reported_alias = [False] * n
     t_start = _time.monotonic()

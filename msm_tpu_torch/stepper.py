@@ -1,10 +1,10 @@
 """Split-step (kick-drift-kick) pseudo-spectral Schrodinger-Poisson stepper.
 
-Counterpart of msm_tpu/stepper.py's static, optimistic-dt, single-device
-path (`SimulationObject::update`, `simulator/src/simulation_object.rs:
+Counterpart of msm_tpu/stepper.py's static, single-device path
+(`SimulationObject::update`, `simulator/src/simulation_object.rs:
 475-661`; `get_timestep` :878-934; `calculate_potential` :1031-1110;
-`check_alias` :1249-1293) in two of its configurations, chosen by the
-transform mode (`ops.fft.get_mode`):
+`check_alias` :1249-1293) in its three dt modes and these configurations,
+chosen by the transform mode (`ops.fft.get_mode`):
 
 - `xla` (with `MSM_USE_PALLAS=1` in JAX): transforms are torch.fft (cuFFT
   on the card); the Poisson solve is the half-spectrum rfft/irfft pair.
@@ -27,18 +27,29 @@ transform mode (`ops.fft.get_mode`):
   leaving it one round trip (K1), a z forward (K5) and a (y, x) inverse
   (K6) (`_make_skew_body` :1050-1153, `_evolve_to_next_dump_skewed`
   :1155-1220). The kinetic phase, the Poisson map and the alias band come
-  from the separable k^2 tables s0 and s12 (natural order). Its unskewed
-  form (`MSM_SKEW_STEP=0`) needs K12/K13 and is refused, and so is a
-  single `step()`, which JAX runs unskewed.
+  from the separable k^2 tables s0 and s12 (natural order). In exact dt
+  each iteration first runs the four-pass prefix (K1 without its sums,
+  K10, K3, K11) for max|phi(t)|.
+- `mxu`, fused and unskewed (3-D with `MSM_SKEW_STEP=0`, and a single
+  `step()` of any fused stepper, as in JAX): the host loop below with the
+  fused step (`SingleEngine.fused_step`: K12, K2, K3, K4, K13); the closing
+  half-kick and psi's inverse are K19 and the engine transforms (K5, K6),
+  and exact dt's pre-step potential is the three-pass solve (K7, K8, K9).
 - Every kernel's plain version runs on the CPU.
 - The state is a dataclass of tensors with a leading stream-batch axis on
   every field (`SimState`); one step is `_step`.
-- dt is optimistic: proposed from the carried max|phi| and validated after
-  the step against the step's own midpoint max|phi|; an invalid step is
-  discarded per stream and replayed with the corrected bound.
+- dt modes (msm_tpu/stepper.py:170-191): `optimistic` (the CLI's default)
+  proposes dt from the carried max|phi| times DT_SAFETY and validates it
+  after the step against the step's own midpoint max|phi|; an invalid step
+  is discarded per stream and replayed with the corrected bound. `exact`
+  (the reference's semantics) takes dt from max|phi(t)| of a fresh
+  pre-step Poisson solve, and applies the closing half-kick and inverts on
+  every step. `lagged` takes dt from the previous step's midpoint max|phi|,
+  never validated. Lagged and optimistic defer the closing half-kick into
+  pending_k except on steps that land on a dump.
 - Torch has no on-device while loop, so `evolve_to_next_dump` steps on the
-  host. Each iteration makes ONE device->host read: the per-stream active
-  mask (it ends the loop and decides whether the per-stream freeze blend
+  host. Each iteration makes ONE device->host read (in exact dt, after the
+  pre-step potential): the per-stream active mask (it ends the loop and decides whether the per-stream freeze blend
   is needed, skipped when every stream is active, as `lax.cond` does in
   the JAX loop) together with whether any stream's step lands on a dump
   (which decides the closing half-kick, the JAX `_finalize_step` cond).
@@ -49,8 +60,7 @@ transform mode (`ops.fft.get_mode`):
   per-stream select; one stream aliasing does not stop the batch, unlike
   the reference panic (`simulation_object.rs:607-617`).
 
-Not here yet: exact and lagged dt, expanding mode, the unskewed fused
-engine.
+Not here yet: expanding mode.
 """
 
 from __future__ import annotations
@@ -131,6 +141,7 @@ class _Advance:
     time: torch.Tensor
 
 
+DT_MODES = ("optimistic", "exact", "lagged")
 # Optimistic-dt constants, the JAX stepper's defaults (msm_tpu.stepper):
 # the proposal's safety factor on the potential bound (each consecutive
 # replay inflates the carried bound by 1/DT_SAFETY, so replay cascades end
@@ -153,22 +164,30 @@ def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
 class Stepper:
     """Stepper for one resolved static configuration on one device.
 
-    dtype: complex64 or complex128; rdtype follows it. tdtype, the dtype
-    of time bookkeeping, defaults to float64 for complex128 and float32 for
-    complex64 (what the JAX CLI gets: x64 only for --precision f64).
+    dtype: complex64 or complex128; rdtype follows it. device: the card
+    unless the caller asks for "cpu" (the kernels' plain versions); "cuda"
+    without a card raises. tdtype, the dtype of time bookkeeping, defaults
+    to float64 for complex128 and float32 for complex64 (what the JAX CLI
+    gets: x64 only for --precision f64). dt_mode: one of DT_MODES,
+    "optimistic" by default as for the CLI and `run_config` (msm_tpu's
+    `Stepper` class itself defaults to "exact").
     """
 
     def __init__(
         self,
         params: SimulationParameters,
         dtype: torch.dtype,
-        device: "torch.device | str",
+        device: "torch.device | str" = "cuda",
         tdtype: "torch.dtype | None" = None,
+        dt_mode: str = "optimistic",
     ):
         if params.expanding:
             raise NotImplementedError("expanding mode is not ported yet")
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
+        if dt_mode not in DT_MODES:
+            raise ValueError(f"dt_mode must be one of {DT_MODES}, got {dt_mode!r}")
+        self.dt_mode = dt_mode
         self.params = params
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -194,11 +213,6 @@ class Stepper:
             self.use_mxu and p.dims == 3 and not _env_off("MSM_FUSE_PHASES")
         )
         self.skew = self.fuse_phases and not _env_off("MSM_SKEW_STEP")
-        if self.fuse_phases and not self.skew:
-            raise NotImplementedError(
-                "the unskewed fused engine (MSM_SKEW_STEP=0) needs K12/K13 "
-                "(ROADMAP Queue 1, item 9)"
-            )
         # k2_max from the separable 1-D table: max(sum_i k_i^2) = dims *
         # max(k_1d^2), identical to the full grid's max
         s1d = build_spec_grid(p.dx, 1, p.size)
@@ -344,13 +358,19 @@ class Stepper:
             phi_k, s=(self.params.size,) * self.params.dims, dim=axes
         ).to(self.rdtype)
 
-    def _scalar_advance(self, state: SimState) -> _Advance:
-        """dt = min(kinetic, safety * potential(carried max|phi|), to next
-        dump) (get_timestep :878-934), the dump flag, kick coefficients
-        kcoeff = -dt/4*hbar_ and vcoeff = -dt/hbar_ (:504-516, :535-545)."""
+    def _scalar_advance(self, state: SimState, phi_max=None) -> _Advance:
+        """dt = min(kinetic, potential(max|phi|), to next dump) (get_timestep
+        :878-934; msm_tpu's `_timestep` :726-764), the dump flag, kick
+        coefficients kcoeff = -dt/4*hbar_ and vcoeff = -dt/hbar_ (:504-516,
+        :535-545). phi_max: exact mode's max|phi(t)| of the pre-step state;
+        None takes the carried bound (lagged, optimistic). Only optimistic
+        mode scales the potential term by DT_SAFETY."""
         p = self.params
         next_idx = torch.clamp(state.current_dumps + 1, max=p.num_data_dumps)
-        potential = _rdiv(self.potential_num, 2.0 * state.phi_max) * DT_SAFETY
+        bound = state.phi_max if phi_max is None else phi_max
+        potential = _rdiv(self.potential_num, 2.0 * bound)
+        if self.dt_mode == "optimistic":
+            potential = potential * DT_SAFETY
         to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
         dt = torch.minimum(torch.clamp(potential, max=self.kinetic_dt), to_next)
         return _Advance(
@@ -360,6 +380,15 @@ class Stepper:
             vcoeff=(-dt / p.hbar_).to(self.rdtype),
             time=state.time + dt,
         )
+
+    def _pre_step_bound(self, state: SimState):
+        """Exact dt's max|phi(t)| from a fresh Poisson solve of the pre-step
+        psi (update :497; exact mode keeps psi materialized every step);
+        None in the other modes."""
+        if self.dt_mode != "exact":
+            return None
+        phi = self.potential(state.psi)
+        return torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
 
     def _predict_bound(self, pm_fresh, state: SimState):
         """Optimistic proposal bound for the next step: the fresh midpoint
@@ -390,29 +419,39 @@ class Stepper:
 
     def step(self, state: SimState) -> SimState:
         """One step of every stream, with no freeze mask (msm_tpu's
-        Stepper.step)."""
-        if self.fuse_phases:
-            raise NotImplementedError(
-                "a single fused step is the unskewed fused step, which needs "
-                "K12/K13 (ROADMAP Queue 1, item 9); the fused engine runs "
-                "through evolve_to_next_dump"
-            )
-        adv = self._scalar_advance(state)
+        Stepper.step); on a fused stepper the unskewed fused step, as JAX
+        runs it."""
+        adv = self._scalar_advance(state, self._pre_step_bound(state))
         return self._step(state, adv, bool(adv.is_dump.any()))
 
     def _step(self, state: SimState, adv: _Advance, any_dump: bool) -> SimState:
-        """One static KDK step (update, :475-661) with optimistic-dt
-        validation. `any_dump` (whether any stream's dt lands on a dump)
-        chooses between applying the closing half-kick and materializing
-        psi, or deferring the kick into pending_k."""
-        # opening half kick merged with the deferred one (K19), then the
-        # potential kick at the half step (K21)
-        psi = self._inv(self._apply_kinetic(state.psik, state.pending_k + adv.kcoeff))
-        phi = self.potential(psi)
-        phi_max = torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
-        psik = self._fwd(kernels.phase_rotate(psi, phi, adv.vcoeff))
-        alias_mass = self._alias_mass(psik)
-        if any_dump:
+        """One static KDK step (update, :475-661; msm_tpu's `_step_static`
+        :853-903). The closing half-kick (`_finalize_step` :815-841) is
+        applied and psi materialized on every step in exact mode; in the
+        other modes only when `any_dump` (whether any stream's dt lands on a
+        dump), else it is deferred into pending_k."""
+        p = self.params
+        # the opening half kick merged with the deferred one
+        kick = state.pending_k + adv.kcoeff
+        if self.fuse_phases:
+            # the unskewed fused step (K12, K2, K3, K4, K13); its alias-band
+            # sum is of the new psik, which the closing kick leaves as it is
+            mid, psik, _norm, alias, pm = self.engine.fused_step(
+                state.psik, self.consts, kick, adv.vcoeff
+            )
+            del mid  # the drift midpoint's psi; psi comes from the closing inverse
+            phi_max = pm.to(self.tdtype)
+            alias_mass = alias * p.dk**p.dims
+        else:
+            # the kinetic kick (K19), then the potential kick at the half
+            # step (K21)
+            psi = self._inv(self._apply_kinetic(state.psik, kick))
+            phi = self.potential(psi)
+            phi_max = torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
+            psik = self._fwd(kernels.phase_rotate(psi, phi, adv.vcoeff))
+            del psi, phi
+            alias_mass = self._alias_mass(psik)
+        if self.dt_mode == "exact" or any_dump:
             psik = self._apply_kinetic(psik, adv.kcoeff)
             psi = self._inv(psik)
             pending = torch.zeros_like(adv.kcoeff)
@@ -424,10 +463,13 @@ class Stepper:
     def _finish_step(
         self, state: SimState, adv: _Advance, psi, psik, alias_mass, pm_fresh, pending
     ) -> SimState:
-        """Assemble the advanced state; a stream whose dt fails validation
-        keeps its old state, adopts the fresh bound inflated by 1/safety
-        and counts a replay."""
+        """Assemble the advanced state (`_finish_step` :905-957). Optimistic
+        mode carries the predicted bound and validates: a stream whose dt
+        fails keeps its old state, adopts the fresh bound inflated by
+        1/safety and counts a replay. Lagged and exact carry the fresh
+        midpoint max|phi| and never replay."""
         p = self.params
+        optimistic = self.dt_mode == "optimistic"
         new = dataclasses.replace(
             state,
             psi=psi,
@@ -437,12 +479,14 @@ class Stepper:
             just_dumped=adv.is_dump,
             aliased=state.aliased | (alias_mass > p.alias_threshold),
             alias_mass=alias_mass,
-            phi_max=self._predict_bound(pm_fresh, state),
+            phi_max=self._predict_bound(pm_fresh, state) if optimistic else pm_fresh,
             phi_ref=pm_fresh,
             pending_k=pending,
             dt_min=torch.minimum(state.dt_min, adv.dt),
             dt_max=torch.maximum(state.dt_max, adv.dt),
         )
+        if not optimistic:
+            return new
         invalid = self._dt_invalid(adv.dt, pm_fresh)
         rev = dataclasses.replace(
             state,
@@ -483,7 +527,7 @@ class Stepper:
         finished = state.current_dumps >= self.params.num_data_dumps
         while True:
             mask = self._active(state, finished)
-            adv = self._scalar_advance(state)
+            adv = self._scalar_advance(state, self._pre_step_bound(state))
             # the loop's one device->host read
             any_active, all_active, any_dump = torch.stack(
                 [mask.any(), mask.all(), adv.is_dump.any()]
@@ -506,10 +550,18 @@ class Stepper:
         p = self.params
         dkd = p.dk**p.dims
         active = self._active(s, finished)
-        adv = self._scalar_advance(s)
-        q, _norm, alias, pm = self.engine.fused_step_skewed(
-            s.psik, self.consts, s.pending_k + adv.kcoeff, adv.vcoeff
-        )
+        q = s.psik
+        if self.dt_mode == "exact":
+            # max|phi(t)| of the pre-step state: the prefix applies the
+            # deferred closing kick to a copy of the carrier (s keeps the
+            # un-kicked one and its pending_k for streams that stay)
+            q, pm_now = self.engine.exact_prefix(q, self.consts, s.pending_k)
+            adv = self._scalar_advance(s, pm_now.to(self.tdtype))
+            kick = adv.kcoeff
+        else:
+            adv = self._scalar_advance(s)
+            kick = s.pending_k + adv.kcoeff
+        q, _norm, alias, pm = self.engine.fused_step_skewed(q, self.consts, kick, adv.vcoeff)
         # the sums describe the state ENTERING this iteration: a stream
         # whose last step aliased must not advance (the aliased update
         # completes, then the stream stops, :607-617); n_steps > 0 spares
@@ -517,7 +569,11 @@ class Stepper:
         mass_in = alias * dkd
         newly = active & (mass_in > p.alias_threshold) & (s.n_steps > 0)
         pm_fresh = pm.to(self.tdtype)
-        invalid = active & ~newly & self._dt_invalid(adv.dt, pm_fresh)
+        optimistic = self.dt_mode == "optimistic"
+        if optimistic:
+            invalid = active & ~newly & self._dt_invalid(adv.dt, pm_fresh)
+        else:
+            invalid = torch.zeros_like(newly)
         advance = active & ~newly & ~invalid
         new = dataclasses.replace(
             s,
@@ -525,7 +581,7 @@ class Stepper:
             time=adv.time,
             n_steps=s.n_steps + 1,
             just_dumped=adv.is_dump,
-            phi_max=self._predict_bound(pm_fresh, s),
+            phi_max=self._predict_bound(pm_fresh, s) if optimistic else pm_fresh,
             phi_ref=pm_fresh,
             pending_k=adv.kcoeff,
             dt_min=torch.minimum(s.dt_min, adv.dt),

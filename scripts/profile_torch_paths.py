@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Per-iteration time of the port's three 3-D paths on one GPU, and a
-device profile of one of them.
+"""Per-iteration time of the port's 3-D paths on one GPU, and a device
+profile of one of them.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
     python3 scripts/profile_torch_paths.py [--size 256] [--seeds 8]
-        [--profile fused] [--out profile_out]
+        [--paths xla,mxu,fused] [--dt-mode optimistic] [--profile fused]
+        [--out profile_out]
 
 Builds chip_smoke.py's main configuration once (the tophat-collapse
 physics at --size^3, --seeds Wigner streams + MFT, complex64, 3 dumps over
 t = 40) and starts every run from that sampled batch, through the
-stepper API (no dump writes). Paths, as chip_smoke.py names them: `xla`
-(torch.fft), `mxu` (MSM_FFT=mxu, MSM_FUSE_PHASES=0: the engine's FFT
-kernels, unfused) and `fused` (MSM_FFT=mxu: the fused, skewed engine).
+stepper API (no dump writes), in --dt-mode. Paths, as chip_smoke.py names
+them: `xla` (torch.fft), `mxu` (MSM_FFT=mxu, MSM_FUSE_PHASES=0: the
+engine's FFT kernels, unfused), `fused` (MSM_FFT=mxu: the fused, skewed
+engine; in exact dt each iteration adds the prefix K1, K10, K3, K11) and
+`unskewed` (MSM_FFT=mxu, MSM_SKEW_STEP=0: the unskewed fused engine).
 
-1. In turns (xla, mxu, fused, fused, mxu, xla) each path runs its first
+1. In turns (--paths, then the same in reverse) each path runs its first
    dump interval as warm-up, then the second interval is timed with the
    host clock around work that ends in a synchronize: iterations (the
    launches of the kernel each path runs once per iteration), accepted
@@ -67,14 +70,14 @@ def build_batch(size: int, seeds: int, dtype=torch.complex64):
     return torch.cat([sampled, base[None]]), mft
 
 
-def second_interval(path: str, batch, mft, profile=None) -> dict:
+def second_interval(path: str, dt_mode: str, batch, mft, profile=None) -> dict:
     """Warm up on the first dump interval, then run the second (under
     `profile` if given) and time it."""
     from msm_tpu_torch.ops import kernels, mxu_fft
     from msm_tpu_torch.stepper import Stepper
 
     with chip_smoke.fft_mode(path):
-        st = Stepper(mft, torch.complex64, "cuda")
+        st = Stepper(mft, torch.complex64, "cuda", dt_mode=dt_mode)
         s = st.snap_after_dump(st.evolve_to_next_dump(st.init_state(batch)))
         steps0 = int(s.n_steps.sum())
         torch.cuda.synchronize()
@@ -91,7 +94,8 @@ def second_interval(path: str, batch, mft, profile=None) -> dict:
         launches = {**kernels.launches, **mxu_fft.launches}
     iterations = launches[chip_smoke.ITERATION_KERNEL[path]]
     return {
-        "path": path, "iterations": iterations, "steps": int(s.n_steps.sum()) - steps0,
+        "path": path, "dt_mode": dt_mode, "iterations": iterations,
+        "steps": int(s.n_steps.sum()) - steps0,
         "wall_s": wall, "ms_per_iteration": wall * 1e3 / iterations,
         "launches": {k: v for k, v in launches.items() if v},
     }
@@ -103,12 +107,13 @@ def short_name(name: str) -> str:
     return re.sub(r"^(\w+::)+", "", re.sub(r"\(.*$", "", name))
 
 
-def profile_interval(path: str, batch, mft, out_dir: str, unprofiled_s: float, card) -> None:
+def profile_interval(path: str, dt_mode: str, batch, mft, out_dir: str, unprofiled_s: float,
+                     card) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    rec = second_interval(path, batch, mft, profile=prof)
+    rec = second_interval(path, dt_mode, batch, mft, profile=prof)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
@@ -119,7 +124,8 @@ def profile_interval(path: str, batch, mft, out_dir: str, unprofiled_s: float, c
     table = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     it = rec["iterations"]
     emit({
-        "phase": "profile", "path": path, "iterations": it, "steps": rec["steps"],
+        "phase": "profile", "path": path, "dt_mode": dt_mode, "iterations": it,
+        "steps": rec["steps"],
         "device_busy_ms": busy_ms, "device_ms_per_iteration": busy_ms / it,
         "profiled_wall_s": rec["wall_s"], "unprofiled_wall_s": unprofiled_s,
         "device_idle_share": 1.0 - busy_ms / (unprofiled_s * 1e3),
@@ -131,18 +137,25 @@ def profile_interval(path: str, batch, mft, out_dir: str, unprofiled_s: float, c
         **card,
     })
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"kernels_{path}.json"), "w") as f:
+    tag = f"{path}_{dt_mode}"
+    with open(os.path.join(out_dir, f"kernels_{tag}.json"), "w") as f:
         json.dump([{"kernel": k, "ms": ms, "launches": n} for k, (ms, n) in table], f, indent=1)
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{path}.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{tag}.json"))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--paths", default="xla,mxu,fused",
+                    help="comma-separated paths to time, in turns")
+    ap.add_argument("--dt-mode", default="optimistic", choices=("optimistic", "exact", "lagged"))
     ap.add_argument("--profile", default="fused", choices=tuple(chip_smoke.PATHS))
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
+    paths = args.paths.split(",")
+    if not set(paths) <= set(chip_smoke.PATHS):
+        ap.error(f"--paths takes {sorted(chip_smoke.PATHS)}")
     if not torch.cuda.is_available():
         print("profile_torch_paths: no CUDA device", file=sys.stderr)
         return 1
@@ -151,12 +164,15 @@ def main() -> int:
     chip_smoke.phase_build(card)
     batch, mft = build_batch(args.size, args.seeds)
     walls = collections.defaultdict(list)
-    for path in ("xla", "mxu", "fused", "fused", "mxu", "xla"):
-        rec = second_interval(path, batch, mft)
+    for path in paths + paths[::-1]:
+        rec = second_interval(path, args.dt_mode, batch, mft)
         walls[path].append(rec["wall_s"])
         emit({"phase": "interval", **rec, **card})
         torch.cuda.empty_cache()
-    profile_interval(args.profile, batch, mft, args.out, min(walls[args.profile]), card)
+    if args.profile not in walls:
+        walls[args.profile].append(second_interval(args.profile, args.dt_mode, batch, mft)["wall_s"])
+    profile_interval(args.profile, args.dt_mode, batch, mft, args.out,
+                     min(walls[args.profile]), card)
     return 0
 
 

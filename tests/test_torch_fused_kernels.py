@@ -200,14 +200,25 @@ def test_skew_enter_and_exit_match_jax(rng):
     np.testing.assert_allclose(am.numpy(), np.asarray(jam), rtol=RTOL)
 
 
-def test_fused_engine_refusals():
-    """The unskewed fused step and the exact-dt prefix are not ported; 2-D
-    and unbatched fields are not the fused engine's."""
-    eng = mxu_fft.SingleEngine(3, 1.0, 0.5, 1.0)
-    with pytest.raises(NotImplementedError, match="K12/K13"):
-        eng.fused_step(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="K10/K11"):
-        eng.exact_prefix(None, None, None)
+def test_fused_engine_refusals(rng):
+    """2-D and unbatched fields are not the fused engine's. The unskewed
+    fused step and the exact-dt prefix run: on a (2, 128^3) batch the
+    carrier and psik keep the grid's shape and every reduction is one value
+    per stream."""
+    from msm_tpu_torch.stepper import StepConsts
+
+    s0 = torch.as_tensor(spec_grid(30.0 / N, 1, N))
+    consts = StepConsts(
+        alias_mask=torch.zeros(1), poisson_map=torch.zeros(1),
+        spec_axis0=s0, spec_axis12=(s0[:, None] + s0[None, :]).reshape(-1),
+    )
+    eng = mxu_fft.SingleEngine(3, 1.0, 0.5 * 3 * float(s0.max()), 1.0)
+    q = torch.as_tensor(_complex(rng, (2, N, N, N)))
+    c = torch.as_tensor(COEFFS[:2] * 1e-3)
+    q1, pm = eng.exact_prefix(q, consts, c)
+    assert q1.shape == q.shape and q1.dtype == q.dtype and pm.shape == (2,)
+    outs = eng.fused_step(q, consts, c, c)
+    assert [tuple(o.shape) for o in outs] == [q.shape, q.shape, (2,), (2,), (2,)]
     z = torch.zeros((1, N, N), dtype=torch.complex128)
     with pytest.raises(NotImplementedError, match="3-D"):
         mxu_fft.poisson_solve(z, 2, 1.0, torch.zeros(N, N))

@@ -1,5 +1,6 @@
 """The port runs without JAX: importing it loads neither jax nor msm_tpu,
-and a device it cannot use is refused rather than replaced."""
+its entry points run on the card unless the caller asks for the CPU, and
+a device it cannot use is refused rather than replaced."""
 
 import os
 import subprocess
@@ -67,20 +68,34 @@ def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Stepper(_params(), torch.complex64, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Stepper(_params(), torch.complex64)
     toml = tmp_path / "t.toml"
     toml.write_text("")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["simulate", "--toml", str(toml), "--device", "cuda"])
+    for device in (["--device", "cuda"], []):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["simulate", "--toml", str(toml)] + device)
 
 
 def test_cli_requires_device():
+    """The device defaults to the card: `cuda` unless --device cpu asks for
+    the kernels' plain versions, in the CLI, `run_config` and `Stepper`."""
+    import inspect
+
+    from msm_tpu_torch import simulator
+
+    parse = cli.build_parser().parse_args
+    assert parse(["simulate", "--toml", "x.toml"]).device == "cuda"
+    assert parse(["simulate", "--toml", "x.toml", "--device", "cpu"]).device == "cpu"
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["simulate", "--toml", "x.toml"])
+        parse(["simulate", "--toml", "x.toml", "--device", "tpu"])
+    for fn in (simulator.run_config, Stepper.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize(
     "extra",
-    [["--resume"], ["--dt-mode", "exact"], ["--online-synthesis"], ["--mesh", "auto"]],
+    [["--resume"], ["--sequential-streams"], ["--online-synthesis"], ["--mesh", "auto"]],
 )
 def test_cli_rejects_unported_flags(extra):
     """Flags of the JAX CLI that the port does not implement yet are

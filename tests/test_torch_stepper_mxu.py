@@ -122,20 +122,23 @@ def test_3d_unfused_steps_match_jax_mxu(mxu_mode, monkeypatch):
 
 def test_3d_fused_mode_selection(mxu_mode, monkeypatch):
     """3-D mxu with no variables set takes the fused, skewed engine, as JAX
-    does; MSM_FUSE_PHASES=0 keeps the unfused engine path. The unskewed
-    fused engine (MSM_SKEW_STEP=0) and a single fused `step()`, which JAX
-    runs unskewed, need K12/K13 and are refused. 2-D mxu never fuses."""
+    does; MSM_SKEW_STEP=0 builds the unskewed fused engine, and a single
+    `step()` of either runs the unskewed fused step, as JAX runs it;
+    MSM_FUSE_PHASES=0 keeps the unfused engine path. 2-D mxu never fuses."""
     monkeypatch.delenv("MSM_FUSE_PHASES", raising=False)
     monkeypatch.delenv("MSM_SKEW_STEP", raising=False)
     tp = cfg.resolve_parameters(_toml(cfg, 3, 128))
     st = Stepper(tp, torch.complex128, "cpu")
     assert st.use_mxu and st.fuse_phases and st.skew
     assert isinstance(st.engine, mxu_fft.SingleEngine)
-    with pytest.raises(NotImplementedError, match="K12/K13"):
-        st.step(st.init_state(torch.as_tensor(ics.build_ics(tp))[None]))
+    s0 = st.init_state(torch.as_tensor(ics.build_ics(tp))[None])
     monkeypatch.setenv("MSM_SKEW_STEP", "0")
-    with pytest.raises(NotImplementedError, match="K12/K13"):
-        Stepper(tp, torch.complex128, "cpu")
+    unskewed = Stepper(tp, torch.complex128, "cpu")
+    assert unskewed.fuse_phases and not unskewed.skew
+    assert isinstance(unskewed.engine, mxu_fft.SingleEngine)
+    one = st.step(s0)
+    assert one.n_steps.tolist() == [1] and one.psik.shape == s0.psik.shape
+    np.testing.assert_array_equal(unskewed.step(s0).psik.numpy(), one.psik.numpy())
     monkeypatch.setenv("MSM_FUSE_PHASES", "0")
     st = Stepper(tp, torch.complex128, "cpu")
     assert st.use_mxu and not st.fuse_phases and not st.skew and st.engine is None
