@@ -13,11 +13,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             per source, all started together, then one link)
   2 kernels each CUDA kernel against its plain torch version on the card,
             complex64 and complex128, median of 20 timed launches of each:
-            K19 kinetic_phase and K21 phase_rotate at the main path's shape
-            (9, 256^3) and at (3, 96^3), (2, 128^2), (4, 512); the FFT
-            kernels K5 axis_pass (axis 1), K6 plane_pass, K17
-            plane_pass_real_fwd and K9 plane_pass_real_inv (on the
-            (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3)
+            K19 kinetic_phase, K20 poisson_multiply and K21 phase_rotate at
+            the main path's shape (9, 256^3) and at (3, 96^3), (2, 128^2),
+            (4, 512); the FFT kernels K5 axis_pass (axis 1), K6 plane_pass,
+            K17 plane_pass_real_fwd and K9 plane_pass_real_inv (on the
+            (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3);
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
@@ -25,34 +25,50 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             plane_inv_density_rho_only and K11 plane_real_inv_max (and K1
             without its sums), and the unskewed step's K12 axis_inv_kick and
             K13 axis_fwd_reduce at (9, 256^3) and (3, 512^3), every output
-            (fields, the sums, the maxima) against the plain version
+            (fields, the sums, the maxima) against the plain version; the
+            lane kernels K14 lane_pass, K15 lane_pass_real_fwd and K16
+            lane_pass_real_inv at (256, 1024) (the 1-D main run's) and
+            (9 * 256^2, 256) (the 3-D grid's bytes); K18 axis_inv_map at
+            (9, 256^3) and (3, 512^3)
+  2b engine the three-pass Poisson solve (K7, K8, K9) against the two-call
+            path forward_engine_density + inverse_engine_real(pmap=) (K7,
+            K5, K18, K9) at (9, 256^3), c64 and c128 (K18's launches are
+            this check's); the matmul transform, forward and inverse,
+            against torch.fft at (9, 256^3) c64
   3 e2e     the kernel path against the CPU plain path, end to end, with
             identical step/replay counts and psi at every dump within
             1e-10: the tophat-collapse physics at 64^3, MFT only,
-            complex128, 2 dumps, in optimistic and exact dt; the golden
-            config on the card against its frozen fixture; and at 128^3
-            over t = 20 the unfused `mxu` path (MSM_FFT=mxu,
-            MSM_FUSE_PHASES=0), the fused, skewed engine (MSM_FFT=mxu
-            alone) in optimistic, exact and lagged dt, and the unskewed
-            fused engine (MSM_SKEW_STEP=0) in exact and lagged dt
+            complex128, 2 dumps, in optimistic and exact dt on `xla` and on
+            `matmul` (MSM_FFT=matmul); the golden config on the card
+            against its frozen fixture; at 128^3 over t = 20 the unfused
+            `mxu` path (MSM_FFT=mxu, MSM_FUSE_PHASES=0), the fused, skewed
+            engine (MSM_FFT=mxu alone) in optimistic, exact and lagged dt,
+            and the unskewed fused engine (MSM_SKEW_STEP=0) in exact and
+            lagged dt; and the 1-D `mxu` path (the lane kernels) on the
+            1-D cold Gaussian at 1024, MFT only, 2 dumps over t = 2 (the
+            run amplifies rounding differences past that), in the three dt
+            modes
   4 main    `python -m msm_tpu_torch simulate --device cuda --verbose` run
-            in-process (so the kernels' launch counts can be read) five
-            times: MSM_FFT=xla, MSM_FFT=mxu with MSM_FUSE_PHASES=0,
-            MSM_FFT=mxu alone (the fused engine), the fused engine with
-            --dt-mode exact, and MSM_SKEW_STEP=0 --dt-mode lagged (the
-            unskewed fused engine): the tophat-collapse physics at 256^3,
-            8 Wigner streams + MFT, complex64, 3 dumps over the example's
-            40 time units; checks every dump's shape, finiteness and norm,
-            the manifests, that each run launched each of its kernels, and
-            that the exact run launched K10 and K11 and the unskewed run
-            K12 and K13 once per iteration; then compares the runs
+            in-process (so the kernels' launch counts can be read) seven
+            times, complex64, 3 dumps over t = 40: on the tophat-collapse
+            physics at 256^3 with 8 Wigner streams + MFT, MSM_FFT=xla,
+            MSM_FFT=mxu with MSM_FUSE_PHASES=0, MSM_FFT=mxu alone (the
+            fused engine), the fused engine with --dt-mode exact,
+            MSM_SKEW_STEP=0 --dt-mode lagged (the unskewed fused engine)
+            and MSM_FFT=matmul; on the 1-D cold Gaussian at 1024 with 255
+            Wigner streams + MFT, MSM_FFT=mxu (the lane kernels); checks
+            every dump's shape, finiteness and norm, the manifests, that
+            each run launched each of its kernels, and that the exact run
+            launched K10 and K11 and the unskewed run K12 and K13 once per
+            iteration; then compares the runs
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
-and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run),
-the card's name and power limit as nvidia-smi gives them, and last
-`{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
-checkout, it exits 1 and prints no result.
+and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
+the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
+from the engine check), the card's name and power limit as nvidia-smi
+gives them, and last `{"ok": true, "device": {...}}`. Without a CUDA
+device, or outside a checkout, it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -79,6 +95,7 @@ FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
+    "poisson_multiply": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:155"),
     "phase_rotate": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:201"),
     "axis_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:432"),
     "plane_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
@@ -94,8 +111,13 @@ KERNELS = {
     "plane_real_inv_max": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
     "axis_inv_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
     "axis_fwd_reduce": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
+    "lane_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:339"),
+    "lane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:399"),
+    "lane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:412"),
+    "axis_inv_map": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:839"),
 }
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
+LANE_KERNELS = ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
 FFT_KERNELS = ("axis_pass", "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv")
 SKEW_KERNELS = ("axis_roundtrip_kick", "plane_inv_density", "axis_roundtrip_poisson",
                 "plane_potkick_fwd", "plane_density_fwd", "axis_roundtrip_map")
@@ -109,19 +131,30 @@ RUN_KERNELS = {
     "fused": SKEW_KERNELS + ENGINE_IO,
     "fused-exact": SKEW_KERNELS + EXACT_KERNELS + ENGINE_IO,
     "unskewed-lagged": UNSKEWED_KERNELS + SKEW_KERNELS[1:] + ENGINE_IO + ("kinetic_phase",),
+    "matmul": PHASE_KERNELS + ("poisson_multiply",),
+    "mxu-1d": PHASE_KERNELS + LANE_KERNELS,
 }
-# the main run whose launches each kernel reports: the path it was ported for
+# the main run whose launches each kernel reports: the path it was ported
+# for; K18 (on no main run's path) reports the engine check's
 OWN_RUN = {
     **{k: "xla" for k in PHASE_KERNELS},
     **{k: "mxu" for k in FFT_KERNELS},
     **{k: "fused" for k in SKEW_KERNELS},
     **{k: "fused-exact" for k in EXACT_KERNELS},
     **{k: "unskewed-lagged" for k in UNSKEWED_KERNELS},
+    "poisson_multiply": "matmul",
+    **{k: "mxu-1d" for k in LANE_KERNELS},
+    "axis_inv_map": "engine-check",
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
 LIMITS = {torch.complex128: 1e-13, torch.complex64: 4e-6}
 FFT_SHAPES = (MAIN_SHAPE, (2, 1024, 1024), (3, 512, 512, 512))
+# K14-K16: the 1-D main run's (256 grids, N = 1024) and rows of 256 that
+# move the bytes of the 3-D main grid; K18: the 3-D grids (one transform
+# deep, with FFT_LIMITS)
+LANE_SHAPES = ((256, 1024), (9 * 256 * 256, 256))
+MAP_SHAPES = (MAIN_SHAPE, (3, 512, 512, 512))
 # FFT kernels: max |kernel - plain| <= limit * max |plain|. Both sides are
 # O(log2 N)-deep butterfly networks in the same precision, so their
 # difference is a few eps * log2(N^2) of the field's scale: <= 20 levels at
@@ -152,6 +185,14 @@ FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
 
+# The matmul transform against torch.fft.fftn, relative to max|plain|: each
+# axis is a 128-term and a 2-term float32 dot product (the Cooley-Tukey
+# form at N = 256) with a twiddle between, not log2 N butterfly levels, so
+# its worst-case error is about (128 + 2 + 1) eps per axis: 3 axes x 131 x
+# 6e-8 = 2.3e-5 of the field's scale at complex64 (a random-walk sum is
+# ~sqrt(128) times less). TF32 (about 5e-4) would fail it.
+MATMUL_LIMIT = 3e-5
+
 TOPHAT = """
 axis_length     = 30
 final_sim_time  = {final}
@@ -171,6 +212,28 @@ type   = "SphericalTophat"
 radius = 5.0
 slope  = 50
 delta  = 100
+"""
+
+# msm_tpu's 1-D stepper default (tests/test_stepper.py:23-40): a cold
+# Gaussian collapse
+GAUSS1D = """
+axis_length     = 30
+final_sim_time  = {final}
+cfl             = 0.5
+num_data_dumps  = {dumps}
+total_mass      = 1e11
+hbar_           = 0.05
+ntot            = 1e10
+sim_name        = "{name}"
+k2_cutoff       = 0.95
+alias_threshold = 0.02
+dims            = 1
+size            = {size}
+
+[ics]
+type = "ColdGauss"
+mean = [15.0]
+std  = [3.0]
 """
 
 
@@ -259,7 +322,11 @@ def phase_build(card: dict) -> None:
 
 
 def phase_kernels(card: dict) -> dict:
-    """K19/K21 vs plain on the card; returns the main-shape measurements."""
+    """K19/K20/K21 vs plain on the card; returns the main-shape
+    measurements. K19 and K21 give unit-modulus outputs, held to an
+    absolute limit; K20's factor scale/q^2 is not unit-modulus, so each of
+    its outputs is held to the same limit times its own |plain| (its only
+    rounding is one division and one multiply)."""
     from msm_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(2024)
@@ -277,39 +344,86 @@ def phase_kernels(card: dict) -> dict:
             scale = torch.as_tensor(rng.uniform(-4 * math.pi, 4 * math.pi, batch) / max_q2, dtype=rdtype).to(dev)
             field = torch.as_tensor(rng.uniform(-1.0, 1.0, shape), dtype=rdtype).to(dev)
             coeff = torch.as_tensor(rng.uniform(-4 * math.pi, 4 * math.pi, batch), dtype=rdtype).to(dev)
+            # the Poisson scale of the main config's grid spacing, per stream
+            pscale = torch.as_tensor(
+                [kernels.poisson_scale(c, n, 30.0 / n) for c in rng.uniform(0.5, 2.0, batch)],
+                dtype=rdtype,
+            ).to(dev)
             cells = math.prod(shape)
-            # q^2 (5), its scale (1), sincos (20), the complex product (6)
+            # name -> (kernel, plain, inputs, ops, relative limit)
             cases = {
+                # q^2 (5), its scale (1), sincos (20), the complex product (6)
                 "kinetic_phase": (
                     lambda: kernels.kinetic_phase(z, scale, dims),
                     lambda: kernels.kinetic_phase_plain(z, scale, dims),
-                    [z, scale], 32.0 * cells,
+                    [z, scale], 32.0 * cells, False,
+                ),
+                # q^2 (5), the division (1), the scaling (2)
+                "poisson_multiply": (
+                    lambda: kernels.poisson_multiply(z, pscale, dims),
+                    lambda: kernels.poisson_multiply_plain(z, pscale, dims),
+                    [z, pscale], 8.0 * cells, True,
                 ),
                 "phase_rotate": (
                     lambda: kernels.phase_rotate(z, field, coeff),
                     lambda: kernels.phase_rotate_plain(z, field, coeff),
-                    [z, field, coeff], 27.0 * cells,
+                    [z, field, coeff], 27.0 * cells, False,
                 ),
             }
-            for name, (kernel, plain, inputs, ops) in cases.items():
+            for name, (kernel, plain, inputs, ops, relative) in cases.items():
                 got = kernel()
-                err = (got - plain()).abs().max().item()
+                want = plain()
+                diff = (got - want).abs()
+                err = diff.max().item()
+                if relative:
+                    # every element within LIMITS of its own |plain|: the
+                    # outputs span scale/q^2 over q^2 = 1 .. dims (N/2)^2
+                    excess = (diff - LIMITS[cdtype] * want.abs()).max().item()
+                    within = excess <= torch.finfo(rdtype).tiny
+                    limit = {"limit_rel_elementwise": LIMITS[cdtype], "max_excess": excess}
+                else:
+                    within = err <= LIMITS[cdtype]
+                    limit = {"limit": LIMITS[cdtype]}
+                del want, diff
                 torch.cuda.synchronize()
                 ms, plain_ms = median_ms(kernel), median_ms(plain)
                 rec = {
                     "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
-                    "shape": list(shape), "max_abs_err": err, "limit": LIMITS[cdtype],
+                    "shape": list(shape), "max_abs_err": err, **limit,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     **bound(inputs, [got], ops), **card,
                 }
                 del got
                 emit(rec)
-                check(err <= LIMITS[cdtype], f"{name} {cdtype} {shape}: error {err}")
+                check(within, f"{name} {cdtype} {shape}: error {err} ({limit})")
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
                     main[name] = rec
             del z, field, cases
             torch.cuda.empty_cache()
     return main
+
+
+def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library) -> dict:
+    """One transform kernel against its plain version, held to FFT_LIMITS
+    of max|plain|, and both timed; library: the plain version is one torch
+    call that computes the same function."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    bnd = bound(inputs, [got], ops)
+    del got, want
+    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    rec = {
+        "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
+        "shape": list(shape), "max_abs_err": err, "max_abs_plain": scale,
+        "limit": FFT_LIMITS[cdtype] * scale, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": plain_ms if library else None, **bnd, **card,
+    }
+    emit(rec)
+    check(err <= FFT_LIMITS[cdtype] * scale, f"{name} {cdtype} {shape}: error {err}")
+    return rec
 
 
 def phase_fft_kernels(card: dict) -> dict:
@@ -350,27 +464,132 @@ def phase_fft_kernels(card: dict) -> dict:
                 ),
             }
             for name, (kernel, plain, inputs, ops) in cases.items():
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-                scale = want.abs().max().item()
-                err = (got - want).abs().max().item()
-                bnd = bound(inputs, [got], ops)
-                del got, want
-                ms, plain_ms = median_ms(kernel), median_ms(plain)
-                rec = {
-                    "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
-                    "shape": list(shape), "max_abs_err": err, "max_abs_plain": scale,
-                    "limit": FFT_LIMITS[cdtype] * scale, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": plain_ms, **bnd, **card,
-                }
-                emit(rec)
-                check(err <= FFT_LIMITS[cdtype] * scale, f"{name} {cdtype} {shape}: error {err}")
+                rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True)
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
                     main[name] = rec
             del z, planes, x, cases
             torch.cuda.empty_cache()
     return main
+
+
+def phase_lane_kernels(card: dict) -> dict:
+    """K14/K15/K16 vs plain (cuFFT) at LANE_SHAPES and K18 vs plain at
+    MAP_SHAPES, complex64 and complex128; returns the measurements at the
+    1-D main run's shape (K14-K16) and the 3-D main shape (K18), complex64."""
+    from msm_tpu_torch.grid import spec_grid
+    from msm_tpu_torch.ops import mxu_fft
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2026)
+    main = {}
+    for cdtype in (torch.complex64, torch.complex128):
+        rdtype = torch.float32 if cdtype == torch.complex64 else torch.float64
+        for shape in LANE_SHAPES:
+            z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+            x = z.real.contiguous()
+            ops = fft_ops(shape, 1)
+            # the plain versions are one torch.fft call each (fft of the
+            # complex or the real rows; ifft, whose .real is a view), so they
+            # are also the library yardstick
+            cases = {
+                "lane_pass": (lambda: mxu_fft.lane_pass(z, False),
+                              lambda: mxu_fft.lane_pass_plain(z, False), [z]),
+                "lane_pass_real_fwd": (lambda: mxu_fft.lane_pass_real_fwd(x),
+                                       lambda: mxu_fft.lane_pass_real_fwd_plain(x), [x]),
+                "lane_pass_real_inv": (lambda: mxu_fft.lane_pass_real_inv(z),
+                                       lambda: mxu_fft.lane_pass_real_inv_plain(z), [z]),
+            }
+            for name, (kernel, plain, inputs) in cases.items():
+                rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True)
+                if shape == LANE_SHAPES[0] and cdtype == torch.complex64:
+                    main[name] = rec
+            del z, x, cases
+        for shape in MAP_SHAPES:
+            n = shape[-1]
+            z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+            spec = spec_grid(30.0 / n, 3, n)
+            pmap = torch.as_tensor(
+                np.where(spec > 0.0, -1.0, 0.0) / np.where(spec > 0.0, spec, 1.0), dtype=rdtype
+            ).cuda()
+            del spec
+            # one inverse along z, the map's scaling (2); no single torch
+            # call computes it
+            rec = _measure_fft(
+                card, "axis_inv_map", cdtype, shape, lambda: mxu_fft.axis_inv_map(z, pmap),
+                lambda: mxu_fft.axis_inv_map_plain(z, pmap), [z, pmap],
+                fft_ops(shape[:2], 1) * math.prod(shape[2:]) + 2.0 * math.prod(shape), False,
+            )
+            if shape == MAIN_SHAPE and cdtype == torch.complex64:
+                main["axis_inv_map"] = rec
+            del z, pmap
+            torch.cuda.empty_cache()
+    return main
+
+
+def phase_engine_checks(card: dict) -> dict:
+    """On the card at the main shape: the three-pass Poisson solve (K7, K8,
+    K9) against the two-call path `inverse_engine_real(
+    forward_engine_density(psi), pmap=)` (K7, K5, K18, K9), as msm_tpu's
+    test_fft.py:171 holds its fused solve, in complex64 and complex128; and
+    the matmul transform, forward and inverse, against torch.fft at
+    complex64. The launch counts are set to 0 just before the engine check
+    and read just after: they are K18's record. The two solves share K7 and
+    K9 and differ in the z pass (K8's round trip against K5 then K18): one
+    transform pair of rounding apart, held to FUSED_LIMITS of max|phi|."""
+    from msm_tpu_torch.grid import spec_grid
+    from msm_tpu_torch.ops import fft, mxu_fft
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2027)
+    n = MAIN_SHAPE[-1]
+    spec = spec_grid(30.0 / n, 3, n)
+    inv_k2 = np.where(spec > 0.0, 1.0, 0.0) / np.where(spec > 0.0, spec, 1.0)
+    del spec
+    launches = {}
+    mxu_fft.reset_launches()
+    for cdtype in (torch.complex64, torch.complex128):
+        rdtype = torch.float32 if cdtype == torch.complex64 else torch.float64
+        pmap = torch.as_tensor(-inv_k2, dtype=rdtype).cuda()
+        psi = torch.randn(MAIN_SHAPE, dtype=cdtype, device="cuda", generator=gen) * 1e-3
+        fused = mxu_fft.poisson_solve(psi, 3, 1e3, pmap)
+        two_call = mxu_fft.inverse_engine_real(mxu_fft.forward_engine_density(psi, 3, 1e3), 3, pmap=pmap)
+        torch.cuda.synchronize()
+        scale = fused.abs().max().item()
+        err = (two_call - fused).abs().max().item()
+        emit({
+            "phase": "engine-check", "check": "poisson_solve vs two-call (K18)",
+            "dtype": str(cdtype).split(".")[-1], "shape": list(MAIN_SHAPE),
+            "max_abs_err": err, "max_abs_phi": scale, "limit": FUSED_LIMITS[cdtype] * scale,
+            **card,
+        })
+        check(err <= FUSED_LIMITS[cdtype] * scale, f"two-call Poisson solve {cdtype}: error {err}")
+        del psi, fused, two_call, pmap
+        torch.cuda.empty_cache()
+    launches.update(mxu_fft.launches)
+    check(launches["axis_inv_map"] > 0, "the engine check launched axis_inv_map no time")
+
+    z = torch.randn(MAIN_SHAPE, dtype=torch.complex64, device="cuda", generator=gen)
+    for inverse in (False, True):
+        plain = torch.fft.ifftn if inverse else torch.fft.fftn
+        got = fft.matmul_transform(z, 3, inverse)
+        want = plain(z, dim=(1, 2, 3), norm="ortho")
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        del got, want
+        rec = {
+            "phase": "engine-check", "check": "matmul transform vs torch.fft",
+            "inverse": inverse, "dtype": "complex64", "shape": list(MAIN_SHAPE),
+            "max_abs_err": err, "max_abs_plain": scale, "limit": MATMUL_LIMIT * scale,
+            "ms": median_ms(lambda: fft.matmul_transform(z, 3, inverse), 5),
+            "fftn_ms": median_ms(lambda: plain(z, dim=(1, 2, 3), norm="ortho"), 5),
+            **card,
+        }
+        emit(rec)
+        check(err <= MATMUL_LIMIT * scale, f"matmul transform (inverse={inverse}): error {err}")
+    del z
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def _fused_cases(shape, cdtype, gen) -> dict:
@@ -522,21 +741,36 @@ PATHS = {
     "mxu": ("mxu", "0", None),
     "fused": ("mxu", None, None),
     "unskewed": ("mxu", None, "0"),
+    "matmul": ("matmul", None, None),
+    "mxu-1d": ("mxu", None, None),
 }
 # the kernel each path launches once per loop iteration (K4 once in the
 # fused step of either engine, in every dt mode)
 ITERATION_KERNEL = {"xla": "phase_rotate", "mxu": "phase_rotate",
-                    "fused": "plane_potkick_fwd", "unskewed": "plane_potkick_fwd"}
-TRANSFORMS_LINE = {"xla": "Transforms: xla", "mxu": "Transforms: mxu (engine",
+                    "fused": "plane_potkick_fwd", "unskewed": "plane_potkick_fwd",
+                    "matmul": "phase_rotate", "mxu-1d": "phase_rotate"}
+TRANSFORMS_LINE = {"xla": "Transforms: xla", "mxu": "Transforms: mxu (engine FFT",
                    "fused": "Transforms: mxu (fused, skewed engine",
-                   "unskewed": "Transforms: mxu (fused, unskewed engine"}
-# main run -> (path, dt mode)
+                   "unskewed": "Transforms: mxu (fused, unskewed engine",
+                   "matmul": "Transforms: matmul (torch matmul DFT",
+                   "mxu-1d": "Transforms: mxu (engine lane kernels"}
+# main run -> (path, dt mode, config)
 RUNS = {
-    "xla": ("xla", "optimistic"),
-    "mxu": ("mxu", "optimistic"),
-    "fused": ("fused", "optimistic"),
-    "fused-exact": ("fused", "exact"),
-    "unskewed-lagged": ("unskewed", "lagged"),
+    "xla": ("xla", "optimistic", "tophat"),
+    "mxu": ("mxu", "optimistic", "tophat"),
+    "fused": ("fused", "optimistic", "tophat"),
+    "fused-exact": ("fused", "exact", "tophat"),
+    "unskewed-lagged": ("unskewed", "lagged", "tophat"),
+    "matmul": ("matmul", "optimistic", "tophat"),
+    "mxu-1d": ("mxu-1d", "optimistic", "gauss1d"),
+}
+# config -> (template, name, dims, size, Wigner streams, description); both
+# c64, 3 dumps over t = 40
+CONFIGS = {
+    "tophat": (TOPHAT, "tophat-collapse", 3, 256, 8,
+               "tophat-collapse 256^3, 8 Wigner + MFT, c64, 3 dumps over t=40"),
+    "gauss1d": (GAUSS1D, "gauss1d", 1, 1024, 255,
+                "1-D cold Gaussian 1024, 255 Wigner + MFT, c64, 3 dumps over t=40"),
 }
 # kernels that must launch once in every iteration of a run
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
@@ -581,13 +815,16 @@ def _load_dumps(root: str, name: str, n_dumps: int) -> list:
 def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
                  dt_mode: str = "optimistic") -> None:
     """One config through the CUDA kernels and through the plain versions on
-    the CPU: identical step/replay counts, psi at every dump within 1e-10."""
+    the CPU: identical step/replay counts, psi at every dump within 1e-10.
+    The tophat-collapse physics in 3-D; the 1-D cold Gaussian on `mxu-1d`."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch import simulator
     from msm_tpu_torch.io.checkpoint import load_manifest
 
     name = f"e2e-{path}-{dt_mode}"
-    toml = cfg.parse_toml_str(TOPHAT.format(final=final, dumps=2, name=name, size=size))
+    oned = path == "mxu-1d"
+    text = GAUSS1D if oned else TOPHAT
+    toml = cfg.parse_toml_str(text.format(final=final, dumps=2, name=name, size=size))
     outs = {}
     with fft_mode(path):
         for device in ("cuda", "cpu"):
@@ -604,7 +841,8 @@ def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
     err = max(float(np.abs(a - b).max()) for a, b in zip(psi_g, psi_c))
     emit({
         "phase": "e2e", "path": path, "dt_mode": dt_mode,
-        "config": f"tophat-collapse {size}^3 MFT c128, 2 dumps over t={final}",
+        "config": (f"1-D cold Gaussian {size} MFT" if oned else f"tophat-collapse {size}^3 MFT")
+        + f" c128, 2 dumps over t={final}",
         "n_steps": [man_g["n_steps"], man_c["n_steps"]],
         "replays": [man_g["replays"], man_c["replays"]],
         "max_abs_psi_err": err, "limit": 1e-10,
@@ -628,6 +866,16 @@ def phase_e2e(card: dict) -> None:
         for path, dt_mode in (("fused", "optimistic"), ("fused", "exact"), ("fused", "lagged"),
                               ("unskewed", "exact"), ("unskewed", "lagged")):
             _cuda_vs_cpu(card, work, path, 128, 20, dt_mode)
+        _cuda_vs_cpu(card, work, "matmul", 64, 40)
+        _cuda_vs_cpu(card, work, "matmul", 64, 40, "exact")
+        # the 1-D run amplifies differences in the transforms' rounding:
+        # on the CPU the matmul DFT against torch.fft (a few eps apart per
+        # transform) separates psi by 2.9e-11 at t = 2 and 2.0e-9 at t = 10,
+        # and the card's lane kernels against the CPU by 3.7e-10 at t = 10
+        # (scripts/torch_perturbation_growth.py), so the comparison stops
+        # at t = 2 (about 300 steps)
+        for dt_mode in ("optimistic", "exact", "lagged"):
+            _cuda_vs_cpu(card, work, "mxu-1d", 1024, 2, dt_mode)
 
         golden = cfg.parse_toml_dict({
             "axis_length": 30, "final_sim_time": 1.0, "cfl": 0.5, "num_data_dumps": 2,
@@ -645,21 +893,23 @@ def phase_e2e(card: dict) -> None:
 
 
 def phase_main(card: dict, run: str) -> dict:
-    """The port's CLI on the card at 256^3 x (8 streams + MFT) on one run's
-    path and dt mode; the launch counts are set to 0 just before and read
-    just after, and the run must have launched each of its kernels (the
-    exact run K10/K11 and the unskewed run K12/K13 once per iteration)."""
+    """The port's CLI on the card on one run's path, dt mode and config
+    (256^3 x (8 streams + MFT), or 1-D 1024 x (255 streams + MFT)); the
+    launch counts are set to 0 just before and read just after, and the run
+    must have launched each of its kernels (the exact run K10/K11 and the
+    unskewed run K12/K13 once per iteration)."""
     from msm_tpu_torch import cli
     from msm_tpu_torch.io.checkpoint import load_manifest
     from msm_tpu_torch.io.npy import read_npy_exact
     from msm_tpu_torch.ops import kernels, mxu_fft
 
-    path, dt_mode = RUNS[run]
-    size, n_dumps = 256, 3
-    text = TOPHAT.format(final=40, dumps=n_dumps, name="tophat-collapse", size=size)
-    text += '\n[sampling]\nseeds  = "1 to 8"\nscheme = "Wigner"\n'
+    path, dt_mode, config = RUNS[run]
+    template, name, dims, size, streams, desc = CONFIGS[config]
+    n_dumps = 3
+    text = template.format(final=40, dumps=n_dumps, name=name, size=size)
+    text += f'\n[sampling]\nseeds  = "1 to {streams}"\nscheme = "Wigner"\n'
     with tempfile.TemporaryDirectory() as work:
-        toml_path = os.path.join(work, "tophat-256.toml")
+        toml_path = os.path.join(work, f"{name}.toml")
         with open(toml_path, "w") as f:
             f.write(text)
         data = os.path.join(work, "sim-data")
@@ -681,40 +931,41 @@ def phase_main(card: dict, run: str) -> dict:
         check(rc == 0, f"simulate returned {rc}")
         check(TRANSFORMS_LINE[path] in out.getvalue(), f"the {run} run took another path")
         check(f"dt {dt_mode}" in out.getvalue(), f"the {run} run took another dt mode")
-        for name in RUN_KERNELS[run]:
-            check(launches[name] > 0, f"the {run} main run launched {name} no time")
+        for k in RUN_KERNELS[run]:
+            check(launches[k] > 0, f"the {run} main run launched {k} no time")
         timer = re.search(r"(\d+) steps in ([0-9.]+)s", out.getvalue())
         check(timer is not None, "no StepTimer line in the verbose output")
         iterations = launches[ITERATION_KERNEL[path]]
-        for name in PER_ITERATION.get(run, ()):
-            check(launches[name] == iterations,
-                  f"the {run} run launched {name} {launches[name]} times in {iterations} iterations")
+        for k in PER_ITERATION.get(run, ()):
+            check(launches[k] == iterations,
+                  f"the {run} run launched {k} {launches[k]} times in {iterations} iterations")
 
-        runs = [f"tophat-collapse-stream{s:05d}" for s in range(1, 9)] + ["tophat-collapse"]
-        dx3 = (30.0 / size) ** 3
+        runs = [f"{name}-stream{s:05d}" for s in range(1, streams + 1)] + [name]
+        # a dump holds the grid's axes, padded with unit axes to four
+        dump_shape = (size,) * dims + (1,) * (4 - dims)
+        dxd = (30.0 / size) ** dims
         steps, replays, norm_err = {}, {}, 0.0
-        for run in runs:
-            m = load_manifest(os.path.join(data, run))
-            check(m is not None, f"{run}: no manifest")
-            check(not m["aliased"], f"{run}: aliased")
-            check(m["current_dumps"] == n_dumps, f"{run}: {m['current_dumps']} dumps")
-            steps[run], replays[run] = m["n_steps"], m["replays"]
+        for r in runs:
+            m = load_manifest(os.path.join(data, r))
+            check(m is not None, f"{r}: no manifest")
+            check(not m["aliased"], f"{r}: aliased")
+            check(m["current_dumps"] == n_dumps, f"{r}: {m['current_dumps']} dumps")
+            steps[r], replays[r] = m["n_steps"], m["replays"]
             for i in range(n_dumps + 1):
-                base = os.path.join(data, run, f"psi_{i:05d}")
+                base = os.path.join(data, r, f"psi_{i:05d}")
                 re_, im_ = read_npy_exact(base + "_real"), read_npy_exact(base + "_imag")
-                check(re_.shape == im_.shape == (size, size, size, 1), f"{base}: shape {re_.shape}")
+                check(re_.shape == im_.shape == dump_shape, f"{base}: shape {re_.shape}")
                 check(bool(np.isfinite(re_).all() and np.isfinite(im_).all()), f"{base}: not finite")
-                norm = float(np.sum(re_.astype(np.float64) ** 2 + im_.astype(np.float64) ** 2)) * dx3
+                norm = float(np.sum(re_.astype(np.float64) ** 2 + im_.astype(np.float64) ** 2)) * dxd
                 norm_err = max(norm_err, abs(norm - 1.0))
         check(norm_err <= 1e-3, f"norm off by {norm_err}")
         total_steps = sum(steps.values())
         rec = {
-            "phase": "main", "run": run, "path": path, "dt_mode": dt_mode,
-            "config": "tophat-collapse 256^3, 8 Wigner + MFT, c64, 3 dumps over t=40",
+            "phase": "main", "run": run, "path": path, "dt_mode": dt_mode, "config": desc,
             "runs": len(runs), "dumps_checked": len(runs) * (n_dumps + 1),
-            "n_steps": steps["tophat-collapse"], "n_steps_all": total_steps,
+            "n_steps": steps[name], "n_steps_all": total_steps,
             "replays": sum(replays.values()), "max_norm_err": norm_err,
-            "wall_s": wall, "cell_updates_per_s": total_steps * size**3 / wall,
+            "wall_s": wall, "cell_updates_per_s": total_steps * size**dims / wall,
             "iterations": iterations, "loop_s": float(timer.group(2)),
             # the stepping loop's wall (dump writes included) per iteration
             "loop_ms_per_iteration": float(timer.group(2)) * 1e3 / iterations,
@@ -740,15 +991,20 @@ def main() -> int:
     measured = phase_kernels(card)
     measured.update(phase_fft_kernels(card))
     measured.update(phase_fused_kernels(card))
+    measured.update(phase_lane_kernels(card))
+    engine_check = phase_engine_checks(card)
     phase_e2e(card)
     mains = {run: phase_main(card, run) for run in RUNS}
+    mains["engine-check"] = engine_check
     emit({
         "phase": "main-compare",
-        **{key: {run: rec[key] for run, rec in mains.items()}
+        **{key: {run: mains[run][key] for run in RUNS}
            for key in ("cell_updates_per_s", "wall_s", "loop_ms_per_iteration", "peak_gib",
                        "n_steps_all", "iterations", "replays")},
         **card,
     })
+    for k in KERNELS:
+        check(mains[OWN_RUN[k]]["launches"][k] > 0, f"{k}: no launch on its own path")
     emit({"kernels": [
         {
             "name": k,

@@ -12,10 +12,13 @@ The JAX CLI's other flags (resume, online synthesis, meshes, ...) are not
 ported yet, so argparse rejects them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
-command runs: `xla` (torch.fft; the default on either device) or `mxu`
-(the engine's FFT kernels). In 3-D, `mxu` runs the fused, skewed engine,
-as the JAX CLI does by default on a TPU; `MSM_FUSE_PHASES=0` runs the
-unfused engine path instead, and `MSM_SKEW_STEP=0` the unskewed fused
+command runs: `xla` (torch.fft; the default on either device), `mxu` (the
+engine's FFT kernels, at the sizes 128 * {1, 2, 4, 8}; the lane kernels
+in 1-D), `matmul` (the DFT as matrix products, with the Poisson multiply
+K20; TF32 matmuls must be off) or `auto` (`xla`: the JAX CLI's `auto`
+picks another mode only on a TPU). In 3-D, `mxu` runs the fused, skewed
+engine, as the JAX CLI does by default on a TPU; `MSM_FUSE_PHASES=0` runs
+the unfused engine path instead, and `MSM_SKEW_STEP=0` the unskewed fused
 engine.
 """
 
@@ -65,10 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
     sim = sub.add_parser(
         "simulate",
         help="run the simulator (msm-simulator)",
-        epilog="MSM_FFT=xla|mxu chooses the transforms (default xla on both "
-        "devices). 3-D mxu runs the fused, skewed engine; MSM_FUSE_PHASES=0 "
-        "runs the unfused engine path instead, MSM_SKEW_STEP=0 the unskewed "
-        "fused engine.",
+        epilog="MSM_FFT=xla|mxu|matmul|auto chooses the transforms (default "
+        "xla on both devices; auto is xla off a TPU). 3-D mxu runs the fused, "
+        "skewed engine; MSM_FUSE_PHASES=0 runs the unfused engine path "
+        "instead, MSM_SKEW_STEP=0 the unskewed fused engine. matmul refuses "
+        "TF32 matmuls.",
     )
     sim.add_argument("--toml", required=True, help="path to the simulation toml")
     sim.add_argument(

@@ -11,9 +11,11 @@
 //     elements lands in one bit-reversed row, so the stores stay free of bank
 //     conflicts) and writes the tile back in natural order. At n = 1024 the
 //     tile is 128 KB, above the 48 KB default, so it is dynamic shared memory
-//     raised with cudaFuncSetAttribute. With KICK, each element is multiplied
-//     as it is loaded by the separable kinetic phase f0[b, row] * f12[b, lane]
-//     (the unskewed fused step's first pass, K12).
+//     raised with cudaFuncSetAttribute. A load prologue may multiply each
+//     element as it is read: kKick by the separable kinetic phase
+//     f0[b, row] * f12[b, lane] (the unskewed fused step's first pass, K12),
+//     kMap by a real k-space map[row, lane] shared by the batch (the Poisson
+//     -coeff/k^2 on the inverse's read, K18).
 //
 // Twiddles are computed per block with double-precision sincospi and rounded
 // once to the kernel's precision. Offsets are 64-bit. Everything here has
@@ -103,21 +105,26 @@ int tile_threads(int log_n) {
   return threads;
 }
 
-// The KICK prologue's tables: exp(i c_b s0[k]) (b1, n) and exp(i c_b s12[lane])
-// (b1, lanes), built outside the kernel; their product is the phase of
-// exp(i c_b k^2) with k^2 = s0 + s12, multiplied in the order the TPU kernel
-// multiplies it.
+// What the column pass does to each element as it loads it.
+enum class AxisPrologue { kNone, kKick, kMap };
+
+// The prologue's tables. kKick: exp(i c_b s0[k]) (b1, n) and
+// exp(i c_b s12[lane]) (b1, lanes), built outside the kernel; their product is
+// the phase of exp(i c_b k^2) with k^2 = s0 + s12, multiplied in the order the
+// TPU kernel multiplies it. kMap: a real (n, lanes) map, one for every batch
+// element, read as the round trip's map is read (map[k * lanes + lane]).
 template <typename T>
-struct AxisKick {
+struct AxisLoad {
   const typename Complex<T>::type* f0;
   const typename Complex<T>::type* f12;
+  const T* map;
 };
 
-template <typename T, bool INV, bool KICK = false>
+template <typename T, bool INV, AxisPrologue P = AxisPrologue::kNone>
 __global__ void __launch_bounds__(1024)
     axis_fft_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
                     int log_n, int64_t lanes, int64_t tiles_per_batch, T scale,
-                    AxisKick<T> kick) {
+                    AxisLoad<T> pro) {
   // in may equal out: the whole tile is read before any of it is written.
   using C = typename Complex<T>::type;
   constexpr int log_w = log_tile_width<T>();
@@ -137,7 +144,11 @@ __global__ void __launch_bounds__(1024)
     const int r = i >> log_w;
     const int rr = static_cast<int>(__brev(static_cast<unsigned>(r)) >> (32 - log_n));
     C v = in[base + r * lanes + c];
-    if constexpr (KICK) v = cmul(v, cmul(kick.f0[b * n + r], kick.f12[b * lanes + col0 + c]));
+    if constexpr (P == AxisPrologue::kKick) {
+      v = cmul(v, cmul(pro.f0[b * n + r], pro.f12[b * lanes + col0 + c]));
+    } else if constexpr (P == AxisPrologue::kMap) {
+      v = cscale(v, pro.map[r * lanes + col0 + c]);
+    }
     tile[(rr << log_w) + c] = v;
   }
   __syncthreads();
@@ -175,22 +186,22 @@ T ortho_scale(int log_n) {
 }
 
 // (b1, n, lanes): transform the middle axis. lanes % W == 0.
-template <typename T, bool INV, bool KICK = false>
+template <typename T, bool INV, AxisPrologue P = AxisPrologue::kNone>
 cudaError_t launch_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                        cudaStream_t stream, AxisKick<T> kick = {}) {
+                        cudaStream_t stream, AxisLoad<T> pro = {}) {
   using C = typename Complex<T>::type;
   constexpr int log_w = log_tile_width<T>();
   const int n = 1 << log_n;
   const size_t smem = ((static_cast<size_t>(n) << log_w) + n / 2) * sizeof(C);
-  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV, KICK>,
+  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV, P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int64_t tiles = lanes >> log_w;
-  axis_fft_kernel<T, INV, KICK>
+  axis_fft_kernel<T, INV, P>
       <<<static_cast<unsigned>(b1 * tiles), tile_threads<T>(log_n), smem, stream>>>(
           static_cast<const C*>(in), static_cast<C*>(out), log_n, lanes, tiles,
-          ortho_scale<T>(log_n), kick);
+          ortho_scale<T>(log_n), pro);
   return cudaGetLastError();
 }
 

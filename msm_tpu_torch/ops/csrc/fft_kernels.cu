@@ -14,6 +14,24 @@
 //   msm_fft_plane_real_inv : Re of the 2-axis inverse, real plane out;
 //                            replaces _axis_pass_fused2_real(inverse=True) /
 //                            _fused_kernel_real_inv (K9).
+//   msm_fft_lane           : ortho DFT along the last axis of (rows, n);
+//                            replaces _axis_pass_lane / _lane_kernel (K14).
+//   msm_fft_lane_real_fwd  : the same forward from a real input, full
+//                            spectrum out; replaces
+//                            _axis_pass_lane_real(inverse=False) /
+//                            _lane_kernel_real_fwd (K15).
+//   msm_fft_lane_real_inv  : Re of the inverse along the last axis, real out;
+//                            replaces _axis_pass_lane_real(inverse=True) /
+//                            _lane_kernel_real_inv (K16).
+//   msm_fft_axis_inv_map   : the inverse DFT along a non-last axis with a real
+//                            (n, lanes) map multiplied in as the tile is
+//                            loaded; replaces _axis_pass_sublane_inv_pmap /
+//                            _sublane_kernel_inv_pmap (K18).
+//
+// K14-K16 are the row pass alone (the 1-D engine and any last-axis
+// transform): one launch, one read and one write of the grid. K18 is the
+// column pass with the kMap load prologue (fft_common.cuh): the map costs one
+// extra read of n * lanes reals, which the batch shares.
 //
 // Data are interleaved complex (torch.view_as_real layout), k in natural
 // fftn order. The TPU kernels' radix-R butterfly plus 128-point DFT matmul,
@@ -149,6 +167,20 @@ cudaError_t plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int 
   return launch_rows<T, true, false, true>(tmp, out, m << log_n, log_n, stream);
 }
 
+template <typename T>
+cudaError_t lane(const void* in, void* out, int64_t rows, int log_n, bool inverse,
+                 cudaStream_t stream) {
+  return inverse ? launch_rows<T, true, false, false>(in, out, rows, log_n, stream)
+                 : launch_rows<T, false, false, false>(in, out, rows, log_n, stream);
+}
+
+template <typename T>
+cudaError_t axis_inv_map(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                         const void* map, cudaStream_t stream) {
+  return launch_axis<T, true, AxisPrologue::kMap>(
+      in, out, b1, log_n, lanes, stream, AxisLoad<T>{nullptr, nullptr, static_cast<const T*>(map)});
+}
+
 }  // namespace
 
 extern "C" {
@@ -186,6 +218,44 @@ int msm_fft_plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_double ? plane_real_inv<double>(in, tmp, out, m, log_n, s)
                                     : plane_real_inv<float>(in, tmp, out, m, log_n, s));
+}
+
+// K14. in, out: (rows, 2^log_n) interleaved complex; transform along the
+// last axis. in == out is allowed.
+int msm_fft_lane(const void* in, void* out, int64_t rows, int log_n, int inverse,
+                 int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double ? lane<double>(in, out, rows, log_n, inverse, s)
+                                    : lane<float>(in, out, rows, log_n, inverse, s));
+}
+
+// K15. in: (rows, 2^log_n) real; out: (rows, 2^log_n) interleaved complex.
+int msm_fft_lane_real_fwd(const void* in, void* out, int64_t rows, int log_n, int is_double,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_double ? launch_rows<double, false, true, false>(in, out, rows, log_n, s)
+                : launch_rows<float, false, true, false>(in, out, rows, log_n, s));
+}
+
+// K16. in: (rows, 2^log_n) interleaved complex; out: (rows, 2^log_n) real, the
+// real part of the inverse.
+int msm_fft_lane_real_inv(const void* in, void* out, int64_t rows, int log_n, int is_double,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_double ? launch_rows<double, true, false, true>(in, out, rows, log_n, s)
+                : launch_rows<float, true, false, true>(in, out, rows, log_n, s));
+}
+
+// K18. in, out: (b1, 2^log_n, lanes) interleaved complex as for K5; map:
+// (2^log_n, lanes) real, shared by the b1 batch elements. in == out is
+// allowed.
+int msm_fft_axis_inv_map(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                         const void* map, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double ? axis_inv_map<double>(in, out, b1, log_n, lanes, map, s)
+                                    : axis_inv_map<float>(in, out, b1, log_n, lanes, map, s));
 }
 
 }  // extern "C"

@@ -513,9 +513,9 @@ template <typename T>
 cudaError_t axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
                           const void* f0, const void* f12, cudaStream_t stream) {
   using C = typename Complex<T>::type;
-  return launch_axis<T, true, true>(
+  return launch_axis<T, true, AxisPrologue::kKick>(
       in, out, b1, log_n, lanes, stream,
-      AxisKick<T>{static_cast<const C*>(f0), static_cast<const C*>(f12)});
+      AxisLoad<T>{static_cast<const C*>(f0), static_cast<const C*>(f12), nullptr});
 }
 
 template <typename T>

@@ -1,9 +1,10 @@
-"""The step's elementwise phase kernels, dispatched by device.
+"""The step's elementwise kernels, dispatched by device.
 
 Counterparts of msm_tpu/ops/pallas_kernels.py:
 
-  kinetic_phase : z * exp(i * scale_b * q^2), q^2 from indices   (K19)
-  phase_rotate  : z * exp(i * coeff_b * field)                    (K21)
+  kinetic_phase    : z * exp(i * scale_b * q^2), q^2 from indices    (K19)
+  poisson_multiply : z * scale_b / q^2, q = 0 -> 0, q^2 from indices (K20)
+  phase_rotate     : z * exp(i * coeff_b * field)                     (K21)
 
 A CUDA tensor goes to the hand-written Hopper kernel in
 `csrc/phase_kernels.cu` (built by `ops.build`); a CPU tensor goes to the
@@ -25,7 +26,7 @@ import torch
 from . import build
 from .phase import apply_potential_phase, rotate
 
-launches = {"kinetic_phase": 0, "phase_rotate": 0}
+launches = {"kinetic_phase": 0, "poisson_multiply": 0, "phase_rotate": 0}
 
 
 def reset_launches() -> None:
@@ -68,6 +69,16 @@ def kinetic_phase_plain(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torc
     return rotate(z, _bcast(scale.to(rdtype), dims) * q2)
 
 
+def poisson_multiply_plain(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
+    """Plain torch version of `poisson_multiply`: the factor scale_b / q^2
+    is one tensor division (rounded once, as the kernels round it)."""
+    rdtype = z.real.dtype
+    q2 = freq_sq(z.shape[-1], dims, z.device).to(rdtype)
+    pos = q2 > 0
+    factor = torch.where(pos, _bcast(scale.to(rdtype), dims) / torch.where(pos, q2, 1.0), 0.0)
+    return z * factor
+
+
 def phase_rotate_plain(
     z: torch.Tensor, field: torch.Tensor, coeff: torch.Tensor
 ) -> torch.Tensor:
@@ -86,16 +97,9 @@ def _check_complex(z: torch.Tensor) -> int:
     return int(z.dtype == torch.complex128)
 
 
-def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
-    """z * exp(i * scale_b * q^2) with q^2 built from indices in-kernel.
-
-    z: (B, *grid) complex with `dims` cubic grid axes of even size N;
-    scale: (B,) = coeff_b * (2*pi / (N*dx))^2 (`kinetic_scale`).
-    """
-    if z.device.type == "cpu":
-        return kinetic_phase_plain(z, scale, dims)
-    if z.device.type != "cuda":
-        raise ValueError(f"no kinetic_phase kernel for device {z.device}")
+def _index_q2_kernel(name: str, z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
+    """Launch K19 or K20 (the kernels that build q^2 from indices) on the
+    CUDA tensor z (B, N^dims) with a per-stream scale (B,)."""
     if z.ndim != dims + 1 or any(s != z.shape[-1] for s in z.shape[1:]):
         raise ValueError(f"expected (B, N^{dims}) cube, got {tuple(z.shape)}")
     n = z.shape[-1]
@@ -109,7 +113,7 @@ def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tens
     out = torch.empty_like(z)
     lib = build.load()
     with torch.cuda.device(z.device):
-        rc = lib.msm_kinetic_phase(
+        rc = getattr(lib, f"msm_{name}")(
             z.data_ptr(),
             out.data_ptr(),
             sc.data_ptr(),
@@ -119,9 +123,38 @@ def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tens
             is_double,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
-    build.check(rc, "kinetic_phase")
-    launches["kinetic_phase"] += 1
+    build.check(rc, name)
+    launches[name] += 1
     return out
+
+
+def kinetic_phase(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
+    """z * exp(i * scale_b * q^2) with q^2 built from indices in-kernel.
+
+    z: (B, *grid) complex with `dims` cubic grid axes of even size N;
+    scale: (B,) = coeff_b * (2*pi / (N*dx))^2 (`kinetic_scale`).
+    """
+    if z.device.type == "cpu":
+        return kinetic_phase_plain(z, scale, dims)
+    if z.device.type != "cuda":
+        raise ValueError(f"no kinetic_phase kernel for device {z.device}")
+    return _index_q2_kernel("kinetic_phase", z, scale, dims)
+
+
+def poisson_multiply(z: torch.Tensor, scale: torch.Tensor, dims: int) -> torch.Tensor:
+    """phi_k = scale_b * z / q^2 with the k = 0 mode zeroed, q^2 built from
+    indices in-kernel (the `matmul` mode's full-spectrum Poisson multiply).
+
+    z: (B, *grid) complex with `dims` cubic grid axes of even size N;
+    scale: (B,) = -poisson_coeff * (N*dx / (2*pi))^2 (`poisson_scale`).
+    The factor scale_b / q^2 is a division rounded once, as the TPU kernel
+    computes it.
+    """
+    if z.device.type == "cpu":
+        return poisson_multiply_plain(z, scale, dims)
+    if z.device.type != "cuda":
+        raise ValueError(f"no poisson_multiply kernel for device {z.device}")
+    return _index_q2_kernel("poisson_multiply", z, scale, dims)
 
 
 def phase_rotate(

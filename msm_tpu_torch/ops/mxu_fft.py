@@ -8,10 +8,17 @@ with `MSM_FUSE_PHASES=0`) runs:
   plane_pass          : ortho DFT over the last two axes          (K6)
   plane_pass_real_fwd : the same forward of a real input          (K17)
   plane_pass_real_inv : Re of the two-axis inverse, real out      (K9)
+  lane_pass           : ortho DFT along the last axis             (K14)
+  lane_pass_real_fwd  : the same forward of a real input          (K15)
+  lane_pass_real_inv  : Re of the last-axis inverse, real out     (K16)
+  axis_inv_map        : K5's inverse with a real map on read      (K18)
 
 and the engine transforms composed from them in the JAX engine's axis
 order: `forward_engine`, `inverse_engine`, `forward_engine_real`,
-`inverse_engine_real`. The fused, skewed engine (3-D `mxu`, the default
+`inverse_engine_real` (with an optional k-space map, K18 in 3-D) and
+`forward_engine_density`. Two axes or more take the plane kernels (K6,
+K17, K9) over the last two and K5 before them; 1-D takes the lane kernels
+(K14-K16), as JAX's engine does off its fused two-axis geometry. The fused, skewed engine (3-D `mxu`, the default
 there) adds six kernels with the step's elementwise work inside the
 transforms, in `csrc/fused_kernels.cu`:
 
@@ -34,7 +41,8 @@ unskewed step's
   axis_fwd_reduce        : axis-1 fwd, sum|y|^2 and alias-band sums   (K13)
 
 (K1 also runs without its sums, `with_reduce=False`, in the prefix). The
-engine functions built on them: `poisson_solve` (K7, K8, K9),
+engine functions built on them: `poisson_solve` (K7, K8, K9 in 3-D; off
+3-D the two-call path `forward_engine_density` + `inverse_engine_real`),
 `skew_enter` (K5), `fused_step_3d_skewed` (K1-K4),
 `fused_step_exact_prefix` (K1, K10, K3, K11), `fused_step_3d` (K12,
 K2-K4, K13), `skew_exit` (K1, K5, K6), with the `SingleEngine` surface
@@ -78,6 +86,10 @@ launches = {
     "plane_real_inv_max": 0,
     "axis_inv_kick": 0,
     "axis_fwd_reduce": 0,
+    "lane_pass": 0,
+    "lane_pass_real_fwd": 0,
+    "lane_pass_real_inv": 0,
+    "axis_inv_map": 0,
 }
 # elements of one row block of the fused row kernel (kRowTile in
 # csrc/fft_common.cuh): plane_potkick_fwd and plane_real_inv_max leave one
@@ -148,6 +160,24 @@ def plane_pass_real_fwd_plain(x: torch.Tensor) -> torch.Tensor:
 
 def plane_pass_real_inv_plain(z: torch.Tensor) -> torch.Tensor:
     return torch.fft.ifft2(z, dim=(-2, -1), norm="ortho").real
+
+
+def lane_pass_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    return axis_pass_plain(z, -1, inverse)
+
+
+def lane_pass_real_fwd_plain(x: torch.Tensor) -> torch.Tensor:
+    return torch.fft.fft(x, dim=-1, norm="ortho")
+
+
+def lane_pass_real_inv_plain(z: torch.Tensor) -> torch.Tensor:
+    return torch.fft.ifft(z, dim=-1, norm="ortho").real
+
+
+def axis_inv_map_plain(x: torch.Tensor, pmap: torch.Tensor) -> torch.Tensor:
+    """x (b1, N, ...) times the real map (N, ...) (shared by the batch),
+    then the inverse DFT along axis 1."""
+    return axis_pass_plain(x * pmap.reshape(x.shape[1:]), 1, inverse=True)
 
 
 # ---------------------------------------------------------------------------
@@ -242,26 +272,109 @@ def plane_pass_real_inv(z: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _lanes(x: torch.Tensor) -> tuple[int, int]:
+    """(rows, log_n) of the (..., N) last axis of x; the row kernels take
+    whole rows, at most 2^31 - 1 row blocks of 2048 elements."""
+    if x.ndim < 1:
+        raise ValueError("a lane pass needs at least one axis")
+    log_n = _log_size(x.shape[-1])
+    if x.numel() // _ROW_TILE >= 2**31:
+        raise ValueError(f"{tuple(x.shape)} exceeds the launch grid")
+    return x.numel() >> log_n, log_n
+
+
+def lane_pass(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Ortho DFT of complex z along its last axis (K14)."""
+    rows, log_n = _lanes(z)
+    if not _route(z, "lane_pass"):
+        return lane_pass_plain(z, inverse)
+    is_double = _check_dtype(z, (torch.complex64, torch.complex128), "lane_pass")
+    z = z.contiguous()
+    out = torch.empty_like(z)
+    lib = build.load()
+    with torch.cuda.device(z.device):
+        rc = lib.msm_fft_lane(
+            z.data_ptr(), out.data_ptr(), rows, log_n, int(inverse), is_double, _stream(z)
+        )
+    build.check(rc, "lane_pass")
+    launches["lane_pass"] += 1
+    return out
+
+
+def lane_pass_real_fwd(x: torch.Tensor) -> torch.Tensor:
+    """Ortho forward DFT of real x along its last axis, full spectrum (K15)."""
+    rows, log_n = _lanes(x)
+    if not _route(x, "lane_pass_real_fwd"):
+        return lane_pass_real_fwd_plain(x)
+    is_double = _check_dtype(x, (torch.float32, torch.float64), "lane_pass_real_fwd")
+    x = x.contiguous()
+    cdtype = torch.complex128 if is_double else torch.complex64
+    out = torch.empty(x.shape, dtype=cdtype, device=x.device)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_fft_lane_real_fwd(x.data_ptr(), out.data_ptr(), rows, log_n, is_double, _stream(x))
+    build.check(rc, "lane_pass_real_fwd")
+    launches["lane_pass_real_fwd"] += 1
+    return out
+
+
+def lane_pass_real_inv(z: torch.Tensor) -> torch.Tensor:
+    """Real part of the ortho inverse DFT of complex z along its last axis
+    (K16)."""
+    rows, log_n = _lanes(z)
+    if not _route(z, "lane_pass_real_inv"):
+        return lane_pass_real_inv_plain(z)
+    is_double = _check_dtype(z, (torch.complex64, torch.complex128), "lane_pass_real_inv")
+    z = z.contiguous()
+    out = torch.empty(z.shape, dtype=z.real.dtype, device=z.device)
+    lib = build.load()
+    with torch.cuda.device(z.device):
+        rc = lib.msm_fft_lane_real_inv(z.data_ptr(), out.data_ptr(), rows, log_n, is_double, _stream(z))
+    build.check(rc, "lane_pass_real_inv")
+    launches["lane_pass_real_inv"] += 1
+    return out
+
+
+def axis_inv_map(x: torch.Tensor, pmap: torch.Tensor) -> torch.Tensor:
+    """K18: x (b1, N, ...) times the real map (N, lanes) (shared by the
+    batch) as it is loaded, then the ortho inverse DFT along axis 1."""
+    b1, n, lanes, log_n = _axis1(x)
+    on_card = _route(x, "axis_inv_map")
+    pmap = _table(pmap, x, n * lanes, "map")
+    if not on_card:
+        return axis_inv_map_plain(x, pmap)
+    x, is_double = _roundtrip_operand(x, "axis_inv_map")
+    out = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.msm_fft_axis_inv_map(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, pmap.data_ptr(), is_double,
+            _stream(x),
+        )
+    build.check(rc, "axis_inv_map")
+    launches["axis_inv_map"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Engine transforms (msm_tpu/ops/mxu_fft.py:1919-2086), natural k order
 # ---------------------------------------------------------------------------
 
 
 def _outer_axes(x: torch.Tensor, dims: int) -> range:
-    """The spatial axes before the last two (z in 3-D, none in 2-D)."""
-    if dims == 1:
-        raise NotImplementedError(
-            "1-D mxu transforms need the lane kernels K14-K16 (ROADMAP Queue 1, item 9)"
-        )
-    if dims not in (2, 3) or x.ndim < dims:
+    """The spatial axes before the last two (z in 3-D, none in 1-D and
+    2-D)."""
+    if dims not in (1, 2, 3) or x.ndim < dims:
         raise ValueError(f"dims {dims} for a tensor of shape {tuple(x.shape)}")
     return range(x.ndim - dims, x.ndim - 2)
 
 
 def forward_engine(psi: torch.Tensor, dims: int) -> torch.Tensor:
     """Ortho forward FFT over the last `dims` axes: K6 over (y, x), then K5
-    over z."""
+    over z; in 1-D, K14."""
     axes = _outer_axes(psi, dims)
+    if dims == 1:
+        return lane_pass(psi, inverse=False)
     out = plane_pass(psi, inverse=False)
     for ax in axes:
         out = axis_pass(out, ax, inverse=False)
@@ -269,25 +382,57 @@ def forward_engine(psi: torch.Tensor, dims: int) -> torch.Tensor:
 
 
 def inverse_engine(psik: torch.Tensor, dims: int) -> torch.Tensor:
-    """Ortho inverse FFT over the last `dims` axes: K5 over z, then K6."""
+    """Ortho inverse FFT over the last `dims` axes: K5 over z, then K6; in
+    1-D, K14."""
     for ax in _outer_axes(psik, dims):
         psik = axis_pass(psik, ax, inverse=True)
+    if dims == 1:
+        return lane_pass(psik, inverse=True)
     return plane_pass(psik, inverse=True)
 
 
 def forward_engine_real(rho: torch.Tensor, dims: int) -> torch.Tensor:
-    """Ortho forward FFT of a real field, full spectrum: K17, then K5."""
+    """Ortho forward FFT of a real field, full spectrum: K17, then K5; in
+    1-D, K15."""
     axes = _outer_axes(rho, dims)
+    if dims == 1:
+        return lane_pass_real_fwd(rho)
     out = plane_pass_real_fwd(rho)
     for ax in axes:
         out = axis_pass(out, ax, inverse=False)
     return out
 
 
-def inverse_engine_real(phik: torch.Tensor, dims: int) -> torch.Tensor:
-    """Real part of the ortho inverse FFT: K5 over z, then K9."""
+def forward_engine_density(psi: torch.Tensor, dims: int, prefactor: float) -> torch.Tensor:
+    """Ortho forward FFT of rho = prefactor |psi|^2 (msm_tpu's
+    `forward_engine_density`, mxu_fft.py:2013-2027): in 3-D K7 builds rho
+    inside its (y, x) forward and K5 transforms z, so rho never exists;
+    otherwise rho, then `forward_engine_real`."""
+    if dims == 3:
+        out = plane_density_fwd(psi, prefactor)
+        for ax in _outer_axes(psi, dims):
+            out = axis_pass(out, ax, inverse=False)
+        return out
+    return forward_engine_real(_density(psi, prefactor), dims)
+
+
+def inverse_engine_real(phik: torch.Tensor, dims: int, *, pmap=None) -> torch.Tensor:
+    """Real part of the ortho inverse FFT: K5 over z, then K9; in 1-D, K16.
+    pmap: a real k-space map over the spatial grid multiplied into phik on
+    the transform's first read (the Poisson -coeff/k^2 with k = 0 zeroed):
+    inside the z inverse in 3-D (K18, for K5), elementwise before it
+    otherwise, as msm_tpu's branches do (mxu_fft.py:2053-2086)."""
     for ax in _outer_axes(phik, dims):
-        phik = axis_pass(phik, ax, inverse=True)
+        if pmap is None:
+            phik = axis_pass(phik, ax, inverse=True)
+        else:
+            shape = phik.shape
+            phik = axis_inv_map(phik.reshape((-1,) + shape[ax:]), pmap).reshape(shape)
+            pmap = None
+    if pmap is not None:
+        phik = phik * pmap.to(device=phik.device, dtype=phik.real.dtype)
+    if dims == 1:
+        return lane_pass_real_inv(phik)
     return plane_pass_real_inv(phik)
 
 
@@ -702,12 +847,14 @@ def _batched_3d(x: torch.Tensor, what: str) -> None:
 
 
 def poisson_solve(psi, dims: int, prefactor: float, pmap):
-    """The spectral Poisson solve in three passes: K7 (density and its
+    """The spectral Poisson solve. In 3-D three passes: K7 (density and its
     (y, x) forward), K8 (z forward, x pmap, z inverse), K9 (Re of the
-    (y, x) inverse). pmap: -coeff / k^2 over the full (N, N, N) grid, k = 0
-    zeroed. rho, rho_k and phi_k never exist."""
+    (y, x) inverse); rho, rho_k and phi_k never exist. Off 3-D the two-call
+    path `inverse_engine_real(forward_engine_density(psi), pmap=pmap)`, as
+    msm_tpu falls back (mxu_fft.py:2049-2050). pmap: -coeff / k^2 over the
+    full spatial grid, k = 0 zeroed."""
     if dims != 3:
-        raise NotImplementedError("the fused Poisson solve is 3-D only")
+        return inverse_engine_real(forward_engine_density(psi, dims, prefactor), dims, pmap=pmap)
     _batched_3d(psi, "psi")
     rho_t = plane_density_fwd(psi, prefactor)
     return plane_pass_real_inv(axis_roundtrip_map(rho_t, pmap))

@@ -134,8 +134,12 @@ def _transforms(stepper: Stepper) -> str:
     if stepper.fuse_phases:
         solve = "K7, K8, K9 (pre-step potential) + " if exact else "K7, K8, K9 + "
         return f"mxu (fused, unskewed engine: K12, K2, K3, K4, K13, {solve}K19, K5, K6)"
-    if stepper.use_mxu:
+    if stepper.fft_mode == "mxu" and stepper.params.dims == 1:
+        return "mxu (engine lane kernels: K14, K15, K16 + K19, K21)"
+    if stepper.fft_mode == "mxu":
         return "mxu (engine FFT kernels: K5, K6, K17, K9 + K19, K21)"
+    if stepper.fft_mode == "matmul":
+        return "matmul (torch matmul DFT + K19, K20, K21)"
     return "xla (torch.fft + K19, K21)"
 
 

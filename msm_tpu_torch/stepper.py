@@ -8,13 +8,19 @@ chosen by the transform mode (`ops.fft.get_mode`):
 
 - `xla` (with `MSM_USE_PALLAS=1` in JAX): transforms are torch.fft (cuFFT
   on the card); the Poisson solve is the half-spectrum rfft/irfft pair.
-- `mxu`, unfused (2-D, or 3-D with `MSM_FUSE_PHASES=0`; `_step_static`
-  :878-885): transforms are the engine's (`ops.mxu_fft`: the CUDA FFT
-  kernels K5, K6 on the card), and the Poisson solve is the engine's
-  full-spectrum route (`_potential` :682-690): real forward (K17, K5),
-  x -coeff/k^2 over the full grid, real inverse (K5, K9). k stays in
-  natural order, so the constants are the `xla` mode's.
-- In both, the two elementwise phase passes of the step run through
+- `matmul` (with `MSM_USE_PALLAS=1` in JAX; `_potential` :708-710,
+  `_poisson_multiply` :545-555): transforms are DFT-as-matmul
+  (`ops.fft.matmul_transform`), and the Poisson solve stays on them over
+  the full spectrum: forward of rho as complex, x scale/q^2 (K20, q^2
+  from indices, so no map grid), Re of the inverse.
+- `mxu`, unfused (1-D, 2-D, or 3-D with `MSM_FUSE_PHASES=0`;
+  `_step_static` :878-885): transforms are the engine's (`ops.mxu_fft`:
+  the CUDA FFT kernels K5, K6 on the card, K14 in 1-D), and the Poisson
+  solve is the engine's full-spectrum route (`_potential` :682-690): real
+  forward (K17, K5; K15 in 1-D), x -coeff/k^2 over the full grid, real
+  inverse (K5, K9; K16 in 1-D). k stays in natural order (JAX keeps
+  engine order, in 1-D as well), so the constants are the `xla` mode's.
+- In all three, the two elementwise phase passes of the step run through
   `ops.kernels`: the CUDA kernels K19 (kinetic phase, q^2 from indices)
   and K21 (potential rotation) on the card.
 - `mxu`, fused and skewed (3-D with `MSM_FUSE_PHASES` and `MSM_SKEW_STEP`
@@ -117,7 +123,8 @@ class StepConsts:
 
     alias_mask: 1 where k^2 > k2_cutoff * k2_max (`simulation_object.rs:
     1262-1277`). poisson_map: -poisson_coeff / k^2, k = 0 zeroed, on the
-    rfft half spectrum (`xla`) or the full grid (`mxu`). The kinetic phase
+    rfft half spectrum (`xla`) or the full grid (`mxu`); None for
+    `matmul`, whose K20 builds it from indices. The kinetic phase
     needs no k^2 grid: q^2 is built from indices (ops.kernels). The fused
     engine reads spec_axis0, the 1-D k^2 table s0 (N,), and spec_axis12,
     s12 = s0[:, None] + s0[None, :] flattened (N*N,) (msm_tpu's
@@ -125,7 +132,7 @@ class StepConsts:
     """
 
     alias_mask: torch.Tensor
-    poisson_map: torch.Tensor
+    poisson_map: "torch.Tensor | None"
     spec_axis0: "torch.Tensor | None" = None
     spec_axis12: "torch.Tensor | None" = None
 
@@ -199,18 +206,14 @@ class Stepper:
         self.tdtype = tdtype
 
         p = params
-        # The MXU engine's transforms (stepper.py:238-242); its fused-phase
-        # engine is what 3-D grids run unless MSM_FUSE_PHASES=0 (:293-298),
-        # skewed unless MSM_SKEW_STEP=0 (:309-311), both read here at
-        # construction as JAX reads them.
-        self.use_mxu = fft_ops.get_mode(p.size) == "mxu"
-        if self.use_mxu and p.dims == 1:
-            raise NotImplementedError(
-                "1-D mxu transforms need the lane kernels K14-K16 "
-                "(ROADMAP Queue 1, item 9)"
-            )
+        # The transform mode, read at construction: the MXU engine's
+        # transforms (stepper.py:238-242), whose fused-phase engine is what
+        # 3-D grids run unless MSM_FUSE_PHASES=0 (:293-298), skewed unless
+        # MSM_SKEW_STEP=0 (:309-311), both read here as JAX reads them; or
+        # the matmul DFT (:697).
+        self.fft_mode = fft_ops.get_mode(p.size)
         self.fuse_phases = (
-            self.use_mxu and p.dims == 3 and not _env_off("MSM_FUSE_PHASES")
+            self.fft_mode == "mxu" and p.dims == 3 and not _env_off("MSM_FUSE_PHASES")
         )
         self.skew = self.fuse_phases and not _env_off("MSM_SKEW_STEP")
         # k2_max from the separable 1-D table: max(sum_i k_i^2) = dims *
@@ -235,9 +238,11 @@ class Stepper:
             self.engine = mxu_fft.SingleEngine(
                 p.dims, self.poisson_coeff, p.k2_cutoff * self.k2_max, self.density_prefactor
             )
+        elif self.fft_mode == "matmul":
+            poisson_map = None
         else:
             # -coeff / k^2 on the spectrum the Poisson solve transforms to
-            if not self.use_mxu:
+            if self.fft_mode == "xla":
                 spec = spec[..., : p.size // 2 + 1]
             spec_t = torch.as_tensor(spec, dtype=self.rdtype)
             inv_k2 = torch.where(spec_t > 0.0, 1.0, 0.0) / torch.where(
@@ -246,7 +251,7 @@ class Stepper:
             poisson_map = -self.poisson_coeff * inv_k2
         self.consts = StepConsts(
             alias_mask=torch.as_tensor(mask, dtype=self.rdtype, device=self.device),
-            poisson_map=poisson_map.to(self.device),
+            poisson_map=None if poisson_map is None else poisson_map.to(self.device),
             spec_axis0=spec_axis0,
             spec_axis12=spec_axis12,
         )
@@ -263,6 +268,16 @@ class Stepper:
     # ------------------------------------------------------------------
 
     @property
+    def use_mxu(self) -> bool:
+        """The MXU engine's transforms (msm_tpu's `use_mxu`)."""
+        return self.fft_mode == "mxu"
+
+    @property
+    def use_matmul(self) -> bool:
+        """The matmul DFT transforms (msm_tpu's `use_matmul`)."""
+        return self.fft_mode == "matmul"
+
+    @property
     def _spatial_axes(self) -> tuple[int, ...]:
         return fft_ops.spatial_axes(self.params.dims)
 
@@ -271,14 +286,10 @@ class Stepper:
         return scalar.reshape(scalar.shape + (1,) * self.params.dims)
 
     def _fwd(self, x):
-        if self.use_mxu:
-            return mxu_fft.forward_engine(x, self.params.dims)
-        return fft_ops.forward(x, self.params.dims)
+        return fft_ops.forward(x, self.params.dims, self.fft_mode)
 
     def _inv(self, xk):
-        if self.use_mxu:
-            return mxu_fft.inverse_engine(xk, self.params.dims)
-        return fft_ops.inverse(xk, self.params.dims)
+        return fft_ops.inverse(xk, self.params.dims, self.fft_mode)
 
     def _apply_kinetic(self, psik, coeff):
         """psik * exp(i * coeff * k^2) (K19); coeff per stream."""
@@ -343,20 +354,26 @@ class Stepper:
         rho = prefactor |psi|^2; phi_k = -coeff rho_k / k^2 (k = 0 zeroed);
         phi = Re F^-1[phi_k]. Fused engine: the three-pass solve (K7, K8,
         K9); `mxu`: the engine's real-input forward and real-output inverse
-        over the full spectrum; `xla`: rfft/irfft on the half spectrum."""
+        over the full spectrum; `matmul`: the matmul transforms over the
+        full spectrum around K20; `xla`: rfft/irfft on the half spectrum."""
         if self.fuse_phases:
             return self.engine.poisson_solve(psi, self.consts)
+        p = self.params
         axes = self._spatial_axes
         rho = self.density_prefactor * self._abs2(psi)
-        if self.use_mxu:
-            dims = self.params.dims
-            rho_k = mxu_fft.forward_engine_real(rho, dims)
-            return mxu_fft.inverse_engine_real(self.consts.poisson_map * rho_k, dims)
+        if self.fft_mode == "mxu":
+            rho_k = mxu_fft.forward_engine_real(rho, p.dims)
+            return mxu_fft.inverse_engine_real(self.consts.poisson_map * rho_k, p.dims)
+        if self.fft_mode == "matmul":
+            scale = torch.full(
+                (rho.shape[0],), kernels.poisson_scale(self.poisson_coeff, p.size, p.dx),
+                dtype=self.rdtype, device=rho.device,
+            )
+            phi_k = kernels.poisson_multiply(self._fwd(rho.to(self.dtype)), scale, p.dims)
+            return self._inv(phi_k).real
         rho_k = torch.fft.rfftn(rho, dim=axes)
         phi_k = self.consts.poisson_map * rho_k
-        return torch.fft.irfftn(
-            phi_k, s=(self.params.size,) * self.params.dims, dim=axes
-        ).to(self.rdtype)
+        return torch.fft.irfftn(phi_k, s=(p.size,) * p.dims, dim=axes).to(self.rdtype)
 
     def _scalar_advance(self, state: SimState, phi_max=None) -> _Advance:
         """dt = min(kinetic, potential(max|phi|), to next dump) (get_timestep

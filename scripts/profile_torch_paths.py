@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Per-iteration time of the port's 3-D paths on one GPU, and a device
-profile of one of them.
+"""Per-iteration time of the port's paths on one GPU, and a device profile
+of one of them.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
-    python3 scripts/profile_torch_paths.py [--size 256] [--seeds 8]
-        [--paths xla,mxu,fused] [--dt-mode optimistic] [--profile fused]
-        [--out profile_out]
+    python3 scripts/profile_torch_paths.py [--config tophat] [--size 256]
+        [--seeds 8] [--paths xla,mxu,fused] [--dt-mode optimistic]
+        [--profile fused] [--out profile_out]
 
-Builds chip_smoke.py's main configuration once (the tophat-collapse
-physics at --size^3, --seeds Wigner streams + MFT, complex64, 3 dumps over
-t = 40) and starts every run from that sampled batch, through the
-stepper API (no dump writes), in --dt-mode. Paths, as chip_smoke.py names
-them: `xla` (torch.fft), `mxu` (MSM_FFT=mxu, MSM_FUSE_PHASES=0: the
-engine's FFT kernels, unfused), `fused` (MSM_FFT=mxu: the fused, skewed
-engine; in exact dt each iteration adds the prefix K1, K10, K3, K11) and
-`unskewed` (MSM_FFT=mxu, MSM_SKEW_STEP=0: the unskewed fused engine).
+Builds one of chip_smoke.py's main configurations once (--config: `tophat`,
+the tophat-collapse physics at --size^3, by default 256^3 with 8 Wigner
+streams + MFT; `gauss1d`, the 1-D cold Gaussian at --size, by default 1024
+with 255 Wigner streams + MFT; complex64, 3 dumps over t = 40) and starts
+every run from that sampled batch, through the stepper API (no dump
+writes), in --dt-mode. Paths, as chip_smoke.py names them: `xla`
+(torch.fft), `matmul` (MSM_FFT=matmul: DFT-as-matmul transforms and K20),
+`mxu` (MSM_FFT=mxu, MSM_FUSE_PHASES=0: the engine's FFT kernels, unfused;
+`mxu-1d` is the same switches, the lane kernels on a 1-D config), `fused`
+(MSM_FFT=mxu: the fused, skewed engine; in exact dt each iteration adds the
+prefix K1, K10, K3, K11) and `unskewed` (MSM_FFT=mxu, MSM_SKEW_STEP=0: the
+unskewed fused engine).
 
 1. In turns (--paths, then the same in reverse) each path runs its first
    dump interval as warm-up, then the second interval is timed with the
@@ -53,13 +57,15 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def build_batch(size: int, seeds: int, dtype=torch.complex64):
-    """The sampled (B, N, N, N) batch and the MFT's parameters."""
+def build_batch(config: str, size: int, seeds: int, dtype=torch.complex64):
+    """The sampled (B, *grid) batch of a chip_smoke configuration and the
+    MFT's parameters."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch.models.ics import build_ics
     from msm_tpu_torch.models.sampling import sample_stream_batch
 
-    text = chip_smoke.TOPHAT.format(final=40, dumps=3, name="tophat-collapse", size=size)
+    template, name = chip_smoke.CONFIGS[config][:2]
+    text = template.format(final=40, dumps=3, name=name, size=size)
     text += f'\n[sampling]\nseeds  = "1 to {seeds}"\nscheme = "Wigner"\n'
     params = list(cfg.iter_stream_parameters(cfg.parse_toml_str(text)))
     mft = params[-1]
@@ -145,8 +151,9 @@ def profile_interval(path: str, dt_mode: str, batch, mft, out_dir: str, unprofil
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--size", type=int, default=256)
-    ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--config", default="tophat", choices=tuple(chip_smoke.CONFIGS))
+    ap.add_argument("--size", type=int, help="grid size (default: the config's)")
+    ap.add_argument("--seeds", type=int, help="Wigner streams (default: the config's)")
     ap.add_argument("--paths", default="xla,mxu,fused",
                     help="comma-separated paths to time, in turns")
     ap.add_argument("--dt-mode", default="optimistic", choices=("optimistic", "exact", "lagged"))
@@ -162,7 +169,8 @@ def main() -> int:
     name, limit = (s.strip() for s in chip_smoke.nvidia_smi().split(",", 1))
     card = {"card": name, "power_limit": limit}
     chip_smoke.phase_build(card)
-    batch, mft = build_batch(args.size, args.seeds)
+    _, _, _, size, seeds, _ = chip_smoke.CONFIGS[args.config]
+    batch, mft = build_batch(args.config, args.size or size, args.seeds or seeds)
     walls = collections.defaultdict(list)
     for path in paths + paths[::-1]:
         rec = second_interval(path, args.dt_mode, batch, mft)

@@ -201,7 +201,9 @@ def test_skew_enter_and_exit_match_jax(rng):
 
 
 def test_fused_engine_refusals(rng):
-    """2-D and unbatched fields are not the fused engine's. The unskewed
+    """2-D and unbatched fields are not the fused engine's: a 2-D Poisson
+    solve takes the two-call path (`forward_engine_density`, then
+    `inverse_engine_real` with the map), as msm_tpu's does. The unskewed
     fused step and the exact-dt prefix run: on a (2, 128^3) batch the
     carrier and psik keep the grid's shape and every reduction is one value
     per stream."""
@@ -219,9 +221,12 @@ def test_fused_engine_refusals(rng):
     assert q1.shape == q.shape and q1.dtype == q.dtype and pm.shape == (2,)
     outs = eng.fused_step(q, consts, c, c)
     assert [tuple(o.shape) for o in outs] == [q.shape, q.shape, (2,), (2,), (2,)]
-    z = torch.zeros((1, N, N), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        mxu_fft.poisson_solve(z, 2, 1.0, torch.zeros(N, N))
+    z = torch.as_tensor(_complex(rng, (1, N, N)))
+    pmap = torch.as_tensor(rng.standard_normal((N, N)))
+    np.testing.assert_array_equal(
+        mxu_fft.poisson_solve(z, 2, 1.0, pmap).numpy(),
+        mxu_fft.inverse_engine_real(mxu_fft.forward_engine_density(z, 2, 1.0), 2, pmap=pmap).numpy(),
+    )
     with pytest.raises(ValueError, match="B, N, N, N"):
         mxu_fft.skew_enter(z, 3)
 

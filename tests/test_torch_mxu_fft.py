@@ -147,12 +147,18 @@ def test_engine_round_trip(rng, dims, shape):
     )
 
 
-def test_one_dimensional_engine_is_refused():
-    z = torch.zeros((2, 128), dtype=torch.complex128)
-    for fn in (mxu_fft.forward_engine, mxu_fft.inverse_engine,
-               mxu_fft.forward_engine_real, mxu_fft.inverse_engine_real):
-        with pytest.raises(NotImplementedError, match="K14-K16"):
-            fn(z if fn is not mxu_fft.forward_engine_real else z.real, 1)
+def test_one_dimensional_engine_matches_numpy(rng):
+    """1-D takes the lane kernels (K14-K16): the four engine transforms are
+    numpy's ortho DFT along the last axis, k in natural order."""
+    z = _complex(rng, (2, 128))
+    x = z.real.copy()
+    tz = torch.as_tensor(z)
+    fwd, inv = np.fft.fft(z, norm="ortho"), np.fft.ifft(z, norm="ortho")
+    np.testing.assert_allclose(mxu_fft.forward_engine(tz, 1).numpy(), fwd, atol=ATOL)
+    np.testing.assert_allclose(mxu_fft.inverse_engine(tz, 1).numpy(), inv, atol=ATOL)
+    np.testing.assert_allclose(mxu_fft.forward_engine_real(torch.as_tensor(x), 1).numpy(),
+                               np.fft.fft(x, norm="ortho"), atol=ATOL)
+    np.testing.assert_allclose(mxu_fft.inverse_engine_real(tz, 1).numpy(), inv.real, atol=ATOL)
 
 
 @pytest.mark.parametrize("size", [96, 2048])

@@ -56,6 +56,39 @@ def test_import_loads_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("mode,dims,size", [("mxu", 1, 128), ("matmul", 2, 64), ("matmul", 1, 16)])
+def test_paths_run_with_jax_blocked(mode, dims, size):
+    """The 1-D `mxu` path (the lane kernels' plain versions) and the
+    `matmul` path (K20's) run a dump interval on the CPU in a process where
+    importing jax or msm_tpu fails."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'msm_tpu'): sys.modules[m] = None\n"
+        "import torch\n"
+        "from msm_tpu_torch import config as cfg\n"
+        "from msm_tpu_torch.models import ics\n"
+        "from msm_tpu_torch.ops import fft\n"
+        "from msm_tpu_torch.stepper import Stepper\n"
+        f"fft.set_default_mode({mode!r})\n"
+        "p = cfg.resolve_parameters(cfg.TomlParameters(\n"
+        "    axis_length=30.0, final_sim_time=0.2, cfl=0.5, num_data_dumps=1,\n"
+        "    total_mass=1e8, sim_name='t', k2_cutoff=0.95, alias_threshold=0.5,\n"
+        f"    dims={dims}, size={size}, ics=cfg.ColdGauss(mean=(15.0,) * {dims}, std=(3.0,) * {dims}),\n"
+        "    hbar_=0.05))\n"
+        "st = Stepper(p, torch.complex128, 'cpu')\n"
+        f"assert st.fft_mode == {mode!r}\n"
+        "s = st.evolve_to_next_dump(st.init_state(torch.as_tensor(ics.build_ics(p))[None]))\n"
+        "assert bool(s.just_dumped.all()) and int(s.n_steps[0]) > 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _params():
     return cfg.resolve_parameters(cfg.TomlParameters(
         axis_length=30.0, final_sim_time=1.0, cfl=0.5, num_data_dumps=1,

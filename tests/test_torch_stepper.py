@@ -172,7 +172,7 @@ def test_steps_launch_both_kernel_wrappers(monkeypatch):
     steps = int(s.n_steps[0]) + int(s.replays[0])
     assert calls["phase_rotate"] == steps
     assert calls["kinetic_phase"] == steps + 1  # + the closing kick at the dump
-    assert kernels.launches == {"kinetic_phase": 0, "phase_rotate": 0}
+    assert set(kernels.launches.values()) == {0}
 
 
 def test_predict_bound_zero_potential_f32():

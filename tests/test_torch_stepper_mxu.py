@@ -151,23 +151,33 @@ def test_3d_fused_mode_selection(mxu_mode, monkeypatch):
 
 
 def test_mode_resolution(monkeypatch):
-    """`mxu` only at the engine's sizes, `xla` elsewhere; `auto`/`matmul`
-    are refused when resolved; the mode is the stepper's at construction."""
+    """`mxu` only at the engine's sizes, `xla` elsewhere; `matmul` at every
+    size; `auto` is `xla` off a TPU, as JAX resolves it; the mode is the
+    stepper's at construction, a 1-D `mxu` stepper included; TF32 matmuls
+    on the card are refused by the matmul transform."""
     try:
         fft.set_default_mode("mxu")
         assert [fft.get_mode(n) for n in (128, 96, 1024, 2048)] == ["mxu", "xla", "mxu", "xla"]
         tp = cfg.resolve_parameters(_toml(cfg, 2, 96))
         assert not Stepper(tp, torch.complex128, "cpu").use_mxu
-        for mode in ("auto", "matmul"):
-            fft.set_default_mode(mode)
-            with pytest.raises(NotImplementedError, match="K20"):
-                fft.get_mode(128)
+        fft.set_default_mode("auto")
+        assert [fft.get_mode(n) for n in (96, 128, 256)] == ["xla"] * 3
+        assert jfft.get_mode(128) == "xla"  # JAX's auto on the CPU backend
+        fft.set_default_mode("matmul")
+        assert [fft.get_mode(n) for n in (96, 128, 2048)] == ["matmul"] * 3
+        st = Stepper(tp, torch.complex128, "cpu")
+        assert st.use_matmul and not st.use_mxu and st.consts.poisson_map is None
         with pytest.raises(ValueError):
             fft.set_default_mode("cufft")
         fft.set_default_mode("mxu")
-        with pytest.raises(NotImplementedError, match="K14-K16"):
-            Stepper(cfg.resolve_parameters(_toml(
-                cfg, 1, 128, ics=cfg.ColdGauss(mean=(15.0,), std=(3.0,)))), torch.complex128, "cpu")
+        one = Stepper(cfg.resolve_parameters(_toml(
+            cfg, 1, 128, ics=cfg.ColdGauss(mean=(15.0,), std=(3.0,)))), torch.complex128, "cpu")
+        assert one.use_mxu and not one.fuse_phases and one.engine is None
+        fft.set_default_mode("xla")
+        assert one.use_mxu and one.fft_mode == "mxu"
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        with pytest.raises(RuntimeError, match="TF32"):
+            fft._check_precision(torch.device("cuda"))
     finally:
         fft.set_default_mode("xla")
     assert fft.get_mode(128) == "xla"
