@@ -11,6 +11,12 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             and triton are installed (not imported: the port needs neither)
   1 build   nvcc-builds the kernels from the checkout's sources (one nvcc
             per source, all started together, then one link)
+  1b floor  the copy probes P1 copy_pass at (9 * 256, 256, 256) and P2
+            copy_pass_lane at (256^2, 256), f32 x 2 planes, bit for bit
+            against their plain version, timed beside Tensor.copy_; P1's
+            bytes over its median time is the measured copy bandwidth
+            (`copy_floor_bytes_per_s`) that every kernel's `floor_ms` uses;
+            P1 bit for bit also at the probe run's (256^3, 512^3) planes
   2 kernels each CUDA kernel against its plain torch version on the card,
             complex64 and complex128, median of 20 timed launches of each:
             K19 kinetic_phase, K20 poisson_multiply and K21 phase_rotate at
@@ -35,6 +41,9 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             K5, K18, K9) at (9, 256^3), c64 and c128 (K18's launches are
             this check's); the matmul transform, forward and inverse,
             against torch.fft at (9, 256^3) c64
+  2c probes the probe scripts' own run (P1/P2's launches): main() of
+            scripts/torch_microbench_mxu.py at 256^3 and 512^3 and of
+            scripts/torch_probe_mxu_floor.py at 256^3
   3 e2e     the kernel path against the CPU plain path, end to end, with
             identical step/replay counts and psi at every dump within
             1e-10: the tophat-collapse physics at 64^3, MFT only,
@@ -44,10 +53,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             `mxu` path (MSM_FFT=mxu, MSM_FUSE_PHASES=0), the fused, skewed
             engine (MSM_FFT=mxu alone) in optimistic, exact and lagged dt,
             and the unskewed fused engine (MSM_SKEW_STEP=0) in exact and
-            lagged dt; and the 1-D `mxu` path (the lane kernels) on the
-            1-D cold Gaussian at 1024, MFT only, 2 dumps over t = 2 (the
-            run amplifies rounding differences past that), in the three dt
-            modes
+            lagged dt, the fused engine once more with
+            MSM_DT_INIT_BOUND_SCALE=0.25 (both runs must replay); and the
+            1-D `mxu` path (the lane kernels) on the 1-D cold Gaussian at
+            1024, MFT only, 2 dumps over t = 2 (the run amplifies rounding
+            differences past that), in the three dt modes
   4 main    `python -m msm_tpu_torch simulate --device cuda --verbose` run
             in-process (so the kernels' launch counts can be read) seven
             times, complex64, 3 dumps over t = 40: on the tophat-collapse
@@ -66,8 +76,10 @@ It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
 and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
-from the engine check), the card's name and power limit as nvidia-smi
-gives them, and last `{"ok": true, "device": {...}}`. Without a CUDA
+from the engine check; P1/P2 from the probe run), with `floor_ms` (its
+bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
+and power limit as nvidia-smi gives them; and last `{"ok": true,
+"device": {...}}`. Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 """
 
@@ -92,6 +104,7 @@ import torch
 PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
+COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
@@ -115,6 +128,8 @@ KERNELS = {
     "lane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:399"),
     "lane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:412"),
     "axis_inv_map": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:839"),
+    "copy_pass": (COPY_SOURCE, "scripts/microbench_mxu.py:115"),
+    "copy_pass_lane": (COPY_SOURCE, "scripts/probe_mxu_floor.py:101"),
 }
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
 LANE_KERNELS = ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -135,7 +150,9 @@ RUN_KERNELS = {
     "mxu-1d": PHASE_KERNELS + LANE_KERNELS,
 }
 # the main run whose launches each kernel reports: the path it was ported
-# for; K18 (on no main run's path) reports the engine check's
+# for; K18 (on no main run's path) reports the engine check's, the copy
+# probes P1/P2 the probe scripts' run
+PROBE_KERNELS = ("copy_pass", "copy_pass_lane")
 OWN_RUN = {
     **{k: "xla" for k in PHASE_KERNELS},
     **{k: "mxu" for k in FFT_KERNELS},
@@ -145,6 +162,7 @@ OWN_RUN = {
     "poisson_multiply": "matmul",
     **{k: "mxu-1d" for k in LANE_KERNELS},
     "axis_inv_map": "engine-check",
+    **{k: "probes" for k in PROBE_KERNELS},
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -155,6 +173,13 @@ FFT_SHAPES = (MAIN_SHAPE, (2, 1024, 1024), (3, 512, 512, 512))
 # deep, with FFT_LIMITS)
 LANE_SHAPES = ((256, 1024), (9 * 256 * 256, 256))
 MAP_SHAPES = (MAIN_SHAPE, (3, 512, 512, 512))
+# P1 at the main grid's bytes, (9 * 256, 256, 256) f32 x 2 planes; P2 at
+# the lane geometry of 256^3, (256^2, 256) f32 x 2 planes, the shape the
+# probe run gives it: both timed, the floor taken from P1
+FLOOR_SHAPES = {"copy_pass": (9 * 256, 256, 256), "copy_pass_lane": (256 * 256, 256)}
+# the planes the probe run gives P1 besides (the microbench at 256^3 and
+# 512^3), held bit for bit and not timed
+PROBE_SHAPES = {"copy_pass": ((256, 256, 256), (512, 512, 512)), "copy_pass_lane": ()}
 # FFT kernels: max |kernel - plain| <= limit * max |plain|. Both sides are
 # O(log2 N)-deep butterfly networks in the same precision, so their
 # difference is a few eps * log2(N^2) of the field's scale: <= 20 levels at
@@ -177,10 +202,10 @@ FUSED_LIMITS = {torch.complex128: 2e-12, torch.complex64: 2e-5}
 ONE_TRANSFORM = ("axis_inv_kick", "axis_fwd_reduce")
 # Bounds (the least time the card could take): the larger of the bytes a
 # function must move (each input read once, each output written once) at
-# the H100's 3.35 TB/s and its floating-point operations at its 67 TFLOP/s
-# of float32 outside the tensor cores (the published peaks at 700 W). An
-# FFT of length n counts 5 n log2 n operations; a sincos counts 20.
-HBM_BYTES_PER_S = 3.35e12
+# the H100's 3.35 TB/s (probes.HBM_BYTES_PER_S) and its floating-point
+# operations at its 67 TFLOP/s of float32 outside the tensor cores (the
+# published peaks at 700 W). An FFT of length n counts 5 n log2 n
+# operations; a sincos counts 20.
 FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -250,13 +275,6 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
 def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Median device time of n launches of fn (CUDA events around each)."""
     for _ in range(3):
@@ -275,6 +293,8 @@ def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
 
 def bound(inputs, outputs, ops: float) -> dict:
     """The bound of one call from its tensors and operation count."""
+    from msm_tpu_torch.ops.probes import HBM_BYTES_PER_S
+
     nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return {
@@ -319,6 +339,77 @@ def phase_build(card: dict) -> None:
         "seconds": time.perf_counter() - t0,
         **card,
     })
+
+
+def _copy_exact(fn, re, im):
+    """One copy probe against copy_pass_plain: (its outputs, the plain
+    ones, max abs error, whether they are equal bit for bit)."""
+    from msm_tpu_torch.ops import probes
+
+    got = fn(re, im)
+    want = probes.copy_pass_plain(re, im)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    return got, want, err, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def phase_floor(card: dict) -> dict:
+    """P1 copy_pass and P2 copy_pass_lane against copy_pass_plain on the card
+    at FLOOR_SHAPES, bit for bit (max_abs_err 0), each timed with median_ms;
+    library_ms is `out.copy_(in)` on both planes (two torch calls). Emits
+    the measured copy bandwidth, P1's bytes (each plane read once and
+    written once) over its median, timed as every kernel's `ms` is: the
+    floor every kernel's `floor_ms` is read against. Then P1 bit for bit at
+    PROBE_SHAPES, the probe run's other planes. Returns the two timed
+    records and the bandwidth."""
+    from msm_tpu_torch.ops import probes
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2028)
+    main = {}
+    for name, shape in FLOOR_SHAPES.items():
+        fn = getattr(probes, name)
+        re = torch.randn(shape, device="cuda", generator=gen)
+        im = torch.randn(shape, device="cuda", generator=gen)
+        got, want, err, exact = _copy_exact(fn, re, im)
+        bnd = bound([re, im], list(got), 0.0)
+        out_re, out_im = want
+        del got
+
+        def library():
+            out_re.copy_(re)
+            out_im.copy_(im)
+
+        rec = {
+            "phase": "floor", "kernel": name, "dtype": "float32", "shape": list(shape),
+            "planes": 2, "max_abs_err": err, "bit_exact": exact,
+            "ms": median_ms(lambda: fn(re, im)),
+            "plain_ms": median_ms(lambda: probes.copy_pass_plain(re, im)),
+            "library_ms": median_ms(library), "library": "Tensor.copy_ on each plane (two calls)",
+            **bnd, **card,
+        }
+        rec["bytes_per_s"] = rec["bytes"] / (rec["ms"] * 1e-3)
+        emit(rec)
+        check(exact and err == 0.0, f"{name}: not bit-exact (max error {err})")
+        main[name] = rec
+        del re, im, want, out_re, out_im
+        torch.cuda.empty_cache()
+    bw = main["copy_pass"]["bytes_per_s"]
+    emit({
+        "phase": "floor", "copy_floor_bytes_per_s": bw,
+        "of_published": bw / probes.HBM_BYTES_PER_S, "from": "copy_pass", **card,
+    })
+    for name, shapes in PROBE_SHAPES.items():
+        for shape in shapes:
+            re = torch.randn(shape, device="cuda", generator=gen)
+            im = torch.randn(shape, device="cuda", generator=gen)
+            _, _, err, exact = _copy_exact(getattr(probes, name), re, im)
+            emit({"phase": "floor", "kernel": name, "dtype": "float32", "shape": list(shape),
+                  "planes": 2, "max_abs_err": err, "bit_exact": exact, **card})
+            check(exact and err == 0.0, f"{name} {shape}: not bit-exact (max error {err})")
+            del re, im
+            torch.cuda.empty_cache()
+    return {"records": main, "bytes_per_s": bw}
 
 
 def phase_kernels(card: dict) -> dict:
@@ -592,6 +683,37 @@ def phase_engine_checks(card: dict) -> dict:
     return {"launches": launches}
 
 
+def phase_probes(card: dict) -> dict:
+    """The probe scripts' own run, in-process: main() of
+    scripts/torch_microbench_mxu.py at 256^3 and 512^3 and of
+    scripts/torch_probe_mxu_floor.py at 256^3 (20 reps). P1/P2's launch
+    counts are set to 0 just before and read just after; each script's
+    lines go to stderr and its closing JSON record to one line here."""
+    from msm_tpu_torch.ops import probes
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_microbench_mxu
+    import torch_probe_mxu_floor
+
+    runs = ((torch_microbench_mxu, ["256"]), (torch_microbench_mxu, ["512"]),
+            (torch_probe_mxu_floor, ["256", "20"]))
+    probes.reset_launches()
+    for mod, argv in runs:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        sys.stderr.write(out.getvalue())
+        check(rc == 0, f"{mod.__name__} {argv} returned {rc}")
+        emit({"phase": "probes", "script": f"scripts/{mod.__name__}.py", "argv": argv,
+              "seconds": time.perf_counter() - t0,
+              **json.loads(out.getvalue().strip().splitlines()[-1]), **card})
+    launches = dict(probes.launches)
+    for k in PROBE_KERNELS:
+        check(launches[k] > 0, f"the probe run launched {k} no time")
+    return {"launches": launches}
+
+
 def _fused_cases(shape, cdtype, gen) -> dict:
     """name -> (kernel, plain, inputs, ops) for the fused engine's kernels
     on one (B, N, N, N) shape: inputs as the fused step gives them (the
@@ -777,29 +899,37 @@ PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNE
 
 
 @contextlib.contextmanager
+def env_vars(env: dict):
+    """Environment variables for a block (None unsets one), restored after
+    it."""
+    def apply(values: dict) -> None:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    saved = {k: os.environ.get(k) for k in env}
+    apply(env)
+    try:
+        yield
+    finally:
+        apply(saved)
+
+
+@contextlib.contextmanager
 def fft_mode(path: str):
     """MSM_FFT / MSM_FUSE_PHASES / MSM_SKEW_STEP and the port's transform
     mode of one path for a block."""
     from msm_tpu_torch.ops import fft
 
     mode, fuse, skew = PATHS[path]
-    env = {"MSM_FFT": mode, "MSM_FUSE_PHASES": fuse, "MSM_SKEW_STEP": skew}
-    saved = {k: os.environ.get(k) for k in env}
     prev = fft.default_mode()
-    for k, v in env.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
     fft.set_default_mode(mode)
     try:
-        yield
+        with env_vars({"MSM_FFT": mode, "MSM_FUSE_PHASES": fuse, "MSM_SKEW_STEP": skew}):
+            yield
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
         fft.set_default_mode(prev)
 
 
@@ -813,20 +943,23 @@ def _load_dumps(root: str, name: str, n_dumps: int) -> list:
 
 
 def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
-                 dt_mode: str = "optimistic") -> None:
+                 dt_mode: str = "optimistic", env: "dict | None" = None) -> None:
     """One config through the CUDA kernels and through the plain versions on
     the CPU: identical step/replay counts, psi at every dump within 1e-10.
-    The tophat-collapse physics in 3-D; the 1-D cold Gaussian on `mxu-1d`."""
+    The tophat-collapse physics in 3-D; the 1-D cold Gaussian on `mxu-1d`.
+    env: variables set around both runs (read at Stepper construction); with
+    MSM_DT_INIT_BOUND_SCALE both runs must also have replayed."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch import simulator
     from msm_tpu_torch.io.checkpoint import load_manifest
 
-    name = f"e2e-{path}-{dt_mode}"
+    env = env or {}
+    name = f"e2e-{path}-{dt_mode}" + "".join(f"-{v}" for v in env.values())
     oned = path == "mxu-1d"
     text = GAUSS1D if oned else TOPHAT
     toml = cfg.parse_toml_str(text.format(final=final, dumps=2, name=name, size=size))
     outs = {}
-    with fft_mode(path):
+    with fft_mode(path), env_vars(env):
         for device in ("cuda", "cpu"):
             root = os.path.join(work, name, device)
             t0 = time.perf_counter()
@@ -840,7 +973,7 @@ def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
     (psi_g, man_g, wall_g), (psi_c, man_c, wall_c) = outs["cuda"], outs["cpu"]
     err = max(float(np.abs(a - b).max()) for a, b in zip(psi_g, psi_c))
     emit({
-        "phase": "e2e", "path": path, "dt_mode": dt_mode,
+        "phase": "e2e", "path": path, "dt_mode": dt_mode, "env": env,
         "config": (f"1-D cold Gaussian {size} MFT" if oned else f"tophat-collapse {size}^3 MFT")
         + f" c128, 2 dumps over t={final}",
         "n_steps": [man_g["n_steps"], man_c["n_steps"]],
@@ -852,6 +985,8 @@ def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
     check(man_g["replays"] == man_c["replays"], f"{name}: replay counts differ")
     check(man_g["n_steps"] >= 20, f"{name}: too few steps to compare")
     check(err <= 1e-10, f"{name}: psi differs by {err}")
+    if "MSM_DT_INIT_BOUND_SCALE" in env:
+        check(min(man_g["replays"], man_c["replays"]) >= 1, f"{name}: no replay")
 
 
 def phase_e2e(card: dict) -> None:
@@ -866,6 +1001,9 @@ def phase_e2e(card: dict) -> None:
         for path, dt_mode in (("fused", "optimistic"), ("fused", "exact"), ("fused", "lagged"),
                               ("unskewed", "exact"), ("unskewed", "lagged")):
             _cuda_vs_cpu(card, work, path, 128, 20, dt_mode)
+        # the replay path on purpose: the initial carried bound understated
+        # 4x, so the first optimistic step fails validation and replays
+        _cuda_vs_cpu(card, work, "fused", 128, 20, env={"MSM_DT_INIT_BOUND_SCALE": "0.25"})
         _cuda_vs_cpu(card, work, "matmul", 64, 40)
         _cuda_vs_cpu(card, work, "matmul", 64, 40, "exact")
         # the 1-D run amplifies differences in the transforms' rounding:
@@ -981,21 +1119,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     # outside a checkout this import fails before anything is printed
-    import msm_tpu_torch  # noqa: F401
+    from msm_tpu_torch.ops import probes
 
-    smi = nvidia_smi()
-    name, limit = (s.strip() for s in smi.split(",", 1))
-    card = {"card": name, "power_limit": limit}
+    smi = probes.nvidia_smi()
+    card = probes.card()
     phase_env(card)
     phase_build(card)
-    measured = phase_kernels(card)
+    floor = phase_floor(card)
+    measured = dict(floor["records"])
+    measured.update(phase_kernels(card))
     measured.update(phase_fft_kernels(card))
     measured.update(phase_fused_kernels(card))
     measured.update(phase_lane_kernels(card))
     engine_check = phase_engine_checks(card)
+    probe_run = phase_probes(card)
     phase_e2e(card)
     mains = {run: phase_main(card, run) for run in RUNS}
     mains["engine-check"] = engine_check
+    mains["probes"] = probe_run
     emit({
         "phase": "main-compare",
         **{key: {run: mains[run][key] for run in RUNS}
@@ -1017,6 +1158,8 @@ def main() -> int:
             "plain_ms": measured[k]["plain_ms"],
             "bound_ms": measured[k]["bound_ms"],
             "bound_by": measured[k]["bound_by"],
+            # the same bytes at the copy floor P1 measured on this card
+            "floor_ms": measured[k]["bytes"] / floor["bytes_per_s"] * 1e3,
             "library_ms": measured[k]["library_ms"],
         }
         for k, (source, replaces) in KERNELS.items()

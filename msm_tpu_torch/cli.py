@@ -2,14 +2,19 @@
 
     python -m msm_tpu_torch simulate --toml path.toml [--device cuda|cpu]
         [--data-root DIR] [--precision f32|f64]
-        [--dt-mode optimistic|exact|lagged] [--fast-dt] [--verbose]
+        [--dt-mode optimistic|exact|lagged] [--fast-dt] [--strict-alias]
+        [--verbose]
 
 Counterpart of msm_tpu/cli.py's `simulate` (`simulator/src/main.rs:9-17`)
 on the port's path: the batched ensemble in each of the three dt modes.
 It runs on the card unless `--device cpu` asks for the kernels' plain
 versions on the CPU; without a card, `cuda` raises and nothing falls back.
-The JAX CLI's other flags (resume, online synthesis, meshes, ...) are not
-ported yet, so argparse rejects them.
+An aliased stream is frozen and logged unless `--strict-alias` asks for
+the FourierAliasingError to be raised. The JAX CLI's other `simulate`
+flags (`--test`, `--sequential-streams`, `--online-synthesis`,
+`--resume`, `--mesh`, `--ignore-remote-storage`, `--debug-checks`,
+`--check-eps`, `--profile-dir`) are not ported yet, so argparse rejects
+them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device), `mxu` (the
@@ -53,6 +58,7 @@ def cmd_simulate(args) -> int:
             data_root=args.data_root,
             verbose=args.verbose,
             dt_mode="lagged" if args.fast_dt else args.dt_mode,
+            strict_alias=args.strict_alias,
         )
     finally:
         fft_ops.set_default_mode(mode)
@@ -108,6 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--fast-dt",
         action="store_true",
         help="alias for --dt-mode lagged (kept for compatibility)",
+    )
+    sim.add_argument(
+        "--strict-alias",
+        action="store_true",
+        help="abort on Fourier aliasing instead of freezing the stream",
     )
     sim.add_argument("--verbose", "-v", action="store_true")
     sim.set_defaults(fn=cmd_simulate)

@@ -25,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(
     os.path.join(_CSRC, name)
-    for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu")
+    for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu", "copy_kernels.cu")
 )
 # headers the sources include: part of the library's hash, not compiled alone
 HEADERS = (os.path.join(_CSRC, "fft_common.cuh"),)
@@ -82,6 +82,8 @@ _SIGNATURES = {
     "msm_fft_axis_inv_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
     # z, out, scale, batch, n, dims, is_double, stream
     "msm_poisson_multiply": [_P, _P, _P, _I64, _I, _I, _I, _P],
+    # a, b, ca, cb, n, stream
+    "msm_copy_planes": [_P, _P, _P, _P, _I64, _P],
 }
 
 

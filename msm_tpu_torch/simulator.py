@@ -3,11 +3,13 @@
 Counterpart of msm_tpu/simulator.py's `run_config` batched path
 (`simulator/src/main.rs:21-89`): every stream of a config plus the
 mean-field (MFT) run advance as ONE batched state, dump boundary to dump
-boundary, and the host writes the npy dumps and manifests. A config
-without `[sampling]` is a batch of one and raises FourierAliasingError on
-aliasing, as `run_single` does; in an ensemble an aliased stream is
-frozen and reported instead of killing the batch (the reference panics:
-`simulation_object.rs:607-617`).
+boundary, and the host writes the npy dumps and manifests. An aliased
+stream is frozen and its FourierAliasingError logged, and the others go
+on, as msm_tpu's `run_config` does by default; with `strict_alias` the
+error is raised (the reference panics: `simulation_object.rs:607-617`),
+after the manifest that records it. A config without `[sampling]` is a
+batch of one, so JAX's one-run path (`strict_alias and one run`) and its
+batched path (`strict_alias`) agree here.
 
 Not here yet: resume, online synthesis, device meshes, remote storage,
 interval blocking and speculative dispatch.
@@ -151,11 +153,13 @@ def run_config(
     data_root: str = "sim-data",
     verbose: bool = False,
     dt_mode: str = "optimistic",
+    strict_alias: bool = False,
 ) -> SimState:
     """Run every stream of a config plus the MFT as one batch on `device`
     (the card unless the caller asks for "cpu") in `dt_mode` (one of
     stepper.DT_MODES); returns the final batched state (streams in seed
-    order, MFT last)."""
+    order, MFT last). An aliased run is logged, or raises
+    FourierAliasingError with `strict_alias`."""
     if toml.remote_storage_parameters is not None:
         raise NotImplementedError("[remote_storage_parameters] is not ported yet")
     all_params = list(iter_stream_parameters(toml))
@@ -183,7 +187,6 @@ def run_config(
         )
         print(f"Transforms: {_transforms(stepper)} at {mft_params.size}^{mft_params.dims}, "
               f"dt {stepper.dt_mode}")
-    strict_alias = n == 1
     reported_alias = [False] * n
     t_start = _time.monotonic()
     progress = ProgressReporter(

@@ -45,12 +45,12 @@ chosen by the transform mode (`ops.fft.get_mode`):
 - The state is a dataclass of tensors with a leading stream-batch axis on
   every field (`SimState`); one step is `_step`.
 - dt modes (msm_tpu/stepper.py:170-191): `optimistic` (the CLI's default)
-  proposes dt from the carried max|phi| times DT_SAFETY and validates it
-  after the step against the step's own midpoint max|phi|; an invalid step
-  is discarded per stream and replayed with the corrected bound. `exact`
-  (the reference's semantics) takes dt from max|phi(t)| of a fresh
-  pre-step Poisson solve, and applies the closing half-kick and inverts on
-  every step. `lagged` takes dt from the previous step's midpoint max|phi|,
+  proposes dt from the carried max|phi| times the safety factor
+  (MSM_DT_SAFETY) and validates it after the step against the step's own
+  midpoint max|phi|; an invalid step is discarded per stream and replayed
+  with the corrected bound. `exact` (the reference's semantics) takes dt
+  from max|phi(t)| of a fresh pre-step Poisson solve, and applies the
+  closing half-kick and inverts on every step. `lagged` takes dt from the previous step's midpoint max|phi|,
   never validated. Lagged and optimistic defer the closing half-kick into
   pending_k except on steps that land on a dump.
 - Torch has no on-device while loop, so `evolve_to_next_dump` steps on the
@@ -149,13 +149,17 @@ class _Advance:
 
 
 DT_MODES = ("optimistic", "exact", "lagged")
-# Optimistic-dt constants, the JAX stepper's defaults (msm_tpu.stepper):
-# the proposal's safety factor on the potential bound (each consecutive
-# replay inflates the carried bound by 1/DT_SAFETY, so replay cascades end
-# geometrically) and the per-step decay of the carried bound (hysteresis
-# against replay churn near the kinetic/potential crossover).
+# Optimistic-dt defaults, the JAX stepper's (msm_tpu/stepper.py:202-229),
+# overridden by MSM_DT_SAFETY, MSM_DT_DECAY and MSM_DT_INIT_BOUND_SCALE at
+# construction: the proposal's safety factor on the potential bound (each
+# consecutive replay inflates the carried bound by 1/safety, so replay
+# cascades end geometrically), the per-step decay of the carried bound
+# (hysteresis against replay churn near the kinetic/potential crossover),
+# and the scale of the initial carried bound (below 1 it understates it, so
+# the first steps replay: a way to drive the replay path on purpose).
 DT_SAFETY = 0.95
 DT_DECAY = 0.99
+DT_INIT_BOUND_SCALE = 1.0
 
 
 def _env_off(name: str) -> bool:
@@ -177,7 +181,10 @@ class Stepper:
     to float64 for complex128 and float32 for complex64 (what the JAX CLI
     gets: x64 only for --precision f64). dt_mode: one of DT_MODES,
     "optimistic" by default as for the CLI and `run_config` (msm_tpu's
-    `Stepper` class itself defaults to "exact").
+    `Stepper` class itself defaults to "exact"). MSM_DT_SAFETY (clamped to
+    [1e-3, 1]), MSM_DT_DECAY (clamped to [0, 1]) and
+    MSM_DT_INIT_BOUND_SCALE (at least 0) are read here, with JAX's defaults
+    and clamps.
     """
 
     def __init__(
@@ -195,6 +202,11 @@ class Stepper:
         if dt_mode not in DT_MODES:
             raise ValueError(f"dt_mode must be one of {DT_MODES}, got {dt_mode!r}")
         self.dt_mode = dt_mode
+        self.dt_safety = min(1.0, max(1e-3, float(os.environ.get("MSM_DT_SAFETY", DT_SAFETY))))
+        self.dt_decay = min(1.0, max(0.0, float(os.environ.get("MSM_DT_DECAY", DT_DECAY))))
+        self.dt_init_bound_scale = max(
+            0.0, float(os.environ.get("MSM_DT_INIT_BOUND_SCALE", DT_INIT_BOUND_SCALE))
+        )
         self.params = params
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -330,7 +342,7 @@ class Stepper:
             just_dumped=full(False, torch.bool),
             aliased=full(False, torch.bool),
             alias_mass=full(0.0, self.rdtype),
-            phi_max=pm0,
+            phi_max=pm0 * self.dt_init_bound_scale,
             phi_ref=pm0,
             norm0=self._norm_measure(psik),
             max_norm_err=full(0.0, self.rdtype),
@@ -381,13 +393,13 @@ class Stepper:
         coefficients kcoeff = -dt/4*hbar_ and vcoeff = -dt/hbar_ (:504-516,
         :535-545). phi_max: exact mode's max|phi(t)| of the pre-step state;
         None takes the carried bound (lagged, optimistic). Only optimistic
-        mode scales the potential term by DT_SAFETY."""
+        mode scales the potential term by the safety factor."""
         p = self.params
         next_idx = torch.clamp(state.current_dumps + 1, max=p.num_data_dumps)
         bound = state.phi_max if phi_max is None else phi_max
         potential = _rdiv(self.potential_num, 2.0 * bound)
         if self.dt_mode == "optimistic":
-            potential = potential * DT_SAFETY
+            potential = potential * self.dt_safety
         to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
         dt = torch.minimum(torch.clamp(potential, max=self.kinetic_dt), to_next)
         return _Advance(
@@ -415,7 +427,7 @@ class Stepper:
         float32, and a zero-potential stream would then give 0/0 = NaN."""
         ref = torch.clamp(state.phi_ref, min=torch.finfo(state.phi_ref.dtype).tiny)
         growth = torch.clamp(pm_fresh / ref, 1.0, 2.0)
-        return torch.maximum(pm_fresh * growth, state.phi_max * DT_DECAY)
+        return torch.maximum(pm_fresh * growth, state.phi_max * self.dt_decay)
 
     def _dt_invalid(self, dt, phi_max_fresh):
         """Did dt violate the CFL potential bound against the FRESH midpoint
@@ -509,7 +521,7 @@ class Stepper:
             state,
             phi_max=torch.where(
                 invalid,
-                torch.maximum(pm_fresh, state.phi_max) / DT_SAFETY,
+                torch.maximum(pm_fresh, state.phi_max) / self.dt_safety,
                 state.phi_max,
             ),
             replays=state.replays + invalid.to(torch.int32),
@@ -614,7 +626,7 @@ class Stepper:
             aliased=s.aliased | newly,
             alias_mass=torch.where(active, mass_in, s.alias_mass),
             phi_max=torch.where(
-                invalid, torch.maximum(pm_fresh, s.phi_max) / DT_SAFETY, out.phi_max
+                invalid, torch.maximum(pm_fresh, s.phi_max) / self.dt_safety, out.phi_max
             ),
             replays=out.replays + invalid.to(torch.int32),
         )

@@ -34,6 +34,7 @@ MODULES = (
     "msm_tpu_torch.ops.kernels",
     "msm_tpu_torch.ops.mxu_fft",
     "msm_tpu_torch.ops.phase",
+    "msm_tpu_torch.ops.probes",
     "msm_tpu_torch.simulator",
     "msm_tpu_torch.stepper",
     "msm_tpu_torch.utils.profiling",
@@ -51,6 +52,33 @@ def test_import_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+SCRIPTS = ("chip_smoke.py", "scripts/torch_microbench_mxu.py", "scripts/torch_probe_mxu_floor.py")
+
+
+def test_scripts_import_no_jax():
+    """chip_smoke.py and the probe scripts import (and build the probes'
+    passes on the CPU) in a process where importing jax or msm_tpu fails."""
+    code = (
+        "import importlib.util, os, sys\n"
+        "for m in ('jax', 'jaxlib', 'msm_tpu'): sys.modules[m] = None\n"
+        f"for path in {SCRIPTS!r}:\n"
+        "    name = os.path.basename(path)[:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    mod = sys.modules[name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    if hasattr(mod, 'build_passes'):\n"
+        "        assert mod.build_passes(128, 'cpu')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120,
+        cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"

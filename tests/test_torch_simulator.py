@@ -157,18 +157,63 @@ def test_cli_writes_reference_layout(tmp_path):
         assert got_m[k] == want_m[k], k
 
 
-def test_one_run_config_raises_on_aliasing(tmp_path):
-    """A config without [sampling] is a batch of one and aborts on
-    aliasing, after writing the manifest that records it."""
+def _noise_toml(tmp_path) -> str:
+    """The collapse config on unit-norm white noise with a low alias
+    threshold: its MFT run aliases on its first step."""
     rng = np.random.default_rng(3)
     psi = rng.standard_normal((16,) * 3) + 1j * rng.standard_normal((16,) * 3)
     psi *= math.sqrt((16 / 30) ** 3 / np.sum(np.abs(psi) ** 2))
     np.savez(tmp_path / "noise.npz", real=psi.real, imag=psi.imag)
     text = COLLAPSE_TOML.replace("alias_threshold = 0.5", "alias_threshold = 0.02")
     text = text.replace("k2_cutoff       = 0.95", "k2_cutoff       = 0.5")
-    text = text.split("[ics]")[0] + f'[ics]\ntype = "UserSpecified"\npath = "{tmp_path / "noise.npz"}"\n'
-    toml = cfg.parse_toml_str(text)
+    return text.split("[ics]")[0] + f'[ics]\ntype = "UserSpecified"\npath = "{tmp_path / "noise.npz"}"\n'
+
+
+@pytest.mark.parametrize("strict_alias", [False, True])
+def test_one_run_config_raises_on_aliasing(tmp_path, strict_alias):
+    """A config without [sampling] is a batch of one. On aliasing both
+    packages write the manifest that records it; then they log and return
+    (the default) or raise FourierAliasingError (strict_alias), and the two
+    manifests agree."""
+    from msm_tpu.errors import FourierAliasingError as JFourierAliasingError
+
+    text = _noise_toml(tmp_path)
+    runs = (
+        (lambda root: simulator.run_config(
+            cfg.parse_toml_str(text), torch.complex128, device="cpu", data_root=root,
+            strict_alias=strict_alias,
+        ), FourierAliasingError, tmp_path / "port"),
+        (lambda root: jsimulator.run_config(
+            jcfg.parse_toml_str(text), jnp.complex128, data_root=root, strict_alias=strict_alias,
+        ), JFourierAliasingError, tmp_path / "jax"),
+    )
+    manifests = []
+    for run, error, root in runs:
+        if strict_alias:
+            with pytest.raises(error):
+                run(str(root))
+        else:
+            run(str(root))
+        manifests.append(load_manifest(str(root / "collapse")))
+    got, want = manifests
+    assert got["aliased"] and got["n_steps"] == 1
+    for k in ("current_dumps", "n_steps", "aliased"):
+        assert got[k] == want[k], k
+    assert got["time"] == pytest.approx(want["time"], rel=1e-14)
+
+
+def test_cli_strict_alias(tmp_path):
+    """`--strict-alias` reaches run_config; without it the CLI returns 0 on
+    an aliasing run, as msm_tpu's CLI does."""
+    from msm_tpu_torch import cli
+
+    text = _noise_toml(tmp_path)
+    toml_path = tmp_path / "noise.toml"
+    toml_path.write_text(text)
+    argv = ["simulate", "--toml", str(toml_path), "--device", "cpu", "--precision", "f64"]
+    assert cli.build_parser().parse_args(argv).strict_alias is False
+    assert cli.main(argv + ["--data-root", str(tmp_path / "lenient")]) == 0
+    assert load_manifest(str(tmp_path / "lenient" / "collapse"))["aliased"]
     with pytest.raises(FourierAliasingError):
-        simulator.run_config(toml, torch.complex128, device="cpu", data_root=str(tmp_path))
-    manifest = load_manifest(str(tmp_path / "collapse"))
-    assert manifest["aliased"] and manifest["n_steps"] == 1
+        cli.main(argv + ["--data-root", str(tmp_path / "strict"), "--strict-alias"])
+    assert load_manifest(str(tmp_path / "strict" / "collapse"))["aliased"]
