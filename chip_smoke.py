@@ -24,6 +24,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (4, 512); the FFT kernels K5 axis_pass (axis 1), K6 plane_pass,
             K17 plane_pass_real_fwd and K9 plane_pass_real_inv (on the
             (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3);
+            K6 at N = 128, 256 takes the one-pass cluster form and at 512,
+            1024 the split form (each K6/K4 record names its `form` and
+            `cluster` size); at (9, 256^3) c64 the forced split forms of K6
+            and K4 are timed too (`plane_pass/split`,
+            `plane_potkick_fwd/split`), the before/after in one call;
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
@@ -34,7 +39,10 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (fields, the sums, the maxima) against the plain version; the
             lane kernels K14 lane_pass, K15 lane_pass_real_fwd and K16
             lane_pass_real_inv at (256, 1024) (the 1-D main run's) and
-            (9 * 256^2, 256) (the 3-D grid's bytes); K18 axis_inv_map at
+            (9 * 256^2, 256) (the 3-D grid's bytes), and at (256, 1024)
+            also their device time and torch.fft's as the slope between
+            chains of 16 and 112 launches queued behind a sleep kernel (so
+            the host's launch time is hidden); K18 axis_inv_map at
             (9, 256^3) and (3, 512^3)
   2b engine the three-pass Poisson solve (K7, K8, K9) against the two-call
             path forward_engine_density + inverse_engine_real(pmap=) (K7,
@@ -68,9 +76,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             and MSM_FFT=matmul; on the 1-D cold Gaussian at 1024 with 255
             Wigner streams + MFT, MSM_FFT=mxu (the lane kernels); checks
             every dump's shape, finiteness and norm, the manifests, that
-            each run launched each of its kernels, and that the exact run
+            each run launched each of its kernels, that the exact run
             launched K10 and K11 and the unskewed run K12 and K13 once per
-            iteration; then compares the runs
+            iteration, and that every K4 launch of the fused runs and every
+            K6 launch of the unfused `mxu` run took the cluster form; then
+            compares the runs
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
@@ -78,7 +88,9 @@ and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
-and power limit as nvidia-smi gives them; and last `{"ok": true,
+and power limit as nvidia-smi gives them (K6 and K4 with their form,
+cluster size and the forced split form's median, `split_ms`); and last
+`{"ok": true,
 "device": {...}}`. Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 """
@@ -105,19 +117,21 @@ PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
+# K6 and K4 at the main shape: the cluster form
+CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
     "poisson_multiply": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:155"),
     "phase_rotate": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:201"),
     "axis_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:432"),
-    "plane_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
+    "plane_pass": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
     "plane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
     "plane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
     "axis_roundtrip_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:565"),
     "plane_inv_density": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
     "axis_roundtrip_poisson": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
-    "plane_potkick_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
+    "plane_potkick_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
     "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
     "axis_roundtrip_map": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
     "plane_inv_density_rho_only": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
@@ -208,6 +222,14 @@ ONE_TRANSFORM = ("axis_inv_kick", "axis_fwd_reduce")
 # operations; a sincos counts 20.
 FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
+# the forms of the plane kernels K6 and K4 (cluster at N = 128, 256)
+FORM_KERNELS = ("plane_pass", "plane_potkick_fwd")
+# K14-K16's device slope: chains of SLOPE_LO and SLOPE_HI launches, as
+# scripts/torch_microbench_mxu.py times a pass, queued behind a sleep
+# kernel of SLEEP_CYCLES (about 25 ms at the H100's 1.98 GHz) so that the
+# host has enqueued the chain before the device reaches it
+SLOPE_LO, SLOPE_HI = 16, 112
+SLEEP_CYCLES = 50_000_000
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # The matmul transform against torch.fft.fftn, relative to max|plain|: each
@@ -289,6 +311,28 @@ def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_slope_ms(fn) -> float:
+    """Device ms per launch of fn: the slope between chains of SLOPE_LO and
+    SLOPE_HI launches (the minimum of three runs each, after a warm-up),
+    each timed with CUDA events and queued behind a sleep kernel, so the
+    device runs the chain back to back whatever the host's time per call."""
+    def chain(k: int) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    chain(SLOPE_LO)
+    lo = min(chain(SLOPE_LO) for _ in range(3))
+    hi = min(chain(SLOPE_HI) for _ in range(3))
+    return (hi - lo) / (SLOPE_HI - SLOPE_LO)
 
 
 def bound(inputs, outputs, ops: float) -> dict:
@@ -494,10 +538,21 @@ def phase_kernels(card: dict) -> dict:
     return main
 
 
-def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library) -> dict:
+def _form(name: str, n: int, cdtype, forced=None) -> dict:
+    """The form fields of a K6/K4 record (none for other kernels)."""
+    from msm_tpu_torch.ops import mxu_fft
+
+    if name.split("/")[0] not in FORM_KERNELS:
+        return {}
+    form, cluster = mxu_fft._plane_form(n, cdtype, forced)
+    return {"form": form, "cluster": cluster}
+
+
+def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library,
+                 extra=None) -> dict:
     """One transform kernel against its plain version, held to FFT_LIMITS
     of max|plain|, and both timed; library: the plain version is one torch
-    call that computes the same function."""
+    call that computes the same function. extra: fields for the record."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
@@ -510,7 +565,7 @@ def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library)
         "phase": "kernels", "kernel": name, "dtype": str(cdtype).split(".")[-1],
         "shape": list(shape), "max_abs_err": err, "max_abs_plain": scale,
         "limit": FFT_LIMITS[cdtype] * scale, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": plain_ms if library else None, **bnd, **card,
+        "library_ms": plain_ms if library else None, **(extra or {}), **bnd, **card,
     }
     emit(rec)
     check(err <= FFT_LIMITS[cdtype] * scale, f"{name} {cdtype} {shape}: error {err}")
@@ -554,8 +609,16 @@ def phase_fft_kernels(card: dict) -> dict:
                     [planes], fft_ops(planes.shape, 2),
                 ),
             }
+            if shape == MAIN_SHAPE and cdtype == torch.complex64:
+                # K6's forced split form: the before of the cluster form's after
+                cases["plane_pass/split"] = (
+                    lambda: mxu_fft.plane_pass(planes, False, form="split"),
+                    cases["plane_pass"][1], [planes], fft_ops(planes.shape, 2),
+                )
             for name, (kernel, plain, inputs, ops) in cases.items():
-                rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True)
+                forced = "split" if name.endswith("/split") else None
+                rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True,
+                                   _form(name, shape[-1], cdtype, forced))
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
                     main[name] = rec
             del z, planes, x, cases
@@ -594,6 +657,12 @@ def phase_lane_kernels(card: dict) -> dict:
                 rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True)
                 if shape == LANE_SHAPES[0] and cdtype == torch.complex64:
                     main[name] = rec
+                    emit({
+                        "phase": "kernels", "kernel": name, "dtype": "complex64",
+                        "shape": list(shape), "device_slope_ms": device_slope_ms(kernel),
+                        "library_slope_ms": device_slope_ms(plain),
+                        "chains": [SLOPE_LO, SLOPE_HI], "bound_ms": rec["bound_ms"], **card,
+                    })
             del z, x, cases
         for shape in MAP_SHAPES:
             n = shape[-1]
@@ -797,6 +866,12 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.plane_potkick_fwd_plain(z, w, vcoeff),
             [z, w, vcoeff], plane2 + 29.0 * cells,
         ),
+        # K4's forced split form (timed at the main shape only)
+        "plane_potkick_fwd/split": (
+            lambda: mxu_fft.plane_potkick_fwd(z, w, vcoeff, form="split"),
+            lambda: mxu_fft.plane_potkick_fwd_plain(z, w, vcoeff),
+            [z, w, vcoeff], plane2 + 29.0 * cells,
+        ),
         # rho = pref |psi|^2 (4), one 2-axis forward
         "plane_density_fwd": (
             lambda: mxu_fft.plane_density_fwd(w, 2.0),
@@ -821,6 +896,8 @@ def phase_fused_kernels(card: dict) -> dict:
     for cdtype in (torch.complex64, torch.complex128):
         for shape in FUSED_SHAPES:
             cases = _fused_cases(shape, cdtype, gen)
+            if not (shape == MAIN_SHAPE and cdtype == torch.complex64):
+                del cases["plane_potkick_fwd/split"]
             for name, (kernel, plain, inputs, ops) in cases.items():
                 limit = (FFT_LIMITS if name in ONE_TRANSFORM else FUSED_LIMITS)[cdtype]
                 got = kernel()
@@ -845,7 +922,9 @@ def phase_fused_kernels(card: dict) -> dict:
                     # after the field
                     "shape": list(shape), "max_abs_err": errs[0], "errs": errs,
                     "max_abs_plain": scales, "limit_rel": limit,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd, **card,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **_form(name, shape[-1], cdtype, "split" if name.endswith("/split") else None),
+                    **bnd, **card,
                 }
                 emit(rec)
                 for e, sc in zip(errs, scales):
@@ -896,6 +975,10 @@ CONFIGS = {
 }
 # kernels that must launch once in every iteration of a run
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
+# the plane kernel whose every launch in a path's main run must take the
+# cluster form: K4 on the fused engines, K6 on the unfused `mxu` path
+CLUSTER_FORM = {"fused": "plane_potkick_fwd", "unskewed": "plane_potkick_fwd",
+                "mxu": "plane_pass"}
 
 
 @contextlib.contextmanager
@@ -1063,7 +1146,7 @@ def phase_main(card: dict, run: str) -> dict:
             rc = cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {**kernels.launches, **mxu_fft.launches}
+            launches = {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches}
         # the CLI's own report goes to stderr: stdout keeps the JSON lines
         sys.stderr.write(out.getvalue())
         check(rc == 0, f"simulate returned {rc}")
@@ -1077,6 +1160,14 @@ def phase_main(card: dict, run: str) -> dict:
         for k in PER_ITERATION.get(run, ()):
             check(launches[k] == iterations,
                   f"the {run} run launched {k} {launches[k]} times in {iterations} iterations")
+        # at 256^3 every launch of the plane kernel of the path takes the
+        # cluster form
+        form_kernel = CLUSTER_FORM.get(path)
+        if form_kernel:
+            check(launches[f"{form_kernel}/cluster"] == launches[form_kernel] > 0
+                  and launches[f"{form_kernel}/split"] == 0,
+                  f"the {run} run launched {form_kernel} {launches[form_kernel]} times, "
+                  f"{launches[f'{form_kernel}/cluster']} in the cluster form")
 
         runs = [f"{name}-stream{s:05d}" for s in range(1, streams + 1)] + [name]
         # a dump holds the grid's axes, padded with unit axes to four
@@ -1146,6 +1237,14 @@ def main() -> int:
     })
     for k in KERNELS:
         check(mains[OWN_RUN[k]]["launches"][k] > 0, f"{k}: no launch on its own path")
+    emit({
+        "phase": "forms", "shape": list(MAIN_SHAPE), "dtype": "complex64",
+        **{k: {"cluster_ms": measured[k]["ms"], "split_ms": measured[f"{k}/split"]["ms"],
+               "library_ms": measured[k]["library_ms"],
+               "cluster_over_split": measured[k]["ms"] / measured[f"{k}/split"]["ms"]}
+           for k in FORM_KERNELS},
+        **card,
+    })
     emit({"kernels": [
         {
             "name": k,
@@ -1161,6 +1260,8 @@ def main() -> int:
             # the same bytes at the copy floor P1 measured on this card
             "floor_ms": measured[k]["bytes"] / floor["bytes_per_s"] * 1e3,
             "library_ms": measured[k]["library_ms"],
+            **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
+                "split_ms": measured[f"{k}/split"]["ms"]} if k in FORM_KERNELS else {}),
         }
         for k, (source, replaces) in KERNELS.items()
     ]})

@@ -28,7 +28,9 @@ SOURCES = tuple(
     for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu", "copy_kernels.cu")
 )
 # headers the sources include: part of the library's hash, not compiled alone
-HEADERS = (os.path.join(_CSRC, "fft_common.cuh"),)
+HEADERS = tuple(
+    os.path.join(_CSRC, name) for name in ("fft_common.cuh", "plane_cluster.cuh")
+)
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-arch=sm_90a"
 COMPILE_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-c")
@@ -46,8 +48,8 @@ _SIGNATURES = {
     "msm_phase_rotate": [_P, _P, _P, _P, _I64, _I64, _I, _P],
     # in, out, b1, log_n, lanes, inverse, is_double, stream
     "msm_fft_axis": [_P, _P, _I64, _I, _I64, _I, _I, _P],
-    # in, out, m, log_n, inverse, is_double, stream
-    "msm_fft_plane": [_P, _P, _I64, _I, _I, _I, _P],
+    # in, out, m, log_n, inverse, is_double, cluster (0: split), twiddles, stream
+    "msm_fft_plane": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
     # in, out, m, log_n, is_double, stream
     "msm_fft_plane_real_fwd": [_P, _P, _I64, _I, _I, _P],
     # in, tmp, out, m, log_n, is_double, stream
@@ -61,8 +63,9 @@ _SIGNATURES = {
     "msm_axis_roundtrip_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
     # in, psi, rho, m, log_n, pref, is_double, stream
     "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _P],
-    # phik, psi, out, maxes, coeff, m, planes_per_batch, log_n, is_double, stream
-    "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
+    # phik, psi, out, maxes, coeff, m, planes_per_batch, log_n, is_double,
+    # cluster (0: split), twiddles, stream
+    "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P],
     # psi, out, m, log_n, pref, is_double, stream
     "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _P],
     # in, rho, m, log_n, pref, is_double, stream

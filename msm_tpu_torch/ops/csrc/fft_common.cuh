@@ -20,6 +20,10 @@
 // Twiddles are computed per block with double-precision sincospi and rounded
 // once to the kernel's precision. Offsets are 64-bit. Everything here has
 // internal linkage: each source that includes it gets its own copy.
+//
+// Launchers raise a kernel's dynamic shared-memory limit once per template
+// instantiation (a function-local static), to the size its largest supported
+// n (kMaxLogN) needs, not on every launch.
 
 #pragma once
 
@@ -78,6 +82,22 @@ __device__ __forceinline__ C cscale(C a, T s) {
   r.y = a.y * s;
   return r;
 }
+
+__device__ __forceinline__ void sincos_acc(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+__device__ __forceinline__ void sincos_acc(double x, double* s, double* c) {
+  sincos(x, s, c);
+}
+
+// max that keeps a NaN, as jnp.max and torch.amax do
+template <typename T>
+__device__ __forceinline__ T nan_max(T m, T v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// The engine's largest transform: n = 2^kMaxLogN = 1024.
+constexpr int kMaxLogN = 10;
 
 // tw[m] = exp(sign * 2 pi i m / n) for m < n/2, sign -1 forward, +1 inverse.
 template <typename T>
@@ -193,9 +213,9 @@ cudaError_t launch_axis(const void* in, void* out, int64_t b1, int log_n, int64_
   constexpr int log_w = log_tile_width<T>();
   const int n = 1 << log_n;
   const size_t smem = ((static_cast<size_t>(n) << log_w) + n / 2) * sizeof(C);
-  cudaError_t err = cudaFuncSetAttribute(axis_fft_kernel<T, INV, P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static const cudaError_t err = cudaFuncSetAttribute(
+      axis_fft_kernel<T, INV, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>((((1 << kMaxLogN) << log_w) + (1 << kMaxLogN) / 2) * sizeof(C)));
   if (err != cudaSuccess) return err;
   const int64_t tiles = lanes >> log_w;
   axis_fft_kernel<T, INV, P>

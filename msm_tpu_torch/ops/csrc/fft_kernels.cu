@@ -39,9 +39,11 @@
 // the MXU, Pallas's lack of a complex type and a TPU that must never shuffle
 // data; none of them is carried over.
 //
-// What bounds them: every pass reads and writes the grid once (16 bytes per
-// complex64 cell, 32 per complex128), so they are memory-bound at 3.35 TB/s
-// as long as the in-shared-memory transform keeps up. Two geometries:
+// What bounds them: device memory. Every transform reads its input once and
+// writes its output once (16 bytes per complex64 cell, 32 per complex128):
+// at (9, 256^3) complex64 one grid is 1.21 GB, 0.36 ms at 3.35 TB/s, so a
+// pass (K5, K14) or a 2-axis plane (K6) must move 2 grids, 0.72 ms, as long
+// as the transform in shared memory keeps up. Three geometries:
 //
 //   axis pass (axis_fft_kernel, fft_common.cuh): n x W column tiles, radix-2
 //     DIT in shared memory (see the header).
@@ -49,20 +51,25 @@
 //     elements) and runs a radix-2 Stockham FFT on each row between two
 //     shared-memory buffers (natural order in and out, no bit reversal, whose
 //     scattered accesses along a row would conflict on every bank).
-//
-// A 256^2 complex64 plane is 512 KB, more than the 227 KB a block may hold,
-// so the TPU's one-pass two-axis fusion is split into a row pass and an axis
-// pass with the intermediate in device memory (mostly served from the 50 MB
-// L2); a one-pass form with thread-block clusters is later work.
+//   plane (K6): at n = 128 and 256 the one-pass cluster form
+//     (plane_cluster.cuh): the plane in the shared memory of a cluster of 2-8
+//     blocks, radix-16 register passes for rows and columns, one transpose
+//     across the cluster between them, 2 grids of traffic. At n = 512 and
+//     1024 a plane (2 MB and 8 MB at complex64) exceeds a portable cluster's
+//     8 x 227 KB, so K6 keeps the split form (`plane`): the row pass, then
+//     the axis pass in place, the intermediate in device memory (mostly the
+//     50 MB L2), 4 grids of traffic. The wrapper picks the form by shape
+//     (mxu_fft._plane_form); K17 and K9 are split at every size.
 //
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic only, no tensor cores.
-// Twiddles are computed per block with double-precision sincospi and rounded
-// once to the kernel's precision; the file is built without --use_fast_math.
+// Twiddles are computed in double and rounded once to the kernel's precision:
+// per block with sincospi in the split kernels, once per (n, dtype) by the
+// wrapper for the cluster form; the file is built without --use_fast_math.
 // The ortho 1/sqrt(n) of each axis is applied as the pass writes.
 // Offsets are 64-bit (batch * n^3 passes 2^31 at 1024^3). Every entry point
 // launches on the stream it is given and returns cudaGetLastError().
 
-#include "fft_common.cuh"
+#include "plane_cluster.cuh"
 
 namespace {
 
@@ -128,9 +135,9 @@ cudaError_t launch_rows(const void* in, void* out, int64_t rows, int log_n,
   using C = typename Complex<T>::type;
   const int n = 1 << log_n;
   const size_t smem = (2 * static_cast<size_t>(kRowTile) + n / 2) * sizeof(C);
-  cudaError_t err = cudaFuncSetAttribute(row_fft_kernel<T, INV, IN_REAL, OUT_REAL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static const cudaError_t err = cudaFuncSetAttribute(
+      row_fft_kernel<T, INV, IN_REAL, OUT_REAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>((2 * kRowTile + (1 << kMaxLogN) / 2) * sizeof(C)));
   if (err != cudaSuccess) return err;
   const int64_t blocks = ((rows << log_n) + kRowTile - 1) / kRowTile;
   row_fft_kernel<T, INV, IN_REAL, OUT_REAL>
@@ -196,9 +203,16 @@ int msm_fft_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes
 }
 
 // K6. in, out: (m, n, n) interleaved complex, n = 2^log_n; in != out.
+// cluster 0: the split form; else the cluster form (plane_cluster.cuh) with
+// that many blocks per plane and tw: (n,) interleaved complex w_n^m.
 int msm_fft_plane(const void* in, void* out, int64_t m, int log_n, int inverse,
-                  int is_double, void* stream) {
+                  int is_double, int cluster, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        is_double ? plane_cluster<double>(in, out, m, log_n, cluster, inverse, tw, s)
+                  : plane_cluster<float>(in, out, m, log_n, cluster, inverse, tw, s));
+  }
   return static_cast<int>(is_double ? plane<double>(in, out, m, log_n, inverse, s)
                                     : plane<float>(in, out, m, log_n, inverse, s));
 }

@@ -20,7 +20,8 @@
 //   msm_plane_potkick_fwd      : phi = Re 2-axis inverse DFT of phi_k, max|phi|
 //                                per block, psi * exp(i c_b phi), 2-axis
 //                                forward DFT; replaces
-//                                _axis_pass_fused2_potkick_fwd (K4).
+//                                _axis_pass_fused2_potkick_fwd /
+//                                _fused_kernel_potkick_fwd (K4).
 //   msm_plane_density_fwd      : rho = pref |psi|^2, 2-axis forward DFT;
 //                                replaces _axis_pass_fused2_density (K7).
 //   msm_axis_roundtrip_map     : forward DFT along axis 1, y * map[k, lane],
@@ -73,41 +74,35 @@
 //     order as K1, so the unskewed step's sums are bit-identical to the ones
 //     the skewed loop's K1 takes of the same field. K12 is the column pass
 //     (axis_fft_kernel) with the kick multiplied in as the tile is loaded.
-//   plane kernels: a 256^2 complex64 plane is 512 KB, more than a block's
-//     227 KB of shared memory, so each is the split form of the engine's
-//     plane pass: a column pass (axis_fft_kernel), a fused row kernel
-//     (row_fused_kernel: whole contiguous rows, radix-2 Stockham between two
-//     shared buffers, with the step's elementwise work between its inverse
-//     and its forward), and a column pass in place; the intermediate goes
-//     through device memory (about 7 grids of traffic for K2 and K4 instead
-//     of 3). A one-pass form with thread-block clusters is later work. A
-//     row block (2048 elements) never straddles a plane for n in 128..1024,
-//     so K4 reads one stream's coefficient per block and leaves one max|phi|
-//     partial per block, which the wrapper reduces per plane with torch.
-//     K10 is K2's three launches with a row body that writes no psi (6 grids
-//     of traffic against K2's 7); K11 is K9's column inverse into a scratch
-//     grid and a row body that keeps only K4's max|Re| partials (3 grids).
+//   K4 at n = 128 and 256: the one-pass cluster form (plane_cluster.cuh):
+//     phi_k's plane in the shared memory of a cluster of 2-8 blocks, its
+//     2-axis inverse, max|phi| per block, the kick on psi read once from
+//     device memory, the 2-axis forward, one write: 3 grids of traffic, phi
+//     never in device memory. The wrapper picks the form by shape
+//     (mxu_fft._plane_form) and leaves one maximum per block.
+//   the split form (K4 at n = 512, 1024, where a plane exceeds a portable
+//     cluster's 8 x 227 KB of shared memory; K2, K7, K10, K11 at every n): a
+//     column pass (axis_fft_kernel), a fused row kernel (row_fused_kernel:
+//     whole contiguous rows, radix-2 Stockham between two shared buffers,
+//     with the step's elementwise work between its inverse and its forward),
+//     and a column pass in place; the intermediate goes through device
+//     memory (about 7 grids of traffic for K2 and K4 instead of 3). A row
+//     block (2048 elements) never straddles a plane for n in 128..1024, so
+//     the split K4 reads one stream's coefficient per block and leaves one
+//     max|phi| partial per block, which the wrapper reduces per plane with
+//     torch. K10 is K2's three launches with a row body that writes no psi
+//     (6 grids of traffic against K2's 7); K11 is K9's column inverse into a
+//     scratch grid and a row body that keeps only K4's max|Re| partials (3
+//     grids).
 //
-// Accuracy: FP32 (or FP64) CUDA-core arithmetic, twiddles from double
-// sincospi, accurate sincos, no fast math. Offsets are 64-bit. Every entry
+// Accuracy: FP32 (or FP64) CUDA-core arithmetic, twiddles computed in double
+// and rounded once (sincospi per block in the split kernels, the wrapper's
+// table in the cluster form), accurate sincos, no fast math. Offsets are 64-bit. Every entry
 // point launches on the stream it is given and returns cudaGetLastError().
 
-#include "fft_common.cuh"
+#include "plane_cluster.cuh"
 
 namespace {
-
-__device__ __forceinline__ void sincos_acc(float x, float* s, float* c) {
-  sincosf(x, s, c);
-}
-__device__ __forceinline__ void sincos_acc(double x, double* s, double* c) {
-  sincos(x, s, c);
-}
-
-// max that keeps a NaN, as jnp.max and torch.amax do
-template <typename T>
-__device__ __forceinline__ T nan_max(T m, T v) {
-  return (v > m || v != v) ? v : m;
-}
 
 // ---------------------------------------------------------------------------
 // Axis round trip (K1, K3, K8)
@@ -258,9 +253,10 @@ cudaError_t launch_roundtrip(const void* in, void* out, int64_t b1, int log_n, i
   const int n = 1 << log_n;
   const size_t smem =
       ((static_cast<size_t>(n) << log_w) + n / 2) * sizeof(C) + 64 * sizeof(double);
-  cudaError_t err = cudaFuncSetAttribute(axis_roundtrip_kernel<T, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static const cudaError_t err = cudaFuncSetAttribute(
+      axis_roundtrip_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>((((1 << kMaxLogN) << log_w) + (1 << kMaxLogN) / 2) * sizeof(C) +
+                       64 * sizeof(double)));
   if (err != cudaSuccess) return err;
   const int64_t tiles = lanes >> log_w;
   axis_roundtrip_kernel<T, MODE>
@@ -408,9 +404,10 @@ cudaError_t launch_row_fused(int64_t m, int log_n, const RowArgs<T>& args,
   const int n = 1 << log_n;
   const size_t smem =
       (2 * static_cast<size_t>(kRowTile) + n / 2) * sizeof(C) + (kRowThreads / 32) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(row_fused_kernel<T, BODY>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static const cudaError_t err = cudaFuncSetAttribute(
+      row_fused_kernel<T, BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>((2 * kRowTile + (1 << kMaxLogN) / 2) * sizeof(C) +
+                       (kRowThreads / 32) * sizeof(T)));
   if (err != cudaSuccess) return err;
   const int64_t rows = m << log_n;
   const int64_t blocks = ((rows << log_n) + kRowTile - 1) / kRowTile;
@@ -594,12 +591,21 @@ int msm_plane_inv_density(const void* in, void* psi, void* rho, int64_t m, int l
 }
 
 // K4. phik, psi, out: (m, n, n) interleaved complex, three distinct buffers;
-// maxes: (m * n * n / 2048,) real, one per row block; coeff: (m /
-// planes_per_batch,) real.
+// coeff: (m / planes_per_batch,) real. cluster 0: the split form, maxes (m *
+// n * n / 2048,) real, one per row block; else the cluster form
+// (plane_cluster.cuh) with that many blocks per plane, maxes (m * cluster,),
+// one per block, and tw: (n,) interleaved complex w_n^m.
 int msm_plane_potkick_fwd(const void* phik, const void* psi, void* out, void* maxes,
                           const void* coeff, int64_t m, int64_t planes_per_batch, int log_n,
-                          int is_double, void* stream) {
+                          int is_double, int cluster, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        is_double ? potkick_cluster<double>(phik, psi, out, maxes, coeff, m, planes_per_batch,
+                                            log_n, cluster, tw, s)
+                  : potkick_cluster<float>(phik, psi, out, maxes, coeff, m, planes_per_batch,
+                                           log_n, cluster, tw, s));
+  }
   return static_cast<int>(
       is_double ? plane_potkick_fwd<double>(phik, psi, out, maxes, coeff, m, planes_per_batch,
                                             log_n, s)

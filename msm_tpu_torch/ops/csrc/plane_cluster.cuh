@@ -1,0 +1,565 @@
+// The one-pass (N, N) plane on a thread-block cluster: the 2-axis DFT of K6
+// (plane_pass, fft_kernels.cu) and the inverse -> kick -> forward of K4
+// (plane_potkick_fwd, fused_kernels.cu), for N = 128 and 256.
+//
+// What bounds them: device memory. Each reads its inputs once and writes its
+// output once (K6: 2 grids, 0.72 ms at (9, 256^3) complex64 on 3.35 TB/s; K4:
+// 3 grids, 1.08 ms). The split form (a row pass and a column pass with the
+// intermediate in device memory) moves 4 and 7 grids. A 256^2 complex64
+// plane is 512 KB, more than a block's 227 KB of shared memory, but it fits a
+// cluster of C = 8 blocks (64 KB each; complex128: 128 KB), and the blocks of
+// a cluster read and write each other's shared memory (distributed shared
+// memory, cooperative_groups::this_cluster().map_shared_rank). The design
+// moves each element between blocks once per 2-axis transform (a transpose),
+// not twice (a radix-C stage that reads from and writes to the peers).
+//
+// Layout. One plane per cluster, in shared memory, one complex of padding
+// after every 16 (pad16), so that a thread walking 16 contiguous elements and
+// its neighbours walking theirs hit different banks. Block `rank` first holds
+// the R = N / C rows [R rank, R rank + R), row-major (its "row slab").
+//
+// Transforms. Each length-N transform is N = A * B (16 x 16 at N = 256,
+// 16 x 8 at 128), two radix passes in registers with one __syncthreads each,
+// in place in shared memory:
+//   DIF (natural in): pass 1 takes the A elements at stride B of group g < B,
+//     DFTs them and multiplies output k by w_N^{g k}; pass 2 DFTs the B
+//     contiguous elements of group k1 < A. Position B k1 + k2 then holds
+//     frequency k1 + A k2 ("transposed" order).
+//   DIT (transposed in, natural out): the same two passes in reverse order,
+//     the twiddle on the contiguous pass.
+// The order is undone where data cross device memory, at no cost: a DIT row
+// pass scatters each row into transposed positions as it loads it, and a
+// DIF pass's output is gathered from them as it is stored.
+//
+// The columns: a transpose across the cluster. After the row pass the block
+// slab's column chunk j (columns [W j, W j + W), W = N / C) belongs to block
+// j. Tile (block r, chunk j) and tile (block j, chunk r) change places, row
+// by row, by one thread that reads the remote element, reads the local one
+// and writes each where the other was (the two blocks of a pair split the
+// tile's rows). Afterwards block r holds every row of the columns [W r,
+// W r + W): its chunk slot s holds rows [R s, R s + R) of them (its "column
+// slab"), so column w's element of row y sits at slot y / R, slab row y % R.
+// Each element crosses once; no thread of the cluster touches another's
+// elements, so the swap needs no barrier between its reads and writes:
+// cluster.sync() comes before it (every block's row pass done) and after it
+// (every write visible, and no block leaves while a peer still reads it).
+// The same swap takes a column slab back to a row slab.
+//
+//   K6: load (scatter) -> rows DIT -> swap -> columns DIF -> store (gather):
+//     each warp stores a W-element run of one output row (256 bytes at
+//     complex64, N = 256).
+//   K4: phik's rows DIT inverse -> swap -> columns DIF inverse: phi at
+//     spatial (row y, column W rank + w), column position transposed(y);
+//     max|phi| of the block, psi's element read at (y, W rank + w) in W-runs
+//     of one row, psi exp(i c phi) in place; columns DIT forward (from the
+//     transposed order, no permutation) -> swap -> rows DIF forward ->
+//     store (gather), the block's R contiguous rows.
+//
+// Keeping memory busy: 256 threads a block and, at complex64, about 70 KB of
+// shared memory, so three blocks (3 x 256 threads, __launch_bounds__ min 3)
+// are resident per SM: while one block transforms or swaps, the others'
+// loads and stores are in flight. At complex128 a 256^2 plane needs 136 KB a
+// block: one block per SM, nothing overlaps its compute (the main path is
+// complex64). N = 128 takes C = 2 (complex64) and C = 4 (complex128), about
+// 70 KB a block as well. Before the first launch of a configuration the
+// launcher asks cudaOccupancyMaxActiveClusters and fails with
+// cudaErrorLaunchOutOfResources if no cluster fits.
+//
+// Accuracy: FP32 (or FP64) CUDA-core arithmetic, no fast math. Twiddles
+// come from a table of w_N^m = exp(-2 pi i m / N), m < N, that the wrapper
+// computes once per (N, dtype) in double and rounds once (mxu_fft
+// `_twiddles`); each block copies it into shared memory.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "fft_common.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kClusterThreads = 256;
+
+__host__ __device__ constexpr int pad16(int i) { return i + (i >> 4); }
+
+// Radix A of a length-N transform, N = A * B.
+__host__ __device__ constexpr int plan_a(int n) { return n <= 16 ? n : 16; }
+
+// Blocks of a cluster per plane; must match mxu_fft._plane_form.
+template <typename T, int N>
+__host__ __device__ constexpr int cluster_size() {
+  return N == 256 ? 8 : (sizeof(T) == 4 ? 2 : 4);
+}
+
+template <typename T, int N>
+constexpr size_t cluster_smem() {
+  using C = typename Complex<T>::type;
+  constexpr int R = N / cluster_size<T, N>();
+  // the padded slab, the twiddle table, 32 reals for a block reduction
+  return (static_cast<size_t>(pad16(R * N)) + N) * sizeof(C) + 32 * sizeof(T);
+}
+
+// 16-byte vectors of device memory: two complex64 or one complex128.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int kElems = 2;
+  __device__ static void split(float4 v, float2 (&e)[2]) {
+    e[0] = make_float2(v.x, v.y);
+    e[1] = make_float2(v.z, v.w);
+  }
+  __device__ static float4 join(const float2 (&e)[2]) {
+    return make_float4(e[0].x, e[0].y, e[1].x, e[1].y);
+  }
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+  static constexpr int kElems = 1;
+  __device__ static void split(double2 v, double2 (&e)[1]) { e[0] = v; }
+  __device__ static double2 join(const double2 (&e)[1]) { return e[0]; }
+};
+
+// Vectors a thread of a block moves per batch of device-memory loads: all
+// issued before any is used.
+constexpr int kBatch = 8;
+
+template <bool INV, typename C>
+__device__ __forceinline__ C twiddle(const C* tw, int m) {
+  const C t = tw[m];
+  return INV ? cconj(t) : t;
+}
+
+// v[k] = sum_j v[j] w_P^{j k}, natural order in and out: radix-2 decimation
+// in frequency over the registers, then the bit-reversal permutation (both
+// resolved at compile time). w_P^m = tw[m * step] with step = N / P.
+template <typename T, int P, bool INV>
+__device__ __forceinline__ void dft_regs(typename Complex<T>::type (&v)[P],
+                                         const typename Complex<T>::type* tw, int step) {
+#pragma unroll
+  for (int h = P / 2; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if ((i & h) == 0) {
+        const int k = i & (h - 1);
+        const auto a = v[i];
+        const auto b = v[i + h];
+        v[i] = cadd(a, b);
+        const auto d = csub(a, b);
+        v[i + h] = k == 0 ? d : cmul(d, twiddle<INV>(tw, k * (P / (2 * h)) * step));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    int r = 0;
+#pragma unroll
+    for (int b = 1; b < P; b <<= 1) r = (r << 1) | ((i & b) ? 1 : 0);
+    if (r > i) {
+      const auto t = v[i];
+      v[i] = v[r];
+      v[r] = t;
+    }
+  }
+}
+
+// The lines of a slab: the R rows of a row slab (position p of row l at
+// l * N + p) ...
+template <int N>
+struct RowLines {
+  static constexpr bool kLinesFast = false;  // consecutive threads: groups
+  __device__ static int at(int line, int p) { return pad16(line * N + p); }
+};
+
+// ... or the W columns of a column slab (row y of column w in slot y / R,
+// slab row y % R).
+template <int N, int R>
+struct ColLines {
+  static constexpr bool kLinesFast = true;  // consecutive threads: columns
+  __device__ static int at(int line, int y) {
+    return pad16((y % R) * N + (y / R) * R + line);
+  }
+};
+
+// One radix-P pass over `lines` lines of a length-N transform in s: group g
+// (< groups) of a line holds the P elements at positions g * gs + j * es,
+// replaced in place by their DFT (output k at g * gs + k * es), times
+// w_N^{g k} when TW.
+template <typename T, int N, int P, bool INV, bool TW, typename Lines>
+__device__ __forceinline__ void radix_pass(typename Complex<T>::type* s,
+                                           const typename Complex<T>::type* tw, int lines,
+                                           int groups, int gs, int es) {
+  using C = typename Complex<T>::type;
+  if constexpr (P > 1) {
+    for (int t = threadIdx.x; t < lines * groups; t += kClusterThreads) {
+      const int line = Lines::kLinesFast ? t % lines : t / groups;
+      const int g = Lines::kLinesFast ? t / lines : t % groups;
+      C v[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) v[j] = s[Lines::at(line, g * gs + j * es)];
+      dft_regs<T, P, INV>(v, tw, N / P);
+      if (TW && g != 0) {
+#pragma unroll
+        for (int k = 1; k < P; ++k) v[k] = cmul(v[k], twiddle<INV>(tw, g * k));
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) s[Lines::at(line, g * gs + j * es)] = v[j];
+    }
+  }
+  __syncthreads();
+}
+
+// The length-N transform of every line of a slab.
+template <typename T, int N, bool INV, bool DIT, typename Lines>
+__device__ __forceinline__ void slab_fft(typename Complex<T>::type* s,
+                                         const typename Complex<T>::type* tw, int lines) {
+  constexpr int A = plan_a(N);
+  constexpr int B = N / A;
+  if constexpr (DIT) {
+    radix_pass<T, N, B, INV, true, Lines>(s, tw, lines, A, B, 1);
+    radix_pass<T, N, A, INV, false, Lines>(s, tw, lines, B, 1, B);
+  } else {
+    radix_pass<T, N, A, INV, true, Lines>(s, tw, lines, B, 1, B);
+    radix_pass<T, N, B, INV, false, Lines>(s, tw, lines, A, B, 1);
+  }
+}
+
+// Position of natural index i in a DIF-transposed line of length N.
+template <int N>
+__device__ __forceinline__ int transposed(int i) {
+  constexpr int A = plan_a(N);
+  constexpr int B = N / A;
+  return B * (i % A) + i / A;
+}
+
+// The swap of tiles (block rank, chunk j) <-> (block j, chunk rank) for
+// every j != rank (see the note): rows [0, R/2) of the pair's tiles by the
+// lower rank, [R/2, R) by the higher. U elements a thread are read before
+// any is written, so their remote reads are in flight together (U = 8
+// spilled registers in K4 under the 3-blocks-per-SM bound and was slower).
+template <typename T, int N, int CL>
+__device__ __forceinline__ void swap_tiles(cg::cluster_group& cluster,
+                                           typename Complex<T>::type* s, int rank) {
+  using C = typename Complex<T>::type;
+  constexpr int U = 4;
+  constexpr int W = N / CL;
+  constexpr int HALF = W / 2;  // R = W
+  constexpr int ITEMS = (CL - 1) * HALF * W;
+  for (int t0 = threadIdx.x; t0 < ITEMS; t0 += U * kClusterThreads) {
+    C a[U];
+    C* peer[U];
+    int mine[U], theirs[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * kClusterThreads;
+      if (t < ITEMS) {
+        const int w = t % W;
+        const int d = 1 + t / (HALF * W);
+        const int j = (rank + d) % CL;
+        const int row = (rank < j ? 0 : HALF) + (t / W) % HALF;
+        mine[u] = pad16(row * N + j * W + w);
+        theirs[u] = pad16(row * N + rank * W + w);
+        peer[u] = cluster.map_shared_rank(s, j);
+        a[u] = peer[u][theirs[u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (t0 + u * kClusterThreads < ITEMS) {
+        peer[u][theirs[u]] = s[mine[u]];
+        s[mine[u]] = a[u];
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void load_twiddles(typename Complex<T>::type* tw,
+                                              const typename Complex<T>::type* twg) {
+  for (int i = threadIdx.x; i < N; i += kClusterThreads) tw[i] = twg[i];
+}
+
+// R contiguous rows of src into a row slab, each row scattered into the
+// transposed order a DIT row pass takes: 16-byte loads, kBatch in flight.
+template <typename T, int N, int R>
+__device__ __forceinline__ void load_rows_transposed(typename Complex<T>::type* s,
+                                                     const typename Complex<T>::type* src) {
+  using C = typename Complex<T>::type;
+  using V = typename Vec<T>::type;
+  constexpr int E = Vec<T>::kElems;
+  constexpr int ITERS = R * N / E / kClusterThreads;
+  static_assert(ITERS % kBatch == 0, "whole batches");
+  const V* vsrc = reinterpret_cast<const V*>(src);
+  for (int b = 0; b < ITERS; b += kBatch) {
+    V v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) v[u] = vsrc[threadIdx.x + (b + u) * kClusterThreads];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      C e[E];
+      Vec<T>::split(v[u], e);
+      const int x = (threadIdx.x + (b + u) * kClusterThreads) * E;
+#pragma unroll
+      for (int k = 0; k < E; ++k) s[pad16((x / N) * N + transposed<N>(x % N + k))] = e[k];
+    }
+  }
+}
+
+// The block's R rows from the DIF-transposed row slab into dst (contiguous),
+// 16-byte stores.
+template <typename T, int N, int R>
+__device__ __forceinline__ void store_rows_transposed(typename Complex<T>::type* dst,
+                                                      const typename Complex<T>::type* s,
+                                                      T scale) {
+  using C = typename Complex<T>::type;
+  using V = typename Vec<T>::type;
+  constexpr int E = Vec<T>::kElems;
+  V* vdst = reinterpret_cast<V*>(dst);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * N / E; i += kClusterThreads) {
+    C e[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int x = i * E + k;
+      e[k] = cscale(s[pad16((x / N) * N + transposed<N>(x % N))], scale);
+    }
+    vdst[i] = Vec<T>::join(e);
+  }
+}
+
+// K6: ortho 2-axis DFT of plane blockIdx.x / CL.
+template <typename T, int N, bool INV>
+__global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
+    plane_cluster_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
+                         const typename Complex<T>::type* twg, T scale) {
+  using C = typename Complex<T>::type;
+  constexpr int CL = cluster_size<T, N>();
+  constexpr int R = N / CL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* s = reinterpret_cast<C*>(smem);
+  C* tw = s + pad16(R * N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t plane = blockIdx.x / CL;
+
+  load_twiddles<T, N>(tw, twg);
+  load_rows_transposed<T, N, R>(s, in + (plane * N + rank * R) * N);
+  __syncthreads();
+  slab_fft<T, N, INV, true, RowLines<N>>(s, tw, R);
+  cluster.sync();
+  swap_tiles<T, N, CL>(cluster, s, rank);
+  cluster.sync();
+  slab_fft<T, N, INV, false, ColLines<N, R>>(s, tw, R);
+  // row f of the output is column position transposed(f) of the slab's
+  // lines: runs of R columns, 16-byte stores
+  using V = typename Vec<T>::type;
+  constexpr int E = Vec<T>::kElems;
+  V* dst = reinterpret_cast<V*>(out + plane * N * N + rank * R);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * N / E; i += kClusterThreads) {
+    const int f = i * E / R;
+    const int w = i * E % R;
+    C e[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) e[k] = cscale(s[ColLines<N, R>::at(w + k, transposed<N>(f))], scale);
+    dst[(f * N + w) / E] = Vec<T>::join(e);
+  }
+}
+
+// K4: phi = Re of the ortho 2-axis inverse of phik's plane, max|phi| of the
+// block's part into maxes[blockIdx.x], psi exp(i c phi) with c the owning
+// stream's coefficient, its ortho 2-axis forward into out.
+template <typename T, int N>
+__global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
+    plane_potkick_cluster_kernel(const typename Complex<T>::type* phik,
+                                 const typename Complex<T>::type* psi,
+                                 typename Complex<T>::type* out, T* maxes, const T* coeff,
+                                 int64_t planes_per_batch, const typename Complex<T>::type* twg,
+                                 T scale) {
+  using C = typename Complex<T>::type;
+  constexpr int CL = cluster_size<T, N>();
+  constexpr int R = N / CL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* s = reinterpret_cast<C*>(smem);
+  C* tw = s + pad16(R * N);
+  T* red = reinterpret_cast<T*>(tw + N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t plane = blockIdx.x / CL;
+
+  load_twiddles<T, N>(tw, twg);
+  load_rows_transposed<T, N, R>(s, phik + (plane * N + rank * R) * N);
+  __syncthreads();
+  slab_fft<T, N, true, true, RowLines<N>>(s, tw, R);
+  cluster.sync();
+  swap_tiles<T, N, CL>(cluster, s, rank);
+  cluster.sync();
+  slab_fft<T, N, true, false, ColLines<N, R>>(s, tw, R);
+
+  // the kick at spatial (y, R rank + w): psi read in runs of R columns,
+  // 16-byte loads, kBatch / 2 in flight
+  using V = typename Vec<T>::type;
+  constexpr int E = Vec<T>::kElems;
+  constexpr int KB = kBatch / 2;
+  constexpr int ITERS = R * N / E / kClusterThreads;
+  static_assert(ITERS % KB == 0, "whole batches");
+  const T c = coeff[plane / planes_per_batch];
+  const V* p_plane = reinterpret_cast<const V*>(psi + plane * N * N + rank * R);
+  T mx = T(0);
+  for (int b = 0; b < ITERS; b += KB) {
+    V pv[KB];
+#pragma unroll
+    for (int u = 0; u < KB; ++u) {
+      const int i = threadIdx.x + (b + u) * kClusterThreads;
+      pv[u] = p_plane[(i * E / R * N + i * E % R) / E];
+    }
+#pragma unroll
+    for (int u = 0; u < KB; ++u) {
+      const int i = threadIdx.x + (b + u) * kClusterThreads;
+      const int y = i * E / R;
+      C p[E];
+      Vec<T>::split(pv[u], p);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int idx = ColLines<N, R>::at(i * E % R + k, transposed<N>(y));
+        const T phi = s[idx].x * scale;
+        mx = nan_max(mx, phi < T(0) ? -phi : phi);
+        T sn, cs;
+        sincos_acc(c * phi, &sn, &cs);
+        C r;
+        r.x = p[k].x * cs - p[k].y * sn;
+        r.y = p[k].y * cs + p[k].x * sn;
+        s[idx] = r;
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T m = red[0];
+    for (int w = 1; w < kClusterThreads / 32; ++w) m = nan_max(m, red[w]);
+    maxes[blockIdx.x] = m;
+  }
+
+  slab_fft<T, N, false, true, ColLines<N, R>>(s, tw, R);
+  cluster.sync();
+  swap_tiles<T, N, CL>(cluster, s, rank);
+  cluster.sync();
+  slab_fft<T, N, false, false, RowLines<N>>(s, tw, R);
+  store_rows_transposed<T, N, R>(out + (plane * N + rank * R) * N, s, scale);
+}
+
+// Once per kernel (and so per size): raise its shared-memory limit and check
+// that a cluster of cl blocks can be resident at all.
+template <auto KERNEL>
+cudaError_t prepare_cluster(int cl, size_t smem) {
+  static const cudaError_t err = [cl, smem] {
+    cudaError_t e = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cl;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cl);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, KERNEL, &cfg);
+    if (e != cudaSuccess) return e;
+    return clusters > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+  }();
+  return err;
+}
+
+// m planes, one cluster of cl blocks each.
+template <auto KERNEL, typename... Args>
+cudaError_t launch_cluster(int64_t m, int cl, size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = prepare_cluster<KERNEL>(cl, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(m * cl));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, KERNEL, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int N>
+cudaError_t plane_cluster_n(const void* in, void* out, int64_t m, bool inverse, const void* tw,
+                            cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  constexpr int CL = cluster_size<T, N>();
+  const C* src = static_cast<const C*>(in);
+  C* dst = static_cast<C*>(out);
+  const C* t = static_cast<const C*>(tw);
+  const T scale = static_cast<T>(1.0 / N);
+  return inverse ? launch_cluster<plane_cluster_kernel<T, N, true>>(
+                       m, CL, cluster_smem<T, N>(), stream, src, dst, t, scale)
+                 : launch_cluster<plane_cluster_kernel<T, N, false>>(
+                       m, CL, cluster_smem<T, N>(), stream, src, dst, t, scale);
+}
+
+// K6 in the cluster form: n = 2^log_n in {128, 256} and cl its cluster size
+// (cluster_size), else cudaErrorInvalidValue.
+template <typename T>
+cudaError_t plane_cluster(const void* in, void* out, int64_t m, int log_n, int cl, bool inverse,
+                          const void* tw, cudaStream_t stream) {
+  if (log_n == 8 && cl == cluster_size<T, 256>()) {
+    return plane_cluster_n<T, 256>(in, out, m, inverse, tw, stream);
+  }
+  if (log_n == 7 && cl == cluster_size<T, 128>()) {
+    return plane_cluster_n<T, 128>(in, out, m, inverse, tw, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int N>
+cudaError_t potkick_cluster_n(const void* phik, const void* psi, void* out, void* maxes,
+                              const void* coeff, int64_t m, int64_t planes_per_batch,
+                              const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  return launch_cluster<plane_potkick_cluster_kernel<T, N>>(
+      m, cluster_size<T, N>(), cluster_smem<T, N>(), stream, static_cast<const C*>(phik),
+      static_cast<const C*>(psi), static_cast<C*>(out), static_cast<T*>(maxes),
+      static_cast<const T*>(coeff), planes_per_batch, static_cast<const C*>(tw),
+      static_cast<T>(1.0 / N));
+}
+
+// K4 in the cluster form; maxes: (m * cl,), one per block.
+template <typename T>
+cudaError_t potkick_cluster(const void* phik, const void* psi, void* out, void* maxes,
+                            const void* coeff, int64_t m, int64_t planes_per_batch, int log_n,
+                            int cl, const void* tw, cudaStream_t stream) {
+  if (log_n == 8 && cl == cluster_size<T, 256>()) {
+    return potkick_cluster_n<T, 256>(phik, psi, out, maxes, coeff, m, planes_per_batch, tw,
+                                     stream);
+  }
+  if (log_n == 7 && cl == cluster_size<T, 128>()) {
+    return potkick_cluster_n<T, 128>(phik, psi, out, maxes, coeff, m, planes_per_batch, tw,
+                                     stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace

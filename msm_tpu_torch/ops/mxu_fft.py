@@ -57,6 +57,14 @@ A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain torch.fft version beside it; any other device raises. Sizes are the
 engine's, N = 128 * {1, 2, 4, 8} (`supported`), on both routes. `launches`
 counts kernel launches per wrapper.
+
+K6 and K4 take one of two forms, chosen by shape (`_plane_form`): at N =
+128 and 256 the one-pass plane on a thread-block cluster
+(`csrc/plane_cluster.cuh`: the plane in the cluster's shared memory, one
+HBM read of each input and one write of the output); at N = 512 and 1024,
+whose planes exceed a portable cluster's 8 x 227 KB, the split form (a row
+pass and a column pass with the intermediate in device memory).
+`form_launches` counts their launches per form.
 """
 
 from __future__ import annotations
@@ -91,15 +99,67 @@ launches = {
     "lane_pass_real_inv": 0,
     "axis_inv_map": 0,
 }
+# launches of K6 and K4 by form ("<kernel>/<form>")
+form_launches = {
+    f"{name}/{form}": 0
+    for name in ("plane_pass", "plane_potkick_fwd")
+    for form in ("cluster", "split")
+}
 # elements of one row block of the fused row kernel (kRowTile in
-# csrc/fft_common.cuh): plane_potkick_fwd and plane_real_inv_max leave one
-# max|phi| per block
+# csrc/fft_common.cuh): plane_potkick_fwd's split form and plane_real_inv_max
+# leave one max|phi| per block
 _ROW_TILE = 2048
+# twiddle tables of the cluster form, built once per (N, dtype, device)
+_TWIDDLES: dict = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, form_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
+    """(form, cluster size) of K6 and K4 for (N, N) planes of `dtype`: the
+    cluster form at N = 128, 256 (8 blocks a plane at 256; at 128, 2 at
+    complex64, 4 at complex128: about 70 KB of shared memory a block, as
+    `cluster_size` in csrc/plane_cluster.cuh), else ("split", 0). `form`
+    forces one where a caller asks: "split" exists at every size,
+    "cluster" only where the shape takes it."""
+    if n in (128, 256):
+        shape_form = ("cluster", 8 if n == 256 else (2 if dtype == torch.complex64 else 4))
+    else:
+        shape_form = ("split", 0)
+    if form is None or form == shape_form[0]:
+        return shape_form
+    if form == "split":
+        return "split", 0
+    raise ValueError(f"no {form!r} form for {n}^2 planes of {dtype}")
+
+
+def _maxes_per_plane(n: int, form: str, cluster: int) -> int:
+    """Partial maxima K4 leaves per plane: one per row block of the split
+    form, one per block of the cluster."""
+    return cluster if form == "cluster" else n * n // _ROW_TILE
+
+
+def _twiddles(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(n,) w_n^m = exp(-2 pi i m / n) of `dtype`: computed in double by
+    quarter turns (exact at multiples of n / 4), rounded once, and kept on
+    the device."""
+    key = (n, dtype, device)
+    if key not in _TWIDDLES:
+        m = torch.arange(n, dtype=torch.float64)
+        quarter, r = torch.div(m, n // 4, rounding_mode="floor"), torch.remainder(m, n // 4)
+        ang = 2.0 * math.pi * r / n
+        c, s = torch.cos(ang), -torch.sin(ang)
+        # times (-i)^quarter
+        for _ in range(3):
+            turn = quarter > 0
+            c, s = torch.where(turn, s, c), torch.where(turn, -c, s)
+            quarter = quarter - turn.to(quarter.dtype)
+        _TWIDDLES[key] = torch.complex(c, s).to(device=device, dtype=dtype)
+    return _TWIDDLES[key]
 
 
 def supported(size: int) -> bool:
@@ -137,6 +197,13 @@ def _planes(x: torch.Tensor) -> tuple[int, int]:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous x, copied if its data does not start on 16 bytes (the
+    cluster form's vector loads and stores)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -215,21 +282,27 @@ def axis_pass(z: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
     return out
 
 
-def plane_pass(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Ortho DFT of complex z over its last two axes (K6)."""
+def plane_pass(z: torch.Tensor, inverse: bool, *, form=None) -> torch.Tensor:
+    """Ortho DFT of complex z over its last two axes (K6). form: None for
+    the shape's (`_plane_form`); "split" forces the split form (tests and
+    chip_smoke.py compare the two)."""
     m, log_n = _planes(z)
+    form, cluster = _plane_form(z.shape[-1], z.dtype, form)
     if not _route(z, "plane_pass"):
         return plane_pass_plain(z, inverse)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_pass")
-    z = z.contiguous()
+    z = _aligned(z)
     out = torch.empty_like(z)
+    tw = _twiddles(z.shape[-1], z.dtype, z.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(z.device):
         rc = lib.msm_fft_plane(
-            z.data_ptr(), out.data_ptr(), m, log_n, int(inverse), is_double, _stream(z)
+            z.data_ptr(), out.data_ptr(), m, log_n, int(inverse), is_double, cluster,
+            None if tw is None else tw.data_ptr(), _stream(z),
         )
     build.check(rc, "plane_pass")
     launches["plane_pass"] += 1
+    form_launches[f"plane_pass/{form}"] += 1
     return out
 
 
@@ -785,12 +858,15 @@ def plane_real_inv_max(z):
     return maxes.view(m, -1).amax(dim=-1)
 
 
-def plane_potkick_fwd(phik, psi, coeff):
+def plane_potkick_fwd(phik, psi, coeff, *, form=None):
     """K4: phi = Re of the ortho inverse DFT of phik over its last two axes;
     returns (the forward DFT over those axes of psi * exp(i coeff_b phi),
     max|phi| per plane). The planes of phik and psi are (B, ..., N, N) with
-    coeff (B,): stream b owns the b-th run of planes."""
+    coeff (B,): stream b owns the b-th run of planes. form: as for
+    `plane_pass`."""
     m, log_n = _planes(phik)
+    n = phik.shape[-1]
+    form, cluster = _plane_form(n, phik.dtype, form)
     if psi.shape != phik.shape or psi.dtype != phik.dtype or psi.device != phik.device:
         raise ValueError(f"psi {tuple(psi.shape)} {psi.dtype} does not match phik")
     c = coeff.to(device=phik.device, dtype=phik.real.dtype).reshape(-1).contiguous()
@@ -799,20 +875,23 @@ def plane_potkick_fwd(phik, psi, coeff):
     if not _route(phik, "plane_potkick_fwd"):
         return plane_potkick_fwd_plain(phik, psi, c)
     is_double = _check_dtype(phik, (torch.complex64, torch.complex128), "plane_potkick_fwd")
-    phik = phik.contiguous()
-    psi = psi.contiguous()
+    phik = _aligned(phik)
+    psi = _aligned(psi)
     out = torch.empty_like(phik)
     maxes = torch.empty(
-        m * phik.shape[-1] ** 2 // _ROW_TILE, dtype=phik.real.dtype, device=phik.device
+        m * _maxes_per_plane(n, form, cluster), dtype=phik.real.dtype, device=phik.device
     )
+    tw = _twiddles(n, phik.dtype, phik.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(phik.device):
         rc = lib.msm_plane_potkick_fwd(
             phik.data_ptr(), psi.data_ptr(), out.data_ptr(), maxes.data_ptr(), c.data_ptr(),
-            m, m // c.numel(), log_n, is_double, _stream(phik),
+            m, m // c.numel(), log_n, is_double, cluster,
+            None if tw is None else tw.data_ptr(), _stream(phik),
         )
     build.check(rc, "plane_potkick_fwd")
     launches["plane_potkick_fwd"] += 1
+    form_launches[f"plane_potkick_fwd/{form}"] += 1
     return out, maxes.view(m, -1).amax(dim=-1)
 
 

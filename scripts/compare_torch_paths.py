@@ -67,8 +67,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("compare_torch_paths: no CUDA device", file=sys.stderr)
         return 1
-    name, limit = (s.strip() for s in chip_smoke.nvidia_smi().split(",", 1))
-    card = {"card": name, "power_limit": limit}
+    from msm_tpu_torch.ops import probes
+
+    card = probes.card()
     chip_smoke.phase_build(card)
     batch, mft = build_batch(args.size, args.seeds, torch.complex128)
     ref = None

@@ -166,8 +166,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_paths: no CUDA device", file=sys.stderr)
         return 1
-    name, limit = (s.strip() for s in chip_smoke.nvidia_smi().split(",", 1))
-    card = {"card": name, "power_limit": limit}
+    from msm_tpu_torch.ops import probes
+
+    card = probes.card()
     chip_smoke.phase_build(card)
     _, _, _, size, seeds, _ = chip_smoke.CONFIGS[args.config]
     batch, mft = build_batch(args.config, args.size or size, args.seeds or seeds)

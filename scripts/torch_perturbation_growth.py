@@ -73,8 +73,9 @@ def main() -> int:
             print("torch_perturbation_growth: no CUDA device (pass --device cpu "
                   "to run on the CPU)", file=sys.stderr)
             return 1
-        name, limit = (s.strip() for s in chip_smoke.nvidia_smi().split(",", 1))
-        card = {"card": name, "power_limit": limit}
+        from msm_tpu_torch.ops import probes
+
+        card = probes.card()
     template, name, _, size, _, _ = chip_smoke.CONFIGS[args.config]
     text = template.format(final=args.final, dumps=args.dumps, name=name, size=args.size or size)
     params = cfg.resolve_parameters(cfg.parse_toml_str(text))

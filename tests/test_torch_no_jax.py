@@ -57,7 +57,10 @@ def test_import_loads_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
-SCRIPTS = ("chip_smoke.py", "scripts/torch_microbench_mxu.py", "scripts/torch_probe_mxu_floor.py")
+SCRIPTS = (
+    "chip_smoke.py", "scripts/torch_microbench_mxu.py", "scripts/torch_probe_mxu_floor.py",
+    "scripts/torch_probe_plane_cluster.py",
+)
 
 
 def test_scripts_import_no_jax():

@@ -1,0 +1,417 @@
+"""The cluster form of K6 (plane_pass) and K4 (plane_potkick_fwd).
+
+A CUDA kernel cannot run here, so a plain numpy model of its decomposition
+(`csrc/plane_cluster.cuh`) lives in this file, with the kernel's index and
+twiddle maths: the plane split into C blocks of W = N / C rows, each
+length-N transform as two radix passes N = A * B in place (decimation in
+frequency: natural in, position B k1 + k2 holding frequency k1 + A k2;
+decimation in time: the reverse), rows scattered into that order on load,
+the tile swap across the blocks that turns row slabs into column slabs and
+back, the column chunks K6 stores and K4's inverse -> kick -> forward with
+psi read at each position's spatial (row, column). The model is held against numpy's
+FFTs and the port's plain versions at N = 128 and 256 with C in {2, 4, 8},
+and against the JAX package's K6 and K4 (Pallas interpret mode, x64, as its
+own tests run them) at N = 128, mapped with `convert.to_natural`. All in
+complex128: the model and the references are the same DFTs, 1e-12 of
+max|reference|.
+
+Also here: the shape dispatch (`_plane_form`), the twiddle table, the size
+and reduction of K4's maxima in both forms, and `cuda`-marked tests of the
+kernels on a card (both forms against the plain version and each other).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msm_tpu.ops import mxu_fft as jmxu
+from msm_tpu_torch import convert
+from msm_tpu_torch.ops import mxu_fft
+
+torch.set_num_threads(1)
+
+RTOL = 1e-12
+
+
+def _complex(rng, shape):
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+def _planar(z):
+    return jnp.asarray(z.real), jnp.asarray(z.imag)
+
+
+def _joined(pair):
+    return np.asarray(pair[0]) + 1j * np.asarray(pair[1])
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# The numpy model of csrc/plane_cluster.cuh
+# ---------------------------------------------------------------------------
+
+
+def _plan(n):
+    """(A, B) of a length-N transform, as plan_a."""
+    a = n if n <= 16 else 16
+    return a, n // a
+
+
+def _table(n, inverse):
+    """The wrapper's twiddle table w_n^m (conjugated for the inverse)."""
+    tw = mxu_fft._twiddles(n, torch.complex128, torch.device("cpu")).numpy()
+    return tw.conj() if inverse else tw
+
+
+def _radix_pass(x, tw, p, es, gs, groups, twiddled):
+    """radix_pass on lines x (lines, N): group g's P elements at g * gs +
+    j * es, replaced by their DFT (w_P^m = tw[m N / P]), times w_N^{g k}."""
+    n = x.shape[-1]
+    if p == 1:
+        return x
+    g = np.arange(groups)[:, None]
+    j = np.arange(p)[None, :]
+    pos = g * gs + j * es  # (groups, P)
+    w = tw[(np.outer(np.arange(p), np.arange(p)) * (n // p)) % n]
+    y = x[:, pos] @ w
+    if twiddled:
+        y = y * tw[g * j]
+    out = x.copy()
+    out[:, pos] = y
+    return out
+
+
+def _line_fft(x, tw, dit):
+    """slab_fft along the last axis of lines x (lines, N)."""
+    a, b = _plan(x.shape[-1])
+    if dit:
+        x = _radix_pass(x, tw, b, 1, b, a, True)
+        return _radix_pass(x, tw, a, b, 1, b, False)
+    x = _radix_pass(x, tw, a, b, 1, b, True)
+    return _radix_pass(x, tw, b, 1, b, a, False)
+
+
+def _transposed(n):
+    """Position of natural index i in a DIF-transposed line."""
+    a, b = _plan(n)
+    i = np.arange(n)
+    return b * (i % a) + i // a
+
+
+def _swap(slabs):
+    """swap_tiles: tile (block r, chunk j) <-> (block j, chunk r), blocks
+    (C, W, N) of W = N / C slab rows."""
+    cl, w = slabs.shape[:2]
+    out = np.empty_like(slabs)
+    for r in range(cl):
+        for j in range(cl):
+            out[r][:, j * w:(j + 1) * w] = slabs[j][:, r * w:(r + 1) * w]
+    return out
+
+
+def _col_lines(slabs):
+    """ColLines: column w of block r's column slab, element y at slot y // W,
+    slab row y % W: (C, W lines, N)."""
+    cl, w, n = slabs.shape
+    y = np.arange(n)
+    at = ((y % w)[None, :], (y // w)[None, :] * w + np.arange(w)[:, None])
+    return np.stack([blk[at] for blk in slabs])
+
+
+def _col_slabs(lines):
+    """The inverse of _col_lines."""
+    cl, w, n = lines.shape
+    y = np.arange(n)
+    at = ((y % w)[None, :], (y // w)[None, :] * w + np.arange(w)[:, None])
+    out = np.empty_like(lines)
+    for r in range(cl):
+        out[r][at] = lines[r]
+    return out
+
+
+def _inverse_to_columns(x, cl, inverse):
+    """Load scattered into transposed order, rows DIT, swap, columns DIF of
+    one (N, N) plane: each block's column lines after the first 2-axis
+    transform, (C, W, N), line position transposed(y) holding row y."""
+    n = x.shape[-1]
+    tw = _table(n, inverse)
+    slabs = np.empty((cl, n // cl, n), dtype=complex)
+    slabs[:, :, _transposed(n)] = x.reshape(cl, n // cl, n)
+    slabs = np.stack([_line_fft(blk, tw, dit=True) for blk in slabs])
+    lines = _col_lines(_swap(slabs))
+    return np.stack([_line_fft(blk, tw, dit=False) for blk in lines])
+
+
+def model_plane(x, cl, inverse):
+    """K6's cluster form on planes x (m, N, N)."""
+    n = x.shape[-1]
+    w = n // cl
+    out = np.empty_like(x)
+    for i, plane in enumerate(x):
+        lines = _inverse_to_columns(plane, cl, inverse) / n
+        # the store: output row f from line position transposed(f), block r
+        # writing columns [W r, W r + W)
+        for r in range(cl):
+            out[i][:, r * w:(r + 1) * w] = lines[r][:, _transposed(n)].T
+    return out
+
+
+def model_potkick(phik, psi, coeff, cl):
+    """K4's cluster form on planes (m, N, N), coeff per plane; returns (out,
+    per-block maxima (m, C))."""
+    n = phik.shape[-1]
+    w = n // cl
+    out = np.empty_like(phik)
+    maxes = np.empty((phik.shape[0], cl))
+    tw = _table(n, False)
+    # block r's line w, position transposed(y): spatial (y, W r + w)
+    rows = np.argsort(_transposed(n))
+    for i, (plane, p, c) in enumerate(zip(phik, psi, coeff)):
+        phi = (_inverse_to_columns(plane, cl, True) / n).real
+        maxes[i] = np.abs(phi).reshape(cl, -1).max(-1)
+        pg = np.stack([p[rows][:, r * w:(r + 1) * w].T for r in range(cl)])
+        lines = pg * np.exp(1j * c * phi)
+        lines = np.stack([_line_fft(blk, tw, dit=True) for blk in lines])
+        slabs = _swap(_col_slabs(lines))
+        slabs = np.stack([_line_fft(blk, tw, dit=False) for blk in slabs])
+        out[i] = slabs[:, :, _transposed(n)].reshape(n, n) / n
+    return out, maxes
+
+
+CASES = [(n, cl) for n in (128, 256) for cl in (2, 4, 8)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,cl", CASES)
+def test_model_plane_matches_numpy(rng, n, cl, inverse):
+    """K6's decomposition is numpy's ortho fft2 / ifft2."""
+    x = _complex(rng, (2, n, n))
+    want = (np.fft.ifft2 if inverse else np.fft.fft2)(x, norm="ortho")
+    _close(model_plane(x, cl, inverse), want)
+
+
+@pytest.mark.parametrize("n,cl", CASES)
+def test_model_potkick_matches_plain(rng, n, cl):
+    """K4's decomposition (DIF inverse, the kick at each position's spatial
+    index, DIT forward) against numpy and the port's plain version; the
+    per-block maxima reduce to max|phi| per plane."""
+    phik = _complex(rng, (2, n, n))
+    psi = _complex(rng, (2, n, n))
+    coeff = np.array([0.7, -1.9])
+    out, maxes = model_potkick(phik, psi, coeff, cl)
+    phi = np.fft.ifft2(phik, norm="ortho").real
+    want = np.fft.fft2(psi * np.exp(1j * coeff[:, None, None] * phi), norm="ortho")
+    _close(out, want)
+    np.testing.assert_allclose(maxes.max(-1), np.abs(phi).max(axis=(1, 2)), rtol=RTOL)
+    p_out, p_max = mxu_fft.plane_potkick_fwd_plain(
+        torch.as_tensor(phik), torch.as_tensor(psi), torch.as_tensor(coeff)
+    )
+    _close(out, p_out.numpy())
+    np.testing.assert_allclose(maxes.max(-1), p_max.numpy(), rtol=RTOL)
+
+
+@pytest.mark.parametrize("cl", [2, 4, 8])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_model_plane_matches_jax(rng, cl, inverse):
+    """K6 against `_axis_pass_fused2` at N = 128 (engine k order mapped)."""
+    x = _complex(rng, (2, 128, 128))
+    jin = convert.to_engine(x, 2) if inverse else x
+    want = _joined(jmxu._axis_pass_fused2(*_planar(jin), inverse=inverse))
+    if not inverse:
+        want = convert.to_natural(want, 2)
+    _close(model_plane(x, cl, inverse), want)
+
+
+@pytest.mark.parametrize("cl", [2, 4, 8])
+def test_model_potkick_matches_jax(rng, cl):
+    """K4 against `_axis_pass_fused2_potkick_fwd` at N = 128: two streams of
+    two planes, the output (k) and max|phi| per plane."""
+    phik = _complex(rng, (2, 2, 128, 128))
+    psi = _complex(rng, (2, 2, 128, 128))
+    coeffs = np.array([0.37, -1.3])
+    jr, ji, jmx = jmxu._axis_pass_fused2_potkick_fwd(
+        *_planar(convert.to_engine(phik, 2)), *_planar(psi), coeffs
+    )
+    out, maxes = model_potkick(
+        phik.reshape(4, 128, 128), psi.reshape(4, 128, 128), np.repeat(coeffs, 2), cl
+    )
+    _close(out.reshape(phik.shape), convert.to_natural(_joined((jr, ji)), 2))
+    np.testing.assert_allclose(maxes.max(-1), np.asarray(jmx).reshape(-1), rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# The wrappers' dispatch, tables and maxima
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [128, 256, 512, 1024])
+def test_plane_form_dispatch(n, cdtype):
+    """The cluster form at N = 128 and 256 (8 blocks at 256; at 128 2 or 4,
+    about 70 KB of shared memory a block), the split form above; "split"
+    can be forced at every size, "cluster" only where the shape takes it."""
+    form, cl = mxu_fft._plane_form(n, cdtype)
+    if n == 256:
+        assert (form, cl) == ("cluster", 8)
+    elif n == 128:
+        assert (form, cl) == ("cluster", 2 if cdtype == torch.complex64 else 4)
+    else:
+        assert (form, cl) == ("split", 0)
+    if form == "cluster":
+        # the rows of one block and its twiddle table, padded as pad16
+        rows = n // cl * n
+        itemsize = 8 if cdtype == torch.complex64 else 16
+        assert (rows + rows // 16 + n) * itemsize <= 227 * 1024
+        assert n // cl % cl == 0  # the radix-C stage splits the rows evenly
+    assert mxu_fft._plane_form(n, cdtype, None) == (form, cl)
+    assert mxu_fft._plane_form(n, cdtype, "split") == ("split", 0)
+    if form == "split":
+        with pytest.raises(ValueError, match="no 'cluster' form"):
+            mxu_fft._plane_form(n, cdtype, "cluster")
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_twiddle_table(n, cdtype):
+    """w_n^m to the precision's rounding, exact at the quarter turns, built
+    once per (N, dtype, device)."""
+    tw = mxu_fft._twiddles(n, cdtype, torch.device("cpu"))
+    assert tw.dtype == cdtype and tw.shape == (n,)
+    # a few ulps: both sides round an angle and its cosine and sine
+    eps = torch.finfo(tw.real.dtype).eps
+    np.testing.assert_allclose(tw.numpy(), np.exp(-2j * np.pi * np.arange(n) / n), rtol=0, atol=4 * eps)
+    np.testing.assert_array_equal(tw[:: n // 4].numpy(), [1, -1j, -1, 1j])
+    assert mxu_fft._twiddles(n, cdtype, torch.device("cpu")) is tw
+
+
+@pytest.mark.parametrize("n,form", [(256, "cluster"), (256, "split"), (128, "cluster"), (512, "split")])
+def test_maxima_buffer_size_and_reduction(rng, n, form):
+    """K4 leaves one max|phi| per block of the cluster (C per plane) or per
+    2048-element row block of the split form; both reduce to max|phi| per
+    plane with amax, as the wrapper reduces them."""
+    m, cdtype = 3, torch.complex64
+    _, cl = mxu_fft._plane_form(n, cdtype, form)
+    per_plane = mxu_fft._maxes_per_plane(n, form, cl)
+    assert per_plane == (cl if form == "cluster" else n * n // 2048)
+    phi = rng.standard_normal((m, n, n))
+    if form == "cluster":
+        # block r holds the columns [W r, W r + W) after the inverse
+        w = n // cl
+        partials = np.stack(
+            [np.abs(phi[:, :, r * w:(r + 1) * w]).max(axis=(1, 2)) for r in range(cl)], -1
+        )
+    else:
+        partials = np.abs(phi).reshape(m, per_plane, -1).max(-1)
+    assert partials.size == m * per_plane
+    got = torch.as_tensor(partials.reshape(-1)).view(m, -1).amax(dim=-1)
+    np.testing.assert_array_equal(got.numpy(), np.abs(phi).max(axis=(1, 2)))
+
+
+def test_wrappers_take_a_form_on_the_cpu(rng):
+    """On the CPU the plain version answers in either form and counts no
+    launch; a form the shape does not take raises before any work."""
+    z = torch.as_tensor(_complex(rng, (2, 256, 256)))
+    w = torch.as_tensor(_complex(rng, (2, 256, 256)))
+    c = torch.tensor([0.3, -0.4])
+    mxu_fft.reset_launches()
+    for form in (None, "split", "cluster"):
+        _close(mxu_fft.plane_pass(z, True, form=form).numpy(), mxu_fft.plane_pass_plain(z, True).numpy())
+        out, mx = mxu_fft.plane_potkick_fwd(z, w, c, form=form)
+        want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, c)
+        _close(out.numpy(), want.numpy())
+        assert torch.equal(mx, want_mx)
+    assert set(mxu_fft.launches.values()) == {0}
+    assert set(mxu_fft.form_launches.values()) == {0}
+    big = torch.zeros((1, 512, 512), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_pass(big, False, form="cluster")
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_potkick_fwd(big, big, torch.zeros(1), form="cluster")
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+def _card_inputs(dev, rng, cdtype, shape):
+    rdtype = torch.float32 if cdtype == torch.complex64 else torch.float64
+    z = torch.as_tensor(_complex(rng, shape)).to(dev, cdtype)
+    w = torch.as_tensor(_complex(rng, shape)).to(dev, cdtype)
+    coeff = torch.as_tensor(rng.uniform(-2, 2, shape[0])).to(dev, rdtype)
+    return z, w, coeff
+
+
+def _card_close(got, want, rtol, what):
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), f"{what}: {err}"
+
+
+# the one-transform (K6) and two-transform (K4) gates of chip_smoke.py
+K6_RTOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+K4_RTOL = {torch.complex64: 2e-5, torch.complex128: 2e-12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", [(3, 2, 128, 128), (2, 3, 256, 256)])
+def test_cuda_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype, shape):
+    """K6 (both directions) and K4 in the cluster form against the plain
+    version and the forced split form on the card; each launch counted
+    under its form."""
+    z, w, coeff = _card_inputs(cuda_device, rng, cdtype, shape)
+    mxu_fft.reset_launches()
+    for inverse in (False, True):
+        got = mxu_fft.plane_pass(z, inverse)
+        split = mxu_fft.plane_pass(z, inverse, form="split")
+        torch.cuda.synchronize()
+        want = mxu_fft.plane_pass_plain(z, inverse)
+        _card_close(got, want, K6_RTOL[cdtype], f"plane_pass inverse={inverse}")
+        _card_close(got, split, K6_RTOL[cdtype], f"plane_pass vs split inverse={inverse}")
+    out, mx = mxu_fft.plane_potkick_fwd(z, w, coeff)
+    out_s, mx_s = mxu_fft.plane_potkick_fwd(z, w, coeff, form="split")
+    torch.cuda.synchronize()
+    want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, coeff)
+    _card_close(out, want, K4_RTOL[cdtype], "plane_potkick_fwd")
+    _card_close(mx, want_mx, K4_RTOL[cdtype], "plane_potkick_fwd maxima")
+    _card_close(out, out_s, K4_RTOL[cdtype], "plane_potkick_fwd vs split")
+    _card_close(mx, mx_s, K4_RTOL[cdtype], "plane_potkick_fwd maxima vs split")
+    assert mxu_fft.form_launches == {
+        "plane_pass/cluster": 2, "plane_pass/split": 2,
+        "plane_potkick_fwd/cluster": 1, "plane_potkick_fwd/split": 1,
+    }
+    # bit-reproducible: no atomics
+    again, again_mx = mxu_fft.plane_potkick_fwd(z, w, coeff)
+    assert torch.equal(again, out) and torch.equal(again_mx, mx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+def test_cuda_split_form_at_512(cuda_device, rng, cdtype):
+    """N = 512 keeps the split form: K6 and K4 against their plain versions."""
+    z, w, coeff = _card_inputs(cuda_device, rng, cdtype, (2, 512, 512))
+    mxu_fft.reset_launches()
+    got = mxu_fft.plane_pass(z, False)
+    out, mx = mxu_fft.plane_potkick_fwd(z, w, coeff)
+    torch.cuda.synchronize()
+    _card_close(got, mxu_fft.plane_pass_plain(z, False), K6_RTOL[cdtype], "plane_pass")
+    want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, coeff)
+    _card_close(out, want, K4_RTOL[cdtype], "plane_potkick_fwd")
+    _card_close(mx, want_mx, K4_RTOL[cdtype], "plane_potkick_fwd maxima")
+    assert mxu_fft.form_launches["plane_pass/split"] == 1
+    assert mxu_fft.form_launches["plane_potkick_fwd/split"] == 1
+    assert mxu_fft.form_launches["plane_pass/cluster"] == 0
