@@ -39,11 +39,14 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (fields, the sums, the maxima) against the plain version; the
             lane kernels K14 lane_pass, K15 lane_pass_real_fwd and K16
             lane_pass_real_inv at (256, 1024) (the 1-D main run's) and
-            (9 * 256^2, 256) (the 3-D grid's bytes), and at (256, 1024)
-            also their device time and torch.fft's as the slope between
-            chains of 16 and 112 launches queued behind a sleep kernel (so
-            the host's launch time is hidden); K18 axis_inv_map at
-            (9, 256^3) and (3, 512^3)
+            (9 * 256^2, 256) (the 3-D grid's bytes), each in the radix form
+            (lane_fft_kernel, the default) and the forced row form
+            (`lane_pass/row` ...: row_fft_kernel, the before of the radix
+            form's after), and at (256, 1024) c64 the device time of both
+            forms and of torch.fft as the slope between chains of 16 and
+            112 launches queued behind a sleep kernel (so the host's launch
+            time is hidden); K18 axis_inv_map at (9, 256^3) and
+            (3, 512^3)
   2b engine the three-pass Poisson solve (K7, K8, K9) against the two-call
             path forward_engine_density + inverse_engine_real(pmap=) (K7,
             K5, K18, K9) at (9, 256^3), c64 and c128 (K18's launches are
@@ -78,8 +81,9 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             every dump's shape, finiteness and norm, the manifests, that
             each run launched each of its kernels, that the exact run
             launched K10 and K11 and the unskewed run K12 and K13 once per
-            iteration, and that every K4 launch of the fused runs and every
-            K6 launch of the unfused `mxu` run took the cluster form; then
+            iteration, that every K4 launch of the fused runs and every K6
+            launch of the unfused `mxu` run took the cluster form, and that
+            every K14-K16 launch of the 1-D run took the radix form; then
             compares the runs
 
 It then prints the kernels record (each kernel's launches from the main
@@ -89,7 +93,10 @@ the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6 and K4 with their form,
-cluster size and the forced split form's median, `split_ms`); and last
+cluster size and the forced split form's median, `split_ms`; K14-K16 with
+their form, the forced row form's median `row_ms`, the device slopes
+`slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
+1024), and their medians at (9 * 256^2, 256) under `grid`); and last
 `{"ok": true,
 "device": {...}}`. Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -119,6 +126,8 @@ FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
 # K6 and K4 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
+# K14-K16: the radix form
+LANE_SOURCE = "msm_tpu_torch/ops/csrc/lane_radix.cuh"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
@@ -138,9 +147,9 @@ KERNELS = {
     "plane_real_inv_max": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
     "axis_inv_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
     "axis_fwd_reduce": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
-    "lane_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:339"),
-    "lane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:399"),
-    "lane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:412"),
+    "lane_pass": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:339"),
+    "lane_pass_real_fwd": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:399"),
+    "lane_pass_real_inv": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:412"),
     "axis_inv_map": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:839"),
     "copy_pass": (COPY_SOURCE, "scripts/microbench_mxu.py:115"),
     "copy_pass_lane": (COPY_SOURCE, "scripts/probe_mxu_floor.py:101"),
@@ -627,9 +636,13 @@ def phase_fft_kernels(card: dict) -> dict:
 
 
 def phase_lane_kernels(card: dict) -> dict:
-    """K14/K15/K16 vs plain (cuFFT) at LANE_SHAPES and K18 vs plain at
-    MAP_SHAPES, complex64 and complex128; returns the measurements at the
-    1-D main run's shape (K14-K16) and the 3-D main shape (K18), complex64."""
+    """K14/K15/K16 vs plain (cuFFT) at LANE_SHAPES, in the radix form and
+    the forced row form (`<kernel>/row`, the before of the radix form's
+    after), and K18 vs plain at MAP_SHAPES, complex64 and complex128;
+    returns the measurements at the 1-D main run's shape (K14-K16, both
+    forms, with the device slopes of both forms and of torch.fft, and the
+    medians at the 3-D grid's bytes under `grid`) and the 3-D main shape
+    (K18), complex64."""
     from msm_tpu_torch.grid import spec_grid
     from msm_tpu_torch.ops import mxu_fft
 
@@ -646,23 +659,38 @@ def phase_lane_kernels(card: dict) -> dict:
             # complex or the real rows; ifft, whose .real is a view), so they
             # are also the library yardstick
             cases = {
-                "lane_pass": (lambda: mxu_fft.lane_pass(z, False),
+                "lane_pass": (lambda f: mxu_fft.lane_pass(z, False, form=f),
                               lambda: mxu_fft.lane_pass_plain(z, False), [z]),
-                "lane_pass_real_fwd": (lambda: mxu_fft.lane_pass_real_fwd(x),
+                "lane_pass_real_fwd": (lambda f: mxu_fft.lane_pass_real_fwd(x, form=f),
                                        lambda: mxu_fft.lane_pass_real_fwd_plain(x), [x]),
-                "lane_pass_real_inv": (lambda: mxu_fft.lane_pass_real_inv(z),
+                "lane_pass_real_inv": (lambda f: mxu_fft.lane_pass_real_inv(z, form=f),
                                        lambda: mxu_fft.lane_pass_real_inv_plain(z), [z]),
             }
+            c64 = cdtype == torch.complex64
             for name, (kernel, plain, inputs) in cases.items():
-                rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True)
-                if shape == LANE_SHAPES[0] and cdtype == torch.complex64:
-                    main[name] = rec
+                radix, row = (lambda: kernel(None)), (lambda: kernel("row"))
+                rec = _measure_fft(card, name, cdtype, shape, radix, plain, inputs, ops, True,
+                                   {"form": "radix"})
+                row_rec = _measure_fft(card, f"{name}/row", cdtype, shape, row, plain, inputs,
+                                       ops, True, {"form": "row"})
+                if c64 and shape == LANE_SHAPES[0]:
+                    slopes = {
+                        "slope_ms": device_slope_ms(radix),
+                        "row_slope_ms": device_slope_ms(row),
+                        "library_slope_ms": device_slope_ms(plain),
+                    }
                     emit({
                         "phase": "kernels", "kernel": name, "dtype": "complex64",
-                        "shape": list(shape), "device_slope_ms": device_slope_ms(kernel),
-                        "library_slope_ms": device_slope_ms(plain),
-                        "chains": [SLOPE_LO, SLOPE_HI], "bound_ms": rec["bound_ms"], **card,
+                        "shape": list(shape), **slopes, "chains": [SLOPE_LO, SLOPE_HI],
+                        "bound_ms": rec["bound_ms"], **card,
                     })
+                    main[name] = {**rec, **slopes, "row_ms": row_rec["ms"]}
+                elif c64:
+                    main[name]["grid"] = {
+                        "shape": list(shape), "ms": rec["ms"], "row_ms": row_rec["ms"],
+                        "library_ms": rec["library_ms"], "bound_ms": rec["bound_ms"],
+                        "bytes": rec["bytes"],
+                    }
             del z, x, cases
         for shape in MAP_SHAPES:
             n = shape[-1]
@@ -979,6 +1007,9 @@ PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNE
 # cluster form: K4 on the fused engines, K6 on the unfused `mxu` path
 CLUSTER_FORM = {"fused": "plane_potkick_fwd", "unskewed": "plane_potkick_fwd",
                 "mxu": "plane_pass"}
+# the lane kernels whose every launch in a path's main run must take the
+# radix form (lane_fft_kernel)
+RADIX_FORM = {"mxu-1d": LANE_KERNELS}
 
 
 @contextlib.contextmanager
@@ -1169,6 +1200,12 @@ def phase_main(card: dict, run: str) -> dict:
                   f"the {run} run launched {form_kernel} {launches[form_kernel]} times, "
                   f"{launches[f'{form_kernel}/cluster']} in the cluster form")
 
+        # every lane launch of the 1-D run takes the radix form
+        for k in RADIX_FORM.get(path, ()):
+            check(launches[f"{k}/radix"] == launches[k] > 0 and launches[f"{k}/row"] == 0,
+                  f"the {run} run launched {k} {launches[k]} times, "
+                  f"{launches[f'{k}/radix']} in the radix form")
+
         runs = [f"{name}-stream{s:05d}" for s in range(1, streams + 1)] + [name]
         # a dump holds the grid's axes, padded with unit axes to four
         dump_shape = (size,) * dims + (1,) * (4 - dims)
@@ -1243,6 +1280,13 @@ def main() -> int:
                "library_ms": measured[k]["library_ms"],
                "cluster_over_split": measured[k]["ms"] / measured[f"{k}/split"]["ms"]}
            for k in FORM_KERNELS},
+        **{k: {"radix_ms": measured[k]["ms"], "row_ms": measured[k]["row_ms"],
+               "slope_ms": measured[k]["slope_ms"], "row_slope_ms": measured[k]["row_slope_ms"],
+               "library_slope_ms": measured[k]["library_slope_ms"],
+               "grid_radix_ms": measured[k]["grid"]["ms"],
+               "grid_row_ms": measured[k]["grid"]["row_ms"],
+               "grid_library_ms": measured[k]["grid"]["library_ms"]}
+           for k in LANE_KERNELS},
         **card,
     })
     emit({"kernels": [
@@ -1262,6 +1306,16 @@ def main() -> int:
             "library_ms": measured[k]["library_ms"],
             **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
                 "split_ms": measured[f"{k}/split"]["ms"]} if k in FORM_KERNELS else {}),
+            # K14-K16: the radix form, the forced row form's median, the
+            # device slopes at (256, 1024) c64, and the medians at the 3-D
+            # grid's bytes
+            **({"form": "radix", "row_ms": measured[k]["row_ms"],
+                "slope_ms": measured[k]["slope_ms"],
+                "row_slope_ms": measured[k]["row_slope_ms"],
+                "library_slope_ms": measured[k]["library_slope_ms"],
+                "grid": {**measured[k]["grid"],
+                         "floor_ms": measured[k]["grid"]["bytes"] / floor["bytes_per_s"] * 1e3}}
+               if k in LANE_KERNELS else {}),
         }
         for k, (source, replaces) in KERNELS.items()
     ]})

@@ -29,7 +29,8 @@ SOURCES = tuple(
 )
 # headers the sources include: part of the library's hash, not compiled alone
 HEADERS = tuple(
-    os.path.join(_CSRC, name) for name in ("fft_common.cuh", "plane_cluster.cuh")
+    os.path.join(_CSRC, name)
+    for name in ("fft_common.cuh", "plane_cluster.cuh", "lane_radix.cuh")
 )
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-arch=sm_90a"
@@ -76,11 +77,12 @@ _SIGNATURES = {
     "msm_axis_inv_kick": [_P, _P, _I64, _I, _I64, _P, _P, _I, _P],
     # in, out, b1, log_n, lanes, s0, s12, cutoff, partials, is_double, stream
     "msm_axis_fwd_reduce": [_P, _P, _I64, _I, _I64, _P, _P, _D, _P, _I, _P],
-    # in, out, rows, log_n, inverse, is_double, stream
-    "msm_fft_lane": [_P, _P, _I64, _I, _I, _I, _P],
-    # in, out, rows, log_n, is_double, stream
-    "msm_fft_lane_real_fwd": [_P, _P, _I64, _I, _I, _P],
-    "msm_fft_lane_real_inv": [_P, _P, _I64, _I, _I, _P],
+    # in, out, rows, log_n, inverse, is_double, row_form (0: radix), twiddles,
+    # stream
+    "msm_fft_lane": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
+    # in, out, rows, log_n, is_double, row_form (0: radix), twiddles, stream
+    "msm_fft_lane_real_fwd": [_P, _P, _I64, _I, _I, _I, _P, _P],
+    "msm_fft_lane_real_inv": [_P, _P, _I64, _I, _I, _I, _P, _P],
     # in, out, b1, log_n, lanes, map, is_double, stream
     "msm_fft_axis_inv_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
     # z, out, scale, batch, n, dims, is_double, stream

@@ -18,8 +18,10 @@
 //     -coeff/k^2 on the inverse's read, K18).
 //
 // Twiddles are computed per block with double-precision sincospi and rounded
-// once to the kernel's precision. Offsets are 64-bit. Everything here has
-// internal linkage: each source that includes it gets its own copy.
+// once to the kernel's precision (the one-pass forms, plane_cluster.cuh and
+// the lane kernels' lane_radix.cuh, read a table the wrapper builds once per
+// size instead). Offsets are 64-bit. Everything here has internal linkage:
+// each source that includes it gets its own copy.
 //
 // Launchers raise a kernel's dynamic shared-memory limit once per template
 // instantiation (a function-local static), to the size its largest supported
@@ -196,7 +198,8 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// Elements per row-pass block: whole rows, n <= 1024 divides it.
+// Elements per row-pass block (row_fft_kernel, the fused row kernels): whole
+// rows, n <= 1024 divides it. K14-K16 run lane_fft_kernel (lane_radix.cuh).
 constexpr int kRowTile = 2048;
 constexpr int kRowThreads = 256;
 

@@ -28,8 +28,12 @@
 //                            loaded; replaces _axis_pass_sublane_inv_pmap /
 //                            _sublane_kernel_inv_pmap (K18).
 //
-// K14-K16 are the row pass alone (the 1-D engine and any last-axis
-// transform): one launch, one read and one write of the grid. K18 is the
+// K14-K16 (the 1-D engine and any last-axis transform) are one launch, one
+// read and one write of the grid: lane_fft_kernel (lane_radix.cuh), radix-16
+// register passes over whole rows with the wrapper's twiddle table. The row
+// pass below (row_fft_kernel) stays reachable for them only as the forced
+// `form="row"` of the wrappers (mxu_fft._lane_form), which chip_smoke.py and
+// the `cuda` tests time and hold beside it; no path takes it. K18 is the
 // column pass with the kMap load prologue (fft_common.cuh): the map costs one
 // extra read of n * lanes reals, which the batch shares.
 //
@@ -43,14 +47,19 @@
 // writes its output once (16 bytes per complex64 cell, 32 per complex128):
 // at (9, 256^3) complex64 one grid is 1.21 GB, 0.36 ms at 3.35 TB/s, so a
 // pass (K5, K14) or a 2-axis plane (K6) must move 2 grids, 0.72 ms, as long
-// as the transform in shared memory keeps up. Three geometries:
+// as the transform in shared memory keeps up. Four geometries:
 //
 //   axis pass (axis_fft_kernel, fft_common.cuh): n x W column tiles, radix-2
 //     DIT in shared memory (see the header).
 //   row pass (row_fft_kernel): a block takes whole contiguous rows (2048
 //     elements) and runs a radix-2 Stockham FFT on each row between two
 //     shared-memory buffers (natural order in and out, no bit reversal, whose
-//     scattered accesses along a row would conflict on every bank).
+//     scattered accesses along a row would conflict on every bank). The row
+//     half of the split plane kernels (K6 at n >= 512, K17, K9).
+//   lanes (lane_fft_kernel, lane_radix.cuh): R whole rows a block, N / 16
+//     threads a row, each length-N transform in two or three radix-16 (and
+//     8, 4, 2) register passes in padded shared memory, the digit order
+//     undone on the store; 16-byte loads and stores.
 //   plane (K6): at n = 128 and 256 the one-pass cluster form
 //     (plane_cluster.cuh): the plane in the shared memory of a cluster of 2-8
 //     blocks, radix-16 register passes for rows and columns, one transpose
@@ -64,11 +73,13 @@
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic only, no tensor cores.
 // Twiddles are computed in double and rounded once to the kernel's precision:
 // per block with sincospi in the split kernels, once per (n, dtype) by the
-// wrapper for the cluster form; the file is built without --use_fast_math.
+// wrapper for the cluster form and the lane kernels; the file is built
+// without --use_fast_math.
 // The ortho 1/sqrt(n) of each axis is applied as the pass writes.
 // Offsets are 64-bit (batch * n^3 passes 2^31 at 1024^3). Every entry point
 // launches on the stream it is given and returns cudaGetLastError().
 
+#include "lane_radix.cuh"
 #include "plane_cluster.cuh"
 
 namespace {
@@ -234,32 +245,55 @@ int msm_fft_plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int 
                                     : plane_real_inv<float>(in, tmp, out, m, log_n, s));
 }
 
-// K14. in, out: (rows, 2^log_n) interleaved complex; transform along the
-// last axis. in == out is allowed.
+// K14. in, out: (rows, 2^log_n) interleaved complex, 16-byte aligned;
+// transform along the last axis. row_form 0: lane_fft_kernel
+// (lane_radix.cuh) with tw: (2^log_n,) interleaved complex w_n^m; 1: the
+// row form (row_fft_kernel; tw unused). in == out is allowed.
 int msm_fft_lane(const void* in, void* out, int64_t rows, int log_n, int inverse,
-                 int is_double, void* stream) {
+                 int is_double, int row_form, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double ? lane<double>(in, out, rows, log_n, inverse, s)
-                                    : lane<float>(in, out, rows, log_n, inverse, s));
+  if (row_form) {
+    return static_cast<int>(is_double ? lane<double>(in, out, rows, log_n, inverse, s)
+                                      : lane<float>(in, out, rows, log_n, inverse, s));
+  }
+  if (is_double) {
+    return static_cast<int>(
+        inverse ? launch_lane<double, true, false, false>(in, out, rows, log_n, tw, s)
+                : launch_lane<double, false, false, false>(in, out, rows, log_n, tw, s));
+  }
+  return static_cast<int>(
+      inverse ? launch_lane<float, true, false, false>(in, out, rows, log_n, tw, s)
+              : launch_lane<float, false, false, false>(in, out, rows, log_n, tw, s));
 }
 
-// K15. in: (rows, 2^log_n) real; out: (rows, 2^log_n) interleaved complex.
+// K15. in: (rows, 2^log_n) real; out: (rows, 2^log_n) interleaved complex;
+// row_form and tw as for K14.
 int msm_fft_lane_real_fwd(const void* in, void* out, int64_t rows, int log_n, int is_double,
-                          void* stream) {
+                          int row_form, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_form) {
+    return static_cast<int>(
+        is_double ? launch_rows<double, false, true, false>(in, out, rows, log_n, s)
+                  : launch_rows<float, false, true, false>(in, out, rows, log_n, s));
+  }
   return static_cast<int>(
-      is_double ? launch_rows<double, false, true, false>(in, out, rows, log_n, s)
-                : launch_rows<float, false, true, false>(in, out, rows, log_n, s));
+      is_double ? launch_lane<double, false, true, false>(in, out, rows, log_n, tw, s)
+                : launch_lane<float, false, true, false>(in, out, rows, log_n, tw, s));
 }
 
 // K16. in: (rows, 2^log_n) interleaved complex; out: (rows, 2^log_n) real, the
-// real part of the inverse.
+// real part of the inverse; row_form and tw as for K14.
 int msm_fft_lane_real_inv(const void* in, void* out, int64_t rows, int log_n, int is_double,
-                          void* stream) {
+                          int row_form, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_form) {
+    return static_cast<int>(
+        is_double ? launch_rows<double, true, false, true>(in, out, rows, log_n, s)
+                  : launch_rows<float, true, false, true>(in, out, rows, log_n, s));
+  }
   return static_cast<int>(
-      is_double ? launch_rows<double, true, false, true>(in, out, rows, log_n, s)
-                : launch_rows<float, true, false, true>(in, out, rows, log_n, s));
+      is_double ? launch_lane<double, true, false, true>(in, out, rows, log_n, tw, s)
+                : launch_lane<float, true, false, true>(in, out, rows, log_n, tw, s));
 }
 
 // K18. in, out: (b1, 2^log_n, lanes) interleaved complex as for K5; map:

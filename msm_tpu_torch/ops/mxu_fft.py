@@ -65,6 +65,11 @@ HBM read of each input and one write of the output); at N = 512 and 1024,
 whose planes exceed a portable cluster's 8 x 227 KB, the split form (a row
 pass and a column pass with the intermediate in device memory).
 `form_launches` counts their launches per form.
+
+K14-K16 run the radix form (`csrc/lane_radix.cuh` `lane_fft_kernel`: whole
+rows a block, radix-16 register passes, the `_twiddles` table); `form="row"`
+forces the radix-2 row pass they ran before (`row_fft_kernel`), for
+timing and tests; `form_launches` counts both.
 """
 
 from __future__ import annotations
@@ -99,16 +104,26 @@ launches = {
     "lane_pass_real_inv": 0,
     "axis_inv_map": 0,
 }
-# launches of K6 and K4 by form ("<kernel>/<form>")
+# launches of K6 and K4, and of K14-K16, by form ("<kernel>/<form>")
 form_launches = {
-    f"{name}/{form}": 0
-    for name in ("plane_pass", "plane_potkick_fwd")
-    for form in ("cluster", "split")
+    **{
+        f"{name}/{form}": 0
+        for name in ("plane_pass", "plane_potkick_fwd")
+        for form in ("cluster", "split")
+    },
+    **{
+        f"{name}/{form}": 0
+        for name in ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
+        for form in ("radix", "row")
+    },
 }
 # elements of one row block of the fused row kernel (kRowTile in
 # csrc/fft_common.cuh): plane_potkick_fwd's split form and plane_real_inv_max
 # leave one max|phi| per block
 _ROW_TILE = 2048
+# threads of a full block of the lane kernels' radix form (kLaneThreads in
+# csrc/lane_radix.cuh): N / 16 a row, 16 elements each
+_LANE_THREADS = 128
 # twiddle tables of the cluster form, built once per (N, dtype, device)
 _TWIDDLES: dict = {}
 
@@ -345,67 +360,89 @@ def plane_pass_real_inv(z: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _lane_form(form) -> str:
+    """The form of K14-K16: None takes "radix" (lane_fft_kernel,
+    csrc/lane_radix.cuh); "row" forces row_fft_kernel, the form before it
+    (tests and chip_smoke.py time the two in one call)."""
+    if form is None:
+        return "radix"
+    if form in ("radix", "row"):
+        return form
+    raise ValueError(f"no {form!r} form for lane passes")
+
+
 def _lanes(x: torch.Tensor) -> tuple[int, int]:
-    """(rows, log_n) of the (..., N) last axis of x; the row kernels take
-    whole rows, at most 2^31 - 1 row blocks of 2048 elements."""
+    """(rows, log_n) of the (..., N) last axis of x. Both forms take whole
+    rows, at most 2048 elements a block: the radix form 2048 / N rows
+    (`_LANE_THREADS` threads of 16 elements; its launcher takes fewer rows
+    a block only where that still leaves fewer than two blocks per SM), the
+    row form 2048-element tiles; at most 2^31 - 1 blocks."""
     if x.ndim < 1:
         raise ValueError("a lane pass needs at least one axis")
     log_n = _log_size(x.shape[-1])
-    if x.numel() // _ROW_TILE >= 2**31:
+    rows = x.numel() >> log_n
+    if -(-rows // (_LANE_THREADS * 16 >> log_n)) >= 2**31:
         raise ValueError(f"{tuple(x.shape)} exceeds the launch grid")
-    return x.numel() >> log_n, log_n
+    return rows, log_n
 
 
-def lane_pass(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Ortho DFT of complex z along its last axis (K14)."""
+def _launch_lane(name: str, fn, x: torch.Tensor, out: torch.Tensor, rows: int, log_n: int,
+                 form: str, *args) -> torch.Tensor:
+    """One lane kernel launch (x contiguous, 16-byte aligned): the radix
+    form with the twiddle table of the transform's complex dtype, or the
+    row form."""
+    ctype = out.dtype if out.is_complex() else x.dtype
+    tw = _twiddles(1 << log_n, ctype, x.device) if form == "radix" else None
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), out.data_ptr(), rows, log_n, *args,
+            int(form == "row"), None if tw is None else tw.data_ptr(), _stream(x),
+        )
+    build.check(rc, name)
+    launches[name] += 1
+    form_launches[f"{name}/{form}"] += 1
+    return out
+
+
+def lane_pass(z: torch.Tensor, inverse: bool, *, form=None) -> torch.Tensor:
+    """Ortho DFT of complex z along its last axis (K14). form: None for
+    the radix form; "row" forces the row form (`_lane_form`)."""
     rows, log_n = _lanes(z)
+    form = _lane_form(form)
     if not _route(z, "lane_pass"):
         return lane_pass_plain(z, inverse)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "lane_pass")
-    z = z.contiguous()
-    out = torch.empty_like(z)
-    lib = build.load()
-    with torch.cuda.device(z.device):
-        rc = lib.msm_fft_lane(
-            z.data_ptr(), out.data_ptr(), rows, log_n, int(inverse), is_double, _stream(z)
-        )
-    build.check(rc, "lane_pass")
-    launches["lane_pass"] += 1
-    return out
+    z = _aligned(z)
+    return _launch_lane("lane_pass", build.load().msm_fft_lane, z, torch.empty_like(z), rows,
+                        log_n, form, int(inverse), is_double)
 
 
-def lane_pass_real_fwd(x: torch.Tensor) -> torch.Tensor:
+def lane_pass_real_fwd(x: torch.Tensor, *, form=None) -> torch.Tensor:
     """Ortho forward DFT of real x along its last axis, full spectrum (K15)."""
     rows, log_n = _lanes(x)
+    form = _lane_form(form)
     if not _route(x, "lane_pass_real_fwd"):
         return lane_pass_real_fwd_plain(x)
     is_double = _check_dtype(x, (torch.float32, torch.float64), "lane_pass_real_fwd")
-    x = x.contiguous()
+    x = _aligned(x)
     cdtype = torch.complex128 if is_double else torch.complex64
     out = torch.empty(x.shape, dtype=cdtype, device=x.device)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_fft_lane_real_fwd(x.data_ptr(), out.data_ptr(), rows, log_n, is_double, _stream(x))
-    build.check(rc, "lane_pass_real_fwd")
-    launches["lane_pass_real_fwd"] += 1
-    return out
+    return _launch_lane("lane_pass_real_fwd", build.load().msm_fft_lane_real_fwd, x, out, rows,
+                        log_n, form, is_double)
 
 
-def lane_pass_real_inv(z: torch.Tensor) -> torch.Tensor:
+def lane_pass_real_inv(z: torch.Tensor, *, form=None) -> torch.Tensor:
     """Real part of the ortho inverse DFT of complex z along its last axis
     (K16)."""
     rows, log_n = _lanes(z)
+    form = _lane_form(form)
     if not _route(z, "lane_pass_real_inv"):
         return lane_pass_real_inv_plain(z)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "lane_pass_real_inv")
-    z = z.contiguous()
+    z = _aligned(z)
     out = torch.empty(z.shape, dtype=z.real.dtype, device=z.device)
-    lib = build.load()
-    with torch.cuda.device(z.device):
-        rc = lib.msm_fft_lane_real_inv(z.data_ptr(), out.data_ptr(), rows, log_n, is_double, _stream(z))
-    build.check(rc, "lane_pass_real_inv")
-    launches["lane_pass_real_inv"] += 1
-    return out
+    return _launch_lane("lane_pass_real_inv", build.load().msm_fft_lane_real_inv, z, out, rows,
+                        log_n, form, is_double)
 
 
 def axis_inv_map(x: torch.Tensor, pmap: torch.Tensor) -> torch.Tensor:

@@ -205,26 +205,41 @@ def test_cpu_wrappers_count_no_launches(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdtype,rtol", [(torch.complex128, 1e-12), (torch.complex64, 1e-5)])
-@pytest.mark.parametrize("rows,n", [(256, 1024), (9 * 256 * 256, 256)])
+@pytest.mark.parametrize("rows,n", [(256, 1024), (9 * 256 * 256, 256), (5, 1024), (3, 128)])
 def test_cuda_lane_kernels_match_plain(cuda_device, rng, cdtype, rtol, rows, n):
-    """K14-K16 at the 1-D main run's shape and at the 3-D grid's bytes, and
-    K18 at (3, 128^3), against their torch.fft versions on the card:
-    max |kernel - plain| <= rtol * max |plain|; one launch each."""
+    """K14-K16 at the 1-D main run's shape, at the 3-D grid's bytes and at
+    two small row counts, in the radix form (the default) and the forced
+    row form, and K18 at (3, 128^3), against their torch.fft versions on
+    the card: max |kernel - plain| <= rtol * max |plain|, and the two lane
+    forms within the same of each other; one launch each per form."""
     z = torch.as_tensor(_complex(rng, (rows, n))).to(cuda_device, cdtype)
     x = z.real.contiguous()
     q = torch.as_tensor(_complex(rng, (3, 128, 128, 128))).to(cuda_device, cdtype)
     pmap = torch.as_tensor(_pmap(128, 3, 1.0)).to(cuda_device, z.real.dtype)
-    cases = {
-        "lane_pass": (lambda: mxu_fft.lane_pass(z, True), lambda: mxu_fft.lane_pass_plain(z, True)),
-        "lane_pass_real_fwd": (lambda: mxu_fft.lane_pass_real_fwd(x), lambda: mxu_fft.lane_pass_real_fwd_plain(x)),
-        "lane_pass_real_inv": (lambda: mxu_fft.lane_pass_real_inv(z), lambda: mxu_fft.lane_pass_real_inv_plain(z)),
-        "axis_inv_map": (lambda: mxu_fft.axis_inv_map(q, pmap), lambda: mxu_fft.axis_inv_map_plain(q, pmap)),
+    lanes = {
+        "lane_pass": (lambda f: mxu_fft.lane_pass(z, True, form=f), lambda: mxu_fft.lane_pass_plain(z, True)),
+        "lane_pass_real_fwd": (lambda f: mxu_fft.lane_pass_real_fwd(x, form=f),
+                               lambda: mxu_fft.lane_pass_real_fwd_plain(x)),
+        "lane_pass_real_inv": (lambda f: mxu_fft.lane_pass_real_inv(z, form=f),
+                               lambda: mxu_fft.lane_pass_real_inv_plain(z)),
     }
     mxu_fft.reset_launches()
-    for name, (kernel, plain) in cases.items():
-        got = kernel()
+    for name, (kernel, plain) in lanes.items():
+        got, row = kernel(None), kernel("row")
         torch.cuda.synchronize()
         want = plain()
+        scale = want.abs().max().item()
         assert got.dtype == want.dtype and got.shape == want.shape, name
-        assert (got - want).abs().max().item() <= rtol * want.abs().max().item(), name
-    assert {k: n for k, n in mxu_fft.launches.items() if n} == dict.fromkeys(cases, 1)
+        assert (got - want).abs().max().item() <= rtol * scale, name
+        assert (row - want).abs().max().item() <= rtol * scale, f"{name}/row"
+        assert (got - row).abs().max().item() <= rtol * scale, f"{name} vs row"
+    got = mxu_fft.axis_inv_map(q, pmap)
+    torch.cuda.synchronize()
+    want = mxu_fft.axis_inv_map_plain(q, pmap)
+    assert (got - want).abs().max().item() <= rtol * want.abs().max().item(), "axis_inv_map"
+    assert {k: n for k, n in mxu_fft.launches.items() if n} == {
+        **dict.fromkeys(lanes, 2), "axis_inv_map": 1,
+    }
+    assert {k: n for k, n in mxu_fft.form_launches.items() if n} == {
+        f"{name}/{form}": 1 for name in lanes for form in ("radix", "row")
+    }

@@ -390,7 +390,7 @@ def test_cuda_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype, sha
     _card_close(mx, want_mx, K4_RTOL[cdtype], "plane_potkick_fwd maxima")
     _card_close(out, out_s, K4_RTOL[cdtype], "plane_potkick_fwd vs split")
     _card_close(mx, mx_s, K4_RTOL[cdtype], "plane_potkick_fwd maxima vs split")
-    assert mxu_fft.form_launches == {
+    assert {k: n for k, n in mxu_fft.form_launches.items() if n} == {
         "plane_pass/cluster": 2, "plane_pass/split": 2,
         "plane_potkick_fwd/cluster": 1, "plane_potkick_fwd/split": 1,
     }
