@@ -24,11 +24,13 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (4, 512); the FFT kernels K5 axis_pass (axis 1), K6 plane_pass,
             K17 plane_pass_real_fwd and K9 plane_pass_real_inv (on the
             (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3);
-            K6 at N = 128, 256 takes the one-pass cluster form and at 512,
-            1024 the split form (each K6/K4 record names its `form` and
-            `cluster` size); at (9, 256^3) c64 the forced split forms of K6
-            and K4 are timed too (`plane_pass/split`,
-            `plane_potkick_fwd/split`), the before/after in one call;
+            K6, K4, K2 and K10 at N = 128, 256 take the one-pass cluster
+            form and at 512, 1024 the split form (each of their records
+            names its `form` and `cluster` size); at (9, 256^3) c64 their
+            forced split forms are timed too (`plane_pass/split`,
+            `plane_potkick_fwd/split`, `plane_inv_density/split`,
+            `plane_inv_density_rho_only/split`), the before/after in one
+            call;
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
@@ -81,7 +83,8 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             every dump's shape, finiteness and norm, the manifests, that
             each run launched each of its kernels, that the exact run
             launched K10 and K11 and the unskewed run K12 and K13 once per
-            iteration, that every K4 launch of the fused runs and every K6
+            iteration, that every K4 and K2 launch of the fused and
+            unskewed runs, every K10 launch of the exact run and every K6
             launch of the unfused `mxu` run took the cluster form, and that
             every K14-K16 launch of the 1-D run took the radix form; then
             compares the runs
@@ -92,14 +95,13 @@ and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
-and power limit as nvidia-smi gives them (K6 and K4 with their form,
-cluster size and the forced split form's median, `split_ms`; K14-K16 with
+and power limit as nvidia-smi gives them (K6, K4, K2 and K10 with their
+form, cluster size and the forced split form's median, `split_ms`; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
 1024), and their medians at (9 * 256^2, 256) under `grid`); and last
-`{"ok": true,
-"device": {...}}`. Without a CUDA
-device, or outside a checkout, it exits 1 and prints no result.
+`{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
+checkout, it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -124,7 +126,7 @@ PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
-# K6 and K4 at the main shape: the cluster form
+# K6, K4, K2 and K10 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
 LANE_SOURCE = "msm_tpu_torch/ops/csrc/lane_radix.cuh"
@@ -138,12 +140,12 @@ KERNELS = {
     "plane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
     "plane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
     "axis_roundtrip_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:565"),
-    "plane_inv_density": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
+    "plane_inv_density": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
     "axis_roundtrip_poisson": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
     "plane_potkick_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
     "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
     "axis_roundtrip_map": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
-    "plane_inv_density_rho_only": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
+    "plane_inv_density_rho_only": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
     "plane_real_inv_max": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
     "axis_inv_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
     "axis_fwd_reduce": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
@@ -231,8 +233,6 @@ ONE_TRANSFORM = ("axis_inv_kick", "axis_fwd_reduce")
 # operations; a sincos counts 20.
 FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
-# the forms of the plane kernels K6 and K4 (cluster at N = 128, 256)
-FORM_KERNELS = ("plane_pass", "plane_potkick_fwd")
 # K14-K16's device slope: chains of SLOPE_LO and SLOPE_HI launches, as
 # scripts/torch_microbench_mxu.py times a pass, queued behind a sleep
 # kernel of SLEEP_CYCLES (about 25 ms at the H100's 1.98 GHz) so that the
@@ -548,10 +548,11 @@ def phase_kernels(card: dict) -> dict:
 
 
 def _form(name: str, n: int, cdtype, forced=None) -> dict:
-    """The form fields of a K6/K4 record (none for other kernels)."""
+    """The form fields of a plane kernel's record (K6, K4, K2, K10; none
+    for other kernels)."""
     from msm_tpu_torch.ops import mxu_fft
 
-    if name.split("/")[0] not in FORM_KERNELS:
+    if name.split("/")[0] not in mxu_fft.PLANE_FORM_KERNELS:
         return {}
     form, cluster = mxu_fft._plane_form(n, cdtype, forced)
     return {"form": form, "cluster": cluster}
@@ -851,6 +852,12 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.plane_inv_density_rho_only_plain(z, 2.0),
             [z], plane2 + 4.0 * cells,
         ),
+        # K10's forced split form (timed at the main shape only)
+        "plane_inv_density_rho_only/split": (
+            lambda: mxu_fft.plane_inv_density_rho_only(z, 2.0, form="split"),
+            lambda: mxu_fft.plane_inv_density_rho_only_plain(z, 2.0),
+            [z], plane2 + 4.0 * cells,
+        ),
         # one 2-axis inverse, |Re| and its max (2)
         "plane_real_inv_max": (
             lambda: mxu_fft.plane_real_inv_max(z),
@@ -879,6 +886,12 @@ def _fused_cases(shape, cdtype, gen) -> dict:
         # psi written, rho = pref |psi|^2 (4)
         "plane_inv_density": (
             lambda: mxu_fft.plane_inv_density(z, 2.0),
+            lambda: mxu_fft.plane_inv_density_plain(z, 2.0),
+            [z], plane2 + 4.0 * cells,
+        ),
+        # K2's forced split form (timed at the main shape only)
+        "plane_inv_density/split": (
+            lambda: mxu_fft.plane_inv_density(z, 2.0, form="split"),
             lambda: mxu_fft.plane_inv_density_plain(z, 2.0),
             [z], plane2 + 4.0 * cells,
         ),
@@ -925,7 +938,8 @@ def phase_fused_kernels(card: dict) -> dict:
         for shape in FUSED_SHAPES:
             cases = _fused_cases(shape, cdtype, gen)
             if not (shape == MAIN_SHAPE and cdtype == torch.complex64):
-                del cases["plane_potkick_fwd/split"]
+                for name in [k for k in cases if k.endswith("/split")]:
+                    del cases[name]
             for name, (kernel, plain, inputs, ops) in cases.items():
                 limit = (FFT_LIMITS if name in ONE_TRANSFORM else FUSED_LIMITS)[cdtype]
                 got = kernel()
@@ -1003,10 +1017,14 @@ CONFIGS = {
 }
 # kernels that must launch once in every iteration of a run
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
-# the plane kernel whose every launch in a path's main run must take the
-# cluster form: K4 on the fused engines, K6 on the unfused `mxu` path
-CLUSTER_FORM = {"fused": "plane_potkick_fwd", "unskewed": "plane_potkick_fwd",
-                "mxu": "plane_pass"}
+# the plane kernels whose every launch in a main run must take the cluster
+# form: K4 and K2 on the fused engines (and K10 in exact dt), K6 on the
+# unfused `mxu` path
+CLUSTER_FORM = {"mxu": ("plane_pass",),
+                "fused": ("plane_potkick_fwd", "plane_inv_density"),
+                "fused-exact": ("plane_potkick_fwd", "plane_inv_density",
+                                "plane_inv_density_rho_only"),
+                "unskewed-lagged": ("plane_potkick_fwd", "plane_inv_density")}
 # the lane kernels whose every launch in a path's main run must take the
 # radix form (lane_fft_kernel)
 RADIX_FORM = {"mxu-1d": LANE_KERNELS}
@@ -1191,14 +1209,12 @@ def phase_main(card: dict, run: str) -> dict:
         for k in PER_ITERATION.get(run, ()):
             check(launches[k] == iterations,
                   f"the {run} run launched {k} {launches[k]} times in {iterations} iterations")
-        # at 256^3 every launch of the plane kernel of the path takes the
+        # at 256^3 every launch of the run's plane kernels takes the
         # cluster form
-        form_kernel = CLUSTER_FORM.get(path)
-        if form_kernel:
-            check(launches[f"{form_kernel}/cluster"] == launches[form_kernel] > 0
-                  and launches[f"{form_kernel}/split"] == 0,
-                  f"the {run} run launched {form_kernel} {launches[form_kernel]} times, "
-                  f"{launches[f'{form_kernel}/cluster']} in the cluster form")
+        for k in CLUSTER_FORM.get(run, ()):
+            check(launches[f"{k}/cluster"] == launches[k] > 0 and launches[f"{k}/split"] == 0,
+                  f"the {run} run launched {k} {launches[k]} times, "
+                  f"{launches[f'{k}/cluster']} in the cluster form")
 
         # every lane launch of the 1-D run takes the radix form
         for k in RADIX_FORM.get(path, ()):
@@ -1247,7 +1263,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     # outside a checkout this import fails before anything is printed
-    from msm_tpu_torch.ops import probes
+    from msm_tpu_torch.ops import mxu_fft, probes
 
     smi = probes.nvidia_smi()
     card = probes.card()
@@ -1279,7 +1295,7 @@ def main() -> int:
         **{k: {"cluster_ms": measured[k]["ms"], "split_ms": measured[f"{k}/split"]["ms"],
                "library_ms": measured[k]["library_ms"],
                "cluster_over_split": measured[k]["ms"] / measured[f"{k}/split"]["ms"]}
-           for k in FORM_KERNELS},
+           for k in mxu_fft.PLANE_FORM_KERNELS},
         **{k: {"radix_ms": measured[k]["ms"], "row_ms": measured[k]["row_ms"],
                "slope_ms": measured[k]["slope_ms"], "row_slope_ms": measured[k]["row_slope_ms"],
                "library_slope_ms": measured[k]["library_slope_ms"],
@@ -1305,7 +1321,8 @@ def main() -> int:
             "floor_ms": measured[k]["bytes"] / floor["bytes_per_s"] * 1e3,
             "library_ms": measured[k]["library_ms"],
             **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
-                "split_ms": measured[f"{k}/split"]["ms"]} if k in FORM_KERNELS else {}),
+                "split_ms": measured[f"{k}/split"]["ms"]}
+               if k in mxu_fft.PLANE_FORM_KERNELS else {}),
             # K14-K16: the radix form, the forced row form's median, the
             # device slopes at (256, 1024) c64, and the medians at the 3-D
             # grid's bytes

@@ -62,15 +62,16 @@ _SIGNATURES = {
     "msm_axis_roundtrip_poisson": [_P, _P, _I64, _I, _I64, _P, _P, _D, _I, _P],
     # in, out, b1, log_n, lanes, map, is_double, stream
     "msm_axis_roundtrip_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
-    # in, psi, rho, m, log_n, pref, is_double, stream
-    "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _P],
+    # in, psi, rho, m, log_n, pref, is_double, cluster (0: split), twiddles,
+    # stream
+    "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _I, _P, _P],
     # phik, psi, out, maxes, coeff, m, planes_per_batch, log_n, is_double,
     # cluster (0: split), twiddles, stream
     "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P],
     # psi, out, m, log_n, pref, is_double, stream
     "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _P],
-    # in, rho, m, log_n, pref, is_double, stream
-    "msm_plane_inv_density_rho_only": [_P, _P, _I64, _I, _D, _I, _P],
+    # in, rho, m, log_n, pref, is_double, cluster (0: split), twiddles, stream
+    "msm_plane_inv_density_rho_only": [_P, _P, _I64, _I, _D, _I, _I, _P, _P],
     # in, tmp, maxes, m, log_n, is_double, stream
     "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _P],
     # in, out, b1, log_n, lanes, f0, f12, is_double, stream

@@ -74,14 +74,16 @@
 //     order as K1, so the unskewed step's sums are bit-identical to the ones
 //     the skewed loop's K1 takes of the same field. K12 is the column pass
 //     (axis_fft_kernel) with the kick multiplied in as the tile is loaded.
-//   K4 at n = 128 and 256: the one-pass cluster form (plane_cluster.cuh):
-//     phi_k's plane in the shared memory of a cluster of 2-8 blocks, its
-//     2-axis inverse, max|phi| per block, the kick on psi read once from
-//     device memory, the 2-axis forward, one write: 3 grids of traffic, phi
-//     never in device memory. The wrapper picks the form by shape
-//     (mxu_fft._plane_form) and leaves one maximum per block.
-//   the split form (K4 at n = 512, 1024, where a plane exceeds a portable
-//     cluster's 8 x 227 KB of shared memory; K2, K7, K10, K11 at every n): a
+//   K4, K2 and K10 at n = 128 and 256: the one-pass cluster form
+//     (plane_cluster.cuh): the input's plane in the shared memory of a
+//     cluster of 2-8 blocks, its 2-axis inverse, the middle step (K4:
+//     max|phi| per block and the kick on psi read once from device memory;
+//     K2: psi written once, rho = pref |psi|^2; K10: rho alone), the 2-axis
+//     forward, one write: 3 grids of traffic for K4 and K2, 2 for K10, phi
+//     and rho never in device memory. The wrapper picks the form by shape
+//     (mxu_fft._plane_form); K4 leaves one maximum per block.
+//   the split form (K4, K2, K10 at n = 512, 1024, where a plane exceeds a
+//     portable cluster's 8 x 227 KB of shared memory; K7, K11 at every n): a
 //     column pass (axis_fft_kernel), a fused row kernel (row_fused_kernel:
 //     whole contiguous rows, radix-2 Stockham between two shared buffers,
 //     with the step's elementwise work between its inverse and its forward),
@@ -582,9 +584,17 @@ int msm_axis_roundtrip_map(const void* in, void* out, int64_t b1, int log_n, int
 }
 
 // K2. in, psi, rho: (m, n, n) interleaved complex, three distinct buffers.
+// cluster 0: the split form; else the cluster form (plane_cluster.cuh) with
+// that many blocks per plane and tw: (n,) interleaved complex w_n^m.
 int msm_plane_inv_density(const void* in, void* psi, void* rho, int64_t m, int log_n,
-                          double pref, int is_double, void* stream) {
+                          double pref, int is_double, int cluster, const void* tw,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        is_double ? inv_density_cluster<double>(in, psi, rho, m, log_n, cluster, pref, tw, s)
+                  : inv_density_cluster<float>(in, psi, rho, m, log_n, cluster, pref, tw, s));
+  }
   return static_cast<int>(is_double
                               ? plane_inv_density<double>(in, psi, rho, m, log_n, pref, s)
                               : plane_inv_density<float>(in, psi, rho, m, log_n, pref, s));
@@ -647,10 +657,18 @@ int msm_axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t 
                 : axis_inv_kick<float>(in, out, b1, log_n, lanes, f0, f12, s));
 }
 
-// K10. in, rho: (m, n, n) interleaved complex, distinct.
+// K10. in, rho: (m, n, n) interleaved complex, distinct; cluster and tw as
+// for K2.
 int msm_plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int log_n,
-                                   double pref, int is_double, void* stream) {
+                                   double pref, int is_double, int cluster, const void* tw,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        is_double
+            ? inv_density_cluster<double>(in, nullptr, rho, m, log_n, cluster, pref, tw, s)
+            : inv_density_cluster<float>(in, nullptr, rho, m, log_n, cluster, pref, tw, s));
+  }
   return static_cast<int>(
       is_double ? plane_inv_density_rho_only<double>(in, rho, m, log_n, pref, s)
                 : plane_inv_density_rho_only<float>(in, rho, m, log_n, pref, s));

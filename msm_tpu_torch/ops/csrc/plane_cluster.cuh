@@ -1,15 +1,17 @@
 // The one-pass (N, N) plane on a thread-block cluster: the 2-axis DFT of K6
-// (plane_pass, fft_kernels.cu) and the inverse -> kick -> forward of K4
-// (plane_potkick_fwd, fused_kernels.cu), for N = 128 and 256.
+// (plane_pass, fft_kernels.cu) and the inverse -> middle step -> forward of
+// K4 (plane_potkick_fwd), K2 (plane_inv_density) and K10
+// (plane_inv_density_rho_only) (fused_kernels.cu), for N = 128 and 256.
 //
 // What bounds them: device memory. Each reads its inputs once and writes its
-// output once (K6: 2 grids, 0.72 ms at (9, 256^3) complex64 on 3.35 TB/s; K4:
-// 3 grids, 1.08 ms). The split form (a row pass and a column pass with the
-// intermediate in device memory) moves 4 and 7 grids. A 256^2 complex64
-// plane is 512 KB, more than a block's 227 KB of shared memory, but it fits a
-// cluster of C = 8 blocks (64 KB each; complex128: 128 KB), and the blocks of
-// a cluster read and write each other's shared memory (distributed shared
-// memory, cooperative_groups::this_cluster().map_shared_rank). The design
+// outputs once (K6 and K10: 2 grids, 0.72 ms at (9, 256^3) complex64 on 3.35
+// TB/s; K4 and K2: 3 grids, 1.08 ms). The split form (a row pass and column
+// passes with the intermediate in device memory) moves 4 (K6), 6 (K10) and
+// 7 (K4, K2) grids. A 256^2 complex64 plane is 512 KB, more than a block's
+// 227 KB of shared memory, but it fits a cluster of C = 8 blocks (64 KB
+// each; complex128: 128 KB), and the blocks of a cluster read and write each
+// other's shared memory (distributed shared memory,
+// cooperative_groups::this_cluster().map_shared_rank). The design
 // moves each element between blocks once per 2-axis transform (a transpose),
 // not twice (a radix-C stage that reads from and writes to the peers).
 //
@@ -48,12 +50,17 @@
 //   K6: load (scatter) -> rows DIT -> swap -> columns DIF -> store (gather):
 //     each warp stores a W-element run of one output row (256 bytes at
 //     complex64, N = 256).
-//   K4: phik's rows DIT inverse -> swap -> columns DIF inverse: phi at
-//     spatial (row y, column W rank + w), column position transposed(y);
-//     max|phi| of the block, psi's element read at (y, W rank + w) in W-runs
-//     of one row, psi exp(i c phi) in place; columns DIT forward (from the
-//     transposed order, no permutation) -> swap -> rows DIF forward ->
-//     store (gather), the block's R contiguous rows.
+//   K4, K2, K10: the input's rows DIT inverse -> swap -> columns DIF
+//     inverse (rows_to_columns): the field at spatial (row y, column
+//     W rank + w), column position transposed(y); the middle step in place
+//     there; columns DIT forward (from the transposed order, no
+//     permutation) -> swap -> rows DIF forward (columns_to_rows) -> store
+//     (gather), the block's R contiguous rows. The middle step:
+//     K4 (kick_columns): max|phi| of the block, psi's element read at
+//       (y, W rank + w) in W-runs of one row, psi exp(i c phi);
+//     K2 (density_columns<WRITE_PSI>): psi written at (y, W rank + w) in
+//       W-runs of one row, the mirror of K4's read; rho = pref |psi|^2;
+//     K10: K2 without the write.
 //
 // Keeping memory busy: 256 threads a block and, at complex64, about 70 KB of
 // shared memory, so three blocks (3 x 256 threads, __launch_bounds__ min 3)
@@ -73,6 +80,8 @@
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "fft_common.cuh"
 
@@ -236,16 +245,21 @@ __device__ __forceinline__ int transposed(int i) {
   return B * (i % A) + i / A;
 }
 
+// Elements a thread of swap_tiles has in flight: 4 in K6, 2 in the kernels
+// with two transforms (K4, K2, K10), where 4 spilled 56-88 bytes a thread
+// at complex64 under the 3-blocks-per-SM bound and took 0.15-0.25 ms more
+// on an H100 at (9, 256^3) (PERF.md); 8 spilled in K4 and was slower still.
+constexpr int kSwapOnePass = 4;
+constexpr int kSwapTwoPass = 2;
+
 // The swap of tiles (block rank, chunk j) <-> (block j, chunk rank) for
 // every j != rank (see the note): rows [0, R/2) of the pair's tiles by the
 // lower rank, [R/2, R) by the higher. U elements a thread are read before
-// any is written, so their remote reads are in flight together (U = 8
-// spilled registers in K4 under the 3-blocks-per-SM bound and was slower).
-template <typename T, int N, int CL>
+// any is written, so their remote reads are in flight together.
+template <typename T, int N, int CL, int U>
 __device__ __forceinline__ void swap_tiles(cg::cluster_group& cluster,
                                            typename Complex<T>::type* s, int rank) {
   using C = typename Complex<T>::type;
-  constexpr int U = 4;
   constexpr int W = N / CL;
   constexpr int HALF = W / 2;  // R = W
   constexpr int ITEMS = (CL - 1) * HALF * W;
@@ -331,6 +345,39 @@ __device__ __forceinline__ void store_rows_transposed(typename Complex<T>::type*
   }
 }
 
+// Rows DIT, the swap, columns DIF of the block's row slab (loaded in the
+// transposed order): afterwards column line w of block rank holds the
+// unscaled 2-axis transform at spatial (or frequency) column R rank + w,
+// row y at position transposed(y). U: swap_tiles' elements in flight.
+template <typename T, int N, bool INV, int U>
+__device__ __forceinline__ void rows_to_columns(cg::cluster_group& cluster,
+                                                typename Complex<T>::type* s,
+                                                const typename Complex<T>::type* tw, int rank) {
+  constexpr int CL = cluster_size<T, N>();
+  constexpr int R = N / CL;
+  slab_fft<T, N, INV, true, RowLines<N>>(s, tw, R);
+  cluster.sync();
+  swap_tiles<T, N, CL, U>(cluster, s, rank);
+  cluster.sync();
+  slab_fft<T, N, INV, false, ColLines<N, R>>(s, tw, R);
+}
+
+// Columns DIT (from the transposed order, no permutation), the swap, rows
+// DIF: the row slab in the DIF-transposed order store_rows_transposed takes.
+// The caller has synchronised the block after the last write to s.
+template <typename T, int N, bool INV>
+__device__ __forceinline__ void columns_to_rows(cg::cluster_group& cluster,
+                                                typename Complex<T>::type* s,
+                                                const typename Complex<T>::type* tw, int rank) {
+  constexpr int CL = cluster_size<T, N>();
+  constexpr int R = N / CL;
+  slab_fft<T, N, INV, true, ColLines<N, R>>(s, tw, R);
+  cluster.sync();
+  swap_tiles<T, N, CL, kSwapTwoPass>(cluster, s, rank);
+  cluster.sync();
+  slab_fft<T, N, INV, false, RowLines<N>>(s, tw, R);
+}
+
 // K6: ortho 2-axis DFT of plane blockIdx.x / CL.
 template <typename T, int N, bool INV>
 __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
@@ -349,11 +396,7 @@ __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
   load_twiddles<T, N>(tw, twg);
   load_rows_transposed<T, N, R>(s, in + (plane * N + rank * R) * N);
   __syncthreads();
-  slab_fft<T, N, INV, true, RowLines<N>>(s, tw, R);
-  cluster.sync();
-  swap_tiles<T, N, CL>(cluster, s, rank);
-  cluster.sync();
-  slab_fft<T, N, INV, false, ColLines<N, R>>(s, tw, R);
+  rows_to_columns<T, N, INV, kSwapOnePass>(cluster, s, tw, rank);
   // row f of the output is column position transposed(f) of the slab's
   // lines: runs of R columns, 16-byte stores
   using V = typename Vec<T>::type;
@@ -367,6 +410,101 @@ __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
 #pragma unroll
     for (int k = 0; k < E; ++k) e[k] = cscale(s[ColLines<N, R>::at(w + k, transposed<N>(f))], scale);
     dst[(f * N + w) / E] = Vec<T>::join(e);
+  }
+}
+
+// K4's middle: phi = scale Re s at spatial (y, R rank + w), psi's element
+// there read from psi_slab (its plane's columns [R rank, R rank + R)) in
+// runs of R columns, 16-byte loads, kBatch / 2 in flight; s = psi exp(i c
+// phi). Returns max|phi| over the thread's elements.
+template <typename T, int N>
+__device__ __forceinline__ T kick_columns(typename Complex<T>::type* s,
+                                          const typename Complex<T>::type* psi_slab, T c,
+                                          T scale) {
+  using C = typename Complex<T>::type;
+  using V = typename Vec<T>::type;
+  constexpr int R = N / cluster_size<T, N>();
+  constexpr int E = Vec<T>::kElems;
+  constexpr int KB = kBatch / 2;
+  constexpr int ITERS = R * N / E / kClusterThreads;
+  static_assert(ITERS % KB == 0, "whole batches");
+  const V* p_slab = reinterpret_cast<const V*>(psi_slab);
+  T mx = T(0);
+  for (int b = 0; b < ITERS; b += KB) {
+    V pv[KB];
+#pragma unroll
+    for (int u = 0; u < KB; ++u) {
+      const int i = threadIdx.x + (b + u) * kClusterThreads;
+      pv[u] = p_slab[(i * E / R * N + i * E % R) / E];
+    }
+#pragma unroll
+    for (int u = 0; u < KB; ++u) {
+      const int i = threadIdx.x + (b + u) * kClusterThreads;
+      const int y = i * E / R;
+      C p[E];
+      Vec<T>::split(pv[u], p);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int idx = ColLines<N, R>::at(i * E % R + k, transposed<N>(y));
+        const T phi = s[idx].x * scale;
+        mx = nan_max(mx, phi < T(0) ? -phi : phi);
+        T sn, cs;
+        sincos_acc(c * phi, &sn, &cs);
+        C r;
+        r.x = p[k].x * cs - p[k].y * sn;
+        r.y = p[k].y * cs + p[k].x * sn;
+        s[idx] = r;
+      }
+    }
+  }
+  return mx;
+}
+
+// K2's and K10's middle: psi = scale s at spatial (y, R rank + w), written
+// (WRITE_PSI) to psi_slab, its plane's columns [R rank, R rank + R), in runs
+// of R columns, 16-byte stores (stores do not wait, so no batching); s =
+// pref |psi|^2, imaginary part 0. Each element is read and written by one
+// thread.
+template <typename T, int N, bool WRITE_PSI>
+__device__ __forceinline__ void density_columns(typename Complex<T>::type* s,
+                                                typename Complex<T>::type* psi_slab, T pref,
+                                                T scale) {
+  using C = typename Complex<T>::type;
+  using V = typename Vec<T>::type;
+  constexpr int R = N / cluster_size<T, N>();
+  constexpr int E = Vec<T>::kElems;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * N / E; i += kClusterThreads) {
+    const int y = i * E / R;
+    const int w = i * E % R;
+    C e[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int idx = ColLines<N, R>::at(w + k, transposed<N>(y));
+      e[k] = cscale(s[idx], scale);
+      C r;
+      r.x = pref * (e[k].x * e[k].x + e[k].y * e[k].y);
+      r.y = T(0);
+      s[idx] = r;
+    }
+    if constexpr (WRITE_PSI) reinterpret_cast<V*>(psi_slab)[(y * N + w) / E] = Vec<T>::join(e);
+  }
+}
+
+// The block's maximum of every thread's mx (NaN-keeping) into *dst, in a
+// fixed order: warp shuffles, then the warps in turn (red: one real a
+// warp). Ends in a __syncthreads.
+template <typename T>
+__device__ __forceinline__ void block_max(T mx, T* red, T* dst) {
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T m = red[0];
+    for (int w = 1; w < kClusterThreads / 32; ++w) m = nan_max(m, red[w]);
+    *dst = m;
   }
 }
 
@@ -394,66 +532,43 @@ __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
   load_twiddles<T, N>(tw, twg);
   load_rows_transposed<T, N, R>(s, phik + (plane * N + rank * R) * N);
   __syncthreads();
-  slab_fft<T, N, true, true, RowLines<N>>(s, tw, R);
-  cluster.sync();
-  swap_tiles<T, N, CL>(cluster, s, rank);
-  cluster.sync();
-  slab_fft<T, N, true, false, ColLines<N, R>>(s, tw, R);
-
-  // the kick at spatial (y, R rank + w): psi read in runs of R columns,
-  // 16-byte loads, kBatch / 2 in flight
-  using V = typename Vec<T>::type;
-  constexpr int E = Vec<T>::kElems;
-  constexpr int KB = kBatch / 2;
-  constexpr int ITERS = R * N / E / kClusterThreads;
-  static_assert(ITERS % KB == 0, "whole batches");
-  const T c = coeff[plane / planes_per_batch];
-  const V* p_plane = reinterpret_cast<const V*>(psi + plane * N * N + rank * R);
-  T mx = T(0);
-  for (int b = 0; b < ITERS; b += KB) {
-    V pv[KB];
-#pragma unroll
-    for (int u = 0; u < KB; ++u) {
-      const int i = threadIdx.x + (b + u) * kClusterThreads;
-      pv[u] = p_plane[(i * E / R * N + i * E % R) / E];
-    }
-#pragma unroll
-    for (int u = 0; u < KB; ++u) {
-      const int i = threadIdx.x + (b + u) * kClusterThreads;
-      const int y = i * E / R;
-      C p[E];
-      Vec<T>::split(pv[u], p);
-#pragma unroll
-      for (int k = 0; k < E; ++k) {
-        const int idx = ColLines<N, R>::at(i * E % R + k, transposed<N>(y));
-        const T phi = s[idx].x * scale;
-        mx = nan_max(mx, phi < T(0) ? -phi : phi);
-        T sn, cs;
-        sincos_acc(c * phi, &sn, &cs);
-        C r;
-        r.x = p[k].x * cs - p[k].y * sn;
-        r.y = p[k].y * cs + p[k].x * sn;
-        s[idx] = r;
-      }
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T m = red[0];
-    for (int w = 1; w < kClusterThreads / 32; ++w) m = nan_max(m, red[w]);
-    maxes[blockIdx.x] = m;
-  }
-
-  slab_fft<T, N, false, true, ColLines<N, R>>(s, tw, R);
-  cluster.sync();
-  swap_tiles<T, N, CL>(cluster, s, rank);
-  cluster.sync();
-  slab_fft<T, N, false, false, RowLines<N>>(s, tw, R);
+  rows_to_columns<T, N, true, kSwapTwoPass>(cluster, s, tw, rank);
+  const T mx = kick_columns<T, N>(s, psi + plane * N * N + rank * R,
+                                  coeff[plane / planes_per_batch], scale);
+  block_max(mx, red, maxes + blockIdx.x);
+  columns_to_rows<T, N, false>(cluster, s, tw, rank);
   store_rows_transposed<T, N, R>(out + (plane * N + rank * R) * N, s, scale);
+}
+
+// K2 (WRITE_PSI) and K10: psi = the ortho 2-axis inverse of in's plane,
+// written to psi by K2 only; rho = pref |psi|^2 and its ortho 2-axis forward
+// into rho. K4's skeleton with the middle changed (no sincos, no maximum:
+// the reduction scratch of cluster_smem goes unused).
+template <typename T, int N, bool WRITE_PSI>
+__global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
+    plane_inv_density_cluster_kernel(const typename Complex<T>::type* in,
+                                     typename Complex<T>::type* psi,
+                                     typename Complex<T>::type* rho,
+                                     const typename Complex<T>::type* twg, T pref, T scale) {
+  using C = typename Complex<T>::type;
+  constexpr int CL = cluster_size<T, N>();
+  constexpr int R = N / CL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* s = reinterpret_cast<C*>(smem);
+  C* tw = s + pad16(R * N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t plane = blockIdx.x / CL;
+
+  load_twiddles<T, N>(tw, twg);
+  load_rows_transposed<T, N, R>(s, in + (plane * N + rank * R) * N);
+  __syncthreads();
+  rows_to_columns<T, N, true, kSwapTwoPass>(cluster, s, tw, rank);
+  density_columns<T, N, WRITE_PSI>(s, WRITE_PSI ? psi + plane * N * N + rank * R : nullptr,
+                                   pref, scale);
+  __syncthreads();
+  columns_to_rows<T, N, false>(cluster, s, tw, rank);
+  store_rows_transposed<T, N, R>(rho + (plane * N + rank * R) * N, s, scale);
 }
 
 // Once per kernel (and so per size): raise its shared-memory limit and check
@@ -505,45 +620,31 @@ cudaError_t launch_cluster(int64_t m, int cl, size_t smem, cudaStream_t stream, 
   return cudaGetLastError();
 }
 
-template <typename T, int N>
-cudaError_t plane_cluster_n(const void* in, void* out, int64_t m, bool inverse, const void* tw,
-                            cudaStream_t stream) {
-  using C = typename Complex<T>::type;
-  constexpr int CL = cluster_size<T, N>();
-  const C* src = static_cast<const C*>(in);
-  C* dst = static_cast<C*>(out);
-  const C* t = static_cast<const C*>(tw);
-  const T scale = static_cast<T>(1.0 / N);
-  return inverse ? launch_cluster<plane_cluster_kernel<T, N, true>>(
-                       m, CL, cluster_smem<T, N>(), stream, src, dst, t, scale)
-                 : launch_cluster<plane_cluster_kernel<T, N, false>>(
-                       m, CL, cluster_smem<T, N>(), stream, src, dst, t, scale);
-}
-
-// K6 in the cluster form: n = 2^log_n in {128, 256} and cl its cluster size
-// (cluster_size), else cudaErrorInvalidValue.
-template <typename T>
-cudaError_t plane_cluster(const void* in, void* out, int64_t m, int log_n, int cl, bool inverse,
-                          const void* tw, cudaStream_t stream) {
-  if (log_n == 8 && cl == cluster_size<T, 256>()) {
-    return plane_cluster_n<T, 256>(in, out, m, inverse, tw, stream);
-  }
-  if (log_n == 7 && cl == cluster_size<T, 128>()) {
-    return plane_cluster_n<T, 128>(in, out, m, inverse, tw, stream);
-  }
+// f(std::integral_constant<int, N>{}) for n = 2^log_n in {128, 256} and cl
+// its cluster size (cluster_size), else cudaErrorInvalidValue.
+template <typename T, typename F>
+cudaError_t by_plane_size(int log_n, int cl, F f) {
+  if (log_n == 8 && cl == cluster_size<T, 256>()) return f(std::integral_constant<int, 256>{});
+  if (log_n == 7 && cl == cluster_size<T, 128>()) return f(std::integral_constant<int, 128>{});
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int N>
-cudaError_t potkick_cluster_n(const void* phik, const void* psi, void* out, void* maxes,
-                              const void* coeff, int64_t m, int64_t planes_per_batch,
-                              const void* tw, cudaStream_t stream) {
+// K6 in the cluster form.
+template <typename T>
+cudaError_t plane_cluster(const void* in, void* out, int64_t m, int log_n, int cl, bool inverse,
+                          const void* tw, cudaStream_t stream) {
   using C = typename Complex<T>::type;
-  return launch_cluster<plane_potkick_cluster_kernel<T, N>>(
-      m, cluster_size<T, N>(), cluster_smem<T, N>(), stream, static_cast<const C*>(phik),
-      static_cast<const C*>(psi), static_cast<C*>(out), static_cast<T*>(maxes),
-      static_cast<const T*>(coeff), planes_per_batch, static_cast<const C*>(tw),
-      static_cast<T>(1.0 / N));
+  return by_plane_size<T>(log_n, cl, [=](auto n) {
+    constexpr int N = decltype(n)::value;
+    const C* src = static_cast<const C*>(in);
+    C* dst = static_cast<C*>(out);
+    const C* t = static_cast<const C*>(tw);
+    const T scale = static_cast<T>(1.0 / N);
+    return inverse ? launch_cluster<plane_cluster_kernel<T, N, true>>(
+                         m, cl, cluster_smem<T, N>(), stream, src, dst, t, scale)
+                   : launch_cluster<plane_cluster_kernel<T, N, false>>(
+                         m, cl, cluster_smem<T, N>(), stream, src, dst, t, scale);
+  });
 }
 
 // K4 in the cluster form; maxes: (m * cl,), one per block.
@@ -551,15 +652,35 @@ template <typename T>
 cudaError_t potkick_cluster(const void* phik, const void* psi, void* out, void* maxes,
                             const void* coeff, int64_t m, int64_t planes_per_batch, int log_n,
                             int cl, const void* tw, cudaStream_t stream) {
-  if (log_n == 8 && cl == cluster_size<T, 256>()) {
-    return potkick_cluster_n<T, 256>(phik, psi, out, maxes, coeff, m, planes_per_batch, tw,
-                                     stream);
-  }
-  if (log_n == 7 && cl == cluster_size<T, 128>()) {
-    return potkick_cluster_n<T, 128>(phik, psi, out, maxes, coeff, m, planes_per_batch, tw,
-                                     stream);
-  }
-  return cudaErrorInvalidValue;
+  using C = typename Complex<T>::type;
+  return by_plane_size<T>(log_n, cl, [=](auto n) {
+    constexpr int N = decltype(n)::value;
+    return launch_cluster<plane_potkick_cluster_kernel<T, N>>(
+        m, cl, cluster_smem<T, N>(), stream, static_cast<const C*>(phik),
+        static_cast<const C*>(psi), static_cast<C*>(out), static_cast<T*>(maxes),
+        static_cast<const T*>(coeff), planes_per_batch, static_cast<const C*>(tw),
+        static_cast<T>(1.0 / N));
+  });
+}
+
+// K2 (psi given) and K10 (psi null) in the cluster form.
+template <typename T>
+cudaError_t inv_density_cluster(const void* in, void* psi, void* rho, int64_t m, int log_n,
+                                int cl, double pref, const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  return by_plane_size<T>(log_n, cl, [=](auto n) {
+    constexpr int N = decltype(n)::value;
+    const C* src = static_cast<const C*>(in);
+    C* p = static_cast<C*>(psi);
+    C* dst = static_cast<C*>(rho);
+    const C* t = static_cast<const C*>(tw);
+    const T pr = static_cast<T>(pref);
+    const T scale = static_cast<T>(1.0 / N);
+    return p ? launch_cluster<plane_inv_density_cluster_kernel<T, N, true>>(
+                   m, cl, cluster_smem<T, N>(), stream, src, p, dst, t, pr, scale)
+             : launch_cluster<plane_inv_density_cluster_kernel<T, N, false>>(
+                   m, cl, cluster_smem<T, N>(), stream, src, p, dst, t, pr, scale);
+  });
 }
 
 }  // namespace

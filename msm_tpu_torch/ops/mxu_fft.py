@@ -58,10 +58,10 @@ plain torch.fft version beside it; any other device raises. Sizes are the
 engine's, N = 128 * {1, 2, 4, 8} (`supported`), on both routes. `launches`
 counts kernel launches per wrapper.
 
-K6 and K4 take one of two forms, chosen by shape (`_plane_form`): at N =
-128 and 256 the one-pass plane on a thread-block cluster
+K6, K4, K2 and K10 take one of two forms, chosen by shape (`_plane_form`):
+at N = 128 and 256 the one-pass plane on a thread-block cluster
 (`csrc/plane_cluster.cuh`: the plane in the cluster's shared memory, one
-HBM read of each input and one write of the output); at N = 512 and 1024,
+HBM read of each input and one write of each output); at N = 512 and 1024,
 whose planes exceed a portable cluster's 8 x 227 KB, the split form (a row
 pass and a column pass with the intermediate in device memory).
 `form_launches` counts their launches per form.
@@ -104,13 +104,13 @@ launches = {
     "lane_pass_real_inv": 0,
     "axis_inv_map": 0,
 }
-# launches of K6 and K4, and of K14-K16, by form ("<kernel>/<form>")
+# the plane kernels with a cluster and a split form (`_plane_form`)
+PLANE_FORM_KERNELS = (
+    "plane_pass", "plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only"
+)
+# launches of the plane kernels and of K14-K16, by form ("<kernel>/<form>")
 form_launches = {
-    **{
-        f"{name}/{form}": 0
-        for name in ("plane_pass", "plane_potkick_fwd")
-        for form in ("cluster", "split")
-    },
+    **{f"{name}/{form}": 0 for name in PLANE_FORM_KERNELS for form in ("cluster", "split")},
     **{
         f"{name}/{form}": 0
         for name in ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -135,11 +135,11 @@ def reset_launches() -> None:
 
 
 def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
-    """(form, cluster size) of K6 and K4 for (N, N) planes of `dtype`: the
-    cluster form at N = 128, 256 (8 blocks a plane at 256; at 128, 2 at
-    complex64, 4 at complex128: about 70 KB of shared memory a block, as
-    `cluster_size` in csrc/plane_cluster.cuh), else ("split", 0). `form`
-    forces one where a caller asks: "split" exists at every size,
+    """(form, cluster size) of K6, K4, K2 and K10 for (N, N) planes of
+    `dtype`: the cluster form at N = 128, 256 (8 blocks a plane at 256; at
+    128, 2 at complex64, 4 at complex128: about 70 KB of shared memory a
+    block, as `cluster_size` in csrc/plane_cluster.cuh), else ("split", 0).
+    `form` forces one where a caller asks: "split" exists at every size,
     "cluster" only where the shape takes it."""
     if n in (128, 256):
         shape_form = ("cluster", 8 if n == 256 else (2 if dtype == torch.complex64 else 4))
@@ -833,46 +833,50 @@ def axis_roundtrip_map(x, pmap):
     return out
 
 
-def plane_inv_density(x, prefactor: float):
-    """K2: psi = ortho inverse DFT of x over its last two axes; returns
-    (psi, the forward DFT of prefactor * |psi|^2 over the same axes)."""
+def _inv_density(name: str, x, prefactor: float, form, write_psi: bool):
+    """K2 (write_psi) and K10: (psi, rho) from one launch in `form`
+    (`_plane_form`), psi None for K10 on the card; the plain version's
+    (psi, rho) on the CPU."""
     m, log_n = _planes(x)
-    if not _route(x, "plane_inv_density"):
+    n = x.shape[-1]
+    form, cluster = _plane_form(n, x.dtype, form)
+    if not _route(x, name):
         return plane_inv_density_plain(x, prefactor)
-    is_double = _check_dtype(x, (torch.complex64, torch.complex128), "plane_inv_density")
-    x = x.contiguous()
-    psi = torch.empty_like(x)
+    is_double = _check_dtype(x, (torch.complex64, torch.complex128), name)
+    x = _aligned(x)
+    psi = torch.empty_like(x) if write_psi else None
     rho = torch.empty_like(x)
+    tw = _twiddles(n, x.dtype, x.device).data_ptr() if cluster else None
     lib = build.load()
     with torch.cuda.device(x.device):
-        rc = lib.msm_plane_inv_density(
-            x.data_ptr(), psi.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor),
-            is_double, _stream(x),
-        )
-    build.check(rc, "plane_inv_density")
-    launches["plane_inv_density"] += 1
+        if write_psi:
+            rc = lib.msm_plane_inv_density(
+                x.data_ptr(), psi.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor),
+                is_double, cluster, tw, _stream(x),
+            )
+        else:
+            rc = lib.msm_plane_inv_density_rho_only(
+                x.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor), is_double, cluster,
+                tw, _stream(x),
+            )
+    build.check(rc, name)
+    launches[name] += 1
+    form_launches[f"{name}/{form}"] += 1
     return psi, rho
 
 
-def plane_inv_density_rho_only(x, prefactor: float):
+def plane_inv_density(x, prefactor: float, *, form=None):
+    """K2: psi = ortho inverse DFT of x over its last two axes; returns
+    (psi, the forward DFT of prefactor * |psi|^2 over the same axes).
+    form: as for `plane_pass`."""
+    return _inv_density("plane_inv_density", x, prefactor, form, True)
+
+
+def plane_inv_density_rho_only(x, prefactor: float, *, form=None):
     """K10: the forward DFT over the last two axes of prefactor * |psi|^2,
-    psi = the ortho inverse DFT of x over them; psi is never written."""
-    m, log_n = _planes(x)
-    if not _route(x, "plane_inv_density_rho_only"):
-        return plane_inv_density_rho_only_plain(x, prefactor)
-    is_double = _check_dtype(
-        x, (torch.complex64, torch.complex128), "plane_inv_density_rho_only"
-    )
-    x = x.contiguous()
-    rho = torch.empty_like(x)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_plane_inv_density_rho_only(
-            x.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor), is_double, _stream(x)
-        )
-    build.check(rc, "plane_inv_density_rho_only")
-    launches["plane_inv_density_rho_only"] += 1
-    return rho
+    psi = the ortho inverse DFT of x over them; psi is never written.
+    form: as for `plane_pass`."""
+    return _inv_density("plane_inv_density_rho_only", x, prefactor, form, False)[1]
 
 
 def plane_real_inv_max(z):

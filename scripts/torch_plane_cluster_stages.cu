@@ -1,11 +1,27 @@
-// Stage-by-stage timing of the cluster form of K6 (msm_tpu_torch/ops/csrc/
+// Stage-by-stage timing of the cluster form (msm_tpu_torch/ops/csrc/
 // plane_cluster.cuh), built and run by scripts/torch_probe_plane_cluster.py.
-// One kernel with the production kernel's building blocks, stopped after a
-// given stage: 0 the load and the store alone, 1 with the row transform,
-// 2 with the swap across the cluster, 3 the whole 2-axis forward. Every
-// variant moves the same bytes in the same pattern (the same load and the
-// same column-chunk store), so the differences are the stages' own time.
 // complex64, N = 256, 8 blocks a plane.
+//
+// K6 (plane_stage): one kernel with the production kernel's building
+// blocks, stopped after a given stage: 0 the load and the store alone, 1
+// with the row transform, 2 with the swap across the cluster, 3 the whole
+// 2-axis forward. Every variant moves the same bytes in the same pattern
+// (the same load and the same column-chunk store), so the differences are
+// the stages' own time.
+//
+// The inverse -> middle -> forward plane of K4, K2 and K10 (chain_stage):
+// 0 the load and the store alone (2 grids), 1 with the inverse (rows, swap,
+// columns: rows_to_columns), 2 with the middle step (K4: psi read, the
+// kick and the block maximum; K2: psi written and rho; K10: rho), which
+// adds K4's and K2's third grid, 3 with the forward (columns_to_rows): the
+// whole kernel. Every variant loads and stores as the kernel does
+// (load_rows_transposed, store_rows_transposed), so stage 2 - stage 1 is
+// the third grid with the middle's arithmetic and stage 3 - stage 2 the
+// second transform.
+//
+// cluster_kernel_resources: registers, local (spill) bytes, dynamic shared
+// memory and resident clusters of the shipped cluster kernels, as compiled
+// into this library with the build's flags.
 
 #include "../msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 
@@ -27,7 +43,7 @@ __global__ void __launch_bounds__(kClusterThreads, 3)
   if constexpr (STAGE >= 1) slab_fft<float, N, false, true, RowLines<N>>(s, tw, R);
   if constexpr (STAGE >= 2) {
     cluster.sync();
-    swap_tiles<float, N, CL>(cluster, s, rank);
+    swap_tiles<float, N, CL, kSwapOnePass>(cluster, s, rank);
     cluster.sync();
   }
   if constexpr (STAGE >= 3) slab_fft<float, N, false, false, ColLines<N, R>>(s, tw, R);
@@ -49,9 +65,152 @@ cudaError_t launch_stage(const void* in, void* out, const void* tw, int64_t m,
       static_cast<float2*>(out), static_cast<const float2*>(tw));
 }
 
+enum ChainKind { kChainK4, kChainK2, kChainK10 };
+
+template <int KIND, int STAGE>
+__global__ void __launch_bounds__(kClusterThreads, 3)
+    chain_stage_kernel(const float2* in, float2* psi, float2* out, float* maxes,
+                       const float* coeff, const float2* twg) {
+  constexpr int N = 256, CL = 8, R = N / CL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* s = reinterpret_cast<float2*>(smem);
+  float2* tw = s + pad16(R * N);
+  float* red = reinterpret_cast<float*>(tw + N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t plane = blockIdx.x / CL;
+  const float scale = 1.0f / N;
+  load_twiddles<float, N>(tw, twg);
+  load_rows_transposed<float, N, R>(s, in + (plane * N + rank * R) * N);
+  __syncthreads();
+  if constexpr (STAGE >= 1) rows_to_columns<float, N, true, kSwapTwoPass>(cluster, s, tw, rank);
+  if constexpr (STAGE >= 2) {
+    float2* slab = psi + plane * N * N + rank * R;
+    if constexpr (KIND == kChainK4) {
+      block_max(kick_columns<float, N>(s, slab, coeff[plane], scale), red, maxes + blockIdx.x);
+    } else {
+      density_columns<float, N, KIND == kChainK2>(s, slab, 2.0f, scale);
+      __syncthreads();
+    }
+  }
+  if constexpr (STAGE >= 3) columns_to_rows<float, N, false>(cluster, s, tw, rank);
+  store_rows_transposed<float, N, R>(out + (plane * N + rank * R) * N, s, scale);
+}
+
+template <int KIND, int STAGE>
+cudaError_t launch_chain(const void* in, void* psi, void* out, void* maxes, const void* coeff,
+                         const void* tw, int64_t m, cudaStream_t stream) {
+  return launch_cluster<chain_stage_kernel<KIND, STAGE>>(
+      m, 8, cluster_smem<float, 256>(), stream, static_cast<const float2*>(in),
+      static_cast<float2*>(psi), static_cast<float2*>(out), static_cast<float*>(maxes),
+      static_cast<const float*>(coeff), static_cast<const float2*>(tw));
+}
+
+template <int KIND>
+cudaError_t chain_kind(int stage, const void* in, void* psi, void* out, void* maxes,
+                       const void* coeff, const void* tw, int64_t m, cudaStream_t s) {
+  switch (stage) {
+    case 0: return launch_chain<KIND, 0>(in, psi, out, maxes, coeff, tw, m, s);
+    case 1: return launch_chain<KIND, 1>(in, psi, out, maxes, coeff, tw, m, s);
+    case 2: return launch_chain<KIND, 2>(in, psi, out, maxes, coeff, tw, m, s);
+    case 3: return launch_chain<KIND, 3>(in, psi, out, maxes, coeff, tw, m, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// fields: registers, local bytes a thread, dynamic shared bytes a block,
+// clusters resident at once, blocks a cluster
+template <auto KERNEL, typename T, int N>
+cudaError_t resources(int* fields) {
+  constexpr int CL = cluster_size<T, N>();
+  const size_t smem = cluster_smem<T, N>();
+  cudaError_t err = prepare_cluster<KERNEL>(CL, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, KERNEL);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, KERNEL, &cfg);
+  fields[0] = a.numRegs;
+  fields[1] = static_cast<int>(a.localSizeBytes);
+  fields[2] = static_cast<int>(smem);
+  fields[3] = clusters;
+  fields[4] = CL;
+  return err;
+}
+
+template <typename T>
+cudaError_t kernel_resources(int which, int log_n, int* fields) {
+  return by_plane_size<T>(log_n, log_n == 8 ? 8 : cluster_size<T, 128>(), [=](auto n) {
+    constexpr int N = decltype(n)::value;
+    switch (which) {
+      case 0: return resources<plane_cluster_kernel<T, N, false>, T, N>(fields);
+      case 1: return resources<plane_potkick_cluster_kernel<T, N>, T, N>(fields);
+      case 2: return resources<plane_inv_density_cluster_kernel<T, N, true>, T, N>(fields);
+      case 3: return resources<plane_inv_density_cluster_kernel<T, N, false>, T, N>(fields);
+    }
+    return cudaErrorInvalidValue;
+  });
+}
+
 }  // namespace
 
 extern "C" {
+
+// kind 0 K4, 1 K2, 2 K10; stage 0..3. in, out: (m, 256, 256) complex64;
+// psi: read (K4) or written (K2), unused by K10; maxes: (m * 8,) float (K4);
+// coeff: (m,) float, one per plane (K4); tw: (256,) w_256^k.
+int chain_stage(int kind, int stage, const void* in, void* psi, void* out, void* maxes,
+                const void* coeff, const void* tw, int64_t m, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (kind) {
+    case kChainK4: err = chain_kind<kChainK4>(stage, in, psi, out, maxes, coeff, tw, m, s); break;
+    case kChainK2: err = chain_kind<kChainK2>(stage, in, psi, out, maxes, coeff, tw, m, s); break;
+    case kChainK10: err = chain_kind<kChainK10>(stage, in, psi, out, maxes, coeff, tw, m, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// The same fields of chain_stage's variant (kind, stage).
+int chain_stage_resources(int kind, int stage, int* fields) {
+  cudaError_t err = cudaErrorInvalidValue;
+  auto of = [&](auto kernel_kind) {
+    constexpr int K = decltype(kernel_kind)::value;
+    switch (stage) {
+      case 0: return resources<chain_stage_kernel<K, 0>, float, 256>(fields);
+      case 1: return resources<chain_stage_kernel<K, 1>, float, 256>(fields);
+      case 2: return resources<chain_stage_kernel<K, 2>, float, 256>(fields);
+      case 3: return resources<chain_stage_kernel<K, 3>, float, 256>(fields);
+    }
+    return cudaErrorInvalidValue;
+  };
+  switch (kind) {
+    case kChainK4: err = of(std::integral_constant<int, kChainK4>{}); break;
+    case kChainK2: err = of(std::integral_constant<int, kChainK2>{}); break;
+    case kChainK10: err = of(std::integral_constant<int, kChainK10>{}); break;
+  }
+  return static_cast<int>(err);
+}
+
+// which: 0 K6 (forward), 1 K4, 2 K2, 3 K10; log_n 7 or 8; fields: 5 ints
+// (see resources).
+int cluster_kernel_resources(int which, int is_double, int log_n, int* fields) {
+  return static_cast<int>(is_double ? kernel_resources<double>(which, log_n, fields)
+                                    : kernel_resources<float>(which, log_n, fields));
+}
+
 
 // in, out: (m, 256, 256) complex64; tw: (256,) w_256^k; stage 0..3.
 int plane_stage(int stage, const void* in, void* out, const void* tw, int64_t m,

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time of the cluster form of K6 goes, stage by stage, on one
-CUDA card.
+"""Where the time of the cluster form goes, stage by stage, on one CUDA
+card: K6, and the inverse -> middle -> forward plane of K4, K2 and K10.
 
 Run from the root of a checkout:
 
     python3 scripts/torch_probe_plane_cluster.py [planes]
 
 Builds scripts/torch_plane_cluster_stages.cu (the building blocks of
-msm_tpu_torch/ops/csrc/plane_cluster.cuh, one kernel stopped after a given
+msm_tpu_torch/ops/csrc/plane_cluster.cuh, kernels stopped after a given
 stage) with nvcc into a temporary directory, loads it with ctypes and
 times, on `planes` (default 2304, the (9, 256^3) grid's) planes of 256^2
 complex64, the median of 20 single launches (CUDA events, as chip_smoke.py
-times a kernel) of: the load and the store alone, with the row transform,
-with the swap across the cluster, the whole forward; beside them the
-shipped K6 in the cluster and the forced split form and torch.fft.fft2.
-Each stage's own time is the difference to the one before. Prints one line
-per measurement with the card's name and power limit, how many clusters of
-8 blocks fit the card at once, and last one JSON object of every record.
-Without a CUDA device it exits 1.
+times a kernel) of:
+
+- K6: the load and the store alone, with the row transform, with the swap
+  across the cluster, the whole forward; beside them the shipped K6 in the
+  cluster and the forced split form and torch.fft.fft2;
+- K4, K2, K10: the load and the store alone (2 grids), with the inverse
+  (rows, swap, columns), with the middle step (K4: psi read, the kick, the
+  block maximum; K2: psi written, rho; K10: rho), which adds K4's and K2's
+  third grid, with the forward: the whole kernel, held against the shipped
+  kernel's output; beside them the shipped kernel in both forms.
+
+Each stage's own time is the difference to the one before. Then the
+shipped cluster kernels' registers, local (spill) bytes, dynamic shared
+memory a block and clusters resident at once (cudaFuncGetAttributes,
+cudaOccupancyMaxActiveClusters) at N = 128 and 256 in both dtypes. Prints
+one line per measurement with the card's name and power limit, and last
+one JSON object of every record. Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -37,6 +47,13 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 SOURCE = os.path.join(HERE, "torch_plane_cluster_stages.cu")
 STAGES = ("load + store", "+ rows", "+ rows + swap", "+ rows + swap + columns (the forward)")
+# chain_stage's kinds: the shipped kernel each one truncates
+CHAINS = ("plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only")
+CHAIN_STAGES = ("load + store", "+ inverse (rows, swap, columns)", "+ middle step",
+                "+ forward (the whole kernel)")
+# cluster_kernel_resources' kernels
+RESOURCE_KERNELS = ("plane_pass", "plane_potkick_fwd", "plane_inv_density",
+                    "plane_inv_density_rho_only")
 N = 256
 TIMED = 20
 
@@ -68,7 +85,87 @@ def load_stages(work: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     lib.plane_stage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
     lib.plane_stage_clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.chain_stage.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                                + [ctypes.c_int64, ctypes.c_void_p])
+    lib.cluster_kernel_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.chain_stage_resources.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def shipped(name: str, z, w, coeff, form=None):
+    """The shipped kernel's field output (K4's coefficients one per plane)."""
+    from msm_tpu_torch.ops import mxu_fft
+
+    if name == "plane_potkick_fwd":
+        return mxu_fft.plane_potkick_fwd(z, w, coeff, form=form)[0]
+    if name == "plane_inv_density":
+        return mxu_fft.plane_inv_density(z, 2.0, form=form)[1]
+    return mxu_fft.plane_inv_density_rho_only(z, 2.0, form=form)
+
+
+def chain_records(lib, z, w, tw, planes: int, stream: int, where: dict) -> list:
+    """K4, K2 and K10 by stage, and the shipped kernels in both forms."""
+    from msm_tpu_torch.ops import build
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    coeff = torch.rand(planes, device="cuda", generator=gen) - 0.5
+    out = torch.empty_like(z)
+    psi = w.clone()
+    maxes = torch.empty(planes * 8, device="cuda")
+    records = []
+    for kind, name in enumerate(CHAINS):
+        prev = None
+        for stage, label in enumerate(CHAIN_STAGES):
+            def call(kind=kind, stage=stage):
+                build.check(lib.chain_stage(kind, stage, z.data_ptr(), psi.data_ptr(),
+                                            out.data_ptr(), maxes.data_ptr(), coeff.data_ptr(),
+                                            tw.data_ptr(), planes, stream), "chain_stage")
+            psi.copy_(w)
+            ms = median_ms(call)
+            f = (ctypes.c_int * 5)()
+            build.check(lib.chain_stage_resources(kind, stage, f), "chain_stage_resources")
+            rec = {"kernel": name, "what": label, "ms": ms,
+                   "stage_ms": ms - prev if prev is not None else ms,
+                   "registers": f[0], "local_bytes": f[1], **where}
+            prev = ms
+            if stage == len(CHAIN_STAGES) - 1:
+                psi.copy_(w)
+                call()
+                want = shipped(name, z, w, coeff)
+                rec["max_rel_err_vs_shipped"] = ((out - want).abs().max() / want.abs().max()).item()
+                del want
+            records.append(rec)
+            print(f"{name:28s} {label:32s} {ms:.4f} ms (+{rec['stage_ms']:.4f}; "
+                  f"{f[0]} registers, {f[1]} local bytes)", flush=True)
+        for form in ("cluster", "split"):
+            ms = median_ms(lambda form=form: shipped(name, z, w, coeff, form))
+            records.append({"kernel": name, "what": f"shipped, {form} form", "ms": ms, **where})
+            print(f"{name:28s} {'shipped, ' + form + ' form':32s} {ms:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    return records
+
+
+def resource_records(lib, where: dict) -> list:
+    """Registers, spills, shared memory and resident clusters of the shipped
+    cluster kernels at N = 128, 256, both dtypes."""
+    from msm_tpu_torch.ops import build
+
+    records = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, name in enumerate(RESOURCE_KERNELS):
+        for is_double in (0, 1):
+            for log_n in (7, 8):
+                f = (ctypes.c_int * 5)()
+                build.check(lib.cluster_kernel_resources(which, is_double, log_n, f),
+                            "cluster_kernel_resources")
+                rec = {"kernel": name, "dtype": "complex128" if is_double else "complex64",
+                       "n": 1 << log_n, "registers": f[0], "local_bytes": f[1],
+                       "smem_bytes": f[2], "clusters": f[3], "cluster": f[4],
+                       "blocks_per_sm": f[3] * f[4] / sms, **where}
+                records.append(rec)
+                print(json.dumps(rec), flush=True)
+    return records
 
 
 def main(argv=None) -> int:
@@ -104,15 +201,21 @@ def main(argv=None) -> int:
                 rec["max_rel_err"] = ((out - want).abs().max() / want.abs().max()).item()
             records.append(rec)
             print(f"{label:40s} {ms:.4f} ms", flush=True)
-    for label, fn in (
-        ("K6 plane_pass (cluster form)", lambda: mxu_fft.plane_pass(z, False)),
-        ("K6 plane_pass (forced split form)", lambda: mxu_fft.plane_pass(z, False, form="split")),
-        ("torch.fft.fft2 (cuFFT)", lambda: torch.fft.fft2(z, norm="ortho")),
-    ):
-        ms = median_ms(fn)
-        records.append({"what": label, "ms": ms, **where})
-        print(f"{label:40s} {ms:.4f} ms", flush=True)
-    print(json.dumps({"plane_cluster_stages": records, "clusters": clusters.value}), flush=True)
+        for label, fn in (
+            ("K6 plane_pass (cluster form)", lambda: mxu_fft.plane_pass(z, False)),
+            ("K6 plane_pass (forced split form)",
+             lambda: mxu_fft.plane_pass(z, False, form="split")),
+            ("torch.fft.fft2 (cuFFT)", lambda: torch.fft.fft2(z, norm="ortho")),
+        ):
+            ms = median_ms(fn)
+            records.append({"what": label, "ms": ms, **where})
+            print(f"{label:40s} {ms:.4f} ms", flush=True)
+        del want
+        w = torch.randn(z.shape, dtype=z.dtype, device="cuda", generator=gen)
+        chains = chain_records(lib, z, w, tw, planes, stream, where)
+        resources = resource_records(lib, where)
+    print(json.dumps({"plane_cluster_stages": records, "clusters": clusters.value,
+                      "chains": chains, "resources": resources}), flush=True)
     return 0
 
 

@@ -1,4 +1,5 @@
-"""The cluster form of K6 (plane_pass) and K4 (plane_potkick_fwd).
+"""The cluster form of K6 (plane_pass), K4 (plane_potkick_fwd), K2
+(plane_inv_density) and K10 (plane_inv_density_rho_only).
 
 A CUDA kernel cannot run here, so a plain numpy model of its decomposition
 (`csrc/plane_cluster.cuh`) lives in this file, with the kernel's index and
@@ -7,18 +8,22 @@ length-N transform as two radix passes N = A * B in place (decimation in
 frequency: natural in, position B k1 + k2 holding frequency k1 + A k2;
 decimation in time: the reverse), rows scattered into that order on load,
 the tile swap across the blocks that turns row slabs into column slabs and
-back, the column chunks K6 stores and K4's inverse -> kick -> forward with
-psi read at each position's spatial (row, column). The model is held against numpy's
-FFTs and the port's plain versions at N = 128 and 256 with C in {2, 4, 8},
-and against the JAX package's K6 and K4 (Pallas interpret mode, x64, as its
-own tests run them) at N = 128, mapped with `convert.to_natural`. All in
-complex128: the model and the references are the same DFTs, 1e-12 of
-max|reference|.
+back, the column chunks K6 stores, K4's inverse -> kick -> forward with
+psi read at each position's spatial (row, column), and K2's and K10's
+inverse -> density -> forward with psi written there (K2). The model is
+held against numpy's FFTs and the port's plain versions at N = 128 and 256
+with C in {2, 4, 8}, and against the JAX package's K6, K4, K2 and K10
+(Pallas interpret mode, x64, as its own tests run them) at N = 128, mapped
+with `convert.to_engine` / `to_natural`. All in complex128: the model and
+the references are the same DFTs, 1e-12 of max|reference|.
 
-Also here: the shape dispatch (`_plane_form`), the twiddle table, the size
-and reduction of K4's maxima in both forms, and `cuda`-marked tests of the
-kernels on a card (both forms against the plain version and each other).
+Also here: the shape dispatch (`_plane_form`) of every plane wrapper, the
+twiddle table, the size and reduction of K4's maxima in both forms, and
+`cuda`-marked tests of the kernels on a card (both forms against the plain
+version and each other).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -169,6 +174,18 @@ def model_plane(x, cl, inverse):
     return out
 
 
+def _columns_to_plane(lines):
+    """columns_to_rows and the store: columns DIT forward from each block's
+    column lines (C, W, N), swap, rows DIF forward, each block's R
+    contiguous rows gathered from the transposed order; the (N, N) plane."""
+    n = lines.shape[-1]
+    tw = _table(n, False)
+    lines = np.stack([_line_fft(blk, tw, dit=True) for blk in lines])
+    slabs = _swap(_col_slabs(lines))
+    slabs = np.stack([_line_fft(blk, tw, dit=False) for blk in slabs])
+    return slabs[:, :, _transposed(n)].reshape(n, n) / n
+
+
 def model_potkick(phik, psi, coeff, cl):
     """K4's cluster form on planes (m, N, N), coeff per plane; returns (out,
     per-block maxima (m, C))."""
@@ -176,19 +193,37 @@ def model_potkick(phik, psi, coeff, cl):
     w = n // cl
     out = np.empty_like(phik)
     maxes = np.empty((phik.shape[0], cl))
-    tw = _table(n, False)
     # block r's line w, position transposed(y): spatial (y, W r + w)
     rows = np.argsort(_transposed(n))
     for i, (plane, p, c) in enumerate(zip(phik, psi, coeff)):
         phi = (_inverse_to_columns(plane, cl, True) / n).real
         maxes[i] = np.abs(phi).reshape(cl, -1).max(-1)
         pg = np.stack([p[rows][:, r * w:(r + 1) * w].T for r in range(cl)])
-        lines = pg * np.exp(1j * c * phi)
-        lines = np.stack([_line_fft(blk, tw, dit=True) for blk in lines])
-        slabs = _swap(_col_slabs(lines))
-        slabs = np.stack([_line_fft(blk, tw, dit=False) for blk in slabs])
-        out[i] = slabs[:, :, _transposed(n)].reshape(n, n) / n
+        out[i] = _columns_to_plane(pg * np.exp(1j * c * phi))
     return out, maxes
+
+
+def model_inv_density(x, pref, cl, write_psi):
+    """K2's (write_psi) and K10's cluster form on planes x (m, N, N):
+    returns (psi or None, rho_hat, how often each psi element was written).
+    density_columns' loop: block r's flat index e < R N is output row
+    y = e // R, column R r + e % R, read from line e % R at position
+    transposed(y)."""
+    m, n = x.shape[0], x.shape[-1]
+    w = n // cl
+    psi = np.full_like(x, np.nan) if write_psi else None
+    writes = np.zeros(x.shape, dtype=int)
+    rho_hat = np.empty_like(x)
+    e = np.arange(w * n)
+    y, col = e // w, e % w
+    for i, plane in enumerate(x):
+        lines = _inverse_to_columns(plane, cl, True) / n
+        if write_psi:
+            for r in range(cl):
+                psi[i][y, r * w + col] = lines[r][col, _transposed(n)[y]]
+                np.add.at(writes[i], (y, r * w + col), 1)
+        rho_hat[i] = _columns_to_plane(pref * np.abs(lines) ** 2 + 0j)
+    return psi, rho_hat, writes
 
 
 CASES = [(n, cl) for n in (128, 256) for cl in (2, 4, 8)]
@@ -252,6 +287,57 @@ def test_model_potkick_matches_jax(rng, cl):
     np.testing.assert_allclose(maxes.max(-1), np.asarray(jmx).reshape(-1), rtol=RTOL)
 
 
+@pytest.mark.parametrize("write_psi", [True, False])
+@pytest.mark.parametrize("n,cl", CASES)
+def test_model_inv_density_matches_plain(rng, n, cl, write_psi):
+    """K2's and K10's decomposition (DIF inverse, psi written at each
+    position's spatial index, rho, DIT forward) against numpy and the
+    port's plain versions; K2 writes every psi element exactly once, K10
+    none."""
+    x = _complex(rng, (2, n, n))
+    psi, rho_hat, writes = model_inv_density(x, 3.0, cl, write_psi)
+    want_psi = np.fft.ifft2(x, norm="ortho")
+    _close(rho_hat, np.fft.fft2(3.0 * np.abs(want_psi) ** 2, norm="ortho"))
+    xt = torch.as_tensor(x)
+    if write_psi:
+        p_psi, p_rho = mxu_fft.plane_inv_density_plain(xt, 3.0)
+        _close(psi, want_psi)
+        _close(psi, p_psi.numpy())
+        assert (writes == 1).all()
+    else:
+        p_rho = mxu_fft.plane_inv_density_rho_only_plain(xt, 3.0)
+        assert psi is None and not writes.any()
+    _close(rho_hat, p_rho.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_inv_density(write_psi):
+    """JAX's K2 (write_psi) or K10 at N = 128 on two seeded planes: (x, psi
+    or None, rho_hat in natural k order)."""
+    x = _complex(np.random.default_rng(99), (2, 128, 128))
+    jin = _planar(convert.to_engine(x, 2))
+    if write_psi:
+        pr, pi, dr, di = jmxu._axis_pass_fused2_inv_density(*jin, 3.0)
+        psi = _joined((pr, pi))
+    else:
+        dr, di = jmxu._axis_pass_fused2_inv_density_rho_only(*jin, 3.0)
+        psi = None
+    return x, psi, convert.to_natural(_joined((dr, di)), 2)
+
+
+@pytest.mark.parametrize("write_psi", [True, False])
+@pytest.mark.parametrize("cl", [2, 4, 8])
+def test_model_inv_density_matches_jax(cl, write_psi):
+    """K2 against `_axis_pass_fused2_inv_density` and K10 against
+    `_axis_pass_fused2_inv_density_rho_only` at N = 128: psi (spatial) and
+    rho_hat (engine k order mapped)."""
+    x, want_psi, want_rho = _jax_inv_density(write_psi)
+    psi, rho_hat, _ = model_inv_density(x, 3.0, cl, write_psi)
+    _close(rho_hat, want_rho)
+    if write_psi:
+        _close(psi, want_psi)
+
+
 # ---------------------------------------------------------------------------
 # The wrappers' dispatch, tables and maxima
 # ---------------------------------------------------------------------------
@@ -281,6 +367,24 @@ def test_plane_form_dispatch(n, cdtype):
     if form == "split":
         with pytest.raises(ValueError, match="no 'cluster' form"):
             mxu_fft._plane_form(n, cdtype, "cluster")
+    # every plane wrapper takes its form from `_plane_form` before it
+    # dispatches: a meta tensor reaches the device check only where the
+    # shape has the form asked for
+    z = torch.zeros((1, n, n), dtype=cdtype, device="meta")
+    calls = {
+        "plane_pass": lambda f: mxu_fft.plane_pass(z, False, form=f),
+        "plane_potkick_fwd": lambda f: mxu_fft.plane_potkick_fwd(z, z, torch.zeros(1), form=f),
+        "plane_inv_density": lambda f: mxu_fft.plane_inv_density(z, 1.0, form=f),
+        "plane_inv_density_rho_only": lambda f: mxu_fft.plane_inv_density_rho_only(z, 1.0, form=f),
+    }
+    assert tuple(calls) == mxu_fft.PLANE_FORM_KERNELS
+    for name, call in calls.items():
+        assert {f"{name}/cluster", f"{name}/split"} <= set(mxu_fft.form_launches)
+        for f in (None, "split", "cluster"):
+            refused = f == "cluster" and form == "split"
+            match = "no 'cluster' form" if refused else f"no {name} kernel for device meta"
+            with pytest.raises(ValueError, match=match):
+                call(f)
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
@@ -333,6 +437,11 @@ def test_wrappers_take_a_form_on_the_cpu(rng):
         want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, c)
         _close(out.numpy(), want.numpy())
         assert torch.equal(mx, want_mx)
+        psi, rho = mxu_fft.plane_inv_density(z, 3.0, form=form)
+        want_psi, want_rho = mxu_fft.plane_inv_density_plain(z, 3.0)
+        _close(psi.numpy(), want_psi.numpy())
+        _close(rho.numpy(), want_rho.numpy())
+        _close(mxu_fft.plane_inv_density_rho_only(z, 3.0, form=form).numpy(), want_rho.numpy())
     assert set(mxu_fft.launches.values()) == {0}
     assert set(mxu_fft.form_launches.values()) == {0}
     big = torch.zeros((1, 512, 512), dtype=torch.complex64)
@@ -340,6 +449,10 @@ def test_wrappers_take_a_form_on_the_cpu(rng):
         mxu_fft.plane_pass(big, False, form="cluster")
     with pytest.raises(ValueError, match="no 'cluster' form"):
         mxu_fft.plane_potkick_fwd(big, big, torch.zeros(1), form="cluster")
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_inv_density(big, 1.0, form="cluster")
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_inv_density_rho_only(big, 1.0, form="cluster")
 
 
 # ---------------------------------------------------------------------------
@@ -401,17 +514,55 @@ def test_cuda_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype, sha
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", [(3, 2, 128, 128), (2, 3, 256, 256)])
+def test_cuda_inv_density_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype,
+                                                               shape):
+    """K2 (psi and rho_hat) and K10 in the cluster form against the plain
+    version and the forced split form on the card (two-transform gates);
+    each launch counted under its form."""
+    z, _, _ = _card_inputs(cuda_device, rng, cdtype, shape)
+    mxu_fft.reset_launches()
+    psi, rho = mxu_fft.plane_inv_density(z, 3.0)
+    psi_s, rho_s = mxu_fft.plane_inv_density(z, 3.0, form="split")
+    rho10 = mxu_fft.plane_inv_density_rho_only(z, 3.0)
+    rho10_s = mxu_fft.plane_inv_density_rho_only(z, 3.0, form="split")
+    torch.cuda.synchronize()
+    want_psi, want_rho = mxu_fft.plane_inv_density_plain(z, 3.0)
+    _card_close(psi, want_psi, K4_RTOL[cdtype], "plane_inv_density psi")
+    _card_close(rho, want_rho, K4_RTOL[cdtype], "plane_inv_density rho")
+    _card_close(psi, psi_s, K4_RTOL[cdtype], "plane_inv_density psi vs split")
+    _card_close(rho, rho_s, K4_RTOL[cdtype], "plane_inv_density rho vs split")
+    _card_close(rho10, want_rho, K4_RTOL[cdtype], "plane_inv_density_rho_only")
+    _card_close(rho10, rho10_s, K4_RTOL[cdtype], "plane_inv_density_rho_only vs split")
+    assert {k: n for k, n in mxu_fft.form_launches.items() if n} == {
+        "plane_inv_density/cluster": 1, "plane_inv_density/split": 1,
+        "plane_inv_density_rho_only/cluster": 1, "plane_inv_density_rho_only/split": 1,
+    }
+    again_psi, again_rho = mxu_fft.plane_inv_density(z, 3.0)
+    assert torch.equal(again_psi, psi) and torch.equal(again_rho, rho)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
 def test_cuda_split_form_at_512(cuda_device, rng, cdtype):
-    """N = 512 keeps the split form: K6 and K4 against their plain versions."""
+    """N = 512 keeps the split form: K6, K4, K2 and K10 against their plain
+    versions."""
     z, w, coeff = _card_inputs(cuda_device, rng, cdtype, (2, 512, 512))
     mxu_fft.reset_launches()
     got = mxu_fft.plane_pass(z, False)
     out, mx = mxu_fft.plane_potkick_fwd(z, w, coeff)
+    psi, rho = mxu_fft.plane_inv_density(z, 3.0)
+    rho10 = mxu_fft.plane_inv_density_rho_only(z, 3.0)
     torch.cuda.synchronize()
     _card_close(got, mxu_fft.plane_pass_plain(z, False), K6_RTOL[cdtype], "plane_pass")
     want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, coeff)
     _card_close(out, want, K4_RTOL[cdtype], "plane_potkick_fwd")
     _card_close(mx, want_mx, K4_RTOL[cdtype], "plane_potkick_fwd maxima")
-    assert mxu_fft.form_launches["plane_pass/split"] == 1
-    assert mxu_fft.form_launches["plane_potkick_fwd/split"] == 1
-    assert mxu_fft.form_launches["plane_pass/cluster"] == 0
+    want_psi, want_rho = mxu_fft.plane_inv_density_plain(z, 3.0)
+    _card_close(psi, want_psi, K4_RTOL[cdtype], "plane_inv_density psi")
+    _card_close(rho, want_rho, K4_RTOL[cdtype], "plane_inv_density rho")
+    _card_close(rho10, want_rho, K4_RTOL[cdtype], "plane_inv_density_rho_only")
+    assert {k: n for k, n in mxu_fft.form_launches.items() if n} == {
+        "plane_pass/split": 1, "plane_potkick_fwd/split": 1,
+        "plane_inv_density/split": 1, "plane_inv_density_rho_only/split": 1,
+    }
