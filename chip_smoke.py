@@ -24,10 +24,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (4, 512); the FFT kernels K5 axis_pass (axis 1), K6 plane_pass,
             K17 plane_pass_real_fwd and K9 plane_pass_real_inv (on the
             (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3);
-            K6, K4, K2 and K10 at N = 128, 256 take the one-pass cluster
-            form and at 512, 1024 the split form (each of their records
-            names its `form` and `cluster` size); at (9, 256^3) c64 their
-            forced split forms are timed too (`plane_pass/split`,
+            K6, K17, K9, K4, K2 and K10 at N = 128, 256 take the one-pass
+            cluster form and at 512, 1024 the split form (each of their
+            records names its `form` and `cluster` size); at (9, 256^3) c64
+            their forced split forms are timed too (`plane_pass/split`,
+            `plane_pass_real_fwd/split`, `plane_pass_real_inv/split`,
             `plane_potkick_fwd/split`, `plane_inv_density/split`,
             `plane_inv_density_rho_only/split`), the before/after in one
             call;
@@ -83,9 +84,10 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             every dump's shape, finiteness and norm, the manifests, that
             each run launched each of its kernels, that the exact run
             launched K10 and K11 and the unskewed run K12 and K13 once per
-            iteration, that every K4 and K2 launch of the fused and
-            unskewed runs, every K10 launch of the exact run and every K6
-            launch of the unfused `mxu` run took the cluster form, and that
+            iteration, that every K4, K2 and K9 launch of the fused and
+            unskewed runs, every K10 launch of the exact run and every K6,
+            K17 and K9 launch of the unfused `mxu` run took the cluster
+            form, and that
             every K14-K16 launch of the 1-D run took the radix form; then
             compares the runs
 
@@ -95,8 +97,8 @@ and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
-and power limit as nvidia-smi gives them (K6, K4, K2 and K10 with their
-form, cluster size and the forced split form's median, `split_ms`; K14-K16 with
+and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2 and K10 with
+their form, cluster size and the forced split form's median, `split_ms`; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
 1024), and their medians at (9 * 256^2, 256) under `grid`); and last
@@ -126,7 +128,7 @@ PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
-# K6, K4, K2 and K10 at the main shape: the cluster form
+# K6, K17, K9, K4, K2 and K10 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
 LANE_SOURCE = "msm_tpu_torch/ops/csrc/lane_radix.cuh"
@@ -137,8 +139,8 @@ KERNELS = {
     "phase_rotate": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:201"),
     "axis_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:432"),
     "plane_pass": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
-    "plane_pass_real_fwd": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
-    "plane_pass_real_inv": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
+    "plane_pass_real_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
+    "plane_pass_real_inv": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
     "axis_roundtrip_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:565"),
     "plane_inv_density": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
     "axis_roundtrip_poisson": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
@@ -548,8 +550,8 @@ def phase_kernels(card: dict) -> dict:
 
 
 def _form(name: str, n: int, cdtype, forced=None) -> dict:
-    """The form fields of a plane kernel's record (K6, K4, K2, K10; none
-    for other kernels)."""
+    """The form fields of a plane kernel's record (K6, K17, K9, K4, K2,
+    K10; none for other kernels)."""
     from msm_tpu_torch.ops import mxu_fft
 
     if name.split("/")[0] not in mxu_fft.PLANE_FORM_KERNELS:
@@ -620,10 +622,19 @@ def phase_fft_kernels(card: dict) -> dict:
                 ),
             }
             if shape == MAIN_SHAPE and cdtype == torch.complex64:
-                # K6's forced split form: the before of the cluster form's after
+                # K6's, K17's and K9's forced split forms: the before of the
+                # cluster form's after
                 cases["plane_pass/split"] = (
                     lambda: mxu_fft.plane_pass(planes, False, form="split"),
                     cases["plane_pass"][1], [planes], fft_ops(planes.shape, 2),
+                )
+                cases["plane_pass_real_fwd/split"] = (
+                    lambda: mxu_fft.plane_pass_real_fwd(x, form="split"),
+                    cases["plane_pass_real_fwd"][1], [x], fft_ops(planes.shape, 2),
+                )
+                cases["plane_pass_real_inv/split"] = (
+                    lambda: mxu_fft.plane_pass_real_inv(planes, form="split"),
+                    cases["plane_pass_real_inv"][1], [planes], fft_ops(planes.shape, 2),
                 )
             for name, (kernel, plain, inputs, ops) in cases.items():
                 forced = "split" if name.endswith("/split") else None
@@ -1018,13 +1029,14 @@ CONFIGS = {
 # kernels that must launch once in every iteration of a run
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
 # the plane kernels whose every launch in a main run must take the cluster
-# form: K4 and K2 on the fused engines (and K10 in exact dt), K6 on the
-# unfused `mxu` path
-CLUSTER_FORM = {"mxu": ("plane_pass",),
-                "fused": ("plane_potkick_fwd", "plane_inv_density"),
+# form: K4, K2 and K9 (the Poisson solve's) on the fused engines (and K10 in
+# exact dt), K6, K17 and K9 on the unfused `mxu` path
+CLUSTER_FORM = {"mxu": ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv"),
+                "fused": ("plane_potkick_fwd", "plane_inv_density", "plane_pass_real_inv"),
                 "fused-exact": ("plane_potkick_fwd", "plane_inv_density",
-                                "plane_inv_density_rho_only"),
-                "unskewed-lagged": ("plane_potkick_fwd", "plane_inv_density")}
+                                "plane_inv_density_rho_only", "plane_pass_real_inv"),
+                "unskewed-lagged": ("plane_potkick_fwd", "plane_inv_density",
+                                    "plane_pass_real_inv")}
 # the lane kernels whose every launch in a path's main run must take the
 # radix form (lane_fft_kernel)
 RADIX_FORM = {"mxu-1d": LANE_KERNELS}

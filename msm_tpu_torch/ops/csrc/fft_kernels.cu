@@ -55,20 +55,21 @@
 //     elements) and runs a radix-2 Stockham FFT on each row between two
 //     shared-memory buffers (natural order in and out, no bit reversal, whose
 //     scattered accesses along a row would conflict on every bank). The row
-//     half of the split plane kernels (K6 at n >= 512, K17, K9).
+//     half of the split plane kernels (K6, K17, K9 at n >= 512).
 //   lanes (lane_fft_kernel, lane_radix.cuh): R whole rows a block, N / 16
 //     threads a row, each length-N transform in two or three radix-16 (and
 //     8, 4, 2) register passes in padded shared memory, the digit order
 //     undone on the store; 16-byte loads and stores.
-//   plane (K6): at n = 128 and 256 the one-pass cluster form
+//   plane (K6, K17, K9): at n = 128 and 256 the one-pass cluster form
 //     (plane_cluster.cuh): the plane in the shared memory of a cluster of 2-8
 //     blocks, radix-16 register passes for rows and columns, one transpose
-//     across the cluster between them, 2 grids of traffic. At n = 512 and
-//     1024 a plane (2 MB and 8 MB at complex64) exceeds a portable cluster's
-//     8 x 227 KB, so K6 keeps the split form (`plane`): the row pass, then
-//     the axis pass in place, the intermediate in device memory (mostly the
-//     50 MB L2), 4 grids of traffic. The wrapper picks the form by shape
-//     (mxu_fft._plane_form); K17 and K9 are split at every size.
+//     across the cluster between them, 2 grids of traffic (K17, K9: 1.5, a
+//     real grid on one side). At n = 512 and 1024 a plane (2 MB and 8 MB at
+//     complex64) exceeds a portable cluster's 8 x 227 KB, so they keep the
+//     split form (`plane`, `plane_real_fwd`, `plane_real_inv`): the row pass
+//     and the axis pass, the intermediate in device memory (mostly the 50 MB
+//     L2), 4 grids of traffic for K6. The wrapper picks the form by shape
+//     (mxu_fft._plane_form).
 //
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic only, no tensor cores.
 // Twiddles are computed in double and rounded once to the kernel's precision:
@@ -213,34 +214,46 @@ int msm_fft_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes
                                     : axis<float>(in, out, b1, log_n, lanes, inverse, s));
 }
 
-// K6. in, out: (m, n, n) interleaved complex, n = 2^log_n; in != out.
-// cluster 0: the split form; else the cluster form (plane_cluster.cuh) with
-// that many blocks per plane and tw: (n,) interleaved complex w_n^m.
+// K6. in, out: (m, n, n) interleaved complex, n = 2^log_n, 16-byte
+// aligned; in != out. cluster 0: the split form; else the cluster form
+// (plane_cluster.cuh) with that many blocks per plane and tw: (n,)
+// interleaved complex w_n^m.
 int msm_fft_plane(const void* in, void* out, int64_t m, int log_n, int inverse,
                   int is_double, int cluster, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
-        is_double ? plane_cluster<double>(in, out, m, log_n, cluster, inverse, tw, s)
-                  : plane_cluster<float>(in, out, m, log_n, cluster, inverse, tw, s));
+        inverse ? plane_cluster<true, Vec, Vec>(in, out, m, log_n, cluster, is_double, tw, s)
+                : plane_cluster<false, Vec, Vec>(in, out, m, log_n, cluster, is_double, tw, s));
   }
   return static_cast<int>(is_double ? plane<double>(in, out, m, log_n, inverse, s)
                                     : plane<float>(in, out, m, log_n, inverse, s));
 }
 
-// K17. in: (m, n, n) real; out: (m, n, n) interleaved complex.
+// K17. in: (m, n, n) real; out: (m, n, n) interleaved complex; both 16-byte
+// aligned. cluster and tw as for K6.
 int msm_fft_plane_real_fwd(const void* in, void* out, int64_t m, int log_n, int is_double,
-                           void* stream) {
+                           int cluster, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        plane_cluster<false, RealVec, Vec>(in, out, m, log_n, cluster, is_double, tw, s));
+  }
   return static_cast<int>(is_double ? plane_real_fwd<double>(in, out, m, log_n, s)
                                     : plane_real_fwd<float>(in, out, m, log_n, s));
 }
 
-// K9. in, tmp: (m, n, n) interleaved complex (tmp is scratch); out: (m, n, n)
-// real, the real part of the inverse.
+// K9. in: (m, n, n) interleaved complex; out: (m, n, n) real, the real part
+// of the inverse; both 16-byte aligned. tmp: (m, n, n) interleaved complex
+// scratch of the split form (cluster 0); the cluster form takes null.
+// cluster and tw as for K6.
 int msm_fft_plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int log_n,
-                           int is_double, void* stream) {
+                           int is_double, int cluster, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        plane_cluster<true, Vec, RealVec>(in, out, m, log_n, cluster, is_double, tw, s));
+  }
   return static_cast<int>(is_double ? plane_real_inv<double>(in, tmp, out, m, log_n, s)
                                     : plane_real_inv<float>(in, tmp, out, m, log_n, s));
 }

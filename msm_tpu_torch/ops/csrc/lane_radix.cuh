@@ -162,41 +162,9 @@ __device__ __forceinline__ void lane_pass_regs(typename Complex<T>::type* s,
 }
 
 // 16-byte vectors of the lane kernels' device-memory side: complex
-// (Vec<T>), or the reals of K15's load and K16's store.
+// (Vec<T>), or the reals of K15's load and K16's store (RealVec<T>).
 template <typename T, bool REAL>
-struct LaneVec;
-template <typename T>
-struct LaneVec<T, false> {
-  using type = typename Vec<T>::type;
-  static constexpr int kElems = Vec<T>::kElems;
-};
-template <>
-struct LaneVec<float, true> {
-  using type = float4;
-  static constexpr int kElems = 4;
-};
-template <>
-struct LaneVec<double, true> {
-  using type = double2;
-  static constexpr int kElems = 2;
-};
-
-__device__ __forceinline__ void split_reals(float4 v, float2 (&e)[4]) {
-  e[0] = make_float2(v.x, 0.f);
-  e[1] = make_float2(v.y, 0.f);
-  e[2] = make_float2(v.z, 0.f);
-  e[3] = make_float2(v.w, 0.f);
-}
-__device__ __forceinline__ void split_reals(double2 v, double2 (&e)[2]) {
-  e[0] = make_double2(v.x, 0.0);
-  e[1] = make_double2(v.y, 0.0);
-}
-__device__ __forceinline__ float4 join_reals(const float (&e)[4]) {
-  return make_float4(e[0], e[1], e[2], e[3]);
-}
-__device__ __forceinline__ double2 join_reals(const double (&e)[2]) {
-  return make_double2(e[0], e[1]);
-}
+using LaneVec = std::conditional_t<REAL, RealVec<T>, Vec<T>>;
 
 // The work of one lane_fft_kernel block: the ortho DFT of rows [blockIdx.x
 // R, blockIdx.x R + R) (fewer in the last block) of (rows, N); tw: (N,)
@@ -246,11 +214,7 @@ __device__ __forceinline__ void lane_fft_rows(const void* in, void* out,
       const int i = threadIdx.x + u * blockDim.x;
       if (i < count) {
         C e[E];
-        if constexpr (IN_REAL) {
-          split_reals(v[u], e);
-        } else {
-          Vec<T>::split(v[u], e);
-        }
+        LV::split(v[u], e);
 #pragma unroll
         for (int k = 0; k < E; ++k) s[pad16(i * E + k)] = e[k];
       }
@@ -285,19 +249,12 @@ __device__ __forceinline__ void lane_fft_rows(const void* in, void* out,
       if (i < count) {
         const int r = i * E / N;
         const int f0 = i * E % N;
-        if constexpr (OUT_REAL) {
-          T e[E];
+        C e[E];
 #pragma unroll
-          for (int k = 0; k < E; ++k) e[k] = s[pad16(r * N + digit_position<N>(f0 + k))].x * scale;
-          dst[i] = join_reals(e);
-        } else {
-          C e[E];
-#pragma unroll
-          for (int k = 0; k < E; ++k) {
-            e[k] = cscale(s[pad16(r * N + digit_position<N>(f0 + k))], scale);
-          }
-          dst[i] = Vec<T>::join(e);
+        for (int k = 0; k < E; ++k) {
+          e[k] = cscale(s[pad16(r * N + digit_position<N>(f0 + k))], scale);
         }
+        dst[i] = LV::join(e);
       }
     }
   }

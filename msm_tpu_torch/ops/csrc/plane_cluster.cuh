@@ -1,16 +1,19 @@
 // The one-pass (N, N) plane on a thread-block cluster: the 2-axis DFT of K6
-// (plane_pass, fft_kernels.cu) and the inverse -> middle step -> forward of
-// K4 (plane_potkick_fwd), K2 (plane_inv_density) and K10
-// (plane_inv_density_rho_only) (fused_kernels.cu), for N = 128 and 256.
+// (plane_pass), its real-input forward K17 (plane_pass_real_fwd) and its
+// real-output inverse K9 (plane_pass_real_inv) (fft_kernels.cu), and the
+// inverse -> middle step -> forward of K4 (plane_potkick_fwd), K2
+// (plane_inv_density) and K10 (plane_inv_density_rho_only)
+// (fused_kernels.cu), for N = 128 and 256.
 //
 // What bounds them: device memory. Each reads its inputs once and writes its
 // outputs once (K6 and K10: 2 grids, 0.72 ms at (9, 256^3) complex64 on 3.35
-// TB/s; K4 and K2: 3 grids, 1.08 ms). The split form (a row pass and column
-// passes with the intermediate in device memory) moves 4 (K6), 6 (K10) and
-// 7 (K4, K2) grids. A 256^2 complex64 plane is 512 KB, more than a block's
-// 227 KB of shared memory, but it fits a cluster of C = 8 blocks (64 KB
-// each; complex128: 128 KB), and the blocks of a cluster read and write each
-// other's shared memory (distributed shared memory,
+// TB/s; K17 and K9: a real and a complex grid, 1.5 grids, 0.54 ms; K4 and
+// K2: 3 grids, 1.08 ms). The split form (a row pass and column passes with
+// the intermediate in device memory) moves 4 (K6), 3.5 (K17, K9), 6 (K10)
+// and 7 (K4, K2) grids. A 256^2 complex64 plane is 512 KB, more than a
+// block's 227 KB of shared memory, but it fits a cluster of C = 8 blocks (64
+// KB each; complex128: 128 KB), and the blocks of a cluster read and write
+// each other's shared memory (distributed shared memory,
 // cooperative_groups::this_cluster().map_shared_rank). The design
 // moves each element between blocks once per 2-axis transform (a transpose),
 // not twice (a radix-C stage that reads from and writes to the peers).
@@ -50,6 +53,12 @@
 //   K6: load (scatter) -> rows DIT -> swap -> columns DIF -> store (gather):
 //     each warp stores a W-element run of one output row (256 bytes at
 //     complex64, N = 256).
+//   K17 and K9: K6's kernel with a real operand on one side
+//     (plane_cluster_kernel's vector traits): K17 loads four floats (two
+//     doubles) a 16-byte load and scatters them with imaginary part 0 where
+//     K6's load puts a complex; K9 stores the scaled real part of the
+//     column lines, runs of R reals of one output row (store_columns, the
+//     epilogue after rows_to_columns).
 //   K4, K2, K10: the input's rows DIT inverse -> swap -> columns DIF
 //     inverse (rows_to_columns): the field at spatial (row y, column
 //     W rank + w), column position transposed(y); the middle step in place
@@ -116,6 +125,7 @@ struct Vec;
 template <>
 struct Vec<float> {
   using type = float4;
+  using elem = float2;
   static constexpr int kElems = 2;
   __device__ static void split(float4 v, float2 (&e)[2]) {
     e[0] = make_float2(v.x, v.y);
@@ -128,9 +138,42 @@ struct Vec<float> {
 template <>
 struct Vec<double> {
   using type = double2;
+  using elem = double2;
   static constexpr int kElems = 1;
   __device__ static void split(double2 v, double2 (&e)[1]) { e[0] = v; }
   __device__ static double2 join(const double2 (&e)[1]) { return e[0]; }
+};
+
+// Their real counterpart, for a real operand of a complex transform (K17's
+// input, K9's output): four floats or two doubles, split into complex
+// elements with imaginary part 0 and joined from their real parts.
+template <typename T>
+struct RealVec;
+template <>
+struct RealVec<float> {
+  using type = float4;
+  using elem = float;
+  static constexpr int kElems = 4;
+  __device__ static void split(float4 v, float2 (&e)[4]) {
+    e[0] = make_float2(v.x, 0.0f);
+    e[1] = make_float2(v.y, 0.0f);
+    e[2] = make_float2(v.z, 0.0f);
+    e[3] = make_float2(v.w, 0.0f);
+  }
+  __device__ static float4 join(const float2 (&e)[4]) {
+    return make_float4(e[0].x, e[1].x, e[2].x, e[3].x);
+  }
+};
+template <>
+struct RealVec<double> {
+  using type = double2;
+  using elem = double;
+  static constexpr int kElems = 2;
+  __device__ static void split(double2 v, double2 (&e)[2]) {
+    e[0] = make_double2(v.x, 0.0);
+    e[1] = make_double2(v.y, 0.0);
+  }
+  __device__ static double2 join(const double2 (&e)[2]) { return make_double2(e[0].x, e[1].x); }
 };
 
 // Vectors a thread of a block moves per batch of device-memory loads: all
@@ -299,12 +342,13 @@ __device__ __forceinline__ void load_twiddles(typename Complex<T>::type* tw,
 
 // R contiguous rows of src into a row slab, each row scattered into the
 // transposed order a DIT row pass takes: 16-byte loads, kBatch in flight.
-template <typename T, int N, int R>
+// VIN: Vec<T> (complex rows) or RealVec<T> (real rows, imaginary part 0).
+template <typename T, int N, int R, typename VIN = Vec<T>>
 __device__ __forceinline__ void load_rows_transposed(typename Complex<T>::type* s,
-                                                     const typename Complex<T>::type* src) {
+                                                     const typename VIN::elem* src) {
   using C = typename Complex<T>::type;
-  using V = typename Vec<T>::type;
-  constexpr int E = Vec<T>::kElems;
+  using V = typename VIN::type;
+  constexpr int E = VIN::kElems;
   constexpr int ITERS = R * N / E / kClusterThreads;
   static_assert(ITERS % kBatch == 0, "whole batches");
   const V* vsrc = reinterpret_cast<const V*>(src);
@@ -315,7 +359,7 @@ __device__ __forceinline__ void load_rows_transposed(typename Complex<T>::type* 
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       C e[E];
-      Vec<T>::split(v[u], e);
+      VIN::split(v[u], e);
       const int x = (threadIdx.x + (b + u) * kClusterThreads) * E;
 #pragma unroll
       for (int k = 0; k < E; ++k) s[pad16((x / N) * N + transposed<N>(x % N + k))] = e[k];
@@ -378,10 +422,38 @@ __device__ __forceinline__ void columns_to_rows(cg::cluster_group& cluster,
   slab_fft<T, N, INV, false, RowLines<N>>(s, tw, R);
 }
 
-// K6: ortho 2-axis DFT of plane blockIdx.x / CL.
-template <typename T, int N, bool INV>
+// The store of K6 and K9, the epilogue after rows_to_columns: row f of the
+// block's output columns [R rank, R rank + R) is column position
+// transposed(f) of the slab's lines, scaled; runs of R elements of one row,
+// 16-byte stores. VOUT: Vec<T> (complex out) or RealVec<T> (the real part
+// out). dst: the plane's column R rank.
+template <typename T, int N, typename VOUT>
+__device__ __forceinline__ void store_columns(typename VOUT::elem* dst,
+                                              const typename Complex<T>::type* s, T scale) {
+  using C = typename Complex<T>::type;
+  using V = typename VOUT::type;
+  constexpr int R = N / cluster_size<T, N>();
+  constexpr int E = VOUT::kElems;
+  V* vdst = reinterpret_cast<V*>(dst);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * N / E; i += kClusterThreads) {
+    const int f = i * E / R;
+    const int w = i * E % R;
+    C e[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) e[k] = cscale(s[ColLines<N, R>::at(w + k, transposed<N>(f))], scale);
+    vdst[(f * N + w) / E] = VOUT::join(e);
+  }
+}
+
+// K6, K17 and K9: the ortho 2-axis DFT of plane blockIdx.x / CL, loaded
+// through VIN and stored through VOUT: K6 complex to complex (Vec<T>, both
+// directions), K17 the forward of a real plane (RealVec<T> in, imaginary
+// part 0), K9 the real part of the inverse (RealVec<T> out, half K6's
+// write).
+template <typename T, int N, bool INV, typename VIN, typename VOUT>
 __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
-    plane_cluster_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
+    plane_cluster_kernel(const typename VIN::elem* in, typename VOUT::elem* out,
                          const typename Complex<T>::type* twg, T scale) {
   using C = typename Complex<T>::type;
   constexpr int CL = cluster_size<T, N>();
@@ -394,23 +466,10 @@ __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
   const int64_t plane = blockIdx.x / CL;
 
   load_twiddles<T, N>(tw, twg);
-  load_rows_transposed<T, N, R>(s, in + (plane * N + rank * R) * N);
+  load_rows_transposed<T, N, R, VIN>(s, in + (plane * N + rank * R) * N);
   __syncthreads();
   rows_to_columns<T, N, INV, kSwapOnePass>(cluster, s, tw, rank);
-  // row f of the output is column position transposed(f) of the slab's
-  // lines: runs of R columns, 16-byte stores
-  using V = typename Vec<T>::type;
-  constexpr int E = Vec<T>::kElems;
-  V* dst = reinterpret_cast<V*>(out + plane * N * N + rank * R);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < R * N / E; i += kClusterThreads) {
-    const int f = i * E / R;
-    const int w = i * E % R;
-    C e[E];
-#pragma unroll
-    for (int k = 0; k < E; ++k) e[k] = cscale(s[ColLines<N, R>::at(w + k, transposed<N>(f))], scale);
-    dst[(f * N + w) / E] = Vec<T>::join(e);
-  }
+  store_columns<T, N, VOUT>(out + plane * N * N + rank * R, s, scale);
 }
 
 // K4's middle: phi = scale Re s at spatial (y, R rank + w), psi's element
@@ -629,22 +688,23 @@ cudaError_t by_plane_size(int log_n, int cl, F f) {
   return cudaErrorInvalidValue;
 }
 
-// K6 in the cluster form.
-template <typename T>
-cudaError_t plane_cluster(const void* in, void* out, int64_t m, int log_n, int cl, bool inverse,
-                          const void* tw, cudaStream_t stream) {
-  using C = typename Complex<T>::type;
-  return by_plane_size<T>(log_n, cl, [=](auto n) {
-    constexpr int N = decltype(n)::value;
-    const C* src = static_cast<const C*>(in);
-    C* dst = static_cast<C*>(out);
-    const C* t = static_cast<const C*>(tw);
-    const T scale = static_cast<T>(1.0 / N);
-    return inverse ? launch_cluster<plane_cluster_kernel<T, N, true>>(
-                         m, cl, cluster_smem<T, N>(), stream, src, dst, t, scale)
-                   : launch_cluster<plane_cluster_kernel<T, N, false>>(
-                         m, cl, cluster_smem<T, N>(), stream, src, dst, t, scale);
-  });
+// K6 (Vec in and out), K17 (RealVec in) and K9 (RealVec out) in the cluster
+// form, float or double (is_double).
+template <bool INV, template <typename> class VIN, template <typename> class VOUT>
+cudaError_t plane_cluster(const void* in, void* out, int64_t m, int log_n, int cl,
+                          bool is_double, const void* tw, cudaStream_t stream) {
+  auto launch = [=](auto real) {
+    using T = decltype(real);
+    using C = typename Complex<T>::type;
+    return by_plane_size<T>(log_n, cl, [=](auto n) {
+      constexpr int N = decltype(n)::value;
+      return launch_cluster<plane_cluster_kernel<T, N, INV, VIN<T>, VOUT<T>>>(
+          m, cl, cluster_smem<T, N>(), stream, static_cast<const typename VIN<T>::elem*>(in),
+          static_cast<typename VOUT<T>::elem*>(out), static_cast<const C*>(tw),
+          static_cast<T>(1.0 / N));
+    });
+  };
+  return is_double ? launch(double{}) : launch(float{});
 }
 
 // K4 in the cluster form; maxes: (m * cl,), one per block.

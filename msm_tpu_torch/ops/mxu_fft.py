@@ -58,13 +58,13 @@ plain torch.fft version beside it; any other device raises. Sizes are the
 engine's, N = 128 * {1, 2, 4, 8} (`supported`), on both routes. `launches`
 counts kernel launches per wrapper.
 
-K6, K4, K2 and K10 take one of two forms, chosen by shape (`_plane_form`):
-at N = 128 and 256 the one-pass plane on a thread-block cluster
-(`csrc/plane_cluster.cuh`: the plane in the cluster's shared memory, one
-HBM read of each input and one write of each output); at N = 512 and 1024,
-whose planes exceed a portable cluster's 8 x 227 KB, the split form (a row
-pass and a column pass with the intermediate in device memory).
-`form_launches` counts their launches per form.
+K6, K17, K9, K4, K2 and K10 take one of two forms, chosen by shape
+(`_plane_form`): at N = 128 and 256 the one-pass plane on a thread-block
+cluster (`csrc/plane_cluster.cuh`: the plane in the cluster's shared
+memory, one HBM read of each input and one write of each output); at N =
+512 and 1024, whose planes exceed a portable cluster's 8 x 227 KB, the
+split form (a row pass and a column pass with the intermediate in device
+memory). `form_launches` counts their launches per form.
 
 K14-K16 run the radix form (`csrc/lane_radix.cuh` `lane_fft_kernel`: whole
 rows a block, radix-16 register passes, the `_twiddles` table); `form="row"`
@@ -106,7 +106,8 @@ launches = {
 }
 # the plane kernels with a cluster and a split form (`_plane_form`)
 PLANE_FORM_KERNELS = (
-    "plane_pass", "plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only"
+    "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv", "plane_potkick_fwd",
+    "plane_inv_density", "plane_inv_density_rho_only",
 )
 # launches of the plane kernels and of K14-K16, by form ("<kernel>/<form>")
 form_launches = {
@@ -135,14 +136,16 @@ def reset_launches() -> None:
 
 
 def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
-    """(form, cluster size) of K6, K4, K2 and K10 for (N, N) planes of
-    `dtype`: the cluster form at N = 128, 256 (8 blocks a plane at 256; at
-    128, 2 at complex64, 4 at complex128: about 70 KB of shared memory a
-    block, as `cluster_size` in csrc/plane_cluster.cuh), else ("split", 0).
-    `form` forces one where a caller asks: "split" exists at every size,
-    "cluster" only where the shape takes it."""
+    """(form, cluster size) of the plane kernels (`PLANE_FORM_KERNELS`) for
+    (N, N) planes of `dtype` (complex, or the real operand of K17): the
+    cluster form at N = 128, 256 (8 blocks a plane at 256; at 128, 2 at
+    complex64 and float32, 4 at complex128 and float64: about 70 KB of
+    shared memory a block, as `cluster_size` in csrc/plane_cluster.cuh),
+    else ("split", 0). `form` forces one where a caller asks: "split"
+    exists at every size, "cluster" only where the shape takes it."""
     if n in (128, 256):
-        shape_form = ("cluster", 8 if n == 256 else (2 if dtype == torch.complex64 else 4))
+        single = dtype in (torch.complex64, torch.float32)
+        shape_form = ("cluster", 8 if n == 256 else (2 if single else 4))
     else:
         shape_form = ("split", 0)
     if form is None or form == shape_form[0]:
@@ -321,42 +324,52 @@ def plane_pass(z: torch.Tensor, inverse: bool, *, form=None) -> torch.Tensor:
     return out
 
 
-def plane_pass_real_fwd(x: torch.Tensor) -> torch.Tensor:
-    """Ortho forward DFT of real x over its last two axes, full spectrum (K17)."""
+def plane_pass_real_fwd(x: torch.Tensor, *, form=None) -> torch.Tensor:
+    """Ortho forward DFT of real x over its last two axes, full spectrum
+    (K17). form: as for `plane_pass`."""
     m, log_n = _planes(x)
+    form, cluster = _plane_form(x.shape[-1], x.dtype, form)
     if not _route(x, "plane_pass_real_fwd"):
         return plane_pass_real_fwd_plain(x)
     is_double = _check_dtype(x, (torch.float32, torch.float64), "plane_pass_real_fwd")
-    x = x.contiguous()
+    x = _aligned(x)
     cdtype = torch.complex128 if is_double else torch.complex64
     out = torch.empty(x.shape, dtype=cdtype, device=x.device)
+    tw = _twiddles(x.shape[-1], cdtype, x.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(x.device):
         rc = lib.msm_fft_plane_real_fwd(
-            x.data_ptr(), out.data_ptr(), m, log_n, is_double, _stream(x)
+            x.data_ptr(), out.data_ptr(), m, log_n, is_double, cluster,
+            None if tw is None else tw.data_ptr(), _stream(x),
         )
     build.check(rc, "plane_pass_real_fwd")
     launches["plane_pass_real_fwd"] += 1
+    form_launches[f"plane_pass_real_fwd/{form}"] += 1
     return out
 
 
-def plane_pass_real_inv(z: torch.Tensor) -> torch.Tensor:
+def plane_pass_real_inv(z: torch.Tensor, *, form=None) -> torch.Tensor:
     """Real part of the ortho inverse DFT of complex z over its last two
-    axes (K9)."""
+    axes (K9). form: as for `plane_pass`; the split form goes through a
+    complex scratch grid, the cluster form through none."""
     m, log_n = _planes(z)
+    form, cluster = _plane_form(z.shape[-1], z.dtype, form)
     if not _route(z, "plane_pass_real_inv"):
         return plane_pass_real_inv_plain(z)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_pass_real_inv")
-    z = z.contiguous()
-    tmp = torch.empty_like(z)
+    z = _aligned(z)
+    tmp = None if cluster else torch.empty_like(z)
     out = torch.empty(z.shape, dtype=z.real.dtype, device=z.device)
+    tw = _twiddles(z.shape[-1], z.dtype, z.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(z.device):
         rc = lib.msm_fft_plane_real_inv(
-            z.data_ptr(), tmp.data_ptr(), out.data_ptr(), m, log_n, is_double, _stream(z)
+            z.data_ptr(), None if tmp is None else tmp.data_ptr(), out.data_ptr(), m, log_n,
+            is_double, cluster, None if tw is None else tw.data_ptr(), _stream(z),
         )
     build.check(rc, "plane_pass_real_inv")
     launches["plane_pass_real_inv"] += 1
+    form_launches[f"plane_pass_real_inv/{form}"] += 1
     return out
 
 

@@ -2,12 +2,14 @@
 // plane_cluster.cuh), built and run by scripts/torch_probe_plane_cluster.py.
 // complex64, N = 256, 8 blocks a plane.
 //
-// K6 (plane_stage): one kernel with the production kernel's building
-// blocks, stopped after a given stage: 0 the load and the store alone, 1
-// with the row transform, 2 with the swap across the cluster, 3 the whole
-// 2-axis forward. Every variant moves the same bytes in the same pattern
-// (the same load and the same column-chunk store), so the differences are
-// the stages' own time.
+// K6, K17 and K9 (plane_stage): one kernel with the production kernel's
+// building blocks (plane_cluster_kernel's load through VIN, rows_to_columns'
+// passes and swap, store_columns through VOUT), stopped after a given
+// stage: 0 the load and the store alone, 1 with the row transform, 2 with
+// the swap across the cluster, 3 the whole 2-axis transform (K6 and K17
+// forward, K9 inverse). Every variant of a kernel moves the same bytes in
+// the same pattern (the same load and the same column-chunk store), so the
+// differences are the stages' own time; K17 loads and K9 stores reals.
 //
 // The inverse -> middle -> forward plane of K4, K2 and K10 (chain_stage):
 // 0 the load and the store alone (2 grids), 1 with the inverse (rows, swap,
@@ -27,9 +29,10 @@
 
 namespace {
 
-template <int STAGE>
+template <int STAGE, bool INV, typename VIN, typename VOUT>
 __global__ void __launch_bounds__(kClusterThreads, 3)
-    plane_stage_kernel(const float2* in, float2* out, const float2* twg) {
+    plane_stage_kernel(const typename VIN::elem* in, typename VOUT::elem* out,
+                       const float2* twg) {
   constexpr int N = 256, CL = 8, R = N / CL;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* s = reinterpret_cast<float2*>(smem);
@@ -38,31 +41,47 @@ __global__ void __launch_bounds__(kClusterThreads, 3)
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t plane = blockIdx.x / CL;
   load_twiddles<float, N>(tw, twg);
-  load_rows_transposed<float, N, R>(s, in + (plane * N + rank * R) * N);
+  load_rows_transposed<float, N, R, VIN>(s, in + (plane * N + rank * R) * N);
   __syncthreads();
-  if constexpr (STAGE >= 1) slab_fft<float, N, false, true, RowLines<N>>(s, tw, R);
+  if constexpr (STAGE >= 1) slab_fft<float, N, INV, true, RowLines<N>>(s, tw, R);
   if constexpr (STAGE >= 2) {
     cluster.sync();
     swap_tiles<float, N, CL, kSwapOnePass>(cluster, s, rank);
     cluster.sync();
   }
-  if constexpr (STAGE >= 3) slab_fft<float, N, false, false, ColLines<N, R>>(s, tw, R);
-  float4* dst = reinterpret_cast<float4*>(out + plane * N * N + rank * R);
-  for (int i = threadIdx.x; i < R * N / 2; i += kClusterThreads) {
-    const int f = i * 2 / R;
-    const int w = i * 2 % R;
-    const float2 a = cscale(s[ColLines<N, R>::at(w, transposed<N>(f))], 1.0f / N);
-    const float2 b = cscale(s[ColLines<N, R>::at(w + 1, transposed<N>(f))], 1.0f / N);
-    dst[(f * N + w) / 2] = make_float4(a.x, a.y, b.x, b.y);
-  }
+  if constexpr (STAGE >= 3) slab_fft<float, N, INV, false, ColLines<N, R>>(s, tw, R);
+  store_columns<float, N, VOUT>(out + plane * N * N + rank * R, s, 1.0f / N);
 }
 
-template <int STAGE>
+enum PlaneKind { kPlaneK6, kPlaneK17, kPlaneK9 };
+
+// plane_stage_kernel's arguments of a kind: K6 and K17 forward, K9 inverse;
+// K17 real in, K9 real out.
+template <int KIND>
+struct StageArgs {
+  static constexpr bool kInv = KIND == kPlaneK9;
+  using VIN = std::conditional_t<KIND == kPlaneK17, RealVec<float>, Vec<float>>;
+  using VOUT = std::conditional_t<KIND == kPlaneK9, RealVec<float>, Vec<float>>;
+};
+template <int KIND, int STAGE>
 cudaError_t launch_stage(const void* in, void* out, const void* tw, int64_t m,
                          cudaStream_t stream) {
-  return launch_cluster<plane_stage_kernel<STAGE>>(
-      m, 8, cluster_smem<float, 256>(), stream, static_cast<const float2*>(in),
-      static_cast<float2*>(out), static_cast<const float2*>(tw));
+  using A = StageArgs<KIND>;
+  return launch_cluster<plane_stage_kernel<STAGE, A::kInv, typename A::VIN, typename A::VOUT>>(
+      m, 8, cluster_smem<float, 256>(), stream, static_cast<const typename A::VIN::elem*>(in),
+      static_cast<typename A::VOUT::elem*>(out), static_cast<const float2*>(tw));
+}
+
+template <int KIND>
+cudaError_t plane_kind(int stage, const void* in, void* out, const void* tw, int64_t m,
+                       cudaStream_t s) {
+  switch (stage) {
+    case 0: return launch_stage<KIND, 0>(in, out, tw, m, s);
+    case 1: return launch_stage<KIND, 1>(in, out, tw, m, s);
+    case 2: return launch_stage<KIND, 2>(in, out, tw, m, s);
+    case 3: return launch_stage<KIND, 3>(in, out, tw, m, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 enum ChainKind { kChainK4, kChainK2, kChainK10 };
@@ -150,15 +169,26 @@ cudaError_t resources(int* fields) {
   return err;
 }
 
+template <int KIND, int STAGE>
+cudaError_t stage_resources(int* fields) {
+  using A = StageArgs<KIND>;
+  return resources<plane_stage_kernel<STAGE, A::kInv, typename A::VIN, typename A::VOUT>, float,
+                   256>(fields);
+}
+
 template <typename T>
 cudaError_t kernel_resources(int which, int log_n, int* fields) {
   return by_plane_size<T>(log_n, log_n == 8 ? 8 : cluster_size<T, 128>(), [=](auto n) {
     constexpr int N = decltype(n)::value;
     switch (which) {
-      case 0: return resources<plane_cluster_kernel<T, N, false>, T, N>(fields);
+      case 0: return resources<plane_cluster_kernel<T, N, false, Vec<T>, Vec<T>>, T, N>(fields);
       case 1: return resources<plane_potkick_cluster_kernel<T, N>, T, N>(fields);
       case 2: return resources<plane_inv_density_cluster_kernel<T, N, true>, T, N>(fields);
       case 3: return resources<plane_inv_density_cluster_kernel<T, N, false>, T, N>(fields);
+      case 4:
+        return resources<plane_cluster_kernel<T, N, false, RealVec<T>, Vec<T>>, T, N>(fields);
+      case 5:
+        return resources<plane_cluster_kernel<T, N, true, Vec<T>, RealVec<T>>, T, N>(fields);
     }
     return cudaErrorInvalidValue;
   });
@@ -204,25 +234,45 @@ int chain_stage_resources(int kind, int stage, int* fields) {
   return static_cast<int>(err);
 }
 
-// which: 0 K6 (forward), 1 K4, 2 K2, 3 K10; log_n 7 or 8; fields: 5 ints
-// (see resources).
+// which: 0 K6 (forward), 1 K4, 2 K2, 3 K10, 4 K17, 5 K9; log_n 7 or 8;
+// fields: 5 ints (see resources).
 int cluster_kernel_resources(int which, int is_double, int log_n, int* fields) {
   return static_cast<int>(is_double ? kernel_resources<double>(which, log_n, fields)
                                     : kernel_resources<float>(which, log_n, fields));
 }
 
-
-// in, out: (m, 256, 256) complex64; tw: (256,) w_256^k; stage 0..3.
-int plane_stage(int stage, const void* in, void* out, const void* tw, int64_t m,
+// kind 0 K6, 1 K17, 2 K9; stage 0..3. in, out: (m, 256, 256) complex64,
+// but float32 for K17's in and K9's out; tw: (256,) w_256^k.
+int plane_stage(int kind, int stage, const void* in, void* out, const void* tw, int64_t m,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (stage) {
-    case 0: return static_cast<int>(launch_stage<0>(in, out, tw, m, s));
-    case 1: return static_cast<int>(launch_stage<1>(in, out, tw, m, s));
-    case 2: return static_cast<int>(launch_stage<2>(in, out, tw, m, s));
-    case 3: return static_cast<int>(launch_stage<3>(in, out, tw, m, s));
+  switch (kind) {
+    case kPlaneK6: return static_cast<int>(plane_kind<kPlaneK6>(stage, in, out, tw, m, s));
+    case kPlaneK17: return static_cast<int>(plane_kind<kPlaneK17>(stage, in, out, tw, m, s));
+    case kPlaneK9: return static_cast<int>(plane_kind<kPlaneK9>(stage, in, out, tw, m, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The resources fields of plane_stage's variant (kind, stage).
+int plane_stage_resources(int kind, int stage, int* fields) {
+  auto of = [&](auto kernel_kind) {
+    constexpr int K = decltype(kernel_kind)::value;
+    switch (stage) {
+      case 0: return stage_resources<K, 0>(fields);
+      case 1: return stage_resources<K, 1>(fields);
+      case 2: return stage_resources<K, 2>(fields);
+      case 3: return stage_resources<K, 3>(fields);
+    }
+    return cudaErrorInvalidValue;
+  };
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (kind) {
+    case kPlaneK6: err = of(std::integral_constant<int, kPlaneK6>{}); break;
+    case kPlaneK17: err = of(std::integral_constant<int, kPlaneK17>{}); break;
+    case kPlaneK9: err = of(std::integral_constant<int, kPlaneK9>{}); break;
+  }
+  return static_cast<int>(err);
 }
 
 // Clusters of 8 blocks of the full variant that fit the card at once.
@@ -238,9 +288,12 @@ int plane_stage_clusters(int* clusters) {
   cfg.dynamicSmemBytes = cluster_smem<float, 256>();
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  cudaError_t err = prepare_cluster<plane_stage_kernel<3>>(8, cfg.dynamicSmemBytes);
+  using A = StageArgs<kPlaneK6>;
+  cudaError_t err = prepare_cluster<plane_stage_kernel<3, A::kInv, A::VIN, A::VOUT>>(
+      8, cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, plane_stage_kernel<3>, &cfg));
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, plane_stage_kernel<3, A::kInv, A::VIN, A::VOUT>, &cfg));
 }
 
 }  // extern "C"

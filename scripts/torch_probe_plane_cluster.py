@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the cluster form goes, stage by stage, on one CUDA
-card: K6, and the inverse -> middle -> forward plane of K4, K2 and K10.
+card: K6, K17 and K9, and the inverse -> middle -> forward plane of K4, K2
+and K10.
 
 Run from the root of a checkout:
 
@@ -13,9 +14,12 @@ times, on `planes` (default 2304, the (9, 256^3) grid's) planes of 256^2
 complex64, the median of 20 single launches (CUDA events, as chip_smoke.py
 times a kernel) of:
 
-- K6: the load and the store alone, with the row transform, with the swap
-  across the cluster, the whole forward; beside them the shipped K6 in the
-  cluster and the forced split form and torch.fft.fft2;
+- K6, K17 (a real input) and K9 (the real part of the inverse out): the
+  load and the store alone, with the row transform, with the swap across
+  the cluster, the whole transform, each variant with its registers and
+  local (spill) bytes; beside them the shipped kernel in the cluster and
+  the forced split form and one torch.fft call (fft2 of the complex or the
+  real planes; ifft2, then .real);
 - K4, K2, K10: the load and the store alone (2 grids), with the inverse
   (rows, swap, columns), with the middle step (K4: psi read, the kick, the
   block maximum; K2: psi written, rho; K10: rho), which adds K4's and K2's
@@ -46,14 +50,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 SOURCE = os.path.join(HERE, "torch_plane_cluster_stages.cu")
-STAGES = ("load + store", "+ rows", "+ rows + swap", "+ rows + swap + columns (the forward)")
+STAGES = ("load + store", "+ rows", "+ rows + swap", "+ rows + swap + columns (the transform)")
 # chain_stage's kinds: the shipped kernel each one truncates
 CHAINS = ("plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only")
 CHAIN_STAGES = ("load + store", "+ inverse (rows, swap, columns)", "+ middle step",
                 "+ forward (the whole kernel)")
 # cluster_kernel_resources' kernels
 RESOURCE_KERNELS = ("plane_pass", "plane_potkick_fwd", "plane_inv_density",
-                    "plane_inv_density_rho_only")
+                    "plane_inv_density_rho_only", "plane_pass_real_fwd", "plane_pass_real_inv")
 N = 256
 TIMED = 20
 
@@ -83,7 +87,9 @@ def load_stages(work: str) -> ctypes.CDLL:
         check=True,
     )
     lib = ctypes.CDLL(lib_path)
-    lib.plane_stage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+    lib.plane_stage.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                                + [ctypes.c_int64, ctypes.c_void_p])
+    lib.plane_stage_resources.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.plane_stage_clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.chain_stage.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
                                 + [ctypes.c_int64, ctypes.c_void_p])
@@ -101,6 +107,59 @@ def shipped(name: str, z, w, coeff, form=None):
     if name == "plane_inv_density":
         return mxu_fft.plane_inv_density(z, 2.0, form=form)[1]
     return mxu_fft.plane_inv_density_rho_only(z, 2.0, form=form)
+
+
+def plane_records(lib, z, tw, planes: int, stream: int, where: dict) -> list:
+    """K6, K17 and K9 by stage (with each variant's registers and local
+    bytes), and the shipped kernels in both forms beside one torch.fft
+    call."""
+    from msm_tpu_torch.ops import build, mxu_fft
+
+    x = z.real.contiguous()
+    # plane_stage's kinds in order (PlaneKind in the .cu source): the shipped
+    # kernel each one truncates -> (input, output, shipped(form), plain, one
+    # torch.fft call)
+    kinds = {
+        "plane_pass": (z, torch.empty_like(z),
+                       lambda f: mxu_fft.plane_pass(z, False, form=f),
+                       lambda: mxu_fft.plane_pass_plain(z, False)),
+        "plane_pass_real_fwd": (x, torch.empty_like(z),
+                                lambda f: mxu_fft.plane_pass_real_fwd(x, form=f),
+                                lambda: mxu_fft.plane_pass_real_fwd_plain(x)),
+        "plane_pass_real_inv": (z, torch.empty_like(x),
+                                lambda f: mxu_fft.plane_pass_real_inv(z, form=f),
+                                lambda: mxu_fft.plane_pass_real_inv_plain(z)),
+    }
+    records = []
+    for kind, (name, (src, out, ship, plain)) in enumerate(kinds.items()):
+        want = plain()
+        prev = None
+        for stage, label in enumerate(STAGES):
+            def call(kind=kind, stage=stage, src=src, out=out):
+                build.check(lib.plane_stage(kind, stage, src.data_ptr(), out.data_ptr(),
+                                            tw.data_ptr(), planes, stream), "plane_stage")
+            ms = median_ms(call)
+            f = (ctypes.c_int * 5)()
+            build.check(lib.plane_stage_resources(kind, stage, f), "plane_stage_resources")
+            rec = {"kernel": name, "what": label, "ms": ms,
+                   "stage_ms": ms - prev if prev is not None else ms,
+                   "registers": f[0], "local_bytes": f[1], **where}
+            prev = ms
+            if stage == len(STAGES) - 1:
+                call()
+                rec["max_rel_err"] = ((out - want).abs().max() / want.abs().max()).item()
+            records.append(rec)
+            print(f"{name:28s} {label:40s} {ms:.4f} ms (+{rec['stage_ms']:.4f}; "
+                  f"{f[0]} registers, {f[1]} local bytes)", flush=True)
+        del want
+        for label, fn in (("shipped, cluster form", lambda: ship(None)),
+                          ("shipped, split form", lambda: ship("split")),
+                          ("torch.fft (cuFFT)", plain)):
+            ms = median_ms(fn)
+            records.append({"kernel": name, "what": label, "ms": ms, **where})
+            print(f"{name:28s} {label:40s} {ms:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    return records
 
 
 def chain_records(lib, z, w, tw, planes: int, stream: int, where: dict) -> list:
@@ -180,37 +239,15 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     z = torch.randn((planes, N, N), dtype=torch.complex64, device="cuda", generator=gen)
-    out = torch.empty_like(z)
     tw = mxu_fft._twiddles(N, torch.complex64, z.device)
     stream = torch.cuda.current_stream().cuda_stream
-    records = []
     with tempfile.TemporaryDirectory() as work:
         lib = load_stages(work)
         clusters = ctypes.c_int(0)
         build.check(lib.plane_stage_clusters(ctypes.byref(clusters)), "plane_stage_clusters")
         print(f"{planes} planes of {N}^2 complex64; {clusters.value} clusters of 8 blocks "
               f"resident at once; {where['card']}, {where['power_limit']}", flush=True)
-        want = mxu_fft.plane_pass_plain(z, False)
-        for stage, label in enumerate(STAGES):
-            def call(stage=stage):
-                build.check(lib.plane_stage(stage, z.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                                            planes, stream), "plane_stage")
-            ms = median_ms(call)
-            rec = {"what": label, "ms": ms, **where}
-            if stage == len(STAGES) - 1:
-                rec["max_rel_err"] = ((out - want).abs().max() / want.abs().max()).item()
-            records.append(rec)
-            print(f"{label:40s} {ms:.4f} ms", flush=True)
-        for label, fn in (
-            ("K6 plane_pass (cluster form)", lambda: mxu_fft.plane_pass(z, False)),
-            ("K6 plane_pass (forced split form)",
-             lambda: mxu_fft.plane_pass(z, False, form="split")),
-            ("torch.fft.fft2 (cuFFT)", lambda: torch.fft.fft2(z, norm="ortho")),
-        ):
-            ms = median_ms(fn)
-            records.append({"what": label, "ms": ms, **where})
-            print(f"{label:40s} {ms:.4f} ms", flush=True)
-        del want
+        records = plane_records(lib, z, tw, planes, stream, where)
         w = torch.randn(z.shape, dtype=z.dtype, device="cuda", generator=gen)
         chains = chain_records(lib, z, w, tw, planes, stream, where)
         resources = resource_records(lib, where)

@@ -1,5 +1,6 @@
-"""The cluster form of K6 (plane_pass), K4 (plane_potkick_fwd), K2
-(plane_inv_density) and K10 (plane_inv_density_rho_only).
+"""The cluster form of K6 (plane_pass), K17 (plane_pass_real_fwd), K9
+(plane_pass_real_inv), K4 (plane_potkick_fwd), K2 (plane_inv_density) and
+K10 (plane_inv_density_rho_only).
 
 A CUDA kernel cannot run here, so a plain numpy model of its decomposition
 (`csrc/plane_cluster.cuh`) lives in this file, with the kernel's index and
@@ -8,12 +9,14 @@ length-N transform as two radix passes N = A * B in place (decimation in
 frequency: natural in, position B k1 + k2 holding frequency k1 + A k2;
 decimation in time: the reverse), rows scattered into that order on load,
 the tile swap across the blocks that turns row slabs into column slabs and
-back, the column chunks K6 stores, K4's inverse -> kick -> forward with
+back, the column chunks K6 stores, K17's real load (16-byte vectors of
+reals scattered with imaginary part 0) and K9's real store (the real part
+of the column lines in runs of R), K4's inverse -> kick -> forward with
 psi read at each position's spatial (row, column), and K2's and K10's
 inverse -> density -> forward with psi written there (K2). The model is
 held against numpy's FFTs and the port's plain versions at N = 128 and 256
-with C in {2, 4, 8}, and against the JAX package's K6, K4, K2 and K10
-(Pallas interpret mode, x64, as its own tests run them) at N = 128, mapped
+with C in {2, 4, 8}, and against the JAX package's K6, K17, K9, K4, K2 and
+K10 (Pallas interpret mode, x64, as its own tests run them) at N = 128, mapped
 with `convert.to_engine` / `to_natural`. All in complex128: the model and
 the references are the same DFTs, 1e-12 of max|reference|.
 
@@ -147,31 +150,100 @@ def _col_slabs(lines):
     return out
 
 
-def _inverse_to_columns(x, cl, inverse):
-    """Load scattered into transposed order, rows DIT, swap, columns DIF of
-    one (N, N) plane: each block's column lines after the first 2-axis
-    transform, (C, W, N), line position transposed(y) holding row y."""
-    n = x.shape[-1]
-    tw = _table(n, inverse)
-    slabs = np.empty((cl, n // cl, n), dtype=complex)
-    slabs[:, :, _transposed(n)] = x.reshape(cl, n // cl, n)
+def _rows_to_columns(slabs, inverse):
+    """rows_to_columns: rows DIT, swap, columns DIF of one plane's row slabs
+    (C, W, N), loaded in transposed order: each block's column lines after
+    the first 2-axis transform, (C, W, N), line position transposed(y)
+    holding row y."""
+    tw = _table(slabs.shape[-1], inverse)
     slabs = np.stack([_line_fft(blk, tw, dit=True) for blk in slabs])
     lines = _col_lines(_swap(slabs))
     return np.stack([_line_fft(blk, tw, dit=False) for blk in lines])
 
 
+def _inverse_to_columns(x, cl, inverse):
+    """Load scattered into transposed order, then rows_to_columns, of one
+    (N, N) complex plane."""
+    n = x.shape[-1]
+    slabs = np.empty((cl, n // cl, n), dtype=complex)
+    slabs[:, :, _transposed(n)] = x.reshape(cl, n // cl, n)
+    return _rows_to_columns(slabs, inverse)
+
+
+def _store_columns(lines):
+    """K6's store: output row f from line position transposed(f), block r
+    writing columns [W r, W r + W); the (N, N) plane."""
+    cl, w, n = lines.shape
+    out = np.empty((n, n), dtype=lines.dtype)
+    for r in range(cl):
+        out[:, r * w:(r + 1) * w] = lines[r][:, _transposed(n)].T
+    return out
+
+
 def model_plane(x, cl, inverse):
     """K6's cluster form on planes x (m, N, N)."""
     n = x.shape[-1]
-    w = n // cl
-    out = np.empty_like(x)
+    return np.stack([_store_columns(_inverse_to_columns(p, cl, inverse) / n) for p in x])
+
+
+def _real_load(plane, cl, e):
+    """K17's load (load_rows_transposed with RealVec) of a real (N, N)
+    plane: block r's R contiguous rows as vectors of E reals, the vector's
+    element k (slab index x = v E + k) at slab row x // N, position
+    transposed(x % N), imaginary part 0. Returns the row slabs (C, R, N)
+    and how often each slab position was written."""
+    n = plane.shape[-1]
+    rows = n // cl
+    slabs = np.full((cl, rows, n), np.nan, dtype=complex)
+    writes = np.zeros(slabs.shape, dtype=int)
+    vectors = np.arange(rows * n).reshape(-1, e)
+    for r in range(cl):
+        src = plane[r * rows:(r + 1) * rows].reshape(-1)
+        for k in range(e):
+            x = vectors[:, k]
+            at = (x // n, _transposed(n)[x % n])
+            slabs[r][at] = src[x] + 0j
+            np.add.at(writes[r], at, 1)
+    return slabs, writes
+
+
+def _real_store(lines, e):
+    """K9's store (store_columns with RealVec): block r's vector i < R N / E
+    is output row f = i E // R, columns R r + i E % R + k (k < E), the real
+    parts of lines i E % R + k at position transposed(f). Returns the real
+    (N, N) plane and how often each element was written."""
+    cl, rows, n = lines.shape
+    out = np.full((n, n), np.nan)
+    writes = np.zeros((n, n), dtype=int)
+    i = np.arange(rows * n // e)
+    f, w = i * e // rows, i * e % rows
+    for r in range(cl):
+        for k in range(e):
+            at = (f, r * rows + w + k)
+            out[at] = lines[r][w + k, _transposed(n)[f]].real
+            np.add.at(writes, at, 1)
+    return out, writes
+
+
+def model_real_fwd(x, cl, e):
+    """K17's cluster form on real planes x (m, N, N), E reals a vector:
+    (the spectra, each slab position's load writes per plane)."""
+    n = x.shape[-1]
+    out = np.empty(x.shape, dtype=complex)
+    writes = []
     for i, plane in enumerate(x):
-        lines = _inverse_to_columns(plane, cl, inverse) / n
-        # the store: output row f from line position transposed(f), block r
-        # writing columns [W r, W r + W)
-        for r in range(cl):
-            out[i][:, r * w:(r + 1) * w] = lines[r][:, _transposed(n)].T
-    return out
+        slabs, wr = _real_load(plane, cl, e)
+        out[i] = _store_columns(_rows_to_columns(slabs, False) / n)
+        writes.append(wr)
+    return out, np.stack(writes)
+
+
+def model_real_inv(z, cl, e):
+    """K9's cluster form on planes z (m, N, N), E reals a vector: (the real
+    planes, each output element's store writes per plane)."""
+    n = z.shape[-1]
+    planes = [_real_store(_inverse_to_columns(p, cl, True) / n, e) for p in z]
+    return np.stack([p for p, _ in planes]), np.stack([w for _, w in planes])
 
 
 def _columns_to_plane(lines):
@@ -238,6 +310,53 @@ def test_model_plane_matches_numpy(rng, n, cl, inverse):
     _close(model_plane(x, cl, inverse), want)
 
 
+# reals a 16-byte vector: float32, float64
+REAL_ELEMS = (4, 2)
+
+
+@pytest.mark.parametrize("e", REAL_ELEMS)
+@pytest.mark.parametrize("n,cl", CASES)
+def test_model_real_fwd_matches_numpy_and_plain(rng, n, cl, e):
+    """K17's decomposition (the real load, K6's rows -> swap -> columns and
+    store) is numpy's ortho fft2 of the real plane and the port's plain
+    version; the load writes every slab position exactly once."""
+    x = rng.standard_normal((2, n, n))
+    got, writes = model_real_fwd(x, cl, e)
+    _close(got, np.fft.fft2(x, norm="ortho"))
+    _close(got, mxu_fft.plane_pass_real_fwd_plain(torch.as_tensor(x)).numpy())
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("e", REAL_ELEMS)
+@pytest.mark.parametrize("n,cl", CASES)
+def test_model_real_inv_matches_numpy_and_plain(rng, n, cl, e):
+    """K9's decomposition (K6's load, rows -> swap -> columns inverse, the
+    real store in runs of R) is the real part of numpy's ortho ifft2 and
+    the port's plain version; the store writes every element exactly
+    once."""
+    z = _complex(rng, (2, n, n))
+    got, writes = model_real_inv(z, cl, e)
+    _close(got, np.fft.ifft2(z, norm="ortho").real)
+    _close(got, mxu_fft.plane_pass_real_inv_plain(torch.as_tensor(z)).numpy())
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_vectors_fill_whole_batches_and_runs(n, dtype):
+    """The kernels' static shapes at every (N, dtype) the cluster form
+    takes: the loads (K6's complex vectors, K17's real ones) come in whole
+    batches of kBatch = 8 vectors a thread of 256, and the stores (K6's,
+    K9's real runs of R) in whole vectors, so no vector crosses a run."""
+    _, cl = mxu_fft._plane_form(n, dtype)
+    rows = n // cl
+    assert rows in (32, 64)
+    single = dtype == torch.complex64
+    for e in ((2, 4) if single else (1, 2)):  # complex, real elements a vector
+        assert rows * n // e % (256 * 8) == 0
+        assert rows % e == 0
+
+
 @pytest.mark.parametrize("n,cl", CASES)
 def test_model_potkick_matches_plain(rng, n, cl):
     """K4's decomposition (DIF inverse, the kick at each position's spatial
@@ -268,6 +387,34 @@ def test_model_plane_matches_jax(rng, cl, inverse):
     if not inverse:
         want = convert.to_natural(want, 2)
     _close(model_plane(x, cl, inverse), want)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_real(inverse):
+    """JAX's K17 (a real input) or K9 at N = 128 on two seeded planes: (the
+    input, the output in natural k order or real)."""
+    rng = np.random.default_rng(98)
+    if inverse:
+        z = _complex(rng, (2, 128, 128))
+        out = jmxu._axis_pass_fused2_real(_planar(convert.to_engine(z, 2)), inverse=True)
+        return z, np.asarray(out)
+    x = rng.standard_normal((2, 128, 128))
+    jr, ji = jmxu._axis_pass_fused2_real(jnp.asarray(x), inverse=False)
+    return x, convert.to_natural(_joined((jr, ji)), 2)
+
+
+@pytest.mark.parametrize("cl", [2, 4, 8])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_model_real_matches_jax(cl, inverse):
+    """K17 and K9 against `_axis_pass_fused2_real` at N = 128 (engine k
+    order mapped), with the float32 (K17 load) and float64 (K9 store)
+    vector widths."""
+    x, want = _jax_real(inverse)
+    if inverse:
+        got, _ = model_real_inv(x, cl, 2)
+    else:
+        got, _ = model_real_fwd(x, cl, 4)
+    _close(got, want)
 
 
 @pytest.mark.parametrize("cl", [2, 4, 8])
@@ -350,6 +497,8 @@ def test_plane_form_dispatch(n, cdtype):
     about 70 KB of shared memory a block), the split form above; "split"
     can be forced at every size, "cluster" only where the shape takes it."""
     form, cl = mxu_fft._plane_form(n, cdtype)
+    # K17's real operand takes its complex counterpart's form
+    assert mxu_fft._plane_form(n, torch.empty(0, dtype=cdtype).real.dtype) == (form, cl)
     if n == 256:
         assert (form, cl) == ("cluster", 8)
     elif n == 128:
@@ -373,6 +522,8 @@ def test_plane_form_dispatch(n, cdtype):
     z = torch.zeros((1, n, n), dtype=cdtype, device="meta")
     calls = {
         "plane_pass": lambda f: mxu_fft.plane_pass(z, False, form=f),
+        "plane_pass_real_fwd": lambda f: mxu_fft.plane_pass_real_fwd(z.real, form=f),
+        "plane_pass_real_inv": lambda f: mxu_fft.plane_pass_real_inv(z, form=f),
         "plane_potkick_fwd": lambda f: mxu_fft.plane_potkick_fwd(z, z, torch.zeros(1), form=f),
         "plane_inv_density": lambda f: mxu_fft.plane_inv_density(z, 1.0, form=f),
         "plane_inv_density_rho_only": lambda f: mxu_fft.plane_inv_density_rho_only(z, 1.0, form=f),
@@ -433,6 +584,10 @@ def test_wrappers_take_a_form_on_the_cpu(rng):
     mxu_fft.reset_launches()
     for form in (None, "split", "cluster"):
         _close(mxu_fft.plane_pass(z, True, form=form).numpy(), mxu_fft.plane_pass_plain(z, True).numpy())
+        _close(mxu_fft.plane_pass_real_fwd(z.real, form=form).numpy(),
+               mxu_fft.plane_pass_real_fwd_plain(z.real).numpy())
+        _close(mxu_fft.plane_pass_real_inv(z, form=form).numpy(),
+               mxu_fft.plane_pass_real_inv_plain(z).numpy())
         out, mx = mxu_fft.plane_potkick_fwd(z, w, c, form=form)
         want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, c)
         _close(out.numpy(), want.numpy())
@@ -447,6 +602,10 @@ def test_wrappers_take_a_form_on_the_cpu(rng):
     big = torch.zeros((1, 512, 512), dtype=torch.complex64)
     with pytest.raises(ValueError, match="no 'cluster' form"):
         mxu_fft.plane_pass(big, False, form="cluster")
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_pass_real_fwd(big.real, form="cluster")
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_pass_real_inv(big, form="cluster")
     with pytest.raises(ValueError, match="no 'cluster' form"):
         mxu_fft.plane_potkick_fwd(big, big, torch.zeros(1), form="cluster")
     with pytest.raises(ValueError, match="no 'cluster' form"):
@@ -544,17 +703,64 @@ def test_cuda_inv_density_cluster_form_matches_plain_and_split(cuda_device, rng,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("m,n", [(7, 128), (5, 256)])
+def test_cuda_real_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype, m, n):
+    """K17 and K9 in the cluster form against the plain version and the
+    forced split form on the card (one-transform gates), on a ragged plane
+    count: K17 of a real view (`z.real`, strided) and of a contiguous view
+    whose data start 4 bytes off 16 (both copied to an aligned operand by
+    the wrapper), K9 of an off-16 complex view; each launch counted under
+    its form."""
+    z, _, _ = _card_inputs(cuda_device, rng, cdtype, (m, n, n))
+    flat = torch.empty(m * n * n + 1, dtype=z.real.dtype, device=cuda_device)
+    x_off = flat[1:].view(m, n, n)
+    x_off.copy_(z.real)
+    flat_z = torch.empty(m * n * n + 1, dtype=cdtype, device=cuda_device)
+    z_off = flat_z[1:].view(m, n, n)
+    z_off.copy_(z)
+    assert x_off.data_ptr() % 16 and (cdtype == torch.complex128 or z_off.data_ptr() % 16)
+    mxu_fft.reset_launches()
+    fwd = mxu_fft.plane_pass_real_fwd(z.real)
+    fwd_off = mxu_fft.plane_pass_real_fwd(x_off)
+    fwd_s = mxu_fft.plane_pass_real_fwd(z.real, form="split")
+    inv = mxu_fft.plane_pass_real_inv(z)
+    inv_off = mxu_fft.plane_pass_real_inv(z_off)
+    inv_s = mxu_fft.plane_pass_real_inv(z, form="split")
+    torch.cuda.synchronize()
+    want_fwd = mxu_fft.plane_pass_real_fwd_plain(z.real)
+    want_inv = mxu_fft.plane_pass_real_inv_plain(z)
+    _card_close(fwd, want_fwd, K6_RTOL[cdtype], "plane_pass_real_fwd")
+    _card_close(fwd_off, want_fwd, K6_RTOL[cdtype], "plane_pass_real_fwd off 16 bytes")
+    _card_close(fwd, fwd_s, K6_RTOL[cdtype], "plane_pass_real_fwd vs split")
+    _card_close(inv, want_inv, K6_RTOL[cdtype], "plane_pass_real_inv")
+    _card_close(inv_off, want_inv, K6_RTOL[cdtype], "plane_pass_real_inv off 16 bytes")
+    _card_close(inv, inv_s, K6_RTOL[cdtype], "plane_pass_real_inv vs split")
+    assert {k: c for k, c in mxu_fft.form_launches.items() if c} == {
+        "plane_pass_real_fwd/cluster": 2, "plane_pass_real_fwd/split": 1,
+        "plane_pass_real_inv/cluster": 2, "plane_pass_real_inv/split": 1,
+    }
+    assert torch.equal(mxu_fft.plane_pass_real_fwd(z.real), fwd)
+    assert torch.equal(mxu_fft.plane_pass_real_inv(z), inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
 def test_cuda_split_form_at_512(cuda_device, rng, cdtype):
-    """N = 512 keeps the split form: K6, K4, K2 and K10 against their plain
-    versions."""
+    """N = 512 keeps the split form: K6, K17, K9, K4, K2 and K10 against
+    their plain versions."""
     z, w, coeff = _card_inputs(cuda_device, rng, cdtype, (2, 512, 512))
     mxu_fft.reset_launches()
     got = mxu_fft.plane_pass(z, False)
+    fwd = mxu_fft.plane_pass_real_fwd(z.real)
+    inv = mxu_fft.plane_pass_real_inv(z)
     out, mx = mxu_fft.plane_potkick_fwd(z, w, coeff)
     psi, rho = mxu_fft.plane_inv_density(z, 3.0)
     rho10 = mxu_fft.plane_inv_density_rho_only(z, 3.0)
     torch.cuda.synchronize()
     _card_close(got, mxu_fft.plane_pass_plain(z, False), K6_RTOL[cdtype], "plane_pass")
+    _card_close(fwd, mxu_fft.plane_pass_real_fwd_plain(z.real), K6_RTOL[cdtype],
+                "plane_pass_real_fwd")
+    _card_close(inv, mxu_fft.plane_pass_real_inv_plain(z), K6_RTOL[cdtype], "plane_pass_real_inv")
     want, want_mx = mxu_fft.plane_potkick_fwd_plain(z, w, coeff)
     _card_close(out, want, K4_RTOL[cdtype], "plane_potkick_fwd")
     _card_close(mx, want_mx, K4_RTOL[cdtype], "plane_potkick_fwd maxima")
@@ -563,6 +769,7 @@ def test_cuda_split_form_at_512(cuda_device, rng, cdtype):
     _card_close(rho, want_rho, K4_RTOL[cdtype], "plane_inv_density rho")
     _card_close(rho10, want_rho, K4_RTOL[cdtype], "plane_inv_density_rho_only")
     assert {k: n for k, n in mxu_fft.form_launches.items() if n} == {
-        "plane_pass/split": 1, "plane_potkick_fwd/split": 1,
-        "plane_inv_density/split": 1, "plane_inv_density_rho_only/split": 1,
+        "plane_pass/split": 1, "plane_pass_real_fwd/split": 1, "plane_pass_real_inv/split": 1,
+        "plane_potkick_fwd/split": 1, "plane_inv_density/split": 1,
+        "plane_inv_density_rho_only/split": 1,
     }
