@@ -39,7 +39,12 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             plane_inv_density_rho_only and K11 plane_real_inv_max (and K1
             without its sums), and the unskewed step's K12 axis_inv_kick and
             K13 axis_fwd_reduce at (9, 256^3) and (3, 512^3), every output
-            (fields, the sums, the maxima) against the plain version; the
+            (fields, the sums, the maxima) against the plain version; K1,
+            K3, K8 and K13 take the radix form (axis_roundtrip_radix_kernel)
+            and at (9, 256^3) c64 their forced stages forms are timed too
+            (`axis_roundtrip_kick/stages`, `axis_roundtrip_poisson/stages`,
+            `axis_fwd_reduce/stages`, `axis_roundtrip_map/stages`:
+            axis_roundtrip_kernel, the before of the radix form's after); the
             lane kernels K14 lane_pass, K15 lane_pass_real_fwd and K16
             lane_pass_real_inv at (256, 1024) (the 1-D main run's) and
             (9 * 256^2, 256) (the 3-D grid's bytes), each in the radix form
@@ -88,8 +93,10 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             unskewed runs, every K10 launch of the exact run and every K6,
             K17 and K9 launch of the unfused `mxu` run took the cluster
             form, and that
-            every K14-K16 launch of the 1-D run took the radix form; then
-            compares the runs
+            every K14-K16 launch of the 1-D run took the radix form, as did
+            every K1, K3 and K8 launch of the fused and exact runs and every
+            K3, K13 and K8 launch of the unskewed run; then compares the
+            runs
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
@@ -98,7 +105,8 @@ the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2 and K10 with
-their form, cluster size and the forced split form's median, `split_ms`; K14-K16 with
+their form, cluster size and the forced split form's median, `split_ms`; K1, K3,
+K8 and K13 with their form and the forced stages form's median, `stages_ms`; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
 1024), and their medians at (9 * 256^2, 256) under `grid`); and last
@@ -132,6 +140,8 @@ COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
 LANE_SOURCE = "msm_tpu_torch/ops/csrc/lane_radix.cuh"
+# K1, K3, K8 and K13: the radix form
+AXIS_SOURCE = "msm_tpu_torch/ops/csrc/axis_radix.cuh"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
@@ -141,16 +151,16 @@ KERNELS = {
     "plane_pass": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
     "plane_pass_real_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
     "plane_pass_real_inv": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
-    "axis_roundtrip_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:565"),
+    "axis_roundtrip_kick": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:565"),
     "plane_inv_density": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
-    "axis_roundtrip_poisson": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
+    "axis_roundtrip_poisson": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
     "plane_potkick_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
     "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
-    "axis_roundtrip_map": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
+    "axis_roundtrip_map": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
     "plane_inv_density_rho_only": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
     "plane_real_inv_max": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
     "axis_inv_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
-    "axis_fwd_reduce": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
+    "axis_fwd_reduce": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
     "lane_pass": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:339"),
     "lane_pass_real_fwd": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:399"),
     "lane_pass_real_inv": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:412"),
@@ -551,10 +561,13 @@ def phase_kernels(card: dict) -> dict:
 
 def _form(name: str, n: int, cdtype, forced=None) -> dict:
     """The form fields of a plane kernel's record (K6, K17, K9, K4, K2,
-    K10; none for other kernels)."""
+    K10) and of a round trip's (K1, K3, K8, K13); none for other kernels."""
     from msm_tpu_torch.ops import mxu_fft
 
-    if name.split("/")[0] not in mxu_fft.PLANE_FORM_KERNELS:
+    base = name.split("/")[0]
+    if base in mxu_fft.AXIS_FORM_KERNELS:
+        return {"form": mxu_fft._axis_form(forced)}
+    if base not in mxu_fft.PLANE_FORM_KERNELS:
         return {}
     form, cluster = mxu_fft._plane_form(n, cdtype, forced)
     return {"form": form, "cluster": cluster}
@@ -887,10 +900,22 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.axis_fwd_reduce_plain(z, s0, s12, cut),
             [z, s0, s12], trip / 2 + 7.0 * cells,
         ),
+        # K13's forced stages form (timed at the main shape only)
+        "axis_fwd_reduce/stages": (
+            lambda: mxu_fft.axis_fwd_reduce(z, s0, s12, cut, form="stages"),
+            lambda: mxu_fft.axis_fwd_reduce_plain(z, s0, s12, cut),
+            [z, s0, s12], trip / 2 + 7.0 * cells,
+        ),
         # the epilogue: |y|^2 and its sums (5), the band test (2), the two
         # factors' product and the complex product (12)
         "axis_roundtrip_kick": (
             lambda: mxu_fft.axis_roundtrip_kick(z, s0, s12, kcoeff, cut),
+            lambda: mxu_fft.axis_roundtrip_kick_plain(z, s0, s12, f0, f12, cut),
+            [z, s0, s12, f0, f12], trip + 19.0 * cells,
+        ),
+        # K1's forced stages form (timed at the main shape only)
+        "axis_roundtrip_kick/stages": (
+            lambda: mxu_fft.axis_roundtrip_kick(z, s0, s12, kcoeff, cut, form="stages"),
             lambda: mxu_fft.axis_roundtrip_kick_plain(z, s0, s12, f0, f12, cut),
             [z, s0, s12, f0, f12], trip + 19.0 * cells,
         ),
@@ -909,6 +934,12 @@ def _fused_cases(shape, cdtype, gen) -> dict:
         # k^2 (1), the division (1), the scaling (2)
         "axis_roundtrip_poisson": (
             lambda: mxu_fft.axis_roundtrip_poisson(z, s0, s12, 1.0),
+            lambda: mxu_fft.axis_roundtrip_poisson_plain(z, s0, s12, 1.0),
+            [z, s0, s12], trip + 4.0 * cells,
+        ),
+        # K3's forced stages form (timed at the main shape only)
+        "axis_roundtrip_poisson/stages": (
+            lambda: mxu_fft.axis_roundtrip_poisson(z, s0, s12, 1.0, form="stages"),
             lambda: mxu_fft.axis_roundtrip_poisson_plain(z, s0, s12, 1.0),
             [z, s0, s12], trip + 4.0 * cells,
         ),
@@ -936,12 +967,19 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.axis_roundtrip_map_plain(z, pmap),
             [z, pmap], trip + 2.0 * cells,
         ),
+        # K8's forced stages form (timed at the main shape only)
+        "axis_roundtrip_map/stages": (
+            lambda: mxu_fft.axis_roundtrip_map(z, pmap, form="stages"),
+            lambda: mxu_fft.axis_roundtrip_map_plain(z, pmap),
+            [z, pmap], trip + 2.0 * cells,
+        ),
     }
 
 
 def phase_fused_kernels(card: dict) -> dict:
     """K1-K4, K7, K8, K10-K13 (and K1 without its sums) vs plain on the
-    card, every output; returns the main-shape complex64 measurements."""
+    card, every output, and at the main shape c64 the forced other forms
+    (`/split`, `/stages`); returns the main-shape complex64 measurements."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2025)
     main = {}
@@ -949,10 +987,12 @@ def phase_fused_kernels(card: dict) -> dict:
         for shape in FUSED_SHAPES:
             cases = _fused_cases(shape, cdtype, gen)
             if not (shape == MAIN_SHAPE and cdtype == torch.complex64):
-                for name in [k for k in cases if k.endswith("/split")]:
+                for name in [k for k in cases if k.endswith(("/split", "/stages"))]:
                     del cases[name]
             for name, (kernel, plain, inputs, ops) in cases.items():
-                limit = (FFT_LIMITS if name in ONE_TRANSFORM else FUSED_LIMITS)[cdtype]
+                limit = (FFT_LIMITS if name.split("/")[0] in ONE_TRANSFORM
+                         else FUSED_LIMITS)[cdtype]
+                forced = name.split("/")[1] if name.endswith(("/split", "/stages")) else None
                 got = kernel()
                 torch.cuda.synchronize()
                 want = plain()
@@ -976,7 +1016,7 @@ def phase_fused_kernels(card: dict) -> dict:
                     "shape": list(shape), "max_abs_err": errs[0], "errs": errs,
                     "max_abs_plain": scales, "limit_rel": limit,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                    **_form(name, shape[-1], cdtype, "split" if name.endswith("/split") else None),
+                    **_form(name, shape[-1], cdtype, forced),
                     **bnd, **card,
                 }
                 emit(rec)
@@ -1040,6 +1080,13 @@ CLUSTER_FORM = {"mxu": ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_in
 # the lane kernels whose every launch in a path's main run must take the
 # radix form (lane_fft_kernel)
 RADIX_FORM = {"mxu-1d": LANE_KERNELS}
+# the round trips whose every launch in a main run must take the radix form
+# (axis_roundtrip_radix_kernel): K1, K3 and K8 on the fused engine in either
+# dt mode, K3, K13 and K8 on the unskewed engine
+SKEW_TRIPS = ("axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_roundtrip_map")
+AXIS_RADIX_FORM = {"fused": SKEW_TRIPS, "fused-exact": SKEW_TRIPS,
+                   "unskewed-lagged": ("axis_roundtrip_poisson", "axis_fwd_reduce",
+                                       "axis_roundtrip_map")}
 
 
 @contextlib.contextmanager
@@ -1233,6 +1280,11 @@ def phase_main(card: dict, run: str) -> dict:
             check(launches[f"{k}/radix"] == launches[k] > 0 and launches[f"{k}/row"] == 0,
                   f"the {run} run launched {k} {launches[k]} times, "
                   f"{launches[f'{k}/radix']} in the radix form")
+        # and every round trip of the fused engines
+        for k in AXIS_RADIX_FORM.get(run, ()):
+            check(launches[f"{k}/radix"] == launches[k] > 0 and launches[f"{k}/stages"] == 0,
+                  f"the {run} run launched {k} {launches[k]} times, "
+                  f"{launches[f'{k}/radix']} in the radix form")
 
         runs = [f"{name}-stream{s:05d}" for s in range(1, streams + 1)] + [name]
         # a dump holds the grid's axes, padded with unit axes to four
@@ -1308,6 +1360,10 @@ def main() -> int:
                "library_ms": measured[k]["library_ms"],
                "cluster_over_split": measured[k]["ms"] / measured[f"{k}/split"]["ms"]}
            for k in mxu_fft.PLANE_FORM_KERNELS},
+        **{k: {"radix_ms": measured[k]["ms"], "stages_ms": measured[f"{k}/stages"]["ms"],
+               "plain_ms": measured[k]["plain_ms"],
+               "radix_over_stages": measured[k]["ms"] / measured[f"{k}/stages"]["ms"]}
+           for k in mxu_fft.AXIS_FORM_KERNELS},
         **{k: {"radix_ms": measured[k]["ms"], "row_ms": measured[k]["row_ms"],
                "slope_ms": measured[k]["slope_ms"], "row_slope_ms": measured[k]["row_slope_ms"],
                "library_slope_ms": measured[k]["library_slope_ms"],
@@ -1335,6 +1391,10 @@ def main() -> int:
             **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
                 "split_ms": measured[f"{k}/split"]["ms"]}
                if k in mxu_fft.PLANE_FORM_KERNELS else {}),
+            # K1, K3, K8, K13: the radix form and the forced stages form's
+            # median
+            **({"form": measured[k]["form"], "stages_ms": measured[f"{k}/stages"]["ms"]}
+               if k in mxu_fft.AXIS_FORM_KERNELS else {}),
             # K14-K16: the radix form, the forced row form's median, the
             # device slopes at (256, 1024) c64, and the medians at the 3-D
             # grid's bytes

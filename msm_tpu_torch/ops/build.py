@@ -30,11 +30,15 @@ SOURCES = tuple(
 # headers the sources include: part of the library's hash, not compiled alone
 HEADERS = tuple(
     os.path.join(_CSRC, name)
-    for name in ("fft_common.cuh", "plane_cluster.cuh", "lane_radix.cuh")
+    for name in ("fft_common.cuh", "plane_cluster.cuh", "radix16.cuh", "lane_radix.cuh",
+                 "axis_radix.cuh")
 )
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-arch=sm_90a"
-COMPILE_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-c")
+# --split-compile=0: each nvcc runs its optimizations on all CPUs. On an
+# 8-core H100 host fused_kernels.cu took 66.6 s without it and 35.4 s with
+# it, with the same registers and spills in every kernel (ptxas -v).
+COMPILE_FLAGS = ("-O3", "-std=c++17", ARCH, "--split-compile=0", "-Xcompiler", "-fPIC", "-c")
 LINK_FLAGS = (ARCH, "-shared")
 
 _lib: "ctypes.CDLL | None" = None
@@ -57,12 +61,14 @@ _SIGNATURES = {
     # is_double, cluster (0: split), twiddles, stream
     "msm_fft_plane_real_inv": [_P, _P, _P, _I64, _I, _I, _I, _P, _P],
     # in, out, b1, log_n, lanes, s0, s12, f0, f12, cutoff, partials (or None),
-    # is_double, stream
-    "msm_axis_roundtrip_kick": [_P, _P, _I64, _I, _I64, _P, _P, _P, _P, _D, _P, _I, _P],
-    # in, out, b1, log_n, lanes, s0, s12, coeff, is_double, stream
-    "msm_axis_roundtrip_poisson": [_P, _P, _I64, _I, _I64, _P, _P, _D, _I, _P],
-    # in, out, b1, log_n, lanes, map, is_double, stream
-    "msm_axis_roundtrip_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
+    # is_double, stages (0: radix), twiddles, stream
+    "msm_axis_roundtrip_kick": [_P, _P, _I64, _I, _I64, _P, _P, _P, _P, _D, _P, _I, _I, _P, _P],
+    # in, out, b1, log_n, lanes, s0, s12, coeff, is_double, stages (0:
+    # radix), twiddles, stream
+    "msm_axis_roundtrip_poisson": [_P, _P, _I64, _I, _I64, _P, _P, _D, _I, _I, _P, _P],
+    # in, out, b1, log_n, lanes, map, is_double, stages (0: radix),
+    # twiddles, stream
+    "msm_axis_roundtrip_map": [_P, _P, _I64, _I, _I64, _P, _I, _I, _P, _P],
     # in, psi, rho, m, log_n, pref, is_double, cluster (0: split), twiddles,
     # stream
     "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _I, _P, _P],
@@ -77,8 +83,9 @@ _SIGNATURES = {
     "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _P],
     # in, out, b1, log_n, lanes, f0, f12, is_double, stream
     "msm_axis_inv_kick": [_P, _P, _I64, _I, _I64, _P, _P, _I, _P],
-    # in, out, b1, log_n, lanes, s0, s12, cutoff, partials, is_double, stream
-    "msm_axis_fwd_reduce": [_P, _P, _I64, _I, _I64, _P, _P, _D, _P, _I, _P],
+    # in, out, b1, log_n, lanes, s0, s12, cutoff, partials, is_double, stages
+    # (0: radix), twiddles, stream
+    "msm_axis_fwd_reduce": [_P, _P, _I64, _I, _I64, _P, _P, _D, _P, _I, _I, _P, _P],
     # in, out, rows, log_n, inverse, is_double, row_form (0: radix), twiddles,
     # stream
     "msm_fft_lane": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],

@@ -60,19 +60,22 @@
 // 0.72 ms; K11 reads one and writes only its maxima, 0.36 ms.
 //
 // Design:
-//   round trip (axis_roundtrip_kernel): the column tile of the axis pass
-//     (fft_common.cuh: n x 128-byte rows in shared memory) loaded once, a
-//     radix-2 decimation-in-frequency forward (natural order in, bit-reversed
-//     out), the epilogue at each element's k = bitrev(row), a decimation-in-
-//     time inverse (bit-reversed in, natural out), one store: no permutation
-//     pass between the two transforms and one HBM read and write. K1's sums
-//     are accumulated in double per thread and reduced per block in a fixed
-//     order (warp shuffles, then the warps in turn); the wrapper adds the
-//     per-block partials with torch. No atomics, so runs are reproducible.
-//     K13 is the same kernel stopped after the epilogue: it stores y at its
-//     natural row k and leaves its partials from the same loop in the same
-//     order as K1, so the unskewed step's sums are bit-identical to the ones
-//     the skewed loop's K1 takes of the same field. K12 is the column pass
+//   round trip (K1, K3, K8) and K13: the radix form, axis_radix.cuh
+//     (axis_roundtrip_radix_kernel): one column tile a block, 16 elements
+//     a thread in registers, radix-16 passes with one barrier between
+//     them, the epilogue in registers at each element's frequency, one HBM
+//     read and write. K1's and K13's sums are accumulated in double per
+//     thread and reduced per block in a fixed order (warp shuffles, then
+//     the warps in turn); the wrapper adds the per-block partials with
+//     torch. No atomics, so runs are reproducible, and K13 (the same body
+//     stopped after the epilogue, y stored at its natural row k) takes its
+//     sums in the same code, so the unskewed step's sums are bit-identical
+//     to the ones the skewed loop's K1 takes of the same field. The radix-2
+//     form before it (axis_roundtrip_kernel below: the column tile of the
+//     axis pass in shared memory, a decimation-in-frequency forward, the
+//     epilogue at k = bitrev(row), a decimation-in-time inverse) stays as
+//     the wrappers' forced form="stages", for tests and chip_smoke.py's
+//     before/after; no path takes it. K12 is the column pass
 //     (axis_fft_kernel) with the kick multiplied in as the tile is loaded.
 //   K4, K2 and K10 at n = 128 and 256: the one-pass cluster form
 //     (plane_cluster.cuh): the input's plane in the shared memory of a
@@ -98,34 +101,21 @@
 //     grids).
 //
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic, twiddles computed in double
-// and rounded once (sincospi per block in the split kernels, the wrapper's
-// table in the cluster form), accurate sincos, no fast math. Offsets are 64-bit. Every entry
-// point launches on the stream it is given and returns cudaGetLastError().
+// and rounded once (sincospi per block in the split and stages kernels, the
+// wrapper's table in the cluster and radix forms), accurate sincos, no fast
+// math. Offsets are 64-bit. Every entry point launches on the stream it is
+// given and returns cudaGetLastError().
 
-#include "plane_cluster.cuh"
+#include "axis_radix.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Axis round trip (K1, K3, K8)
+// Axis round trip (K1, K3, K8) and K13, radix-2 stages
 // ---------------------------------------------------------------------------
 
-// kFwdReduce: the forward half and the sums only (K13), y stored at row k.
-enum RoundTrip { kKickReduce, kPoisson, kMap, kFwdReduce };
-
-template <typename T>
-struct RoundTripArgs {
-  using C = typename Complex<T>::type;
-  const T* s0;       // (n,) k^2 along the transformed axis
-  const T* s12;      // (lanes,) k^2 over the trailing axes
-  const C* f0;       // (b1, n) exp(i c_b s0)
-  const C* f12;      // (b1, lanes) exp(i c_b s12)
-  const T* map;      // (n, lanes) real map
-  T param;           // kKickReduce, kFwdReduce: alias cutoff; kPoisson: -coeff
-  double* partials;  // kKickReduce (or null: no sums), kFwdReduce: (blocks, 2)
-                     // sum |y|^2, alias-band sum
-};
-
+// The stages form (form="stages"); RoundTrip and RoundTripArgs are
+// axis_radix.cuh's.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(1024)
     axis_roundtrip_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
@@ -533,54 +523,71 @@ RoundTripArgs<T> roundtrip_args(const void* s0, const void* s12, const void* f0,
   return a;
 }
 
+// K1, K3, K8, K13 in the radix form (tw: (n,) w_n^m), or the stages form.
+template <typename T, int MODE>
+cudaError_t roundtrip(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                      const RoundTripArgs<T>& a, int stages, const void* tw,
+                      cudaStream_t stream) {
+  return stages ? launch_roundtrip<T, MODE>(in, out, b1, log_n, lanes, a, stream)
+                : launch_roundtrip_radix<T, MODE>(in, out, b1, log_n, lanes, a, tw, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1. in, out: (b1, 2^log_n, lanes) interleaved complex (in == out allowed);
 // s0: (n,) and s12: (lanes,) real; f0: (b1, n) and f12: (b1, lanes) complex
-// phase factors; partials: (b1 * lanes / W, 2) double, or null for no sums.
+// phase factors; partials: (b1 * lanes / W, 2) double (W: the form's tile
+// width), or null for no sums. stages 0: the radix form (axis_radix.cuh)
+// with tw: (n,) interleaved complex w_n^m; 1: the stages form (tw unused).
 int msm_axis_roundtrip_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
                             const void* s0, const void* s12, const void* f0, const void* f12,
-                            double cutoff, void* partials, int is_double, void* stream) {
+                            double cutoff, void* partials, int is_double, int stages,
+                            const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return static_cast<int>(launch_roundtrip<double, kKickReduce>(
+    return static_cast<int>(roundtrip<double, kKickReduce>(
         in, out, b1, log_n, lanes,
-        roundtrip_args<double>(s0, s12, f0, f12, nullptr, cutoff, partials), s));
+        roundtrip_args<double>(s0, s12, f0, f12, nullptr, cutoff, partials), stages, tw, s));
   }
-  return static_cast<int>(launch_roundtrip<float, kKickReduce>(
+  return static_cast<int>(roundtrip<float, kKickReduce>(
       in, out, b1, log_n, lanes,
-      roundtrip_args<float>(s0, s12, f0, f12, nullptr, cutoff, partials), s));
+      roundtrip_args<float>(s0, s12, f0, f12, nullptr, cutoff, partials), stages, tw, s));
 }
 
 // K3. as K1, multiplying by -coeff / (s0 + s12), 0 where that is 0.
 int msm_axis_roundtrip_poisson(const void* in, void* out, int64_t b1, int log_n,
                                int64_t lanes, const void* s0, const void* s12, double coeff,
-                               int is_double, void* stream) {
+                               int is_double, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return static_cast<int>(launch_roundtrip<double, kPoisson>(
+    return static_cast<int>(roundtrip<double, kPoisson>(
         in, out, b1, log_n, lanes,
-        roundtrip_args<double>(s0, s12, nullptr, nullptr, nullptr, -coeff, nullptr), s));
+        roundtrip_args<double>(s0, s12, nullptr, nullptr, nullptr, -coeff, nullptr), stages,
+        tw, s));
   }
-  return static_cast<int>(launch_roundtrip<float, kPoisson>(
+  return static_cast<int>(roundtrip<float, kPoisson>(
       in, out, b1, log_n, lanes,
-      roundtrip_args<float>(s0, s12, nullptr, nullptr, nullptr, -coeff, nullptr), s));
+      roundtrip_args<float>(s0, s12, nullptr, nullptr, nullptr, -coeff, nullptr), stages, tw,
+      s));
 }
 
 // K8. as K1, multiplying by map: (n, lanes) real.
 int msm_axis_roundtrip_map(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                           const void* map, int is_double, void* stream) {
+                           const void* map, int is_double, int stages, const void* tw,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return static_cast<int>(launch_roundtrip<double, kMap>(
+    return static_cast<int>(roundtrip<double, kMap>(
         in, out, b1, log_n, lanes,
-        roundtrip_args<double>(nullptr, nullptr, nullptr, nullptr, map, 0.0, nullptr), s));
+        roundtrip_args<double>(nullptr, nullptr, nullptr, nullptr, map, 0.0, nullptr), stages,
+        tw, s));
   }
-  return static_cast<int>(launch_roundtrip<float, kMap>(
+  return static_cast<int>(roundtrip<float, kMap>(
       in, out, b1, log_n, lanes,
-      roundtrip_args<float>(nullptr, nullptr, nullptr, nullptr, map, 0.0, nullptr), s));
+      roundtrip_args<float>(nullptr, nullptr, nullptr, nullptr, map, 0.0, nullptr), stages, tw,
+      s));
 }
 
 // K2. in, psi, rho: (m, n, n) interleaved complex, three distinct buffers.
@@ -635,16 +642,18 @@ int msm_plane_density_fwd(const void* psi, void* out, int64_t m, int log_n, doub
 // axis 1 (in == out allowed); partials: (b1 * lanes / W, 2) double.
 int msm_axis_fwd_reduce(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
                         const void* s0, const void* s12, double cutoff, void* partials,
-                        int is_double, void* stream) {
+                        int is_double, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return static_cast<int>(launch_roundtrip<double, kFwdReduce>(
+    return static_cast<int>(roundtrip<double, kFwdReduce>(
         in, out, b1, log_n, lanes,
-        roundtrip_args<double>(s0, s12, nullptr, nullptr, nullptr, cutoff, partials), s));
+        roundtrip_args<double>(s0, s12, nullptr, nullptr, nullptr, cutoff, partials), stages,
+        tw, s));
   }
-  return static_cast<int>(launch_roundtrip<float, kFwdReduce>(
+  return static_cast<int>(roundtrip<float, kFwdReduce>(
       in, out, b1, log_n, lanes,
-      roundtrip_args<float>(s0, s12, nullptr, nullptr, nullptr, cutoff, partials), s));
+      roundtrip_args<float>(s0, s12, nullptr, nullptr, nullptr, cutoff, partials), stages, tw,
+      s));
 }
 
 // K12. in, out: (b1, 2^log_n, lanes) interleaved complex (in == out allowed);

@@ -69,7 +69,12 @@ memory). `form_launches` counts their launches per form.
 K14-K16 run the radix form (`csrc/lane_radix.cuh` `lane_fft_kernel`: whole
 rows a block, radix-16 register passes, the `_twiddles` table); `form="row"`
 forces the radix-2 row pass they ran before (`row_fft_kernel`), for
-timing and tests; `form_launches` counts both.
+timing and tests; `form_launches` counts both. K1, K3, K8 and K13 likewise
+run the radix form (`csrc/axis_radix.cuh` `axis_roundtrip_radix_kernel`:
+one column tile a block, radix-16 register passes, the epilogue in
+registers, the `_twiddles` table); `form="stages"` forces the radix-2
+round trip they ran before (`axis_roundtrip_kernel`), for timing and tests
+only.
 """
 
 from __future__ import annotations
@@ -109,7 +114,12 @@ PLANE_FORM_KERNELS = (
     "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv", "plane_potkick_fwd",
     "plane_inv_density", "plane_inv_density_rho_only",
 )
-# launches of the plane kernels and of K14-K16, by form ("<kernel>/<form>")
+# the round trips with a radix and a stages form (`_axis_form`)
+AXIS_FORM_KERNELS = (
+    "axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_fwd_reduce", "axis_roundtrip_map",
+)
+# launches of the plane kernels, of K14-K16 and of the round trips, by form
+# ("<kernel>/<form>")
 form_launches = {
     **{f"{name}/{form}": 0 for name in PLANE_FORM_KERNELS for form in ("cluster", "split")},
     **{
@@ -117,6 +127,7 @@ form_launches = {
         for name in ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
         for form in ("radix", "row")
     },
+    **{f"{name}/{form}": 0 for name in AXIS_FORM_KERNELS for form in ("radix", "stages")},
 }
 # elements of one row block of the fused row kernel (kRowTile in
 # csrc/fft_common.cuh): plane_potkick_fwd's split form and plane_real_inv_max
@@ -692,16 +703,57 @@ def _table(t: torch.Tensor, like: torch.Tensor, numel: int, name: str) -> torch.
     return t
 
 
-def _roundtrip_operand(x: torch.Tensor, name: str) -> tuple[torch.Tensor, int]:
-    """Validate a round trip's CUDA operand; returns (contiguous x, is_double)."""
+def _roundtrip_operand(x: torch.Tensor, name: str,
+                       form: str = "stages") -> tuple[torch.Tensor, int]:
+    """Validate a column-tile kernel's CUDA operand (K1, K3, K8, K13 in
+    `form`; K12 and K18, column passes of csrc/fft_common.cuh, on the
+    stages form's 128-byte tiles); returns (contiguous x, is_double)."""
     is_double = _check_dtype(x, (torch.complex64, torch.complex128), name)
-    b1, _, lanes, _ = _axis1(x)
-    tile = _TILE_BYTES // x.element_size()
+    b1, n, lanes, _ = _axis1(x)
+    tile = _axis_tile(n, x.element_size(), form)
     if lanes % tile:
         raise ValueError(f"trailing extent {lanes} is not a multiple of {tile}")
     if b1 * lanes // tile >= 2**31:
         raise ValueError(f"{tuple(x.shape)} exceeds the launch grid")
     return x.contiguous(), is_double
+
+
+def _axis_form(form) -> str:
+    """The form of K1, K3, K8 and K13: None takes "radix"
+    (axis_roundtrip_radix_kernel, csrc/axis_radix.cuh); "stages" forces
+    axis_roundtrip_kernel, the radix-2 form before it (tests and
+    chip_smoke.py time the two in one call)."""
+    if form is None:
+        return "radix"
+    if form in ("radix", "stages"):
+        return form
+    raise ValueError(f"no {form!r} form for axis round trips")
+
+
+def _axis_tile(n: int, element_size: int, form: str) -> int:
+    """Columns of a column-tile block (W): 128 bytes of each row; 64 in the
+    radix form at N = 1024 (axis_tile_bytes in csrc/axis_radix.cuh), where
+    128 would take 1024 threads of 16 elements."""
+    row_bytes = 64 if form == "radix" and n == 1024 else _TILE_BYTES
+    return row_bytes // element_size
+
+
+def _launch_roundtrip(name: str, x: torch.Tensor, out: torch.Tensor, form: str, *args) -> None:
+    """One launch of msm_<name>(in, out, b1, log_n, lanes, *args, is_double,
+    stages, twiddles, stream): the radix form with the (N,) twiddle table,
+    or the stages form."""
+    b1, n, lanes, log_n = _axis1(x)
+    tw = _twiddles(n, x.dtype, x.device) if form == "radix" else None
+    fn = getattr(build.load(), f"msm_{name}")
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, *args,
+            int(x.dtype == torch.complex128), int(form == "stages"),
+            None if tw is None else tw.data_ptr(), _stream(x),
+        )
+    build.check(rc, name)
+    launches[name] += 1
+    form_launches[f"{name}/{form}"] += 1
 
 
 def _kick_tables(x, s0, s12, coeff):
@@ -714,12 +766,12 @@ def _kick_tables(x, s0, s12, coeff):
     return (s0, s12, *kick_factors(c, s0, s12))
 
 
-def _partials(x: torch.Tensor) -> torch.Tensor:
-    """Per-block (sum |y|^2, alias-band sum) partials of a round-trip tile
-    geometry, in double."""
-    b1, _, lanes, _ = _axis1(x)
+def _partials(x: torch.Tensor, form: str) -> torch.Tensor:
+    """Per-block (sum |y|^2, alias-band sum) partials of the round trip's
+    tile geometry in `form`, in double: one a block."""
+    b1, n, lanes, _ = _axis1(x)
     return torch.empty(
-        (b1 * lanes // (_TILE_BYTES // x.element_size()), 2),
+        (b1 * lanes // _axis_tile(n, x.element_size(), form), 2),
         dtype=torch.float64, device=x.device,
     )
 
@@ -729,29 +781,28 @@ def _sums(partials: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.
     return sums[:, 0], sums[:, 1]
 
 
-def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float, with_reduce: bool = True):
+def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float, with_reduce: bool = True, *,
+                        form=None):
     """K1: forward DFT of x (b1, N, ...) along axis 1; per batch element,
     sum |y|^2 and the sum of |y|^2 where s0 + s12 > cutoff; y times
     exp(i coeff_b k^2); inverse DFT. s0: (N,), s12: (lanes,), coeff: (b1,)
     or one value. Returns (out, norm_sums, alias_sums), the sums (b1,), or
-    out alone with with_reduce=False (the kernel then takes no sums)."""
-    b1, n, lanes, log_n = _axis1(x)
+    out alone with with_reduce=False (the kernel then takes no sums).
+    form: None for the radix form; "stages" forces the stages form
+    (`_axis_form`)."""
+    _axis1(x)
+    form = _axis_form(form)
     on_card = _route(x, "axis_roundtrip_kick")
     s0, s12, f0, f12 = _kick_tables(x, s0, s12, coeff)
     if not on_card:
         return axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff, with_reduce)
-    x, is_double = _roundtrip_operand(x, "axis_roundtrip_kick")
+    x, _ = _roundtrip_operand(x, "axis_roundtrip_kick", form)
     out = torch.empty_like(x)
-    partials = _partials(x) if with_reduce else None
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_axis_roundtrip_kick(
-            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
-            f0.data_ptr(), f12.data_ptr(), float(cutoff),
-            None if partials is None else partials.data_ptr(), is_double, _stream(x),
-        )
-    build.check(rc, "axis_roundtrip_kick")
-    launches["axis_roundtrip_kick"] += 1
+    partials = _partials(x, form) if with_reduce else None
+    _launch_roundtrip(
+        "axis_roundtrip_kick", x, out, form, s0.data_ptr(), s12.data_ptr(), f0.data_ptr(),
+        f12.data_ptr(), float(cutoff), None if partials is None else partials.data_ptr(),
+    )
     if partials is None:
         return out
     return (out, *_sums(partials, x))
@@ -779,70 +830,57 @@ def axis_inv_kick(x, s0, s12, coeff):
     return out
 
 
-def axis_fwd_reduce(x, s0, s12, cutoff: float):
+def axis_fwd_reduce(x, s0, s12, cutoff: float, *, form=None):
     """K13: forward DFT of x (b1, N, ...) along axis 1; per batch element,
     sum |y|^2 and the sum of |y|^2 where s0 + s12 > cutoff, taken in K1's
-    order. Returns (y, norm_sums, alias_sums)."""
-    b1, n, lanes, log_n = _axis1(x)
+    order (in the same form). Returns (y, norm_sums, alias_sums). form: as
+    for `axis_roundtrip_kick`."""
+    _, n, lanes, _ = _axis1(x)
+    form = _axis_form(form)
     on_card = _route(x, "axis_fwd_reduce")
     s0 = _table(s0, x, n, "s0")
     s12 = _table(s12, x, lanes, "s12")
     if not on_card:
         return axis_fwd_reduce_plain(x, s0, s12, cutoff)
-    x, is_double = _roundtrip_operand(x, "axis_fwd_reduce")
+    x, _ = _roundtrip_operand(x, "axis_fwd_reduce", form)
     out = torch.empty_like(x)
-    partials = _partials(x)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_axis_fwd_reduce(
-            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
-            float(cutoff), partials.data_ptr(), is_double, _stream(x),
-        )
-    build.check(rc, "axis_fwd_reduce")
-    launches["axis_fwd_reduce"] += 1
+    partials = _partials(x, form)
+    _launch_roundtrip("axis_fwd_reduce", x, out, form, s0.data_ptr(), s12.data_ptr(),
+                      float(cutoff), partials.data_ptr())
     return (out, *_sums(partials, x))
 
 
-def axis_roundtrip_poisson(x, s0, s12, coeff: float):
+def axis_roundtrip_poisson(x, s0, s12, coeff: float, *, form=None):
     """K3: forward DFT of x (b1, N, ...) along axis 1, times -coeff / k^2
-    with k^2 = s0 + s12 (0 where k^2 is 0), inverse DFT."""
-    b1, n, lanes, log_n = _axis1(x)
+    with k^2 = s0 + s12 (0 where k^2 is 0), inverse DFT. form: as for
+    `axis_roundtrip_kick`."""
+    _, n, lanes, _ = _axis1(x)
+    form = _axis_form(form)
     on_card = _route(x, "axis_roundtrip_poisson")
     s0 = _table(s0, x, n, "s0")
     s12 = _table(s12, x, lanes, "s12")
     if not on_card:
         return axis_roundtrip_poisson_plain(x, s0, s12, coeff)
-    x, is_double = _roundtrip_operand(x, "axis_roundtrip_poisson")
+    x, _ = _roundtrip_operand(x, "axis_roundtrip_poisson", form)
     out = torch.empty_like(x)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_axis_roundtrip_poisson(
-            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, s0.data_ptr(), s12.data_ptr(),
-            float(coeff), is_double, _stream(x),
-        )
-    build.check(rc, "axis_roundtrip_poisson")
-    launches["axis_roundtrip_poisson"] += 1
+    _launch_roundtrip("axis_roundtrip_poisson", x, out, form, s0.data_ptr(), s12.data_ptr(),
+                      float(coeff))
     return out
 
 
-def axis_roundtrip_map(x, pmap):
+def axis_roundtrip_map(x, pmap, *, form=None):
     """K8: forward DFT of x (b1, N, ...) along axis 1, times the real map
-    (N, lanes) (shared by the batch), inverse DFT."""
-    b1, n, lanes, log_n = _axis1(x)
+    (N, lanes) (shared by the batch), inverse DFT. form: as for
+    `axis_roundtrip_kick`."""
+    _, n, lanes, _ = _axis1(x)
+    form = _axis_form(form)
     on_card = _route(x, "axis_roundtrip_map")
     pmap = _table(pmap, x, n * lanes, "map")
     if not on_card:
         return axis_roundtrip_map_plain(x, pmap)
-    x, is_double = _roundtrip_operand(x, "axis_roundtrip_map")
+    x, _ = _roundtrip_operand(x, "axis_roundtrip_map", form)
     out = torch.empty_like(x)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_axis_roundtrip_map(
-            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, pmap.data_ptr(), is_double,
-            _stream(x),
-        )
-    build.check(rc, "axis_roundtrip_map")
-    launches["axis_roundtrip_map"] += 1
+    _launch_roundtrip("axis_roundtrip_map", x, out, form, pmap.data_ptr())
     return out
 
 

@@ -60,7 +60,7 @@ def test_import_loads_no_jax():
 SCRIPTS = (
     "chip_smoke.py", "scripts/torch_microbench_mxu.py", "scripts/torch_probe_mxu_floor.py",
     "scripts/torch_probe_plane_cluster.py", "scripts/torch_kernel_resources.py",
-    "scripts/torch_probe_lane_radix.py",
+    "scripts/torch_probe_lane_radix.py", "scripts/torch_probe_axis_radix.py",
 )
 
 
