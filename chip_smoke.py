@@ -13,8 +13,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             per source, all started together, then one link)
   1b floor  the copy probes P1 copy_pass at (9 * 256, 256, 256) and P2
             copy_pass_lane at (256^2, 256), f32 x 2 planes, bit for bit
-            against their plain version, timed beside Tensor.copy_; P1's
-            bytes over its median time is the measured copy bandwidth
+            against their plain version, timed beside Tensor.copy_ (medians
+            of single launches, and the device slopes `slope_ms` and
+            `library_slope_ms` between chains of 16 and 112 launches queued
+            behind a sleep kernel, which hide the host's time per call);
+            P1's bytes over its median time is the measured copy bandwidth
             (`copy_floor_bytes_per_s`) that every kernel's `floor_ms` uses;
             P1 bit for bit also at the probe run's (256^3, 512^3) planes
   2 kernels each CUDA kernel against its plain torch version on the card,
@@ -24,14 +27,14 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (4, 512); the FFT kernels K5 axis_pass (axis 1), K6 plane_pass,
             K17 plane_pass_real_fwd and K9 plane_pass_real_inv (on the
             (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3);
-            K6, K17, K9, K4, K2 and K10 at N = 128, 256 take the one-pass
-            cluster form and at 512, 1024 the split form (each of their
-            records names its `form` and `cluster` size); at (9, 256^3) c64
-            their forced split forms are timed too (`plane_pass/split`,
-            `plane_pass_real_fwd/split`, `plane_pass_real_inv/split`,
-            `plane_potkick_fwd/split`, `plane_inv_density/split`,
-            `plane_inv_density_rho_only/split`), the before/after in one
-            call;
+            K6, K17, K9, K4, K2, K10 and K11 at N = 128, 256 take the
+            one-pass cluster form and at 512, 1024 the split form (each of
+            their records names its `form` and `cluster` size); at (9,
+            256^3) c64 their forced split forms are timed too
+            (`plane_pass/split`, `plane_pass_real_fwd/split`,
+            `plane_pass_real_inv/split`, `plane_potkick_fwd/split`,
+            `plane_inv_density/split`, `plane_inv_density_rho_only/split`,
+            `plane_real_inv_max/split`), the before/after in one call;
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
@@ -39,12 +42,15 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             plane_inv_density_rho_only and K11 plane_real_inv_max (and K1
             without its sums), and the unskewed step's K12 axis_inv_kick and
             K13 axis_fwd_reduce at (9, 256^3) and (3, 512^3), every output
-            (fields, the sums, the maxima) against the plain version; K1,
-            K3, K8 and K13 take the radix form (axis_roundtrip_radix_kernel)
-            and at (9, 256^3) c64 their forced stages forms are timed too
+            (fields, the sums, the maxima) against the plain version; the
+            column-tile kernels K1, K3, K8 and K13 (axis_roundtrip_radix_kernel)
+            and K5, K12 and K18 (axis_pass_kernel) take the radix form, and
+            at (9, 256^3) c64 their forced stages forms are timed too
             (`axis_roundtrip_kick/stages`, `axis_roundtrip_poisson/stages`,
             `axis_fwd_reduce/stages`, `axis_roundtrip_map/stages`:
-            axis_roundtrip_kernel, the before of the radix form's after); the
+            axis_roundtrip_kernel; `axis_inv_kick/stages`,
+            `axis_pass/stages`, `axis_inv_map/stages`: axis_fft_kernel; the
+            before of the radix form's after); the
             lane kernels K14 lane_pass, K15 lane_pass_real_fwd and K16
             lane_pass_real_inv at (256, 1024) (the 1-D main run's) and
             (9 * 256^2, 256) (the 3-D grid's bytes), each in the radix form
@@ -94,9 +100,12 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             K17 and K9 launch of the unfused `mxu` run took the cluster
             form, and that
             every K14-K16 launch of the 1-D run took the radix form, as did
-            every K1, K3 and K8 launch of the fused and exact runs and every
-            K3, K13 and K8 launch of the unskewed run; then compares the
-            runs
+            every K1, K3, K8 and K5 launch of the fused and exact runs,
+            every K12, K3, K13, K8 and K5 launch of the unskewed run and
+            every K5 launch of the unfused `mxu` run (K18's of the engine
+            check too), and that every K11 launch of the exact run took the
+            cluster form; then compares the runs (with each run's
+            `torch.cuda.max_memory_allocated`, `peak_bytes`)
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
@@ -105,8 +114,9 @@ the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2 and K10 with
-their form, cluster size and the forced split form's median, `split_ms`; K1, K3,
-K8 and K13 with their form and the forced stages form's median, `stages_ms`; K14-K16 with
+their form, cluster size and the forced split form's median, `split_ms`
+(K11 too); K1, K3, K8, K13, K5, K12 and K18 with their form and the forced
+stages form's median, `stages_ms`; P1/P2 with the device slopes; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
 1024), and their medians at (9 * 256^2, 256) under `grid`); and last
@@ -136,18 +146,18 @@ PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
-# K6, K17, K9, K4, K2 and K10 at the main shape: the cluster form
+# K6, K17, K9, K4, K2, K10 and K11 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
 LANE_SOURCE = "msm_tpu_torch/ops/csrc/lane_radix.cuh"
-# K1, K3, K8 and K13: the radix form
+# K1, K3, K8, K13, K5, K12 and K18: the radix form
 AXIS_SOURCE = "msm_tpu_torch/ops/csrc/axis_radix.cuh"
 # kernel name -> (its source, the TPU kernel body it replaces)
 KERNELS = {
     "kinetic_phase": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:110"),
     "poisson_multiply": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:155"),
     "phase_rotate": (PHASE_SOURCE, "msm_tpu/ops/pallas_kernels.py:201"),
-    "axis_pass": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:432"),
+    "axis_pass": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:432"),
     "plane_pass": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:866"),
     "plane_pass_real_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:932"),
     "plane_pass_real_inv": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:995"),
@@ -158,13 +168,13 @@ KERNELS = {
     "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
     "axis_roundtrip_map": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
     "plane_inv_density_rho_only": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
-    "plane_real_inv_max": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
-    "axis_inv_kick": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
+    "plane_real_inv_max": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
+    "axis_inv_kick": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:472"),
     "axis_fwd_reduce": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:532"),
     "lane_pass": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:339"),
     "lane_pass_real_fwd": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:399"),
     "lane_pass_real_inv": (LANE_SOURCE, "msm_tpu/ops/mxu_fft.py:412"),
-    "axis_inv_map": (FFT_SOURCE, "msm_tpu/ops/mxu_fft.py:839"),
+    "axis_inv_map": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:839"),
     "copy_pass": (COPY_SOURCE, "scripts/microbench_mxu.py:115"),
     "copy_pass_lane": (COPY_SOURCE, "scripts/probe_mxu_floor.py:101"),
 }
@@ -420,8 +430,9 @@ def _copy_exact(fn, re, im):
 
 def phase_floor(card: dict) -> dict:
     """P1 copy_pass and P2 copy_pass_lane against copy_pass_plain on the card
-    at FLOOR_SHAPES, bit for bit (max_abs_err 0), each timed with median_ms;
-    library_ms is `out.copy_(in)` on both planes (two torch calls). Emits
+    at FLOOR_SHAPES, bit for bit (max_abs_err 0), each timed with median_ms
+    and device_slope_ms; library_ms and library_slope_ms are `out.copy_(in)`
+    on both planes (two torch calls). Emits
     the measured copy bandwidth, P1's bytes (each plane read once and
     written once) over its median, timed as every kernel's `ms` is: the
     floor every kernel's `floor_ms` is read against. Then P1 bit for bit at
@@ -451,6 +462,9 @@ def phase_floor(card: dict) -> dict:
             "ms": median_ms(lambda: fn(re, im)),
             "plain_ms": median_ms(lambda: probes.copy_pass_plain(re, im)),
             "library_ms": median_ms(library), "library": "Tensor.copy_ on each plane (two calls)",
+            # device time a call, the host's hidden: the first tier's test
+            "slope_ms": device_slope_ms(lambda: fn(re, im)),
+            "library_slope_ms": device_slope_ms(library), "chains": [SLOPE_LO, SLOPE_HI],
             **bnd, **card,
         }
         rec["bytes_per_s"] = rec["bytes"] / (rec["ms"] * 1e-3)
@@ -560,8 +574,9 @@ def phase_kernels(card: dict) -> dict:
 
 
 def _form(name: str, n: int, cdtype, forced=None) -> dict:
-    """The form fields of a plane kernel's record (K6, K17, K9, K4, K2,
-    K10) and of a round trip's (K1, K3, K8, K13); none for other kernels."""
+    """The form fields of a plane kernel's record (`PLANE_FORM_KERNELS`) and
+    of a column-tile kernel's (`AXIS_FORM_KERNELS`); none for other
+    kernels."""
     from msm_tpu_torch.ops import mxu_fft
 
     base = name.split("/")[0]
@@ -598,7 +613,8 @@ def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library,
 
 
 def phase_fft_kernels(card: dict) -> dict:
-    """K5/K6/K17/K9 vs plain (cuFFT) on the card; returns the main-shape
+    """K5/K6/K17/K9 vs plain (cuFFT) on the card, and at the main shape c64
+    the forced other forms (`/split`, `/stages`); returns the main-shape
     complex64 measurements."""
     from msm_tpu_torch.ops import mxu_fft
 
@@ -649,8 +665,13 @@ def phase_fft_kernels(card: dict) -> dict:
                     lambda: mxu_fft.plane_pass_real_inv(planes, form="split"),
                     cases["plane_pass_real_inv"][1], [planes], fft_ops(planes.shape, 2),
                 )
+                # K5's forced stages form (axis_fft_kernel)
+                cases["axis_pass/stages"] = (
+                    lambda: mxu_fft.axis_pass(z, 1, False, form="stages"),
+                    cases["axis_pass"][1], [z], fft_ops(shape[:2], 1) * math.prod(shape[2:]),
+                )
             for name, (kernel, plain, inputs, ops) in cases.items():
-                forced = "split" if name.endswith("/split") else None
+                forced = name.split("/")[1] if "/" in name else None
                 rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True,
                                    _form(name, shape[-1], cdtype, forced))
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
@@ -663,7 +684,8 @@ def phase_fft_kernels(card: dict) -> dict:
 def phase_lane_kernels(card: dict) -> dict:
     """K14/K15/K16 vs plain (cuFFT) at LANE_SHAPES, in the radix form and
     the forced row form (`<kernel>/row`, the before of the radix form's
-    after), and K18 vs plain at MAP_SHAPES, complex64 and complex128;
+    after), and K18 vs plain at MAP_SHAPES (at the main shape c64 its
+    forced stages form too), complex64 and complex128;
     returns the measurements at the 1-D main run's shape (K14-K16, both
     forms, with the device slopes of both forms and of torch.fft, and the
     medians at the 3-D grid's bytes under `grid`) and the 3-D main shape
@@ -717,6 +739,7 @@ def phase_lane_kernels(card: dict) -> dict:
                         "bytes": rec["bytes"],
                     }
             del z, x, cases
+        c64 = cdtype == torch.complex64
         for shape in MAP_SHAPES:
             n = shape[-1]
             z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
@@ -726,14 +749,20 @@ def phase_lane_kernels(card: dict) -> dict:
             ).cuda()
             del spec
             # one inverse along z, the map's scaling (2); no single torch
-            # call computes it
-            rec = _measure_fft(
-                card, "axis_inv_map", cdtype, shape, lambda: mxu_fft.axis_inv_map(z, pmap),
-                lambda: mxu_fft.axis_inv_map_plain(z, pmap), [z, pmap],
-                fft_ops(shape[:2], 1) * math.prod(shape[2:]) + 2.0 * math.prod(shape), False,
-            )
-            if shape == MAIN_SHAPE and cdtype == torch.complex64:
-                main["axis_inv_map"] = rec
+            # call computes it. At the main shape c64 the forced stages form
+            # (axis_fft_kernel) too
+            forms = (None, "stages") if shape == MAIN_SHAPE and c64 else (None,)
+            for form in forms:
+                name = "axis_inv_map" + (f"/{form}" if form else "")
+                rec = _measure_fft(
+                    card, name, cdtype, shape,
+                    lambda form=form: mxu_fft.axis_inv_map(z, pmap, form=form),
+                    lambda: mxu_fft.axis_inv_map_plain(z, pmap), [z, pmap],
+                    fft_ops(shape[:2], 1) * math.prod(shape[2:]) + 2.0 * math.prod(shape), False,
+                    _form(name, n, cdtype, form),
+                )
+                if shape == MAIN_SHAPE and c64:
+                    main[name] = rec
             del z, pmap
             torch.cuda.empty_cache()
     return main
@@ -746,7 +775,8 @@ def phase_engine_checks(card: dict) -> dict:
     test_fft.py:171 holds its fused solve, in complex64 and complex128; and
     the matmul transform, forward and inverse, against torch.fft at
     complex64. The launch counts are set to 0 just before the engine check
-    and read just after: they are K18's record. The two solves share K7 and
+    and read just after: they are K18's record, and every K18 launch must
+    take the radix form. The two solves share K7 and
     K9 and differ in the z pass (K8's round trip against K5 then K18): one
     transform pair of rounding apart, held to FUSED_LIMITS of max|phi|."""
     from msm_tpu_torch.grid import spec_grid
@@ -779,7 +809,12 @@ def phase_engine_checks(card: dict) -> dict:
         del psi, fused, two_call, pmap
         torch.cuda.empty_cache()
     launches.update(mxu_fft.launches)
+    forms = dict(mxu_fft.form_launches)
     check(launches["axis_inv_map"] > 0, "the engine check launched axis_inv_map no time")
+    check(forms["axis_inv_map/radix"] == launches["axis_inv_map"]
+          and forms["axis_inv_map/stages"] == 0,
+          f"the engine check launched axis_inv_map {launches['axis_inv_map']} times, "
+          f"{forms['axis_inv_map/radix']} in the radix form")
 
     z = torch.randn(MAIN_SHAPE, dtype=torch.complex64, device="cuda", generator=gen)
     for inverse in (False, True):
@@ -888,9 +923,21 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.plane_real_inv_max_plain(z),
             [z], plane2 / 2 + 2.0 * cells,
         ),
+        # K11's forced split form (timed at the main shape only)
+        "plane_real_inv_max/split": (
+            lambda: mxu_fft.plane_real_inv_max(z, form="split"),
+            lambda: mxu_fft.plane_real_inv_max_plain(z),
+            [z], plane2 / 2 + 2.0 * cells,
+        ),
         # the two factors' product and the complex product (12), one inverse
         "axis_inv_kick": (
             lambda: mxu_fft.axis_inv_kick(z, s0, s12, kcoeff),
+            lambda: mxu_fft.axis_inv_kick_plain(z, f0, f12),
+            [z, f0, f12], trip / 2 + 12.0 * cells,
+        ),
+        # K12's forced stages form (timed at the main shape only)
+        "axis_inv_kick/stages": (
+            lambda: mxu_fft.axis_inv_kick(z, s0, s12, kcoeff, form="stages"),
             lambda: mxu_fft.axis_inv_kick_plain(z, f0, f12),
             [z, f0, f12], trip / 2 + 12.0 * cells,
         ),
@@ -1069,24 +1116,26 @@ CONFIGS = {
 # kernels that must launch once in every iteration of a run
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
 # the plane kernels whose every launch in a main run must take the cluster
-# form: K4, K2 and K9 (the Poisson solve's) on the fused engines (and K10 in
-# exact dt), K6, K17 and K9 on the unfused `mxu` path
+# form: K4, K2 and K9 (the Poisson solve's) on the fused engines (and K10 and
+# K11 in exact dt), K6, K17 and K9 on the unfused `mxu` path
 CLUSTER_FORM = {"mxu": ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv"),
                 "fused": ("plane_potkick_fwd", "plane_inv_density", "plane_pass_real_inv"),
                 "fused-exact": ("plane_potkick_fwd", "plane_inv_density",
-                                "plane_inv_density_rho_only", "plane_pass_real_inv"),
+                                "plane_inv_density_rho_only", "plane_real_inv_max",
+                                "plane_pass_real_inv"),
                 "unskewed-lagged": ("plane_potkick_fwd", "plane_inv_density",
                                     "plane_pass_real_inv")}
 # the lane kernels whose every launch in a path's main run must take the
 # radix form (lane_fft_kernel)
 RADIX_FORM = {"mxu-1d": LANE_KERNELS}
-# the round trips whose every launch in a main run must take the radix form
-# (axis_roundtrip_radix_kernel): K1, K3 and K8 on the fused engine in either
-# dt mode, K3, K13 and K8 on the unskewed engine
-SKEW_TRIPS = ("axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_roundtrip_map")
-AXIS_RADIX_FORM = {"fused": SKEW_TRIPS, "fused-exact": SKEW_TRIPS,
-                   "unskewed-lagged": ("axis_roundtrip_poisson", "axis_fwd_reduce",
-                                       "axis_roundtrip_map")}
+# the column-tile kernels whose every launch in a main run must take the
+# radix form (axis_roundtrip_radix_kernel, axis_pass_kernel): K1, K3, K8 and
+# K5 (interval entry and exit) on the fused engine in either dt mode; K12,
+# K3, K13, K8 and K5 on the unskewed engine; K5 on the unfused `mxu` path
+SKEW_TRIPS = ("axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_roundtrip_map", "axis_pass")
+AXIS_RADIX_FORM = {"mxu": ("axis_pass",), "fused": SKEW_TRIPS, "fused-exact": SKEW_TRIPS,
+                   "unskewed-lagged": ("axis_inv_kick", "axis_roundtrip_poisson",
+                                       "axis_fwd_reduce", "axis_roundtrip_map", "axis_pass")}
 
 
 @contextlib.contextmanager
@@ -1280,7 +1329,8 @@ def phase_main(card: dict, run: str) -> dict:
             check(launches[f"{k}/radix"] == launches[k] > 0 and launches[f"{k}/row"] == 0,
                   f"the {run} run launched {k} {launches[k]} times, "
                   f"{launches[f'{k}/radix']} in the radix form")
-        # and every round trip of the fused engines
+        # and every column-tile kernel of the fused engines and the unfused
+        # `mxu` path
         for k in AXIS_RADIX_FORM.get(run, ()):
             check(launches[f"{k}/radix"] == launches[k] > 0 and launches[f"{k}/stages"] == 0,
                   f"the {run} run launched {k} {launches[k]} times, "
@@ -1316,6 +1366,7 @@ def phase_main(card: dict, run: str) -> dict:
             # the stepping loop's wall (dump writes included) per iteration
             "loop_ms_per_iteration": float(timer.group(2)) * 1e3 / iterations,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
             "launches": launches, **card,
         }
         emit(rec)
@@ -1349,7 +1400,7 @@ def main() -> int:
         "phase": "main-compare",
         **{key: {run: mains[run][key] for run in RUNS}
            for key in ("cell_updates_per_s", "wall_s", "loop_ms_per_iteration", "peak_gib",
-                       "n_steps_all", "iterations", "replays")},
+                       "peak_bytes", "n_steps_all", "iterations", "replays")},
         **card,
     })
     for k in KERNELS:
@@ -1391,10 +1442,14 @@ def main() -> int:
             **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
                 "split_ms": measured[f"{k}/split"]["ms"]}
                if k in mxu_fft.PLANE_FORM_KERNELS else {}),
-            # K1, K3, K8, K13: the radix form and the forced stages form's
-            # median
+            # K1, K3, K8, K13, K5, K12, K18: the radix form and the forced
+            # stages form's median
             **({"form": measured[k]["form"], "stages_ms": measured[f"{k}/stages"]["ms"]}
                if k in mxu_fft.AXIS_FORM_KERNELS else {}),
+            # P1/P2: the device slopes of the kernel and of Tensor.copy_
+            **({"slope_ms": measured[k]["slope_ms"],
+                "library_slope_ms": measured[k]["library_slope_ms"]}
+               if k in PROBE_KERNELS else {}),
             # K14-K16: the radix form, the forced row form's median, the
             # device slopes at (256, 1024) c64, and the medians at the 3-D
             # grid's bytes

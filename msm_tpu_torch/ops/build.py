@@ -51,8 +51,9 @@ _SIGNATURES = {
     "msm_kinetic_phase": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # z, field, out, coeff, batch, cells, is_double, stream
     "msm_phase_rotate": [_P, _P, _P, _P, _I64, _I64, _I, _P],
-    # in, out, b1, log_n, lanes, inverse, is_double, stream
-    "msm_fft_axis": [_P, _P, _I64, _I, _I64, _I, _I, _P],
+    # in, out, b1, log_n, lanes, inverse, is_double, stages (0: radix),
+    # twiddles, stream
+    "msm_fft_axis": [_P, _P, _I64, _I, _I64, _I, _I, _I, _P, _P],
     # in, out, m, log_n, inverse, is_double, cluster (0: split), twiddles, stream
     "msm_fft_plane": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
     # in, out, m, log_n, is_double, cluster (0: split), twiddles, stream
@@ -79,10 +80,12 @@ _SIGNATURES = {
     "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _P],
     # in, rho, m, log_n, pref, is_double, cluster (0: split), twiddles, stream
     "msm_plane_inv_density_rho_only": [_P, _P, _I64, _I, _D, _I, _I, _P, _P],
-    # in, tmp, maxes, m, log_n, is_double, stream
-    "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _P],
-    # in, out, b1, log_n, lanes, f0, f12, is_double, stream
-    "msm_axis_inv_kick": [_P, _P, _I64, _I, _I64, _P, _P, _I, _P],
+    # in, tmp (the split form's scratch, else None), maxes, m, log_n,
+    # is_double, cluster (0: split), twiddles, stream
+    "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _I, _P, _P],
+    # in, out, b1, log_n, lanes, f0, f12, is_double, stages (0: radix),
+    # twiddles, stream
+    "msm_axis_inv_kick": [_P, _P, _I64, _I, _I64, _P, _P, _I, _I, _P, _P],
     # in, out, b1, log_n, lanes, s0, s12, cutoff, partials, is_double, stages
     # (0: radix), twiddles, stream
     "msm_axis_fwd_reduce": [_P, _P, _I64, _I, _I64, _P, _P, _D, _P, _I, _I, _P, _P],
@@ -92,8 +95,9 @@ _SIGNATURES = {
     # in, out, rows, log_n, is_double, row_form (0: radix), twiddles, stream
     "msm_fft_lane_real_fwd": [_P, _P, _I64, _I, _I, _I, _P, _P],
     "msm_fft_lane_real_inv": [_P, _P, _I64, _I, _I, _I, _P, _P],
-    # in, out, b1, log_n, lanes, map, is_double, stream
-    "msm_fft_axis_inv_map": [_P, _P, _I64, _I, _I64, _P, _I, _P],
+    # in, out, b1, log_n, lanes, map, is_double, stages (0: radix), twiddles,
+    # stream
+    "msm_fft_axis_inv_map": [_P, _P, _I64, _I, _I64, _P, _I, _I, _P, _P],
     # z, out, scale, batch, n, dims, is_double, stream
     "msm_poisson_multiply": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # a, b, ca, cb, n, stream

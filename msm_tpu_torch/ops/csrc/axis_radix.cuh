@@ -7,7 +7,13 @@
 // _sublane_kernel_roundtrip_kick_reduce_sep (K1),
 // _sublane_kernel_roundtrip_poisson_sep (K3), _sublane_kernel_roundtrip_pmap
 // (K8) and _sublane_kernel_fwd_reduce_sep (K13); one template,
-// axis_roundtrip_radix_kernel<T, N, MODE>, serves all four.
+// axis_roundtrip_radix_kernel<T, N, MODE>, serves all four. On the same tile
+// and passes, the column pass: K5 (msm_fft_axis, either direction), K12
+// (msm_axis_inv_kick: the kick on load, the inverse) and K18
+// (msm_fft_axis_inv_map: a real map on load, the inverse), replacing
+// _sublane_kernel (K5), _sublane_kernel_inv_kphase_sep (K12) and
+// _sublane_kernel_inv_pmap (K18); one template, axis_pass_kernel<T, N, INV,
+// PRO> (end of the file), serves all three.
 //
 // What bounds them: device memory. A round trip reads and writes the grid
 // once: 0.72 ms at (9, 256^3) complex64 on 3.35 TB/s (K8 also reads the
@@ -56,8 +62,16 @@
 //     one (sum |y|^2, alias) partial a block, no atomics. K13 takes them in
 //     the same code on the same registers, so its sums equal K1's bit for
 //     bit on the same field.
+//   - The column pass (K5, K12, K18) is one transform: the prologue on
+//     pass 1's registers at their loaded rows, the forward's passes (for
+//     the inverse the same decimation in frequency with every twiddle
+//     conjugated, applied after each DFT: not the round trip's adjoint
+//     passes, which start from the forward's digit order), then K13's
+//     natural-order store from registers. It reads and writes the grid
+//     once (K18 also reads the (N, lanes) map, K12 its two small tables):
+//     0.72 ms at (9, 256^3) complex64 on 3.35 TB/s.
 // Orders kept from the stages form: k^2 = s0[k] + s12[lane]; K3 divides
-// param / k^2 once; the kick is y * (f0 * f12).
+// param / k^2 once; the kick is y * (f0 * f12), and K12's x * (f0 * f12).
 // In place: a block loads its whole tile into registers before its first
 // barrier and writes only its own tile after it, so in == out is allowed.
 
@@ -95,9 +109,10 @@ struct AxisGeom {
   static constexpr int W = axis_tile_bytes<N>() / static_cast<int>(sizeof(C));
   static constexpr int kThreads = W * (N / 16);
   static constexpr int kWarps = kThreads / 32;
-  // the padded tile, then two doubles a warp for the block's sums
-  static constexpr size_t kSmem =
-      static_cast<size_t>(pad16(N)) * W * sizeof(C) + 2 * kWarps * sizeof(double);
+  // the padded tile (all the column pass uses), then two doubles a warp for
+  // the round trip's sums
+  static constexpr size_t kTileSmem = static_cast<size_t>(pad16(N)) * W * sizeof(C);
+  static constexpr size_t kSmem = kTileSmem + 2 * kWarps * sizeof(double);
   // resident blocks asked of the compiler (__launch_bounds__), from the
   // threads an SM should hold: at complex64 768 for K3 and K13 (three
   // 256-thread blocks at N = 256, a cap of 85 registers, which they meet
@@ -135,10 +150,16 @@ __device__ __forceinline__ float sq_abs(float2 y) { return __fmaf_rn(y.x, y.x, _
 __device__ __forceinline__ double sq_abs(double2 y) { return __fma_rn(y.x, y.x, __dmul_rn(y.y, y.y)); }
 
 // The DFTs of one pass on a thread's registers v: G = 16 / P groups of P,
-// group G l + u in v[u P, u P + P). Forward: each group's DFT, then output
-// k times w_LB^{(g % ES) k} = tw[(N / LB) (g % ES) k] when TW. Inverse:
-// the conjugate twiddles on input k, then the inverse DFT.
-template <typename T, int N, int P, int LB, bool INV, bool TW>
+// group G l + u in v[u P, u P + P), each group's DFT (inverse DFT when INV)
+// and, when TW, output (or input) k times w_LB^{(g % ES) k} = tw[(N / LB)
+// (g % ES) k], conjugated when INV. DIT places the twiddles: false (the
+// decimation in frequency) after the DFT, on its outputs; true before it,
+// on its inputs. The round trip's forward is INV = DIT = false and its
+// inverse INV = DIT = true, the forward pass's adjoint (from the forward's
+// digit-ordered registers); the column pass's standalone inverse from
+// natural rows is INV = true, DIT = false: the forward with every twiddle
+// conjugated.
+template <typename T, int N, int P, int LB, bool INV, bool TW, bool DIT = INV>
 __device__ __forceinline__ void axis_pass_regs(typename Complex<T>::type (&v)[16],
                                                const typename Complex<T>::type* __restrict__ tw,
                                                int l) {
@@ -151,14 +172,20 @@ __device__ __forceinline__ void axis_pass_regs(typename Complex<T>::type (&v)[16
     C d[P];
 #pragma unroll
     for (int j = 0; j < P; ++j) d[j] = v[u * P + j];
-    if constexpr (TW && INV) {
+    if constexpr (TW && DIT) {
 #pragma unroll
-      for (int k = 1; k < P; ++k) d[k] = cmul(d[k], cconj(__ldg(tw + m * k)));
+      for (int k = 1; k < P; ++k) {
+        const C t = __ldg(tw + m * k);
+        d[k] = cmul(d[k], INV ? cconj(t) : t);
+      }
     }
     dft_w16<T, P, INV>(d);
-    if constexpr (TW && !INV) {
+    if constexpr (TW && !DIT) {
 #pragma unroll
-      for (int k = 1; k < P; ++k) d[k] = cmul(d[k], __ldg(tw + m * k));
+      for (int k = 1; k < P; ++k) {
+        const C t = __ldg(tw + m * k);
+        d[k] = cmul(d[k], INV ? cconj(t) : t);
+      }
     }
 #pragma unroll
     for (int j = 0; j < P; ++j) v[u * P + j] = d[j];
@@ -367,6 +394,137 @@ cudaError_t launch_roundtrip_radix(const void* in, void* out, int64_t b1, int lo
       return launch_roundtrip_radix_n<T, 512, MODE>(in, out, b1, lanes, a, tw, stream);
     case 10:
       return launch_roundtrip_radix_n<T, 1024, MODE>(in, out, b1, lanes, a, tw, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The work of one axis_pass_kernel block: one transform (the inverse when
+// INV) along axis 1 of column tile blockIdx.x of (b1, N, lanes), with PRO's
+// factor on each element as pass 1 loads it at its natural row r = l + L j
+// (kKick: v (f0[b, r] f12[b, lane]), the product in the order the stages
+// form and the TPU kernel take it; kMap: v map[r, lane]); the forward's
+// passes (decimation in frequency; the inverse with conjugate twiddles, on
+// each DFT's outputs), then the last pass's registers stored from
+// registers at their natural rows freq_of_position(16 l + i), as K13
+// stores. tw: (N,) w_N^m. STOP = kStopLoadStore stores the loaded (and
+// multiplied) registers back at their rows (the stage probe,
+// scripts/torch_axis_radix_stages.cu).
+template <typename T, int N, bool INV, AxisPrologue PRO, int STOP = kStopAll>
+__device__ __forceinline__ void axis_pass_tile(const typename Complex<T>::type* in,
+                                               typename Complex<T>::type* out, int64_t lanes,
+                                               int64_t tiles_per_batch, T scale,
+                                               const AxisLoad<T>& pro,
+                                               const typename Complex<T>::type* __restrict__ tw) {
+  using C = typename Complex<T>::type;
+  using Plan = LanePlan<N>;
+  constexpr int W = AxisGeom<T, N>::W;
+  constexpr int L = Plan::L;
+  constexpr int P2 = Plan::P2;
+  constexpr int P3 = Plan::P3;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* s = reinterpret_cast<C*>(smem);
+  // K18's map is shared by the batch, so its blocks take the batch elements
+  // of one column tile in turn (block tile b1 + b): the tile's map rows come
+  // from device memory once and from L2 for the other elements. The other
+  // prologues take the tiles of one element in turn (block b tiles + tile).
+  constexpr bool kBatchFast = PRO == AxisPrologue::kMap;
+  const int64_t b1 = gridDim.x / tiles_per_batch;
+  const int64_t b = kBatchFast ? blockIdx.x % b1 : blockIdx.x / tiles_per_batch;
+  const int64_t tile = kBatchFast ? blockIdx.x / b1 : blockIdx.x - b * tiles_per_batch;
+  const int64_t lane = tile * W + threadIdx.x % W;
+  const int c = threadIdx.x % W;
+  const int l = threadIdx.x / W;
+  const C* src = in + b * N * lanes + lane;
+  C* dst = out + b * N * lanes + lane;
+
+  C v[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) v[j] = src[(l + L * j) * lanes];
+  if constexpr (PRO == AxisPrologue::kKick) {
+    const C f12 = pro.f12[b * lanes + lane];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = cmul(v[j], cmul(pro.f0[b * N + l + L * j], f12));
+  } else if constexpr (PRO == AxisPrologue::kMap) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = cscale(v[j], pro.map[(l + L * j) * lanes + lane]);
+  }
+  if constexpr (STOP == kStopLoadStore) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dst[(l + L * j) * lanes] = v[j];
+    return;
+  }
+
+  axis_pass_regs<T, N, 16, N, INV, true, false>(v, tw, l);
+  axis_regs_to_tile<C, 16, N, W>(s, v, l, c);
+  __syncthreads();
+  axis_tile_to_regs<C, P2, L, W>(s, v, l, c);
+  if constexpr (P3 > 1) {
+    axis_pass_regs<T, N, P2, L, INV, true, false>(v, tw, l);
+    axis_regs_to_tile<C, P2, L, W>(s, v, l, c);
+    __syncthreads();
+    axis_tile_to_regs<C, P3, P3, W>(s, v, l, c);
+    axis_pass_regs<T, N, P3, P3, INV, false, false>(v, tw, l);
+  } else {
+    axis_pass_regs<T, N, P2, L, INV, false, false>(v, tw, l);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[freq_of_position<N>(16 * l + i) * lanes] = cscale(v[i], scale);
+}
+
+// K5 (kNone, either direction), K12 (kKick, inverse) and K18 (kMap,
+// inverse): the whole column pass. Resident blocks asked of the compiler:
+// K13's (min_blocks(kFwdReduce)), whose passes and natural-order store it
+// shares, for all three prologues: at complex64 three 256-thread blocks at
+// N = 256 (80 registers, no spills). On an H100 at (9, 256^3) K12 took
+// 0.868-0.899 ms at three blocks against 0.911-0.919 at two (128
+// registers) and 1.25-1.26 at one; K5 and K18 were within 2 % between
+// two and three (scripts/torch_probe_axis_radix.py, PERF.md). At
+// complex128 142-160 registers, no spills.
+template <typename T, int N, bool INV, AxisPrologue PRO,
+          int MIN_BLOCKS = AxisGeom<T, N>::min_blocks(kFwdReduce)>
+__global__ void __launch_bounds__(AxisGeom<T, N>::kThreads, MIN_BLOCKS)
+    axis_pass_kernel(const typename Complex<T>::type* in, typename Complex<T>::type* out,
+                     int64_t lanes, int64_t tiles_per_batch, T scale, AxisLoad<T> pro,
+                     const typename Complex<T>::type* __restrict__ tw) {
+  axis_pass_tile<T, N, INV, PRO>(in, out, lanes, tiles_per_batch, scale, pro, tw);
+}
+
+// (b1, N, lanes): one block per column tile; lanes % W == 0.
+template <typename T, int N, bool INV, AxisPrologue PRO>
+cudaError_t launch_axis_pass_radix_n(const void* in, void* out, int64_t b1, int64_t lanes,
+                                     const AxisLoad<T>& pro, const void* tw,
+                                     cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  using Geo = AxisGeom<T, N>;
+  static const cudaError_t err =
+      cudaFuncSetAttribute(axis_pass_kernel<T, N, INV, PRO>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(Geo::kTileSmem));
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = lanes / Geo::W;
+  axis_pass_kernel<T, N, INV, PRO>
+      <<<static_cast<unsigned>(b1 * tiles), Geo::kThreads, Geo::kTileSmem, stream>>>(
+          static_cast<const C*>(in), static_cast<C*>(out), lanes, tiles,
+          static_cast<T>(1.0 / std::sqrt(double(N))), pro, static_cast<const C*>(tw));
+  return cudaGetLastError();
+}
+
+// K5, K12, K18 on columns of n = 2^log_n, n in {128, 256, 512, 1024}; tw:
+// (n,) w_n^m.
+template <typename T, bool INV, AxisPrologue PRO>
+cudaError_t launch_axis_pass_radix(const void* in, void* out, int64_t b1, int log_n,
+                                   int64_t lanes, const AxisLoad<T>& pro, const void* tw,
+                                   cudaStream_t stream) {
+  switch (log_n) {
+    case 7:
+      return launch_axis_pass_radix_n<T, 128, INV, PRO>(in, out, b1, lanes, pro, tw, stream);
+    case 8:
+      return launch_axis_pass_radix_n<T, 256, INV, PRO>(in, out, b1, lanes, pro, tw, stream);
+    case 9:
+      return launch_axis_pass_radix_n<T, 512, INV, PRO>(in, out, b1, lanes, pro, tw, stream);
+    case 10:
+      return launch_axis_pass_radix_n<T, 1024, INV, PRO>(in, out, b1, lanes, pro, tw, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,7 +3,9 @@
 // transforms with elementwise prologues and epilogues): interleaved complex
 // arithmetic, twiddle tables, and the column ("axis") pass.
 //
-//   axis pass (axis_fft_kernel): one block loads an n x W tile of W
+//   axis pass (axis_fft_kernel; the stages form of K5, K12 and K18, whose
+//     radix form is axis_radix.cuh's axis_pass_kernel, and the column half of
+//     the split plane forms): one block loads an n x W tile of W
 //     contiguous columns (W * sizeof(complex) = 128 bytes of each row, so
 //     every row segment is one coalesced 128-byte run), runs an in-place
 //     radix-2 decimation-in-time FFT down each column in shared memory (the

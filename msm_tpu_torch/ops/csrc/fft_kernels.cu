@@ -33,9 +33,13 @@
 // register passes over whole rows with the wrapper's twiddle table. The row
 // pass below (row_fft_kernel) stays reachable for them only as the forced
 // `form="row"` of the wrappers (mxu_fft._lane_form), which chip_smoke.py and
-// the `cuda` tests time and hold beside it; no path takes it. K18 is the
-// column pass with the kMap load prologue (fft_common.cuh): the map costs one
-// extra read of n * lanes reals, which the batch shares.
+// the `cuda` tests time and hold beside it; no path takes it. K5 and K18 are
+// the radix form's column pass (axis_radix.cuh axis_pass_kernel: one column
+// tile a block, radix-16 register passes, a natural-order store; K18 with
+// the map multiplied in on load, one extra read of n * lanes reals, which
+// the batch shares); the radix-2 column pass (axis_fft_kernel) is their
+// forced `form="stages"` (mxu_fft._axis_form), and stays the column half of
+// the split plane forms below.
 //
 // Data are interleaved complex (torch.view_as_real layout), k in natural
 // fftn order. The TPU kernels' radix-R butterfly plus 128-point DFT matmul,
@@ -49,8 +53,11 @@
 // pass (K5, K14) or a 2-axis plane (K6) must move 2 grids, 0.72 ms, as long
 // as the transform in shared memory keeps up. Four geometries:
 //
-//   axis pass (axis_fft_kernel, fft_common.cuh): n x W column tiles, radix-2
-//     DIT in shared memory (see the header).
+//   axis pass (K5, K18: axis_pass_kernel, axis_radix.cuh): one column tile
+//     of 128-byte row segments a block (64 at n = 1024), 16 elements of a
+//     column a thread in registers, two or three radix-16 passes with one
+//     barrier between them; the stages form and the split planes' column
+//     half: axis_fft_kernel (fft_common.cuh), radix-2 DIT in shared memory.
 //   row pass (row_fft_kernel): a block takes whole contiguous rows (2048
 //     elements) and runs a radix-2 Stockham FFT on each row between two
 //     shared-memory buffers (natural order in and out, no bit reversal, whose
@@ -80,6 +87,7 @@
 // Offsets are 64-bit (batch * n^3 passes 2^31 at 1024^3). Every entry point
 // launches on the stream it is given and returns cudaGetLastError().
 
+#include "axis_radix.cuh"
 #include "lane_radix.cuh"
 #include "plane_cluster.cuh"
 
@@ -193,11 +201,25 @@ cudaError_t lane(const void* in, void* out, int64_t rows, int log_n, bool invers
                  : launch_rows<T, false, false, false>(in, out, rows, log_n, stream);
 }
 
+// K5 in the radix form (axis_radix.cuh, tw: (n,) w_n^m) or the stages form.
+template <typename T>
+cudaError_t axis_pass(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
+                      bool inverse, int stages, const void* tw, cudaStream_t stream) {
+  if (stages) return axis<T>(in, out, b1, log_n, lanes, inverse, stream);
+  return inverse ? launch_axis_pass_radix<T, true, AxisPrologue::kNone>(in, out, b1, log_n, lanes,
+                                                                        {}, tw, stream)
+                 : launch_axis_pass_radix<T, false, AxisPrologue::kNone>(in, out, b1, log_n,
+                                                                         lanes, {}, tw, stream);
+}
+
+// K18 in either form.
 template <typename T>
 cudaError_t axis_inv_map(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                         const void* map, cudaStream_t stream) {
-  return launch_axis<T, true, AxisPrologue::kMap>(
-      in, out, b1, log_n, lanes, stream, AxisLoad<T>{nullptr, nullptr, static_cast<const T*>(map)});
+                         const void* map, int stages, const void* tw, cudaStream_t stream) {
+  const AxisLoad<T> pro{nullptr, nullptr, static_cast<const T*>(map)};
+  return stages ? launch_axis<T, true, AxisPrologue::kMap>(in, out, b1, log_n, lanes, stream, pro)
+                : launch_axis_pass_radix<T, true, AxisPrologue::kMap>(in, out, b1, log_n, lanes,
+                                                                      pro, tw, stream);
 }
 
 }  // namespace
@@ -205,13 +227,17 @@ cudaError_t axis_inv_map(const void* in, void* out, int64_t b1, int log_n, int64
 extern "C" {
 
 // K5. in, out: (b1, 2^log_n, lanes) interleaved complex, lanes a multiple of
-// the tile width (16 complex64, 8 complex128); transform along the middle
-// axis. in == out is allowed.
+// the form's tile width (128 bytes of a row; 64 in the radix form at n =
+// 1024); transform along the middle axis. in == out is allowed. stages 0:
+// the radix form (axis_radix.cuh axis_pass_kernel) with tw: (n,)
+// interleaved complex w_n^m; 1: the stages form (axis_fft_kernel; tw
+// unused).
 int msm_fft_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                 int inverse, int is_double, void* stream) {
+                 int inverse, int is_double, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double ? axis<double>(in, out, b1, log_n, lanes, inverse, s)
-                                    : axis<float>(in, out, b1, log_n, lanes, inverse, s));
+  return static_cast<int>(
+      is_double ? axis_pass<double>(in, out, b1, log_n, lanes, inverse, stages, tw, s)
+                : axis_pass<float>(in, out, b1, log_n, lanes, inverse, stages, tw, s));
 }
 
 // K6. in, out: (m, n, n) interleaved complex, n = 2^log_n, 16-byte
@@ -311,12 +337,14 @@ int msm_fft_lane_real_inv(const void* in, void* out, int64_t rows, int log_n, in
 
 // K18. in, out: (b1, 2^log_n, lanes) interleaved complex as for K5; map:
 // (2^log_n, lanes) real, shared by the b1 batch elements. in == out is
-// allowed.
+// allowed. stages and tw as for K5.
 int msm_fft_axis_inv_map(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                         const void* map, int is_double, void* stream) {
+                         const void* map, int is_double, int stages, const void* tw,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double ? axis_inv_map<double>(in, out, b1, log_n, lanes, map, s)
-                                    : axis_inv_map<float>(in, out, b1, log_n, lanes, map, s));
+  return static_cast<int>(
+      is_double ? axis_inv_map<double>(in, out, b1, log_n, lanes, map, stages, tw, s)
+                : axis_inv_map<float>(in, out, b1, log_n, lanes, map, stages, tw, s));
 }
 
 }  // extern "C"

@@ -75,18 +75,23 @@
 //     axis pass in shared memory, a decimation-in-frequency forward, the
 //     epilogue at k = bitrev(row), a decimation-in-time inverse) stays as
 //     the wrappers' forced form="stages", for tests and chip_smoke.py's
-//     before/after; no path takes it. K12 is the column pass
-//     (axis_fft_kernel) with the kick multiplied in as the tile is loaded.
-//   K4, K2 and K10 at n = 128 and 256: the one-pass cluster form
+//     before/after; no path takes it. K12 is the radix form's column pass
+//     (axis_radix.cuh axis_pass_kernel<T, N, true, kKick>: the kick
+//     multiplied in on pass 1's load, one inverse, a natural-order store);
+//     its stages form, the radix-2 column pass (axis_fft_kernel) with the
+//     same kick on load, is its forced form="stages".
+//   K4, K2, K10 and K11 at n = 128 and 256: the one-pass cluster form
 //     (plane_cluster.cuh): the input's plane in the shared memory of a
 //     cluster of 2-8 blocks, its 2-axis inverse, the middle step (K4:
 //     max|phi| per block and the kick on psi read once from device memory;
 //     K2: psi written once, rho = pref |psi|^2; K10: rho alone), the 2-axis
 //     forward, one write: 3 grids of traffic for K4 and K2, 2 for K10, phi
-//     and rho never in device memory. The wrapper picks the form by shape
-//     (mxu_fft._plane_form); K4 leaves one maximum per block.
-//   the split form (K4, K2, K10 at n = 512, 1024, where a plane exceeds a
-//     portable cluster's 8 x 227 KB of shared memory; K7, K11 at every n): a
+//     and rho never in device memory; K11 stops after the inverse with a
+//     max |Re| a block (1 grid). The wrapper picks the form by shape
+//     (mxu_fft._plane_form); K4 and K11 leave one maximum per block.
+//   the split form (K4, K2, K10, K11 at n = 512, 1024, where a plane
+//     exceeds a portable cluster's 8 x 227 KB of shared memory; K7 at
+//     every n): a
 //     column pass (axis_fft_kernel), a fused row kernel (row_fused_kernel:
 //     whole contiguous rows, radix-2 Stockham between two shared buffers,
 //     with the step's elementwise work between its inverse and its forward),
@@ -497,14 +502,17 @@ cudaError_t plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m
   return launch_row_fused<T, kRealMax>(m, log_n, a, stream);
 }
 
-// K12: the inverse column pass with the kick multiplied in on load.
+// K12: the inverse column pass with the kick multiplied in on load, in the
+// radix form (axis_radix.cuh, tw: (n,) w_n^m) or the stages form.
 template <typename T>
 cudaError_t axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                          const void* f0, const void* f12, cudaStream_t stream) {
+                          const void* f0, const void* f12, int stages, const void* tw,
+                          cudaStream_t stream) {
   using C = typename Complex<T>::type;
-  return launch_axis<T, true, AxisPrologue::kKick>(
-      in, out, b1, log_n, lanes, stream,
-      AxisLoad<T>{static_cast<const C*>(f0), static_cast<const C*>(f12), nullptr});
+  const AxisLoad<T> pro{static_cast<const C*>(f0), static_cast<const C*>(f12), nullptr};
+  return stages ? launch_axis<T, true, AxisPrologue::kKick>(in, out, b1, log_n, lanes, stream, pro)
+                : launch_axis_pass_radix<T, true, AxisPrologue::kKick>(in, out, b1, log_n, lanes,
+                                                                       pro, tw, stream);
 }
 
 template <typename T>
@@ -657,13 +665,17 @@ int msm_axis_fwd_reduce(const void* in, void* out, int64_t b1, int log_n, int64_
 }
 
 // K12. in, out: (b1, 2^log_n, lanes) interleaved complex (in == out allowed);
-// f0: (b1, n), f12: (b1, lanes) complex phase factors.
+// f0: (b1, n), f12: (b1, lanes) complex phase factors. stages 0: the radix
+// form (axis_radix.cuh axis_pass_kernel; lanes a multiple of its tile width)
+// with tw: (n,) interleaved complex w_n^m; 1: the stages form
+// (axis_fft_kernel; tw unused).
 int msm_axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t lanes,
-                      const void* f0, const void* f12, int is_double, void* stream) {
+                      const void* f0, const void* f12, int is_double, int stages,
+                      const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_double ? axis_inv_kick<double>(in, out, b1, log_n, lanes, f0, f12, s)
-                : axis_inv_kick<float>(in, out, b1, log_n, lanes, f0, f12, s));
+      is_double ? axis_inv_kick<double>(in, out, b1, log_n, lanes, f0, f12, stages, tw, s)
+                : axis_inv_kick<float>(in, out, b1, log_n, lanes, f0, f12, stages, tw, s));
 }
 
 // K10. in, rho: (m, n, n) interleaved complex, distinct; cluster and tw as
@@ -683,11 +695,20 @@ int msm_plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int log
                 : plane_inv_density_rho_only<float>(in, rho, m, log_n, pref, s));
 }
 
-// K11. in, tmp: (m, n, n) interleaved complex (tmp is scratch); maxes:
-// (m * n * n / 2048,) real, one max |Re| per row block.
+// K11. in: (m, n, n) interleaved complex. cluster 0: the split form, tmp
+// (m, n, n) interleaved complex scratch, maxes (m * n * n / 2048,) real,
+// one max |Re| per row block; else the cluster form (plane_cluster.cuh)
+// with that many blocks per plane, no scratch (tmp null), maxes (m *
+// cluster,), one per block, and tw: (n,) interleaved complex w_n^m; in
+// 16-byte aligned.
 int msm_plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m, int log_n,
-                           int is_double, void* stream) {
+                           int is_double, int cluster, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    return static_cast<int>(
+        is_double ? real_inv_max_cluster<double>(in, maxes, m, log_n, cluster, tw, s)
+                  : real_inv_max_cluster<float>(in, maxes, m, log_n, cluster, tw, s));
+  }
   return static_cast<int>(is_double
                               ? plane_real_inv_max<double>(in, tmp, maxes, m, log_n, s)
                               : plane_real_inv_max<float>(in, tmp, maxes, m, log_n, s));

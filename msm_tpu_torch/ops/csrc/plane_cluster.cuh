@@ -1,16 +1,18 @@
 // The one-pass (N, N) plane on a thread-block cluster: the 2-axis DFT of K6
 // (plane_pass), its real-input forward K17 (plane_pass_real_fwd) and its
-// real-output inverse K9 (plane_pass_real_inv) (fft_kernels.cu), and the
+// real-output inverse K9 (plane_pass_real_inv) (fft_kernels.cu), the
 // inverse -> middle step -> forward of K4 (plane_potkick_fwd), K2
-// (plane_inv_density) and K10 (plane_inv_density_rho_only)
-// (fused_kernels.cu), for N = 128 and 256.
+// (plane_inv_density) and K10 (plane_inv_density_rho_only), and the
+// inverse's max |Re| of K11 (plane_real_inv_max) (fused_kernels.cu), for N
+// = 128 and 256.
 //
 // What bounds them: device memory. Each reads its inputs once and writes its
 // outputs once (K6 and K10: 2 grids, 0.72 ms at (9, 256^3) complex64 on 3.35
 // TB/s; K17 and K9: a real and a complex grid, 1.5 grids, 0.54 ms; K4 and
-// K2: 3 grids, 1.08 ms). The split form (a row pass and column passes with
-// the intermediate in device memory) moves 4 (K6), 3.5 (K17, K9), 6 (K10)
-// and 7 (K4, K2) grids. A 256^2 complex64 plane is 512 KB, more than a
+// K2: 3 grids, 1.08 ms; K11: one grid and a maximum a block, 0.36 ms). The
+// split form (a row pass and column passes with the intermediate in device
+// memory) moves 4 (K6), 3.5 (K17, K9), 6 (K10), 7 (K4, K2) and 3 (K11)
+// grids. A 256^2 complex64 plane is 512 KB, more than a
 // block's 227 KB of shared memory, but it fits a cluster of C = 8 blocks (64
 // KB each; complex128: 128 KB), and the blocks of a cluster read and write
 // each other's shared memory (distributed shared memory,
@@ -59,6 +61,10 @@
 //     K6's load puts a complex; K9 stores the scaled real part of the
 //     column lines, runs of R reals of one output row (store_columns, the
 //     epilogue after rows_to_columns).
+//   K11: K9's load and rows_to_columns, whose columns' last pass takes the
+//     maximum of |scale Re| of its outputs in registers in place of
+//     storing them (last_pass_max); block_max leaves one partial a block,
+//     in a fixed order (no atomics); the wrapper reduces them per plane.
 //   K4, K2, K10: the input's rows DIT inverse -> swap -> columns DIF
 //     inverse (rows_to_columns): the field at spatial (row y, column
 //     W rank + w), column position transposed(y); the middle step in place
@@ -567,6 +573,71 @@ __device__ __forceinline__ void block_max(T mx, T* red, T* dst) {
   }
 }
 
+// The columns' last DIF pass (slab_fft's second radix_pass over ColLines,
+// inverse) with max |scale Re| (NaN-keeping) of each output taken in
+// registers in place of its store: every element of the block's column
+// slab once. Returns the thread's maximum.
+template <typename T, int N>
+__device__ __forceinline__ T last_pass_max(const typename Complex<T>::type* s,
+                                           const typename Complex<T>::type* tw, T scale) {
+  using C = typename Complex<T>::type;
+  constexpr int R = N / cluster_size<T, N>();
+  using Lines = ColLines<N, R>;
+  constexpr int A = plan_a(N);
+  constexpr int B = N / A;
+  T mx = T(0);
+  for (int t = threadIdx.x; t < R * A; t += kClusterThreads) {
+    const int line = t % R;
+    const int g = t / R;
+    C v[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) v[j] = s[Lines::at(line, g * B + j)];
+    dft_regs<T, B, true>(v, tw, N / B);
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const T re = v[k].x * scale;
+      mx = nan_max(mx, re < T(0) ? -re : re);
+    }
+  }
+  return mx;
+}
+
+// K11: max |Re| of the ortho 2-axis inverse of plane blockIdx.x / CL, one
+// partial a block into maxes[blockIdx.x]; no plane is written. K9's load
+// and rows_to_columns (the rows, the swap, the columns' first pass), with
+// the columns' last pass taking the maximum in registers (last_pass_max)
+// where K9 stores, and block_max leaving the block's partial (the
+// reduction scratch of cluster_smem). After the swap no block touches a
+// peer's shared memory, so the passes' and block_max's __syncthreads are
+// the only barriers the epilogue needs.
+template <typename T, int N>
+__global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
+    plane_real_inv_max_cluster_kernel(const typename Complex<T>::type* in, T* maxes,
+                                      const typename Complex<T>::type* twg, T scale) {
+  using C = typename Complex<T>::type;
+  constexpr int CL = cluster_size<T, N>();
+  constexpr int R = N / CL;
+  constexpr int A = plan_a(N);
+  constexpr int B = N / A;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* s = reinterpret_cast<C*>(smem);
+  C* tw = s + pad16(R * N);
+  T* red = reinterpret_cast<T*>(tw + N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t plane = blockIdx.x / CL;
+
+  load_twiddles<T, N>(tw, twg);
+  load_rows_transposed<T, N, R>(s, in + (plane * N + rank * R) * N);
+  __syncthreads();
+  slab_fft<T, N, true, true, RowLines<N>>(s, tw, R);
+  cluster.sync();
+  swap_tiles<T, N, CL, kSwapOnePass>(cluster, s, rank);
+  cluster.sync();
+  radix_pass<T, N, A, true, true, ColLines<N, R>>(s, tw, R, B, 1, B);
+  block_max(last_pass_max<T, N>(s, tw, scale), red, maxes + blockIdx.x);
+}
+
 // K4: phi = Re of the ortho 2-axis inverse of phik's plane, max|phi| of the
 // block's part into maxes[blockIdx.x], psi exp(i c phi) with c the owning
 // stream's coefficient, its ortho 2-axis forward into out.
@@ -720,6 +791,19 @@ cudaError_t potkick_cluster(const void* phik, const void* psi, void* out, void* 
         static_cast<const C*>(psi), static_cast<C*>(out), static_cast<T*>(maxes),
         static_cast<const T*>(coeff), planes_per_batch, static_cast<const C*>(tw),
         static_cast<T>(1.0 / N));
+  });
+}
+
+// K11 in the cluster form; maxes: (m * cl,), one per block.
+template <typename T>
+cudaError_t real_inv_max_cluster(const void* in, void* maxes, int64_t m, int log_n, int cl,
+                                 const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  return by_plane_size<T>(log_n, cl, [=](auto n) {
+    constexpr int N = decltype(n)::value;
+    return launch_cluster<plane_real_inv_max_cluster_kernel<T, N>>(
+        m, cl, cluster_smem<T, N>(), stream, static_cast<const C*>(in), static_cast<T*>(maxes),
+        static_cast<const C*>(tw), static_cast<T>(1.0 / N));
   });
 }
 

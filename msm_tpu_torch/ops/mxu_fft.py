@@ -58,23 +58,26 @@ plain torch.fft version beside it; any other device raises. Sizes are the
 engine's, N = 128 * {1, 2, 4, 8} (`supported`), on both routes. `launches`
 counts kernel launches per wrapper.
 
-K6, K17, K9, K4, K2 and K10 take one of two forms, chosen by shape
+K6, K17, K9, K4, K2, K10 and K11 take one of two forms, chosen by shape
 (`_plane_form`): at N = 128 and 256 the one-pass plane on a thread-block
 cluster (`csrc/plane_cluster.cuh`: the plane in the cluster's shared
-memory, one HBM read of each input and one write of each output); at N =
-512 and 1024, whose planes exceed a portable cluster's 8 x 227 KB, the
-split form (a row pass and a column pass with the intermediate in device
-memory). `form_launches` counts their launches per form.
+memory, one HBM read of each input and one write of each output; K11
+writes only a maximum a block); at N = 512 and 1024, whose planes exceed a
+portable cluster's 8 x 227 KB, the split form (a row pass and a column
+pass with the intermediate in device memory). `form_launches` counts
+their launches per form.
 
 K14-K16 run the radix form (`csrc/lane_radix.cuh` `lane_fft_kernel`: whole
 rows a block, radix-16 register passes, the `_twiddles` table); `form="row"`
 forces the radix-2 row pass they ran before (`row_fft_kernel`), for
-timing and tests; `form_launches` counts both. K1, K3, K8 and K13 likewise
-run the radix form (`csrc/axis_radix.cuh` `axis_roundtrip_radix_kernel`:
-one column tile a block, radix-16 register passes, the epilogue in
-registers, the `_twiddles` table); `form="stages"` forces the radix-2
-round trip they ran before (`axis_roundtrip_kernel`), for timing and tests
-only.
+timing and tests; `form_launches` counts both. The column-tile kernels
+(`AXIS_FORM_KERNELS`) likewise run the radix form (`csrc/axis_radix.cuh`:
+one column tile a block, radix-16 register passes, the `_twiddles` table;
+K1, K3, K8 and K13 `axis_roundtrip_radix_kernel`, the epilogue in
+registers; K5, K12 and K18 `axis_pass_kernel`, one transform with K12's
+kick or K18's map on load); `form="stages"` forces the radix-2 kernels
+they ran before (`axis_roundtrip_kernel`, `axis_fft_kernel`), for timing
+and tests only.
 """
 
 from __future__ import annotations
@@ -112,14 +115,16 @@ launches = {
 # the plane kernels with a cluster and a split form (`_plane_form`)
 PLANE_FORM_KERNELS = (
     "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv", "plane_potkick_fwd",
-    "plane_inv_density", "plane_inv_density_rho_only",
+    "plane_inv_density", "plane_inv_density_rho_only", "plane_real_inv_max",
 )
-# the round trips with a radix and a stages form (`_axis_form`)
+# the column-tile kernels with a radix and a stages form (`_axis_form`):
+# the round trips and the column passes
 AXIS_FORM_KERNELS = (
     "axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_fwd_reduce", "axis_roundtrip_map",
+    "axis_inv_kick", "axis_pass", "axis_inv_map",
 )
-# launches of the plane kernels, of K14-K16 and of the round trips, by form
-# ("<kernel>/<form>")
+# launches of the plane kernels, of K14-K16 and of the column-tile kernels,
+# by form ("<kernel>/<form>")
 form_launches = {
     **{f"{name}/{form}": 0 for name in PLANE_FORM_KERNELS for form in ("cluster", "split")},
     **{
@@ -130,8 +135,8 @@ form_launches = {
     **{f"{name}/{form}": 0 for name in AXIS_FORM_KERNELS for form in ("radix", "stages")},
 }
 # elements of one row block of the fused row kernel (kRowTile in
-# csrc/fft_common.cuh): plane_potkick_fwd's split form and plane_real_inv_max
-# leave one max|phi| per block
+# csrc/fft_common.cuh): the split forms of plane_potkick_fwd and
+# plane_real_inv_max leave one max|phi| per block
 _ROW_TILE = 2048
 # threads of a full block of the lane kernels' radix form (kLaneThreads in
 # csrc/lane_radix.cuh): N / 16 a row, 16 elements each
@@ -167,8 +172,8 @@ def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
 
 
 def _maxes_per_plane(n: int, form: str, cluster: int) -> int:
-    """Partial maxima K4 leaves per plane: one per row block of the split
-    form, one per block of the cluster."""
+    """Partial maxima K4 and K11 leave per plane: one per row block of the
+    split form, one per block of the cluster."""
     return cluster if form == "cluster" else n * n // _ROW_TILE
 
 
@@ -281,34 +286,22 @@ def axis_inv_map_plain(x: torch.Tensor, pmap: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def axis_pass(z: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
-    """Ortho DFT of complex z along `axis`, which is not the last (K5)."""
+def axis_pass(z: torch.Tensor, axis: int, inverse: bool, *, form=None) -> torch.Tensor:
+    """Ortho DFT of complex z along `axis`, which is not the last (K5).
+    form: None for the radix form; "stages" forces the stages form
+    (`_axis_form`)."""
     axis = axis % z.ndim
     if axis == z.ndim - 1:
         raise ValueError("axis_pass transforms a non-last axis; the last is plane_pass's")
-    log_n = _log_size(z.shape[axis])
+    n = z.shape[axis]
+    _log_size(n)
+    form = _axis_form(form)
     if not _route(z, "axis_pass"):
         return axis_pass_plain(z, axis, inverse)
-    is_double = _check_dtype(z, (torch.complex64, torch.complex128), "axis_pass")
-    n = z.shape[axis]
-    lanes = math.prod(z.shape[axis + 1 :])
-    tile = _TILE_BYTES // z.element_size()
-    if lanes % tile:
-        raise ValueError(f"trailing extent {lanes} is not a multiple of {tile}")
-    b1 = z.numel() // (n * lanes)
-    if b1 * lanes // tile >= 2**31:
-        raise ValueError(f"{tuple(z.shape)} exceeds the launch grid")
-    z = z.contiguous()
-    out = torch.empty_like(z)
-    lib = build.load()
-    with torch.cuda.device(z.device):
-        rc = lib.msm_fft_axis(
-            z.data_ptr(), out.data_ptr(), b1, log_n, lanes, int(inverse), is_double,
-            _stream(z),
-        )
-    build.check(rc, "axis_pass")
-    launches["axis_pass"] += 1
-    return out
+    x = _roundtrip_operand(z.reshape(-1, n, math.prod(z.shape[axis + 1 :])), "axis_pass", form)
+    out = torch.empty_like(x)
+    _launch_roundtrip("axis_pass", x, out, form, int(inverse), entry="msm_fft_axis")
+    return out.view(z.shape)
 
 
 def plane_pass(z: torch.Tensor, inverse: bool, *, form=None) -> torch.Tensor:
@@ -469,24 +462,19 @@ def lane_pass_real_inv(z: torch.Tensor, *, form=None) -> torch.Tensor:
                         log_n, form, is_double)
 
 
-def axis_inv_map(x: torch.Tensor, pmap: torch.Tensor) -> torch.Tensor:
+def axis_inv_map(x: torch.Tensor, pmap: torch.Tensor, *, form=None) -> torch.Tensor:
     """K18: x (b1, N, ...) times the real map (N, lanes) (shared by the
-    batch) as it is loaded, then the ortho inverse DFT along axis 1."""
-    b1, n, lanes, log_n = _axis1(x)
+    batch) as it is loaded, then the ortho inverse DFT along axis 1. form:
+    as for `axis_pass`."""
+    _, n, lanes, _ = _axis1(x)
+    form = _axis_form(form)
     on_card = _route(x, "axis_inv_map")
     pmap = _table(pmap, x, n * lanes, "map")
     if not on_card:
         return axis_inv_map_plain(x, pmap)
-    x, is_double = _roundtrip_operand(x, "axis_inv_map")
+    x = _roundtrip_operand(x, "axis_inv_map", form)
     out = torch.empty_like(x)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_fft_axis_inv_map(
-            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, pmap.data_ptr(), is_double,
-            _stream(x),
-        )
-    build.check(rc, "axis_inv_map")
-    launches["axis_inv_map"] += 1
+    _launch_roundtrip("axis_inv_map", x, out, form, pmap.data_ptr(), entry="msm_fft_axis_inv_map")
     return out
 
 
@@ -703,31 +691,31 @@ def _table(t: torch.Tensor, like: torch.Tensor, numel: int, name: str) -> torch.
     return t
 
 
-def _roundtrip_operand(x: torch.Tensor, name: str,
-                       form: str = "stages") -> tuple[torch.Tensor, int]:
-    """Validate a column-tile kernel's CUDA operand (K1, K3, K8, K13 in
-    `form`; K12 and K18, column passes of csrc/fft_common.cuh, on the
-    stages form's 128-byte tiles); returns (contiguous x, is_double)."""
-    is_double = _check_dtype(x, (torch.complex64, torch.complex128), name)
+def _roundtrip_operand(x: torch.Tensor, name: str, form: str) -> torch.Tensor:
+    """Validate a column-tile kernel's CUDA operand (`AXIS_FORM_KERNELS`,
+    a (b1, N, lanes) view, in `form`); returns x contiguous."""
+    _check_dtype(x, (torch.complex64, torch.complex128), name)
     b1, n, lanes, _ = _axis1(x)
     tile = _axis_tile(n, x.element_size(), form)
     if lanes % tile:
         raise ValueError(f"trailing extent {lanes} is not a multiple of {tile}")
     if b1 * lanes // tile >= 2**31:
         raise ValueError(f"{tuple(x.shape)} exceeds the launch grid")
-    return x.contiguous(), is_double
+    return x.contiguous()
 
 
 def _axis_form(form) -> str:
-    """The form of K1, K3, K8 and K13: None takes "radix"
-    (axis_roundtrip_radix_kernel, csrc/axis_radix.cuh); "stages" forces
-    axis_roundtrip_kernel, the radix-2 form before it (tests and
-    chip_smoke.py time the two in one call)."""
+    """The form of the column-tile kernels (`AXIS_FORM_KERNELS`): None
+    takes "radix" (csrc/axis_radix.cuh: axis_roundtrip_radix_kernel for K1,
+    K3, K8, K13, axis_pass_kernel for K5, K12, K18); "stages" forces the
+    radix-2 kernels before them (axis_roundtrip_kernel; axis_fft_kernel of
+    csrc/fft_common.cuh), for tests and chip_smoke.py, which time the two in
+    one call."""
     if form is None:
         return "radix"
     if form in ("radix", "stages"):
         return form
-    raise ValueError(f"no {form!r} form for axis round trips")
+    raise ValueError(f"no {form!r} form for axis round trips and column passes")
 
 
 def _axis_tile(n: int, element_size: int, form: str) -> int:
@@ -738,13 +726,15 @@ def _axis_tile(n: int, element_size: int, form: str) -> int:
     return row_bytes // element_size
 
 
-def _launch_roundtrip(name: str, x: torch.Tensor, out: torch.Tensor, form: str, *args) -> None:
-    """One launch of msm_<name>(in, out, b1, log_n, lanes, *args, is_double,
-    stages, twiddles, stream): the radix form with the (N,) twiddle table,
-    or the stages form."""
+def _launch_roundtrip(name: str, x: torch.Tensor, out: torch.Tensor, form: str, *args,
+                      entry=None) -> None:
+    """One launch of the column-tile kernel `name`, entry point `entry`
+    (default msm_<name>), as entry(in, out, b1, log_n, lanes, *args,
+    is_double, stages, twiddles, stream): the radix form with the (N,)
+    twiddle table, or the stages form."""
     b1, n, lanes, log_n = _axis1(x)
     tw = _twiddles(n, x.dtype, x.device) if form == "radix" else None
-    fn = getattr(build.load(), f"msm_{name}")
+    fn = getattr(build.load(), entry or f"msm_{name}")
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), out.data_ptr(), b1, log_n, lanes, *args,
@@ -796,7 +786,7 @@ def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float, with_reduce: bool = Tr
     s0, s12, f0, f12 = _kick_tables(x, s0, s12, coeff)
     if not on_card:
         return axis_roundtrip_kick_plain(x, s0, s12, f0, f12, cutoff, with_reduce)
-    x, _ = _roundtrip_operand(x, "axis_roundtrip_kick", form)
+    x = _roundtrip_operand(x, "axis_roundtrip_kick", form)
     out = torch.empty_like(x)
     partials = _partials(x, form) if with_reduce else None
     _launch_roundtrip(
@@ -808,25 +798,19 @@ def axis_roundtrip_kick(x, s0, s12, coeff, cutoff: float, with_reduce: bool = Tr
     return (out, *_sums(partials, x))
 
 
-def axis_inv_kick(x, s0, s12, coeff):
+def axis_inv_kick(x, s0, s12, coeff, *, form=None):
     """K12: x (b1, N, ...), k along axis 1, times exp(i coeff_b k^2) with
     k^2 = s0 + s12 (the factors built outside the kernel, as for K1), then
-    the inverse DFT along axis 1."""
-    b1, n, lanes, log_n = _axis1(x)
+    the inverse DFT along axis 1. form: as for `axis_pass`."""
+    _axis1(x)
+    form = _axis_form(form)
     on_card = _route(x, "axis_inv_kick")
     _s0, _s12, f0, f12 = _kick_tables(x, s0, s12, coeff)
     if not on_card:
         return axis_inv_kick_plain(x, f0, f12)
-    x, is_double = _roundtrip_operand(x, "axis_inv_kick")
+    x = _roundtrip_operand(x, "axis_inv_kick", form)
     out = torch.empty_like(x)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.msm_axis_inv_kick(
-            x.data_ptr(), out.data_ptr(), b1, log_n, lanes, f0.data_ptr(), f12.data_ptr(),
-            is_double, _stream(x),
-        )
-    build.check(rc, "axis_inv_kick")
-    launches["axis_inv_kick"] += 1
+    _launch_roundtrip("axis_inv_kick", x, out, form, f0.data_ptr(), f12.data_ptr())
     return out
 
 
@@ -842,7 +826,7 @@ def axis_fwd_reduce(x, s0, s12, cutoff: float, *, form=None):
     s12 = _table(s12, x, lanes, "s12")
     if not on_card:
         return axis_fwd_reduce_plain(x, s0, s12, cutoff)
-    x, _ = _roundtrip_operand(x, "axis_fwd_reduce", form)
+    x = _roundtrip_operand(x, "axis_fwd_reduce", form)
     out = torch.empty_like(x)
     partials = _partials(x, form)
     _launch_roundtrip("axis_fwd_reduce", x, out, form, s0.data_ptr(), s12.data_ptr(),
@@ -861,7 +845,7 @@ def axis_roundtrip_poisson(x, s0, s12, coeff: float, *, form=None):
     s12 = _table(s12, x, lanes, "s12")
     if not on_card:
         return axis_roundtrip_poisson_plain(x, s0, s12, coeff)
-    x, _ = _roundtrip_operand(x, "axis_roundtrip_poisson", form)
+    x = _roundtrip_operand(x, "axis_roundtrip_poisson", form)
     out = torch.empty_like(x)
     _launch_roundtrip("axis_roundtrip_poisson", x, out, form, s0.data_ptr(), s12.data_ptr(),
                       float(coeff))
@@ -878,7 +862,7 @@ def axis_roundtrip_map(x, pmap, *, form=None):
     pmap = _table(pmap, x, n * lanes, "map")
     if not on_card:
         return axis_roundtrip_map_plain(x, pmap)
-    x, _ = _roundtrip_operand(x, "axis_roundtrip_map", form)
+    x = _roundtrip_operand(x, "axis_roundtrip_map", form)
     out = torch.empty_like(x)
     _launch_roundtrip("axis_roundtrip_map", x, out, form, pmap.data_ptr())
     return out
@@ -930,23 +914,31 @@ def plane_inv_density_rho_only(x, prefactor: float, *, form=None):
     return _inv_density("plane_inv_density_rho_only", x, prefactor, form, False)[1]
 
 
-def plane_real_inv_max(z):
+def plane_real_inv_max(z, *, form=None):
     """K11: max |Re of the ortho inverse DFT of z over its last two axes|
-    per (N, N) plane, (m,); the real plane is never written."""
+    per (N, N) plane, (m,); the real plane is never written. form: as for
+    `plane_pass`; the split form goes through a complex scratch grid, the
+    cluster form through none."""
     m, log_n = _planes(z)
+    n = z.shape[-1]
+    form, cluster = _plane_form(n, z.dtype, form)
     if not _route(z, "plane_real_inv_max"):
         return plane_real_inv_max_plain(z)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_real_inv_max")
-    z = z.contiguous()
-    tmp = torch.empty_like(z)
-    maxes = torch.empty(m * z.shape[-1] ** 2 // _ROW_TILE, dtype=z.real.dtype, device=z.device)
+    z = _aligned(z)
+    tmp = None if cluster else torch.empty_like(z)
+    maxes = torch.empty(m * _maxes_per_plane(n, form, cluster), dtype=z.real.dtype,
+                        device=z.device)
+    tw = _twiddles(n, z.dtype, z.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(z.device):
         rc = lib.msm_plane_real_inv_max(
-            z.data_ptr(), tmp.data_ptr(), maxes.data_ptr(), m, log_n, is_double, _stream(z)
+            z.data_ptr(), None if tmp is None else tmp.data_ptr(), maxes.data_ptr(), m, log_n,
+            is_double, cluster, None if tw is None else tw.data_ptr(), _stream(z),
         )
     build.check(rc, "plane_real_inv_max")
     launches["plane_real_inv_max"] += 1
+    form_launches[f"plane_real_inv_max/{form}"] += 1
     return maxes.view(m, -1).amax(dim=-1)
 
 

@@ -25,7 +25,8 @@ unskewed fused engine).
    dump interval as warm-up, then the second interval is timed with the
    host clock around work that ends in a synchronize: iterations (the
    launches of the kernel each path runs once per iteration), accepted
-   steps, ms per iteration.
+   steps, ms per iteration, and the interval's peak of
+   torch.cuda.max_memory_allocated.
 2. The second interval of `--profile`'s path runs again under
    torch.profiler (CPU + CUDA activities): device time by kernel name, in
    order, and the device's busy share of the unprofiled interval (the
@@ -87,6 +88,7 @@ def second_interval(path: str, dt_mode: str, batch, mft, profile=None) -> dict:
         s = st.snap_after_dump(st.evolve_to_next_dump(st.init_state(batch)))
         steps0 = int(s.n_steps.sum())
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         mxu_fft.reset_launches()
         t0 = time.perf_counter()
@@ -103,6 +105,8 @@ def second_interval(path: str, dt_mode: str, batch, mft, profile=None) -> dict:
         "path": path, "dt_mode": dt_mode, "iterations": iterations,
         "steps": int(s.n_steps.sum()) - steps0,
         "wall_s": wall, "ms_per_iteration": wall * 1e3 / iterations,
+        # torch.cuda.max_memory_allocated over the timed interval
+        "peak_bytes": torch.cuda.max_memory_allocated(),
         "launches": {k: v for k, v in launches.items() if v},
     }
 

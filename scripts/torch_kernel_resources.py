@@ -4,8 +4,10 @@
 Compiles sources of `msm_tpu_torch/ops/csrc/` with the build's own flags
 (`ops/build.py` COMPILE_FLAGS) plus `-Xptxas -v` into a temporary
 directory, and prints one JSON line per kernel: its demangled name,
-registers, spill stores and loads, stack frame and static shared memory.
-Needs nvcc (the card's machine); exits 1 without it.
+registers, spill stores and loads, stack frame and static shared memory;
+then one line per source with its nvcc's wall seconds (all sources
+started together, as the build starts them). Needs nvcc (the card's
+machine); exits 1 without it.
 
     python3 scripts/torch_kernel_resources.py [--source fft_kernels.cu ...] [--match lane_fft]
 """
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
@@ -71,6 +75,7 @@ def main(argv=None) -> int:
         return 1
     sources = [os.path.join(build._CSRC, s) for s in args.source] if args.source else build.SOURCES
     with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
         procs = [
             (src, subprocess.Popen(
                 [nvcc, *build.COMPILE_FLAGS, "-Xptxas", "-v", "-o",
@@ -79,8 +84,19 @@ def main(argv=None) -> int:
             ))
             for src in sources
         ]
+        outputs, seconds = {}, {}
+
+        def wait(src, proc):
+            outputs[src] = proc.communicate()
+            seconds[src] = time.perf_counter() - t0
+
+        waiters = [threading.Thread(target=wait, args=pair) for pair in procs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         for src, proc in procs:
-            out, err = proc.communicate()
+            out, err = outputs[src]
             if proc.returncode != 0:
                 print(f"nvcc failed on {src}:\n{err}", file=sys.stderr)
                 return 1
@@ -90,6 +106,9 @@ def main(argv=None) -> int:
                 if args.match in name:
                     print(json.dumps({"source": os.path.basename(src), "kernel": name,
                                       **kernels[mangled]}), flush=True)
+        for src, _ in procs:
+            print(json.dumps({"source": os.path.basename(src), "nvcc_seconds": seconds[src]}),
+                  flush=True)
     return 0
 
 

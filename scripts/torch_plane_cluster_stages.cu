@@ -21,6 +21,13 @@
 // the third grid with the middle's arithmetic and stage 3 - stage 2 the
 // second transform.
 //
+// K11 (max_stage): 0 the load alone, 1 with the inverse (rows_to_columns),
+// 2 with a max epilogue over the stored column slab (max_columns,
+// block_max); 3 the shipped kernel's body, the maximum taken in the
+// columns' last pass (last_pass_max) where stage 1 stores. Stages 0 and 1
+// write one element a block, so the differences are the inverse's and the
+// epilogue's own time, and 3 against 2 the two epilogues.
+//
 // cluster_kernel_resources: registers, local (spill) bytes, dynamic shared
 // memory and resident clusters of the shipped cluster kernels, as compiled
 // into this library with the build's flags.
@@ -137,6 +144,65 @@ cudaError_t chain_kind(int stage, const void* in, void* psi, void* out, void* ma
   return cudaErrorInvalidValue;
 }
 
+// A max epilogue after rows_to_columns (stage 2): max |scale Re s|
+// (NaN-keeping) over the block's column slab, the elements store_columns
+// would store. ColLines maps (line w < R, row y < N) one to one onto the
+// slab's R N positions, so the thread walks them in order (consecutive
+// threads on consecutive positions, a bank each). Returns the thread's
+// maximum. The shipped K11 takes the maximum in the columns' last pass
+// instead (last_pass_max).
+template <typename T, int N>
+__device__ __forceinline__ T max_columns(const typename Complex<T>::type* s, T scale) {
+  constexpr int R = N / cluster_size<T, N>();
+  T mx = T(0);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * N; i += kClusterThreads) {
+    const T re = s[pad16(i)].x * scale;
+    mx = nan_max(mx, re < T(0) ? -re : re);
+  }
+  return mx;
+}
+
+template <int STAGE>
+__global__ void __launch_bounds__(kClusterThreads, 3)
+    max_stage_kernel(const float2* in, float* maxes, const float2* twg) {
+  constexpr int N = 256, CL = 8, R = N / CL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* s = reinterpret_cast<float2*>(smem);
+  float2* tw = s + pad16(R * N);
+  float* red = reinterpret_cast<float*>(tw + N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t plane = blockIdx.x / CL;
+  load_twiddles<float, N>(tw, twg);
+  load_rows_transposed<float, N, R>(s, in + (plane * N + rank * R) * N);
+  __syncthreads();
+  if constexpr (STAGE == 3) {
+    slab_fft<float, N, true, true, RowLines<N>>(s, tw, R);
+    cluster.sync();
+    swap_tiles<float, N, CL, kSwapOnePass>(cluster, s, rank);
+    cluster.sync();
+    radix_pass<float, N, 16, true, true, ColLines<N, R>>(s, tw, R, N / 16, 1, N / 16);
+    block_max(last_pass_max<float, N>(s, tw, 1.0f / N), red, maxes + blockIdx.x);
+    return;
+  }
+  if constexpr (STAGE >= 1) rows_to_columns<float, N, true, kSwapOnePass>(cluster, s, tw, rank);
+  if constexpr (STAGE >= 2) {
+    block_max(max_columns<float, N>(s, 1.0f / N), red, maxes + blockIdx.x);
+  } else if (threadIdx.x == 0) {
+    maxes[blockIdx.x] = s[0].x;
+  }
+}
+
+template <int STAGE>
+cudaError_t launch_max(const void* in, void* maxes, const void* tw, int64_t m,
+                       cudaStream_t stream) {
+  return launch_cluster<max_stage_kernel<STAGE>>(m, 8, cluster_smem<float, 256>(), stream,
+                                                 static_cast<const float2*>(in),
+                                                 static_cast<float*>(maxes),
+                                                 static_cast<const float2*>(tw));
+}
+
 // fields: registers, local bytes a thread, dynamic shared bytes a block,
 // clusters resident at once, blocks a cluster
 template <auto KERNEL, typename T, int N>
@@ -189,6 +255,7 @@ cudaError_t kernel_resources(int which, int log_n, int* fields) {
         return resources<plane_cluster_kernel<T, N, false, RealVec<T>, Vec<T>>, T, N>(fields);
       case 5:
         return resources<plane_cluster_kernel<T, N, true, Vec<T>, RealVec<T>>, T, N>(fields);
+      case 6: return resources<plane_real_inv_max_cluster_kernel<T, N>, T, N>(fields);
     }
     return cudaErrorInvalidValue;
   });
@@ -234,7 +301,31 @@ int chain_stage_resources(int kind, int stage, int* fields) {
   return static_cast<int>(err);
 }
 
-// which: 0 K6 (forward), 1 K4, 2 K2, 3 K10, 4 K17, 5 K9; log_n 7 or 8;
+// K11 stage 0..3 (max_stage). in: (m, 256, 256) complex64; maxes: (m * 8,)
+// float; tw: (256,) w_256^k.
+int max_stage(int stage, const void* in, void* maxes, const void* tw, int64_t m, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case 0: return static_cast<int>(launch_max<0>(in, maxes, tw, m, s));
+    case 1: return static_cast<int>(launch_max<1>(in, maxes, tw, m, s));
+    case 2: return static_cast<int>(launch_max<2>(in, maxes, tw, m, s));
+    case 3: return static_cast<int>(launch_max<3>(in, maxes, tw, m, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The resources fields of max_stage's variant.
+int max_stage_resources(int stage, int* fields) {
+  switch (stage) {
+    case 0: return static_cast<int>(resources<max_stage_kernel<0>, float, 256>(fields));
+    case 1: return static_cast<int>(resources<max_stage_kernel<1>, float, 256>(fields));
+    case 2: return static_cast<int>(resources<max_stage_kernel<2>, float, 256>(fields));
+    case 3: return static_cast<int>(resources<max_stage_kernel<3>, float, 256>(fields));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// which: 0 K6 (forward), 1 K4, 2 K2, 3 K10, 4 K17, 5 K9, 6 K11; log_n 7 or 8;
 // fields: 5 ints (see resources).
 int cluster_kernel_resources(int which, int is_double, int log_n, int* fields) {
   return static_cast<int>(is_double ? kernel_resources<double>(which, log_n, fields)

@@ -23,6 +23,10 @@ times, at (9, 256, 256^2) (the (9, 256^3) grid along axis 1), the median of
     allocate their outputs and partials), and K1 through its C entry point
     into a preallocated output with the tables built once: the wrapper's
     share of a single-launch median;
+  - the column pass (axis_pass_tile, K12, K5, K18) the same way: K12's
+    load and store alone, + the kick on load, whole, and the whole K12 at
+    1, 2 and 3 blocks per SM, K5 (forward) and K18 at 2 and 3; the shipped
+    K12, K5 and K18 through their wrappers in both forms;
   - the copy probe P1 on the same bytes (the copy floor).
 
 Each stage's own time is the difference to the one before. Each variant's
@@ -67,6 +71,22 @@ VARIANTS = {
 }
 # the plain version each whole variant is held against, by mode
 PLAIN_OF_MODE = {"0": "K1", "1": "K3", "3": "K13", "2": "K8"}
+# column_stage's variants -> (what, the kernel's template arguments as
+# ptxas names them: inverse (1, 0), prologue (0 none, 1 kick, 2 map), stop
+# (0 load and store, 3 whole), min blocks per SM)
+COLUMN_VARIANTS = {
+    0: ("K12: load + store", ("1", "0", "0", "3")),
+    1: ("K12: + kick", ("1", "1", "0", "3")),
+    2: ("K12 whole", ("1", "1", "3", "1")),
+    3: ("K12 whole", ("1", "1", "3", "2")),
+    4: ("K12 whole", ("1", "1", "3", "3")),
+    5: ("K5 whole (forward)", ("0", "0", "3", "2")),
+    6: ("K5 whole (forward)", ("0", "0", "3", "3")),
+    7: ("K18 whole", ("1", "2", "3", "2")),
+    8: ("K18 whole", ("1", "2", "3", "3")),
+}
+# the plain version each whole column variant is held against, by prologue
+PLAIN_OF_PROLOGUE = {"1": "K12", "0": "K5", "2": "K18"}
 
 def load_stages(work: str):
     """The built library and ptxas's registers/spills by template arguments."""
@@ -83,16 +103,65 @@ def load_stages(work: str):
     names = list(kernels)
     ptxas = {}
     for mangled, name in zip(names, res.demangle(names)):
-        if "axis_stage_kernel<" in name:
-            args = name.split("axis_stage_kernel<")[1].split(">(")[0]
-            key = tuple(a.split(")")[-1].strip() for a in args.split(","))
-            ptxas[key] = kernels[mangled]
+        for kernel in ("axis_stage_kernel<", "column_stage_kernel<"):
+            if kernel in name:
+                args = name.split(kernel)[1].split(">(")[0]
+                key = tuple(a.split(")")[-1].strip() for a in args.split(","))
+                ptxas[(kernel, *key)] = kernels[mangled]
     lib = ctypes.CDLL(lib_path)
     lib.axis_stage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [
         ctypes.c_void_p] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 3 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.axis_stage_shipped_min_blocks.argtypes = [ctypes.c_int]
+    lib.column_stage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [
+        ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.column_stage_shipped_min_blocks.argtypes = []
     return lib, ptxas
+
+
+def column_records(lib, ptxas, z, out, f0, f12, pmap, coeff, s0, s12, tw, stream, emit) -> None:
+    """The column pass by stage and register cap (COLUMN_VARIANTS), each
+    whole variant held against its plain version, and the shipped K12, K5
+    and K18 in both forms."""
+    from chip_smoke import median_ms
+    from msm_tpu_torch.ops import build, mxu_fft
+
+    b1, n, lanes = z.shape
+
+    def stage(variant, blocks=None):
+        return lib.column_stage(variant, z.data_ptr(), out.data_ptr(), b1, lanes, f0.data_ptr(),
+                                f12.data_ptr(), pmap.data_ptr(), tw.data_ptr(), stream, blocks)
+
+    wants = {
+        "K12": mxu_fft.axis_inv_kick_plain(z, f0, f12),
+        "K5": mxu_fft.axis_pass_plain(z, 1, False),
+        "K18": mxu_fft.axis_inv_map_plain(z, pmap),
+    }
+    for variant, (what, key) in COLUMN_VARIANTS.items():
+        _, prologue, stop, min_blocks = key
+        blocks = ctypes.c_int(0)
+        build.check(stage(variant, ctypes.byref(blocks)), "column_stage occupancy")
+        shipped = lib.column_stage_shipped_min_blocks() == int(min_blocks)
+        rec = {"shape": list(z.shape), "what": f"{what}, min {min_blocks} blocks/SM",
+               "column_variant": variant, "shipped_bound": shipped,
+               "ms": median_ms(lambda: build.check(stage(variant), "column_stage")),
+               "blocks_per_sm": blocks.value, **ptxas.get(("column_stage_kernel<", *key), {})}
+        if stop == "3":
+            want = wants[PLAIN_OF_PROLOGUE[prologue]]
+            build.check(stage(variant), "column_stage")
+            torch.cuda.synchronize()
+            rec["max_rel_err"] = ((out - want).abs().max() / want.abs().max()).item()
+        emit(rec)
+    del wants
+    shipped = {
+        "K12 axis_inv_kick": lambda f: mxu_fft.axis_inv_kick(z, s0, s12, coeff, form=f),
+        "K5 axis_pass (forward)": lambda f: mxu_fft.axis_pass(z, 1, False, form=f),
+        "K18 axis_inv_map": lambda f: mxu_fft.axis_inv_map(z, pmap, form=f),
+    }
+    for what, fn in shipped.items():
+        for form in ("radix", "stages"):
+            emit({"shape": list(z.shape), "what": f"{what} ({form} form)",
+                  "ms": median_ms(lambda: fn(form))})
 
 
 def main(argv=None) -> int:
@@ -149,7 +218,7 @@ def main(argv=None) -> int:
             rec = {"shape": list(SHAPE), "what": f"{what}, min {min_blocks} blocks/SM",
                    "variant": variant, "shipped_bound": shipped,
                    "ms": median_ms(lambda: build.check(stage(variant), "axis_stage")),
-                   "blocks_per_sm": blocks.value, **ptxas.get(key, {})}
+                   "blocks_per_sm": blocks.value, **ptxas.get(("axis_stage_kernel<", *key), {})}
             if stop == "3":
                 want = wants[PLAIN_OF_MODE[mode]]
                 build.check(stage(variant), "axis_stage")
@@ -169,6 +238,7 @@ def main(argv=None) -> int:
             for form in ("radix", "stages"):
                 emit({"shape": list(SHAPE), "what": f"{what} ({form} form)",
                       "ms": median_ms(lambda: fn(form))})
+        column_records(lib, ptxas, z, out, f0, f12, pmap, coeff, s0, s12, tw, stream, emit)
         lib_k = build.load()
         for form, stages in (("radix", 0), ("stages", 1)):
             emit({"shape": list(SHAPE), "what": f"K1 C entry, preallocated out ({form} form)",

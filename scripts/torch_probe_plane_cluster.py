@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the cluster form goes, stage by stage, on one CUDA
-card: K6, K17 and K9, and the inverse -> middle -> forward plane of K4, K2
-and K10.
+card: K6, K17 and K9, the inverse -> middle -> forward plane of K4, K2 and
+K10, and K11's inverse -> maximum.
 
 Run from the root of a checkout:
 
@@ -24,7 +24,14 @@ times a kernel) of:
   (rows, swap, columns), with the middle step (K4: psi read, the kick, the
   block maximum; K2: psi written, rho; K10: rho), which adds K4's and K2's
   third grid, with the forward: the whole kernel, held against the shipped
-  kernel's output; beside them the shipped kernel in both forms.
+  kernel's output; beside them the shipped kernel in both forms;
+- K11: the load alone (one element a block written), with the inverse
+  (rows, swap, columns), with a max epilogue over the stored column slab,
+  and the shipped kernel's body (the maximum taken in the columns' last
+  pass in place of its store; both epilogues' `stage_ms` against the
+  inverse's stage), their plane maxima held against the plain version;
+  beside them the shipped kernel in both forms and its plain torch
+  version.
 
 Each stage's own time is the difference to the one before. Then the
 shipped cluster kernels' registers, local (spill) bytes, dynamic shared
@@ -55,9 +62,13 @@ STAGES = ("load + store", "+ rows", "+ rows + swap", "+ rows + swap + columns (t
 CHAINS = ("plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only")
 CHAIN_STAGES = ("load + store", "+ inverse (rows, swap, columns)", "+ middle step",
                 "+ forward (the whole kernel)")
+# max_stage's stages (K11)
+MAX_STAGES = ("load", "+ inverse (rows, swap, columns)", "+ max over the stored slab",
+              "max in the last pass (the shipped kernel)")
 # cluster_kernel_resources' kernels
 RESOURCE_KERNELS = ("plane_pass", "plane_potkick_fwd", "plane_inv_density",
-                    "plane_inv_density_rho_only", "plane_pass_real_fwd", "plane_pass_real_inv")
+                    "plane_inv_density_rho_only", "plane_pass_real_fwd", "plane_pass_real_inv",
+                    "plane_real_inv_max")
 N = 256
 TIMED = 20
 
@@ -95,6 +106,9 @@ def load_stages(work: str) -> ctypes.CDLL:
                                 + [ctypes.c_int64, ctypes.c_void_p])
     lib.cluster_kernel_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.chain_stage_resources.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.max_stage.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                              + [ctypes.c_int64, ctypes.c_void_p])
+    lib.max_stage_resources.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -205,6 +219,44 @@ def chain_records(lib, z, w, tw, planes: int, stream: int, where: dict) -> list:
     return records
 
 
+def max_records(lib, z, tw, planes: int, stream: int, where: dict) -> list:
+    """K11 by stage, and the shipped kernel in both forms beside its plain
+    version."""
+    from msm_tpu_torch.ops import build, mxu_fft
+
+    maxes = torch.empty(planes * 8, device="cuda")
+    want = mxu_fft.plane_real_inv_max_plain(z)
+    records = []
+    prev = None
+    for stage, label in enumerate(MAX_STAGES):
+        def call(stage=stage):
+            build.check(lib.max_stage(stage, z.data_ptr(), maxes.data_ptr(), tw.data_ptr(),
+                                      planes, stream), "max_stage")
+        ms = median_ms(call)
+        f = (ctypes.c_int * 5)()
+        build.check(lib.max_stage_resources(stage, f), "max_stage_resources")
+        rec = {"kernel": "plane_real_inv_max", "what": label, "ms": ms,
+               "stage_ms": ms - prev if prev is not None else ms,
+               "registers": f[0], "local_bytes": f[1], **where}
+        prev = ms if stage < 2 else prev
+        if stage >= 2:
+            call()
+            got = maxes.view(planes, -1).amax(dim=-1)
+            rec["max_rel_err"] = ((got - want).abs().max() / want.abs().max()).item()
+        records.append(rec)
+        print(f"{'plane_real_inv_max':28s} {label:32s} {ms:.4f} ms (+{rec['stage_ms']:.4f}; "
+              f"{f[0]} registers, {f[1]} local bytes)", flush=True)
+    for label, fn in (("shipped, cluster form", lambda: mxu_fft.plane_real_inv_max(z)),
+                      ("shipped, split form", lambda: mxu_fft.plane_real_inv_max(z, form="split")),
+                      ("plain torch (ifft2, .real, abs, amax)",
+                       lambda: mxu_fft.plane_real_inv_max_plain(z))):
+        ms = median_ms(fn)
+        records.append({"kernel": "plane_real_inv_max", "what": label, "ms": ms, **where})
+        print(f"{'plane_real_inv_max':28s} {label:32s} {ms:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return records
+
+
 def resource_records(lib, where: dict) -> list:
     """Registers, spills, shared memory and resident clusters of the shipped
     cluster kernels at N = 128, 256, both dtypes."""
@@ -250,9 +302,12 @@ def main(argv=None) -> int:
         records = plane_records(lib, z, tw, planes, stream, where)
         w = torch.randn(z.shape, dtype=z.dtype, device="cuda", generator=gen)
         chains = chain_records(lib, z, w, tw, planes, stream, where)
+        del w
+        maxima = max_records(lib, z, tw, planes, stream, where)
         resources = resource_records(lib, where)
     print(json.dumps({"plane_cluster_stages": records, "clusters": clusters.value,
-                      "chains": chains, "resources": resources}), flush=True)
+                      "chains": chains, "max_stages": maxima, "resources": resources}),
+          flush=True)
     return 0
 
 

@@ -419,7 +419,8 @@ def test_model_matches_jax(rng):
 
 
 def _axis_calls(z, form):
-    """The four wrappers on z with tables on z's device."""
+    """The column-tile wrappers (the four round trips, K12, K5 and K18) on z
+    with tables on z's device."""
     n, lanes = z.shape[1], z.shape[-1]
     real = {"dtype": torch.float64, "device": z.device}
     s0, s12 = torch.zeros(n, **real), torch.zeros(lanes, **real)
@@ -431,6 +432,9 @@ def _axis_calls(z, form):
                                                                          form=form),
         "axis_fwd_reduce": lambda: mxu_fft.axis_fwd_reduce(z, s0, s12, 0.5, form=form),
         "axis_roundtrip_map": lambda: mxu_fft.axis_roundtrip_map(z, pmap, form=form),
+        "axis_inv_kick": lambda: mxu_fft.axis_inv_kick(z, s0, s12, c, form=form),
+        "axis_pass": lambda: mxu_fft.axis_pass(z, 1, True, form=form),
+        "axis_inv_map": lambda: mxu_fft.axis_inv_map(z, pmap, form=form),
     }
 
 
@@ -476,7 +480,7 @@ def test_grid_check_follows_the_form(n):
     w = _tile(n, 8)
     fits = torch.empty((1, n, (2**31 - 1) * w), dtype=torch.complex64, device="meta")
     over = torch.empty((1, n, (2**31 - 1) * w + w), dtype=torch.complex64, device="meta")
-    assert mxu_fft._roundtrip_operand(fits, "k", "radix")[0].shape == fits.shape
+    assert mxu_fft._roundtrip_operand(fits, "k", "radix").shape == fits.shape
     with pytest.raises(ValueError, match="exceeds the launch grid"):
         mxu_fft._roundtrip_operand(over, "k", "radix")
     if n == 1024:

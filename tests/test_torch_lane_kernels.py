@@ -241,5 +241,6 @@ def test_cuda_lane_kernels_match_plain(cuda_device, rng, cdtype, rtol, rows, n):
         **dict.fromkeys(lanes, 2), "axis_inv_map": 1,
     }
     assert {k: n for k, n in mxu_fft.form_launches.items() if n} == {
-        f"{name}/{form}": 1 for name in lanes for form in ("radix", "row")
+        **{f"{name}/{form}": 1 for name in lanes for form in ("radix", "row")},
+        "axis_inv_map/radix": 1,
     }

@@ -1,6 +1,6 @@
 """The cluster form of K6 (plane_pass), K17 (plane_pass_real_fwd), K9
-(plane_pass_real_inv), K4 (plane_potkick_fwd), K2 (plane_inv_density) and
-K10 (plane_inv_density_rho_only).
+(plane_pass_real_inv), K4 (plane_potkick_fwd), K2 (plane_inv_density), K10
+(plane_inv_density_rho_only) and K11 (plane_real_inv_max).
 
 A CUDA kernel cannot run here, so a plain numpy model of its decomposition
 (`csrc/plane_cluster.cuh`) lives in this file, with the kernel's index and
@@ -12,13 +12,15 @@ the tile swap across the blocks that turns row slabs into column slabs and
 back, the column chunks K6 stores, K17's real load (16-byte vectors of
 reals scattered with imaginary part 0) and K9's real store (the real part
 of the column lines in runs of R), K4's inverse -> kick -> forward with
-psi read at each position's spatial (row, column), and K2's and K10's
-inverse -> density -> forward with psi written there (K2). The model is
+psi read at each position's spatial (row, column), K2's and K10's
+inverse -> density -> forward with psi written there (K2), and K11's
+inverse with a maximum of |Re| a block over its column slab. The model is
 held against numpy's FFTs and the port's plain versions at N = 128 and 256
 with C in {2, 4, 8}, and against the JAX package's K6, K17, K9, K4, K2 and
 K10 (Pallas interpret mode, x64, as its own tests run them) at N = 128, mapped
 with `convert.to_engine` / `to_natural`. All in complex128: the model and
-the references are the same DFTs, 1e-12 of max|reference|.
+the references are the same DFTs, 1e-12 of max|reference| (K11 against
+JAX's K11 as well).
 
 Also here: the shape dispatch (`_plane_form`) of every plane wrapper, the
 twiddle table, the size and reduction of K4's maxima in both forms, and
@@ -298,6 +300,27 @@ def model_inv_density(x, pref, cl, write_psi):
     return psi, rho_hat, writes
 
 
+def model_real_inv_max(z, cl):
+    """K11's cluster form on planes z (m, N, N): rows_to_columns' inverse,
+    whose columns' last pass takes block r's maximum of |Re| over its
+    column lines (last_pass_max and block_max): the per-block partials (m,
+    C), NaN-keeping, and how often each spatial element of a plane entered
+    a partial (block r's line w, position transposed(y), holds spatial (y,
+    W r + w))."""
+    m, n = z.shape[0], z.shape[-1]
+    w = n // cl
+    partials = np.empty((m, cl))
+    for i, plane in enumerate(z):
+        lines = _inverse_to_columns(plane, cl, True) / n
+        partials[i] = np.abs(lines.real).reshape(cl, -1).max(-1)
+    counts = np.zeros((n, n), dtype=int)
+    row_at = np.argsort(_transposed(n))  # the row y a line position holds
+    for r in range(cl):
+        for line in range(w):
+            np.add.at(counts, (row_at, r * w + line), 1)
+    return partials, counts
+
+
 CASES = [(n, cl) for n in (128, 256) for cl in (2, 4, 8)]
 
 
@@ -485,6 +508,62 @@ def test_model_inv_density_matches_jax(cl, write_psi):
         _close(psi, want_psi)
 
 
+@pytest.mark.parametrize("n,cl", [(128, 2), (128, 4), (256, 8)])
+def test_model_real_inv_max_covers_each_element_once(rng, n, cl):
+    """K11 at the cluster sizes the wrapper picks (N = 128: 2 at complex64,
+    4 at complex128; 256: 8): every element of a plane enters exactly one
+    block's partial; the last pass's threads (t < R A: line t % R, group t
+    / R of B contiguous positions) take every position of every column
+    line once; the wrapper's reduction of the partials (view(m,
+    -1).amax(-1)) is max |Re ifft2| per plane; a NaN in a plane survives to
+    that plane's maximum, and only to it."""
+    m, r = 3, n // cl
+    a, b = _plan(n)
+    z = _complex(rng, (m, n, n))
+    partials, counts = model_real_inv_max(z, cl)
+    assert (counts == 1).all()
+    t = np.arange(r * a)
+    taken = np.zeros((r, n), dtype=int)
+    for j in range(b):
+        np.add.at(taken, (t % r, (t // r) * b + j), 1)
+    assert (taken == 1).all()
+    got = torch.as_tensor(partials.reshape(-1)).view(m, -1).amax(dim=-1)
+    want = np.abs(np.fft.ifft2(z, norm="ortho").real).max(axis=(1, 2))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), mxu_fft.plane_real_inv_max_plain(torch.as_tensor(z)).numpy(),
+                               rtol=RTOL)
+    z[1, 5, 7] = np.nan
+    partials, _ = model_real_inv_max(z, cl)
+    got = torch.as_tensor(partials.reshape(-1)).view(m, -1).amax(dim=-1).numpy()
+    assert np.isnan(got[1]) and not np.isnan(got[[0, 2]]).any()
+    assert np.isnan(mxu_fft.plane_real_inv_max_plain(torch.as_tensor(z)).numpy()[1])
+
+
+@pytest.mark.parametrize("cl", [2, 4, 8])
+def test_model_real_inv_max_matches_jax(rng, cl):
+    """K11's model at N = 128 against `_axis_pass_fused2_real_inv_max`
+    (interpret mode, x64), engine k order in."""
+    z = _complex(rng, (2, 2, 128, 128))
+    want = jmxu._axis_pass_fused2_real_inv_max(*_planar(convert.to_engine(z, 2)))
+    partials, _ = model_real_inv_max(z.reshape(-1, 128, 128), cl)
+    np.testing.assert_allclose(partials.max(-1), np.asarray(want), rtol=RTOL)
+
+
+@pytest.mark.parametrize("form", [None, "cluster", "split"])
+def test_plane_real_inv_max_forms_match_jax(rng, form):
+    """On the CPU K11's wrapper takes the plain version in either form and
+    counts no launch: at N = 256 against JAX's kernel, two streams of two
+    planes each."""
+    z = _complex(rng, (2, 2, 256, 256))
+    want = jmxu._axis_pass_fused2_real_inv_max(*_planar(convert.to_engine(z, 2)))
+    mxu_fft.reset_launches()
+    got = mxu_fft.plane_real_inv_max(torch.as_tensor(z), form=form)
+    assert got.shape == (4,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+    assert set(mxu_fft.launches.values()) == {0}
+    assert set(mxu_fft.form_launches.values()) == {0}
+
+
 # ---------------------------------------------------------------------------
 # The wrappers' dispatch, tables and maxima
 # ---------------------------------------------------------------------------
@@ -527,6 +606,7 @@ def test_plane_form_dispatch(n, cdtype):
         "plane_potkick_fwd": lambda f: mxu_fft.plane_potkick_fwd(z, z, torch.zeros(1), form=f),
         "plane_inv_density": lambda f: mxu_fft.plane_inv_density(z, 1.0, form=f),
         "plane_inv_density_rho_only": lambda f: mxu_fft.plane_inv_density_rho_only(z, 1.0, form=f),
+        "plane_real_inv_max": lambda f: mxu_fft.plane_real_inv_max(z, form=f),
     }
     assert tuple(calls) == mxu_fft.PLANE_FORM_KERNELS
     for name, call in calls.items():
@@ -597,6 +677,8 @@ def test_wrappers_take_a_form_on_the_cpu(rng):
         _close(psi.numpy(), want_psi.numpy())
         _close(rho.numpy(), want_rho.numpy())
         _close(mxu_fft.plane_inv_density_rho_only(z, 3.0, form=form).numpy(), want_rho.numpy())
+        assert torch.equal(mxu_fft.plane_real_inv_max(z, form=form),
+                           mxu_fft.plane_real_inv_max_plain(z))
     assert set(mxu_fft.launches.values()) == {0}
     assert set(mxu_fft.form_launches.values()) == {0}
     big = torch.zeros((1, 512, 512), dtype=torch.complex64)
@@ -612,6 +694,8 @@ def test_wrappers_take_a_form_on_the_cpu(rng):
         mxu_fft.plane_inv_density(big, 1.0, form="cluster")
     with pytest.raises(ValueError, match="no 'cluster' form"):
         mxu_fft.plane_inv_density_rho_only(big, 1.0, form="cluster")
+    with pytest.raises(ValueError, match="no 'cluster' form"):
+        mxu_fft.plane_real_inv_max(big, form="cluster")
 
 
 # ---------------------------------------------------------------------------
@@ -741,6 +825,39 @@ def test_cuda_real_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype
     }
     assert torch.equal(mxu_fft.plane_pass_real_fwd(z.real), fwd)
     assert torch.equal(mxu_fft.plane_pass_real_inv(z), inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("m,n", [(7, 128), (5, 256)])
+def test_cuda_real_inv_max_cluster_form_matches_plain_and_split(cuda_device, rng, cdtype, m, n):
+    """K11 in the cluster form against the plain version and the forced
+    split form on the card (the one-transform gate: its maxima are of a
+    K9-deep field), on a ragged plane count and on a view whose data start
+    off 16 bytes (copied to an aligned operand by the wrapper); each launch
+    counted under its form; bit-reproducible (no atomics)."""
+    z, _, _ = _card_inputs(cuda_device, rng, cdtype, (m, n, n))
+    flat = torch.empty(m * n * n + 1, dtype=cdtype, device=cuda_device)
+    z_off = flat[1:].view(m, n, n)
+    z_off.copy_(z)
+    assert cdtype == torch.complex128 or z_off.data_ptr() % 16
+    mxu_fft.reset_launches()
+    got = mxu_fft.plane_real_inv_max(z)
+    got_off = mxu_fft.plane_real_inv_max(z_off)
+    split = mxu_fft.plane_real_inv_max(z, form="split")
+    torch.cuda.synchronize()
+    want = mxu_fft.plane_real_inv_max_plain(z)
+    assert got.shape == (m,)
+    _card_close(got, want, K6_RTOL[cdtype], "plane_real_inv_max")
+    _card_close(got_off, want, K6_RTOL[cdtype], "plane_real_inv_max off 16 bytes")
+    _card_close(got, split, K6_RTOL[cdtype], "plane_real_inv_max vs split")
+    assert {k: c for k, c in mxu_fft.form_launches.items() if c} == {
+        "plane_real_inv_max/cluster": 2, "plane_real_inv_max/split": 1,
+    }
+    assert torch.equal(mxu_fft.plane_real_inv_max(z), got)
+    z[1, 3, 5] = float("nan")
+    got = mxu_fft.plane_real_inv_max(z)
+    assert got[1].isnan() and not got[0].isnan()
 
 
 @pytest.mark.cuda
