@@ -27,14 +27,20 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             (4, 512); the FFT kernels K5 axis_pass (axis 1), K6 plane_pass,
             K17 plane_pass_real_fwd and K9 plane_pass_real_inv (on the
             (-1, N, N) planes) at (9, 256^3), (2, 1024^2) and (3, 512^3);
-            K6, K17, K9, K4, K2, K10 and K11 at N = 128, 256 take the
+            K6, K17, K9, K4, K2, K10, K11 and K7 at N = 128, 256 take the
             one-pass cluster form and at 512, 1024 the split form (each of
-            their records names its `form` and `cluster` size); at (9,
-            256^3) c64 their forced split forms are timed too
-            (`plane_pass/split`, `plane_pass_real_fwd/split`,
-            `plane_pass_real_inv/split`, `plane_potkick_fwd/split`,
-            `plane_inv_density/split`, `plane_inv_density_rho_only/split`,
-            `plane_real_inv_max/split`), the before/after in one call;
+            their records names its `form` and `cluster` size, and the
+            fused kernels' the launches by form they made, `form_launches`,
+            checked against it); at (9, 256^3) c64 their forced split
+            forms are timed too (`plane_pass/split`,
+            `plane_pass_real_fwd/split`, `plane_pass_real_inv/split`,
+            `plane_potkick_fwd/split`, `plane_inv_density/split`,
+            `plane_inv_density_rho_only/split`, `plane_real_inv_max/split`,
+            `plane_density_fwd/split`), the before/after in one call; the
+            split form of K4, K2, K10, K11 and K7 is split_radix.cuh's
+            radix row kernel, and at (3, 512^3) c64, where it is the shape's
+            form, their forced stages forms (the radix-2 split form before
+            it: `plane_potkick_fwd/stages` ...) are timed beside it;
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
@@ -96,9 +102,9 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             each run launched each of its kernels, that the exact run
             launched K10 and K11 and the unskewed run K12 and K13 once per
             iteration, that every K4, K2 and K9 launch of the fused and
-            unskewed runs, every K10 launch of the exact run and every K6,
-            K17 and K9 launch of the unfused `mxu` run took the cluster
-            form, and that
+            unskewed runs (and K7's, the Poisson solve's), every K10 launch
+            of the exact run and every K6, K17 and K9 launch of the unfused
+            `mxu` run took the cluster form, and that
             every K14-K16 launch of the 1-D run took the radix form, as did
             every K1, K3, K8 and K5 launch of the fused and exact runs,
             every K12, K3, K13, K8 and K5 launch of the unskewed run and
@@ -113,9 +119,11 @@ and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
-and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2 and K10 with
-their form, cluster size and the forced split form's median, `split_ms`
-(K11 too); K1, K3, K8, K13, K5, K12 and K18 with their form and the forced
+and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2, K10, K11
+and K7 with their form, cluster size and the forced split form's median,
+`split_ms`; K4, K2, K10, K11 and K7 also with `n512`, their split form at
+(3, 512^3) c64 beside the forced stages form's median `stages_ms`, its
+bound, floor and launches by form; K1, K3, K8, K13, K5, K12 and K18 with their form and the forced
 stages form's median, `stages_ms`; P1/P2 with the device slopes; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
@@ -127,6 +135,7 @@ checkout, it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -144,9 +153,8 @@ import torch
 
 PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
-FUSED_SOURCE = "msm_tpu_torch/ops/csrc/fused_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
-# K6, K17, K9, K4, K2, K10 and K11 at the main shape: the cluster form
+# K6, K17, K9, K4, K2, K10, K11 and K7 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
 LANE_SOURCE = "msm_tpu_torch/ops/csrc/lane_radix.cuh"
@@ -165,7 +173,7 @@ KERNELS = {
     "plane_inv_density": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:691"),
     "axis_roundtrip_poisson": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:503"),
     "plane_potkick_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:707"),
-    "plane_density_fwd": (FUSED_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
+    "plane_density_fwd": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:782"),
     "axis_roundtrip_map": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:812"),
     "plane_inv_density_rho_only": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:1703"),
     "plane_real_inv_max": (CLUSTER_SOURCE, "msm_tpu/ops/mxu_fft.py:1758"),
@@ -234,7 +242,9 @@ PROBE_SHAPES = {"copy_pass": ((256, 256, 256), (512, 512, 512)), "copy_pass_lane
 # the limits leave about an order of magnitude above that, and a wrong
 # index or twiddle gives errors of order 1.
 FFT_LIMITS = {torch.complex128: 1e-12, torch.complex64: 1e-5}
-FUSED_SHAPES = (MAIN_SHAPE, (3, 512, 512, 512))
+# the second is where K4, K2, K10, K11 and K7 take the split form
+BIG_SHAPE = (3, 512, 512, 512)
+FUSED_SHAPES = (MAIN_SHAPE, BIG_SHAPE)
 # Fused kernels, every output (fields, K1's sums, K4's maxima): max |kernel
 # - plain| <= limit * max |plain|. Each is two transforms deep: a round trip
 # (K1, K3, K8) is 2 log2 N levels, a plane kernel (K2, K4) 2 log2 N^2
@@ -584,7 +594,7 @@ def _form(name: str, n: int, cdtype, forced=None) -> dict:
         return {"form": mxu_fft._axis_form(forced)}
     if base not in mxu_fft.PLANE_FORM_KERNELS:
         return {}
-    form, cluster = mxu_fft._plane_form(n, cdtype, forced)
+    form, cluster = mxu_fft._plane_form(n, cdtype, forced, base)
     return {"form": form, "cluster": cluster}
 
 
@@ -897,37 +907,56 @@ def _fused_cases(shape, cdtype, gen) -> dict:
     cells = math.prod(shape)
     trip = fft_ops(shape, 1) * 2  # a forward and an inverse along one axis
     plane2 = fft_ops(shape, 2) * 2  # a 2-axis inverse and a 2-axis forward
+    # K4, K2, K10, K11 and K7 in a form (None: the shape's), their plain
+    # version, inputs and operations
+    planes = {
+        # rho = pref |psi|^2 (4), psi not written
+        "plane_inv_density_rho_only": (
+            lambda f: mxu_fft.plane_inv_density_rho_only(z, 2.0, form=f),
+            lambda: mxu_fft.plane_inv_density_rho_only_plain(z, 2.0),
+            [z], plane2 + 4.0 * cells,
+        ),
+        # one 2-axis inverse, |Re| and its max (2)
+        "plane_real_inv_max": (
+            lambda f: mxu_fft.plane_real_inv_max(z, form=f),
+            lambda: mxu_fft.plane_real_inv_max_plain(z),
+            [z], plane2 / 2 + 2.0 * cells,
+        ),
+        # psi written, rho = pref |psi|^2 (4)
+        "plane_inv_density": (
+            lambda f: mxu_fft.plane_inv_density(z, 2.0, form=f),
+            lambda: mxu_fft.plane_inv_density_plain(z, 2.0),
+            [z], plane2 + 4.0 * cells,
+        ),
+        # |phi| and its max (2), c phi (1), sincos (20), the rotation (6)
+        "plane_potkick_fwd": (
+            lambda f: mxu_fft.plane_potkick_fwd(z, w, vcoeff, form=f),
+            lambda: mxu_fft.plane_potkick_fwd_plain(z, w, vcoeff),
+            [z, w, vcoeff], plane2 + 29.0 * cells,
+        ),
+        # rho = pref |psi|^2 (4), one 2-axis forward
+        "plane_density_fwd": (
+            lambda f: mxu_fft.plane_density_fwd(w, 2.0, form=f),
+            lambda: mxu_fft.plane_density_fwd_plain(w, 2.0),
+            [w], plane2 / 2 + 4.0 * cells,
+        ),
+    }
+    # each also forced into its split form (timed at the main shape only,
+    # where the shape's form is the cluster form) and its stages form
+    # (timed at BIG_SHAPE only, where the shape's form is the split form)
+    forms = {
+        f"{name}{suffix}": (functools.partial(call, form), plain, inputs, ops)
+        for name, (call, plain, inputs, ops) in planes.items()
+        for suffix, form in (("", None), ("/split", "split"), ("/stages", "stages"))
+    }
     return {
+        **forms,
         # the exact-dt prefix's first pass: K1 without its sums, the kick
         # (12)
         "axis_roundtrip_kick/no_sums": (
             lambda: mxu_fft.axis_roundtrip_kick(z, s0, s12, kcoeff, 0.0, with_reduce=False),
             lambda: mxu_fft.axis_roundtrip_kick_plain(z, s0, s12, f0, f12, 0.0, False),
             [z, s0, s12, f0, f12], trip + 12.0 * cells,
-        ),
-        # rho = pref |psi|^2 (4), psi not written
-        "plane_inv_density_rho_only": (
-            lambda: mxu_fft.plane_inv_density_rho_only(z, 2.0),
-            lambda: mxu_fft.plane_inv_density_rho_only_plain(z, 2.0),
-            [z], plane2 + 4.0 * cells,
-        ),
-        # K10's forced split form (timed at the main shape only)
-        "plane_inv_density_rho_only/split": (
-            lambda: mxu_fft.plane_inv_density_rho_only(z, 2.0, form="split"),
-            lambda: mxu_fft.plane_inv_density_rho_only_plain(z, 2.0),
-            [z], plane2 + 4.0 * cells,
-        ),
-        # one 2-axis inverse, |Re| and its max (2)
-        "plane_real_inv_max": (
-            lambda: mxu_fft.plane_real_inv_max(z),
-            lambda: mxu_fft.plane_real_inv_max_plain(z),
-            [z], plane2 / 2 + 2.0 * cells,
-        ),
-        # K11's forced split form (timed at the main shape only)
-        "plane_real_inv_max/split": (
-            lambda: mxu_fft.plane_real_inv_max(z, form="split"),
-            lambda: mxu_fft.plane_real_inv_max_plain(z),
-            [z], plane2 / 2 + 2.0 * cells,
         ),
         # the two factors' product and the complex product (12), one inverse
         "axis_inv_kick": (
@@ -966,18 +995,6 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.axis_roundtrip_kick_plain(z, s0, s12, f0, f12, cut),
             [z, s0, s12, f0, f12], trip + 19.0 * cells,
         ),
-        # psi written, rho = pref |psi|^2 (4)
-        "plane_inv_density": (
-            lambda: mxu_fft.plane_inv_density(z, 2.0),
-            lambda: mxu_fft.plane_inv_density_plain(z, 2.0),
-            [z], plane2 + 4.0 * cells,
-        ),
-        # K2's forced split form (timed at the main shape only)
-        "plane_inv_density/split": (
-            lambda: mxu_fft.plane_inv_density(z, 2.0, form="split"),
-            lambda: mxu_fft.plane_inv_density_plain(z, 2.0),
-            [z], plane2 + 4.0 * cells,
-        ),
         # k^2 (1), the division (1), the scaling (2)
         "axis_roundtrip_poisson": (
             lambda: mxu_fft.axis_roundtrip_poisson(z, s0, s12, 1.0),
@@ -989,24 +1006,6 @@ def _fused_cases(shape, cdtype, gen) -> dict:
             lambda: mxu_fft.axis_roundtrip_poisson(z, s0, s12, 1.0, form="stages"),
             lambda: mxu_fft.axis_roundtrip_poisson_plain(z, s0, s12, 1.0),
             [z, s0, s12], trip + 4.0 * cells,
-        ),
-        # |phi| and its max (2), c phi (1), sincos (20), the rotation (6)
-        "plane_potkick_fwd": (
-            lambda: mxu_fft.plane_potkick_fwd(z, w, vcoeff),
-            lambda: mxu_fft.plane_potkick_fwd_plain(z, w, vcoeff),
-            [z, w, vcoeff], plane2 + 29.0 * cells,
-        ),
-        # K4's forced split form (timed at the main shape only)
-        "plane_potkick_fwd/split": (
-            lambda: mxu_fft.plane_potkick_fwd(z, w, vcoeff, form="split"),
-            lambda: mxu_fft.plane_potkick_fwd_plain(z, w, vcoeff),
-            [z, w, vcoeff], plane2 + 29.0 * cells,
-        ),
-        # rho = pref |psi|^2 (4), one 2-axis forward
-        "plane_density_fwd": (
-            lambda: mxu_fft.plane_density_fwd(w, 2.0),
-            lambda: mxu_fft.plane_density_fwd_plain(w, 2.0),
-            [w], plane2 / 2 + 4.0 * cells,
         ),
         # the map's scaling (2)
         "axis_roundtrip_map": (
@@ -1023,25 +1022,50 @@ def _fused_cases(shape, cdtype, gen) -> dict:
     }
 
 
+def _timed_forms(shape, cdtype) -> tuple:
+    """The forced forms phase_fused_kernels times at a shape: at the main
+    shape c64 the plane kernels' split forms and the column-tile kernels'
+    stages forms; at BIG_SHAPE c64 the stages forms of K4, K2, K10, K11 and
+    K7; none elsewhere."""
+    from msm_tpu_torch.ops import mxu_fft
+
+    if cdtype != torch.complex64:
+        return ()
+    if shape == MAIN_SHAPE:
+        return (tuple(f"{k}/split" for k in mxu_fft.PLANE_FORM_KERNELS)
+                + tuple(f"{k}/stages" for k in mxu_fft.AXIS_FORM_KERNELS))
+    if shape == BIG_SHAPE:
+        return tuple(f"{k}/stages" for k in mxu_fft.SPLIT_RADIX_KERNELS)
+    return ()
+
+
 def phase_fused_kernels(card: dict) -> dict:
     """K1-K4, K7, K8, K10-K13 (and K1 without its sums) vs plain on the
-    card, every output, and at the main shape c64 the forced other forms
-    (`/split`, `/stages`); returns the main-shape complex64 measurements."""
+    card, every output, the forced other forms of `_timed_forms`, and the
+    launches by form each first call made, held to the form its record
+    names; returns the complex64 measurements, keyed by name at the main
+    shape and by `<name>@512` at BIG_SHAPE."""
+    from msm_tpu_torch.ops import mxu_fft
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2025)
     main = {}
     for cdtype in (torch.complex64, torch.complex128):
         for shape in FUSED_SHAPES:
             cases = _fused_cases(shape, cdtype, gen)
-            if not (shape == MAIN_SHAPE and cdtype == torch.complex64):
-                for name in [k for k in cases if k.endswith(("/split", "/stages"))]:
-                    del cases[name]
+            timed = _timed_forms(shape, cdtype)
+            for name in [k for k in cases if "/" in k and k not in timed
+                         and not k.endswith("/no_sums")]:
+                del cases[name]
             for name, (kernel, plain, inputs, ops) in cases.items():
                 limit = (FFT_LIMITS if name.split("/")[0] in ONE_TRANSFORM
                          else FUSED_LIMITS)[cdtype]
                 forced = name.split("/")[1] if name.endswith(("/split", "/stages")) else None
+                before = dict(mxu_fft.form_launches)
                 got = kernel()
                 torch.cuda.synchronize()
+                forms = {k: c - before[k] for k, c in mxu_fft.form_launches.items()
+                         if c != before[k]}
                 want = plain()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
@@ -1063,14 +1087,20 @@ def phase_fused_kernels(card: dict) -> dict:
                     "shape": list(shape), "max_abs_err": errs[0], "errs": errs,
                     "max_abs_plain": scales, "limit_rel": limit,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                    **_form(name, shape[-1], cdtype, forced),
+                    **_form(name, shape[-1], cdtype, forced), "form_launches": forms,
                     **bnd, **card,
                 }
                 emit(rec)
                 for e, sc in zip(errs, scales):
                     check(e <= limit * sc, f"{name} {cdtype} {shape}: error {e} against max {sc}")
-                if shape == MAIN_SHAPE and cdtype == torch.complex64:
+                if "form" in rec:
+                    base = name.split("/")[0]
+                    check(forms == {f"{base}/{rec['form']}": 1},
+                          f"{name} {cdtype} {shape}: launched {forms}, not the {rec['form']} form")
+                if cdtype == torch.complex64 and shape == MAIN_SHAPE:
                     main[name] = rec
+                elif cdtype == torch.complex64 and shape == BIG_SHAPE:
+                    main[f"{name}@512"] = rec
             del cases
             torch.cuda.empty_cache()
     return main
@@ -1116,15 +1146,15 @@ CONFIGS = {
 # kernels that must launch once in every iteration of a run
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
 # the plane kernels whose every launch in a main run must take the cluster
-# form: K4, K2 and K9 (the Poisson solve's) on the fused engines (and K10 and
-# K11 in exact dt), K6, K17 and K9 on the unfused `mxu` path
+# form: K4, K2, K7 and K9 (the Poisson solve's) on the fused engines (and K10
+# and K11 in exact dt), K6, K17 and K9 on the unfused `mxu` path
+FUSED_CLUSTER = ("plane_potkick_fwd", "plane_inv_density", "plane_density_fwd",
+                 "plane_pass_real_inv")
 CLUSTER_FORM = {"mxu": ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv"),
-                "fused": ("plane_potkick_fwd", "plane_inv_density", "plane_pass_real_inv"),
-                "fused-exact": ("plane_potkick_fwd", "plane_inv_density",
-                                "plane_inv_density_rho_only", "plane_real_inv_max",
-                                "plane_pass_real_inv"),
-                "unskewed-lagged": ("plane_potkick_fwd", "plane_inv_density",
-                                    "plane_pass_real_inv")}
+                "fused": FUSED_CLUSTER,
+                "fused-exact": FUSED_CLUSTER + ("plane_inv_density_rho_only",
+                                                "plane_real_inv_max"),
+                "unskewed-lagged": FUSED_CLUSTER}
 # the lane kernels whose every launch in a path's main run must take the
 # radix form (lane_fft_kernel)
 RADIX_FORM = {"mxu-1d": LANE_KERNELS}
@@ -1320,7 +1350,7 @@ def phase_main(card: dict, run: str) -> dict:
         # at 256^3 every launch of the run's plane kernels takes the
         # cluster form
         for k in CLUSTER_FORM.get(run, ()):
-            check(launches[f"{k}/cluster"] == launches[k] > 0 and launches[f"{k}/split"] == 0,
+            check(launches[f"{k}/cluster"] == launches[k] > 0,
                   f"the {run} run launched {k} {launches[k]} times, "
                   f"{launches[f'{k}/cluster']} in the cluster form")
 
@@ -1373,6 +1403,17 @@ def phase_main(card: dict, run: str) -> dict:
         return rec
 
 
+def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
+    """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
+    return {
+        "shape": rec["shape"], "form": rec["form"], "ms": rec["ms"], "stages_ms": stages["ms"],
+        "plain_ms": rec["plain_ms"], "max_abs_err": rec["max_abs_err"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "floor_ms": rec["bytes"] / floor["bytes_per_s"] * 1e3,
+        "form_launches": rec["form_launches"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1411,6 +1452,11 @@ def main() -> int:
                "library_ms": measured[k]["library_ms"],
                "cluster_over_split": measured[k]["ms"] / measured[f"{k}/split"]["ms"]}
            for k in mxu_fft.PLANE_FORM_KERNELS},
+        "n512": {k: {"split_ms": measured[f"{k}@512"]["ms"],
+                     "stages_ms": measured[f"{k}/stages@512"]["ms"],
+                     "split_over_stages": measured[f"{k}@512"]["ms"]
+                     / measured[f"{k}/stages@512"]["ms"]}
+                 for k in mxu_fft.SPLIT_RADIX_KERNELS},
         **{k: {"radix_ms": measured[k]["ms"], "stages_ms": measured[f"{k}/stages"]["ms"],
                "plain_ms": measured[k]["plain_ms"],
                "radix_over_stages": measured[k]["ms"] / measured[f"{k}/stages"]["ms"]}
@@ -1442,6 +1488,10 @@ def main() -> int:
             **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
                 "split_ms": measured[f"{k}/split"]["ms"]}
                if k in mxu_fft.PLANE_FORM_KERNELS else {}),
+            # K4, K2, K10, K11, K7: the split form at BIG_SHAPE c64 and the
+            # forced stages form's median there
+            **({"n512": _big_record(measured[f"{k}@512"], measured[f"{k}/stages@512"], floor)}
+               if k in mxu_fft.SPLIT_RADIX_KERNELS else {}),
             # K1, K3, K8, K13, K5, K12, K18: the radix form and the forced
             # stages form's median
             **({"form": measured[k]["form"], "stages_ms": measured[f"{k}/stages"]["ms"]}

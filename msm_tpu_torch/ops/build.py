@@ -31,7 +31,7 @@ SOURCES = tuple(
 HEADERS = tuple(
     os.path.join(_CSRC, name)
     for name in ("fft_common.cuh", "plane_cluster.cuh", "radix16.cuh", "lane_radix.cuh",
-                 "axis_radix.cuh")
+                 "axis_radix.cuh", "split_radix.cuh")
 )
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-arch=sm_90a"
@@ -70,19 +70,23 @@ _SIGNATURES = {
     # in, out, b1, log_n, lanes, map, is_double, stages (0: radix),
     # twiddles, stream
     "msm_axis_roundtrip_map": [_P, _P, _I64, _I, _I64, _P, _I, _I, _P, _P],
-    # in, psi, rho, m, log_n, pref, is_double, cluster (0: split), twiddles,
-    # stream
-    "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _I, _P, _P],
+    # in, psi, rho, m, log_n, pref, is_double, cluster (0: split or stages),
+    # stages (1: the stages form), twiddles, stream
+    "msm_plane_inv_density": [_P, _P, _P, _I64, _I, _D, _I, _I, _I, _P, _P],
     # phik, psi, out, maxes, coeff, m, planes_per_batch, log_n, is_double,
-    # cluster (0: split), twiddles, stream
-    "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P],
-    # psi, out, m, log_n, pref, is_double, stream
-    "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _P],
-    # in, rho, m, log_n, pref, is_double, cluster (0: split), twiddles, stream
-    "msm_plane_inv_density_rho_only": [_P, _P, _I64, _I, _D, _I, _I, _P, _P],
-    # in, tmp (the split form's scratch, else None), maxes, m, log_n,
-    # is_double, cluster (0: split), twiddles, stream
-    "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _I, _P, _P],
+    # cluster (0: split or stages), stages (1: the stages form), twiddles,
+    # stream
+    "msm_plane_potkick_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P, _P],
+    # psi, out, m, log_n, pref, is_double, cluster (0: split or stages),
+    # stages (1: the stages form), twiddles, stream
+    "msm_plane_density_fwd": [_P, _P, _I64, _I, _D, _I, _I, _I, _P, _P],
+    # in, rho, m, log_n, pref, is_double, cluster (0: split or stages),
+    # stages (1: the stages form), twiddles, stream
+    "msm_plane_inv_density_rho_only": [_P, _P, _I64, _I, _D, _I, _I, _I, _P, _P],
+    # in, tmp (the split and stages forms' scratch, else None), maxes, m,
+    # log_n, is_double, cluster (0: split or stages), stages (1: the stages
+    # form), twiddles, stream
+    "msm_plane_real_inv_max": [_P, _P, _P, _I64, _I, _I, _I, _I, _P, _P],
     # in, out, b1, log_n, lanes, f0, f12, is_double, stages (0: radix),
     # twiddles, stream
     "msm_axis_inv_kick": [_P, _P, _I64, _I, _I64, _P, _P, _I, _I, _P, _P],

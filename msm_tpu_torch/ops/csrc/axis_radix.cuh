@@ -214,6 +214,69 @@ __device__ __forceinline__ void axis_tile_to_regs(const C* s, C (&v)[16], int l,
   }
 }
 
+// The forward's passes on a thread's registers (decimation in frequency;
+// INV: every twiddle conjugated, the standalone inverse), from pass 1's
+// group at natural positions l + L j (loaded by the caller) to the last
+// pass's positions 16 l + i, at frequency freq_of_position(16 l + i). s:
+// the column tile (position p of column c at pad16(p) W + c) or, with W =
+// 1 and c = 0, one row (position p at pad16(p)): split_radix.cuh's rows.
+// One __syncthreads between passes; each thread reads and writes only its
+// own groups' positions.
+template <typename T, int N, bool INV, int W>
+__device__ __forceinline__ void dif_passes(typename Complex<T>::type* s,
+                                           typename Complex<T>::type (&v)[16],
+                                           const typename Complex<T>::type* __restrict__ tw,
+                                           int l, int c) {
+  using C = typename Complex<T>::type;
+  constexpr int L = LanePlan<N>::L;
+  constexpr int P2 = LanePlan<N>::P2;
+  constexpr int P3 = LanePlan<N>::P3;
+  axis_pass_regs<T, N, 16, N, INV, true, false>(v, tw, l);
+  axis_regs_to_tile<C, 16, N, W>(s, v, l, c);
+  __syncthreads();
+  axis_tile_to_regs<C, P2, L, W>(s, v, l, c);
+  if constexpr (P3 > 1) {
+    axis_pass_regs<T, N, P2, L, INV, true, false>(v, tw, l);
+    axis_regs_to_tile<C, P2, L, W>(s, v, l, c);
+    __syncthreads();
+    axis_tile_to_regs<C, P3, P3, W>(s, v, l, c);
+    axis_pass_regs<T, N, P3, P3, INV, false, false>(v, tw, l);
+  } else {
+    axis_pass_regs<T, N, P2, L, INV, false, false>(v, tw, l);
+  }
+}
+
+// The same passes backwards, from the last pass's positions 16 l + i (the
+// digit order dif_passes leaves) to natural positions l + L j in pass 1's
+// registers: decimation in time, each twiddle before its DFT. That is the
+// transpose of dif_passes<INV = false>: INV = false takes a spectrum's
+// digit-ordered field to its forward transform (split_radix.cuh's forward
+// after its inverse), INV = true (the adjoint) to its inverse (the round
+// trip's inverse after its forward).
+template <typename T, int N, bool INV, int W>
+__device__ __forceinline__ void dit_passes(typename Complex<T>::type* s,
+                                           typename Complex<T>::type (&v)[16],
+                                           const typename Complex<T>::type* __restrict__ tw,
+                                           int l, int c) {
+  using C = typename Complex<T>::type;
+  constexpr int L = LanePlan<N>::L;
+  constexpr int P2 = LanePlan<N>::P2;
+  constexpr int P3 = LanePlan<N>::P3;
+  if constexpr (P3 > 1) {
+    axis_pass_regs<T, N, P3, P3, INV, false, true>(v, tw, l);
+    axis_regs_to_tile<C, P3, P3, W>(s, v, l, c);
+    __syncthreads();
+    axis_tile_to_regs<C, P2, L, W>(s, v, l, c);
+    axis_pass_regs<T, N, P2, L, INV, true, true>(v, tw, l);
+  } else {
+    axis_pass_regs<T, N, P2, L, INV, false, true>(v, tw, l);
+  }
+  axis_regs_to_tile<C, P2, L, W>(s, v, l, c);
+  __syncthreads();
+  axis_tile_to_regs<C, 16, N, W>(s, v, l, c);
+  axis_pass_regs<T, N, 16, N, INV, true, true>(v, tw, l);
+}
+
 // The work of one axis_roundtrip_radix_kernel block: the round trip (or
 // K13's forward half) of column tile blockIdx.x of (b1, N, lanes); tw: (N,)
 // w_N^m. STOP below kStopAll cuts the body for the stage probe
@@ -227,12 +290,9 @@ __device__ __forceinline__ void axis_roundtrip_tile(const typename Complex<T>::t
                                                     const RoundTripArgs<T>& a,
                                                     const typename Complex<T>::type* __restrict__ tw) {
   using C = typename Complex<T>::type;
-  using Plan = LanePlan<N>;
   using Geo = AxisGeom<T, N>;
   constexpr int W = Geo::W;
-  constexpr int L = Plan::L;
-  constexpr int P2 = Plan::P2;
-  constexpr int P3 = Plan::P3;
+  constexpr int L = LanePlan<N>::L;
   extern __shared__ __align__(16) unsigned char smem[];
   C* s = reinterpret_cast<C*>(smem);
   double* red = reinterpret_cast<double*>(s + pad16(N) * W);  // 2 per warp
@@ -253,20 +313,7 @@ __device__ __forceinline__ void axis_roundtrip_tile(const typename Complex<T>::t
     return;
   }
 
-  // the forward
-  axis_pass_regs<T, N, 16, N, false, true>(v, tw, l);
-  axis_regs_to_tile<C, 16, N, W>(s, v, l, c);
-  __syncthreads();
-  axis_tile_to_regs<C, P2, L, W>(s, v, l, c);
-  if constexpr (P3 > 1) {
-    axis_pass_regs<T, N, P2, L, false, true>(v, tw, l);
-    axis_regs_to_tile<C, P2, L, W>(s, v, l, c);
-    __syncthreads();
-    axis_tile_to_regs<C, P3, P3, W>(s, v, l, c);
-    axis_pass_regs<T, N, P3, P3, false, false>(v, tw, l);
-  } else {
-    axis_pass_regs<T, N, P2, L, false, false>(v, tw, l);
-  }
+  dif_passes<T, N, false, W>(s, v, tw, l, c);
 
   // the epilogue at register i's frequency k. The sums are taken where they
   // are asked for; a null K1 partials is the same for the whole launch, so
@@ -307,19 +354,7 @@ __device__ __forceinline__ void axis_roundtrip_tile(const typename Complex<T>::t
     for (int i = 0; i < 16; ++i) dst[freq_of_position<N>(16 * l + i) * lanes] = v[i];
   } else {
     // the inverse: the passes backwards, the last to device memory
-    if constexpr (P3 > 1) {
-      axis_pass_regs<T, N, P3, P3, true, false>(v, tw, l);
-      axis_regs_to_tile<C, P3, P3, W>(s, v, l, c);
-      __syncthreads();
-      axis_tile_to_regs<C, P2, L, W>(s, v, l, c);
-      axis_pass_regs<T, N, P2, L, true, true>(v, tw, l);
-    } else {
-      axis_pass_regs<T, N, P2, L, true, false>(v, tw, l);
-    }
-    axis_regs_to_tile<C, P2, L, W>(s, v, l, c);
-    __syncthreads();
-    axis_tile_to_regs<C, 16, N, W>(s, v, l, c);
-    axis_pass_regs<T, N, 16, N, true, true>(v, tw, l);
+    dit_passes<T, N, true, W>(s, v, tw, l, c);
 #pragma unroll
     for (int j = 0; j < 16; ++j) dst[(l + L * j) * lanes] = cscale(v[j], scale);
   }
@@ -417,11 +452,8 @@ __device__ __forceinline__ void axis_pass_tile(const typename Complex<T>::type* 
                                                const AxisLoad<T>& pro,
                                                const typename Complex<T>::type* __restrict__ tw) {
   using C = typename Complex<T>::type;
-  using Plan = LanePlan<N>;
   constexpr int W = AxisGeom<T, N>::W;
-  constexpr int L = Plan::L;
-  constexpr int P2 = Plan::P2;
-  constexpr int P3 = Plan::P3;
+  constexpr int L = LanePlan<N>::L;
   extern __shared__ __align__(16) unsigned char smem[];
   C* s = reinterpret_cast<C*>(smem);
   // K18's map is shared by the batch, so its blocks take the batch elements
@@ -455,19 +487,7 @@ __device__ __forceinline__ void axis_pass_tile(const typename Complex<T>::type* 
     return;
   }
 
-  axis_pass_regs<T, N, 16, N, INV, true, false>(v, tw, l);
-  axis_regs_to_tile<C, 16, N, W>(s, v, l, c);
-  __syncthreads();
-  axis_tile_to_regs<C, P2, L, W>(s, v, l, c);
-  if constexpr (P3 > 1) {
-    axis_pass_regs<T, N, P2, L, INV, true, false>(v, tw, l);
-    axis_regs_to_tile<C, P2, L, W>(s, v, l, c);
-    __syncthreads();
-    axis_tile_to_regs<C, P3, P3, W>(s, v, l, c);
-    axis_pass_regs<T, N, P3, P3, INV, false, false>(v, tw, l);
-  } else {
-    axis_pass_regs<T, N, P2, L, INV, false, false>(v, tw, l);
-  }
+  dif_passes<T, N, INV, W>(s, v, tw, l, c);
 #pragma unroll
   for (int i = 0; i < 16; ++i) dst[freq_of_position<N>(16 * l + i) * lanes] = cscale(v[i], scale);
 }

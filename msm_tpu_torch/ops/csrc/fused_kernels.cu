@@ -80,38 +80,37 @@
 //     multiplied in on pass 1's load, one inverse, a natural-order store);
 //     its stages form, the radix-2 column pass (axis_fft_kernel) with the
 //     same kick on load, is its forced form="stages".
-//   K4, K2, K10 and K11 at n = 128 and 256: the one-pass cluster form
+//   K4, K2, K10, K11 and K7 at n = 128 and 256: the one-pass cluster form
 //     (plane_cluster.cuh): the input's plane in the shared memory of a
 //     cluster of 2-8 blocks, its 2-axis inverse, the middle step (K4:
 //     max|phi| per block and the kick on psi read once from device memory;
 //     K2: psi written once, rho = pref |psi|^2; K10: rho alone), the 2-axis
 //     forward, one write: 3 grids of traffic for K4 and K2, 2 for K10, phi
 //     and rho never in device memory; K11 stops after the inverse with a
-//     max |Re| a block (1 grid). The wrapper picks the form by shape
+//     max |Re| a block (1 grid); K7 is K6's forward with pref |psi|^2 formed
+//     on load (DensityVec, 2 grids). The wrapper picks the form by shape
 //     (mxu_fft._plane_form); K4 and K11 leave one maximum per block.
-//   the split form (K4, K2, K10, K11 at n = 512, 1024, where a plane
-//     exceeds a portable cluster's 8 x 227 KB of shared memory; K7 at
-//     every n): a
-//     column pass (axis_fft_kernel), a fused row kernel (row_fused_kernel:
-//     whole contiguous rows, radix-2 Stockham between two shared buffers,
-//     with the step's elementwise work between its inverse and its forward),
-//     and a column pass in place; the intermediate goes through device
-//     memory (about 7 grids of traffic for K2 and K4 instead of 3). A row
-//     block (2048 elements) never straddles a plane for n in 128..1024, so
-//     the split K4 reads one stream's coefficient per block and leaves one
-//     max|phi| partial per block, which the wrapper reduces per plane with
-//     torch. K10 is K2's three launches with a row body that writes no psi
-//     (6 grids of traffic against K2's 7); K11 is K9's column inverse into a
-//     scratch grid and a row body that keeps only K4's max|Re| partials (3
-//     grids).
+//   the split form (the five at n = 512, 1024, where a plane exceeds a
+//     portable cluster's 8 x 227 KB of shared memory): split_radix.cuh, a
+//     radix-16 row kernel with the step's elementwise work between its
+//     inverse and its forward, between radix column passes (K5's
+//     axis_pass_kernel), the intermediate in device memory (7 grids of
+//     traffic for K2 and K4, 6 for K10, 4 for K7, 3 for K11). K4 and K11
+//     leave one maximum per row block (2048 elements, never straddling a
+//     plane), which the wrapper reduces per plane with torch. The radix-2
+//     split form before it stays as the wrappers' forced form="stages",
+//     for tests and chip_smoke.py's before/after; no path takes it: a column
+//     pass (axis_fft_kernel), row_fused_kernel (below: whole contiguous
+//     rows, radix-2 Stockham between two shared buffers, sincospi twiddles
+//     a block) and a column pass in place; K11 through a scratch grid.
 //
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic, twiddles computed in double
-// and rounded once (sincospi per block in the split and stages kernels, the
-// wrapper's table in the cluster and radix forms), accurate sincos, no fast
+// and rounded once (sincospi per block in the stages kernels, the wrapper's
+// table in the cluster, radix and split forms), accurate sincos, no fast
 // math. Offsets are 64-bit. Every entry point launches on the stream it is
 // given and returns cudaGetLastError().
 
-#include "axis_radix.cuh"
+#include "split_radix.cuh"
 
 namespace {
 
@@ -264,25 +263,9 @@ cudaError_t launch_roundtrip(const void* in, void* out, int64_t b1, int log_n, i
 }
 
 // ---------------------------------------------------------------------------
-// Fused row kernel (the row halves of K2, K4, K7, K10, K11)
+// The stages form's fused row kernel (the row halves of K2, K4, K7, K10, K11;
+// RowBody and RowArgs are split_radix.cuh's)
 // ---------------------------------------------------------------------------
-
-// kRhoOnly: kInvDensity without the psi write (K10). kRealMax: the inverse,
-// max |Re| per block as kPotKick keeps it, and nothing written (K11).
-enum RowBody { kInvDensity, kPotKick, kDensity, kRhoOnly, kRealMax };
-
-template <typename T>
-struct RowArgs {
-  using C = typename Complex<T>::type;
-  const C* in;               // kInvDensity, kPotKick: rows to inverse-transform
-  const C* psi_in;           // kPotKick, kDensity: psi rows
-  C* psi_out;                // kInvDensity: psi rows written
-  C* out;                    // the forward transform's rows
-  T* maxes;                  // kPotKick, kRealMax: (blocks,) max |phi|
-  const T* coeff;            // kPotKick: (batch,) kick coefficient
-  int64_t planes_per_batch;  // kPotKick: planes of one stream
-  T pref;                    // kInvDensity, kDensity, kRhoOnly: density prefactor
-};
 
 // Radix-2 Stockham (decimation in frequency, self-sorting) over every row of
 // the block, x -> y -> x ...: at stride s = 2^log_s, y[q + s*2p] = a + b and
@@ -393,7 +376,8 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// (m, n, n) planes, row by row.
+// (m, n, n) planes, row by row. The stages form of K7, K2, K4, K10 and K11
+// below: the radix-2 column pass (axis_fft_kernel) around row_fused_kernel.
 template <typename T, int BODY>
 cudaError_t launch_row_fused(int64_t m, int log_n, const RowArgs<T>& args,
                              cudaStream_t stream) {
@@ -413,7 +397,7 @@ cudaError_t launch_row_fused(int64_t m, int log_n, const RowArgs<T>& args,
   return cudaGetLastError();
 }
 
-// K7: rows of rho = pref |psi|^2 forward into out, then the columns in place.
+// K7 (stages): rows of rho = pref |psi|^2 forward into out, then the columns in place.
 template <typename T>
 cudaError_t plane_density_fwd(const void* psi, void* out, int64_t m, int log_n, double pref,
                               cudaStream_t stream) {
@@ -427,7 +411,7 @@ cudaError_t plane_density_fwd(const void* psi, void* out, int64_t m, int log_n, 
   return axis<T>(out, out, m, log_n, int64_t(1) << log_n, false, stream);
 }
 
-// K2: columns inverse into rho (as scratch), the fused rows (psi written,
+// K2 (stages): columns inverse into rho (as scratch), the fused rows (psi written,
 // rho's row forward in place), then rho's columns forward in place.
 template <typename T>
 cudaError_t plane_inv_density(const void* in, void* psi, void* rho, int64_t m, int log_n,
@@ -446,7 +430,7 @@ cudaError_t plane_inv_density(const void* in, void* psi, void* rho, int64_t m, i
   return axis<T>(rho, rho, m, log_n, n, false, stream);
 }
 
-// K4: phi_k's columns inverse into out (as scratch), the fused rows (phi,
+// K4 (stages): phi_k's columns inverse into out (as scratch), the fused rows (phi,
 // max|phi|, the kick on psi, the row forward in place), then the columns
 // forward in place.
 template <typename T>
@@ -469,7 +453,7 @@ cudaError_t plane_potkick_fwd(const void* phik, const void* psi, void* out, void
   return axis<T>(out, out, m, log_n, n, false, stream);
 }
 
-// K10: K2's launches with the kRhoOnly row body: columns inverse into rho
+// K10 (stages): K2's launches with the kRhoOnly row body: columns inverse into rho
 // (as scratch), the rows (rho's row forward in place, no psi), rho's
 // columns forward in place.
 template <typename T>
@@ -488,7 +472,7 @@ cudaError_t plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int
   return axis<T>(rho, rho, m, log_n, n, false, stream);
 }
 
-// K11: K9's column inverse into tmp, then the rows' inverse reduced to one
+// K11 (stages): K9's column inverse into tmp, then the rows' inverse reduced to one
 // max |Re| per row block.
 template <typename T>
 cudaError_t plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m, int log_n,
@@ -500,6 +484,51 @@ cudaError_t plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m
   a.in = static_cast<const C*>(tmp);
   a.maxes = static_cast<T*>(maxes);
   return launch_row_fused<T, kRealMax>(m, log_n, a, stream);
+}
+
+// The split form (split_radix.cuh) of K7, K2 / K10 (BODY), K4 and K11.
+template <typename T>
+cudaError_t density_split(const void* psi, void* out, int64_t m, int log_n, double pref,
+                          const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  RowArgs<T> a{};
+  a.psi_in = static_cast<const C*>(psi);
+  a.out = static_cast<C*>(out);
+  a.pref = static_cast<T>(pref);
+  return split_plane<T, kDensity>(nullptr, a, nullptr, m, log_n, tw, stream);
+}
+
+template <typename T, int BODY>
+cudaError_t inv_density_split(const void* in, void* psi, void* rho, int64_t m, int log_n,
+                              double pref, const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  RowArgs<T> a{};
+  a.psi_out = static_cast<C*>(psi);
+  a.out = static_cast<C*>(rho);
+  a.pref = static_cast<T>(pref);
+  return split_plane<T, BODY>(in, a, nullptr, m, log_n, tw, stream);
+}
+
+template <typename T>
+cudaError_t potkick_split(const void* phik, const void* psi, void* out, void* maxes,
+                          const void* coeff, int64_t m, int64_t planes_per_batch, int log_n,
+                          const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  RowArgs<T> a{};
+  a.psi_in = static_cast<const C*>(psi);
+  a.out = static_cast<C*>(out);
+  a.maxes = static_cast<T*>(maxes);
+  a.coeff = static_cast<const T*>(coeff);
+  a.planes_per_batch = planes_per_batch;
+  return split_plane<T, kPotKick>(phik, a, nullptr, m, log_n, tw, stream);
+}
+
+template <typename T>
+cudaError_t real_inv_max_split(const void* in, void* tmp, void* maxes, int64_t m, int log_n,
+                               const void* tw, cudaStream_t stream) {
+  RowArgs<T> a{};
+  a.maxes = static_cast<T*>(maxes);
+  return split_plane<T, kRealMax>(in, a, tmp, m, log_n, tw, stream);
 }
 
 // K12: the inverse column pass with the kick multiplied in on load, in the
@@ -598,11 +627,12 @@ int msm_axis_roundtrip_map(const void* in, void* out, int64_t b1, int log_n, int
       s));
 }
 
-// K2. in, psi, rho: (m, n, n) interleaved complex, three distinct buffers.
-// cluster 0: the split form; else the cluster form (plane_cluster.cuh) with
-// that many blocks per plane and tw: (n,) interleaved complex w_n^m.
+// K2. in, psi, rho: (m, n, n) interleaved complex, three distinct buffers;
+// tw: (n,) interleaved complex w_n^m. cluster > 0: the cluster form
+// (plane_cluster.cuh) with that many blocks per plane; else stages 0: the
+// split form (split_radix.cuh), 1: the stages form (tw unused).
 int msm_plane_inv_density(const void* in, void* psi, void* rho, int64_t m, int log_n,
-                          double pref, int is_double, int cluster, const void* tw,
+                          double pref, int is_double, int cluster, int stages, const void* tw,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
@@ -610,19 +640,26 @@ int msm_plane_inv_density(const void* in, void* psi, void* rho, int64_t m, int l
         is_double ? inv_density_cluster<double>(in, psi, rho, m, log_n, cluster, pref, tw, s)
                   : inv_density_cluster<float>(in, psi, rho, m, log_n, cluster, pref, tw, s));
   }
-  return static_cast<int>(is_double
-                              ? plane_inv_density<double>(in, psi, rho, m, log_n, pref, s)
-                              : plane_inv_density<float>(in, psi, rho, m, log_n, pref, s));
+  if (stages) {
+    return static_cast<int>(is_double
+                                ? plane_inv_density<double>(in, psi, rho, m, log_n, pref, s)
+                                : plane_inv_density<float>(in, psi, rho, m, log_n, pref, s));
+  }
+  return static_cast<int>(is_double ? inv_density_split<double, kInvDensity>(
+                                          in, psi, rho, m, log_n, pref, tw, s)
+                                    : inv_density_split<float, kInvDensity>(
+                                          in, psi, rho, m, log_n, pref, tw, s));
 }
 
 // K4. phik, psi, out: (m, n, n) interleaved complex, three distinct buffers;
-// coeff: (m / planes_per_batch,) real. cluster 0: the split form, maxes (m *
-// n * n / 2048,) real, one per row block; else the cluster form
-// (plane_cluster.cuh) with that many blocks per plane, maxes (m * cluster,),
-// one per block, and tw: (n,) interleaved complex w_n^m.
+// coeff: (m / planes_per_batch,) real; tw: (n,) interleaved complex w_n^m.
+// cluster > 0: the cluster form (plane_cluster.cuh) with that many blocks
+// per plane, maxes (m * cluster,), one per block; else maxes (m * n * n /
+// 2048,) real, one per row block, and stages 0: the split form
+// (split_radix.cuh), 1: the stages form (tw unused).
 int msm_plane_potkick_fwd(const void* phik, const void* psi, void* out, void* maxes,
                           const void* coeff, int64_t m, int64_t planes_per_batch, int log_n,
-                          int is_double, int cluster, const void* tw, void* stream) {
+                          int is_double, int cluster, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
@@ -631,19 +668,38 @@ int msm_plane_potkick_fwd(const void* phik, const void* psi, void* out, void* ma
                   : potkick_cluster<float>(phik, psi, out, maxes, coeff, m, planes_per_batch,
                                            log_n, cluster, tw, s));
   }
+  if (stages) {
+    return static_cast<int>(
+        is_double ? plane_potkick_fwd<double>(phik, psi, out, maxes, coeff, m,
+                                              planes_per_batch, log_n, s)
+                  : plane_potkick_fwd<float>(phik, psi, out, maxes, coeff, m, planes_per_batch,
+                                             log_n, s));
+  }
   return static_cast<int>(
-      is_double ? plane_potkick_fwd<double>(phik, psi, out, maxes, coeff, m, planes_per_batch,
-                                            log_n, s)
-                : plane_potkick_fwd<float>(phik, psi, out, maxes, coeff, m, planes_per_batch,
-                                           log_n, s));
+      is_double ? potkick_split<double>(phik, psi, out, maxes, coeff, m, planes_per_batch, log_n,
+                                        tw, s)
+                : potkick_split<float>(phik, psi, out, maxes, coeff, m, planes_per_batch, log_n,
+                                       tw, s));
 }
 
-// K7. psi, out: (m, n, n) interleaved complex, distinct.
+// K7. psi, out: (m, n, n) interleaved complex, distinct; tw: (n,)
+// interleaved complex w_n^m; psi 16-byte aligned. cluster > 0: the cluster
+// form (plane_cluster.cuh) with that many blocks per plane; else stages 0:
+// the split form (split_radix.cuh), 1: the stages form (tw unused).
 int msm_plane_density_fwd(const void* psi, void* out, int64_t m, int log_n, double pref,
-                          int is_double, void* stream) {
+                          int is_double, int cluster, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double ? plane_density_fwd<double>(psi, out, m, log_n, pref, s)
-                                    : plane_density_fwd<float>(psi, out, m, log_n, pref, s));
+  if (cluster) {
+    return static_cast<int>(
+        is_double ? density_cluster<double>(psi, out, m, log_n, cluster, pref, tw, s)
+                  : density_cluster<float>(psi, out, m, log_n, cluster, pref, tw, s));
+  }
+  if (stages) {
+    return static_cast<int>(is_double ? plane_density_fwd<double>(psi, out, m, log_n, pref, s)
+                                      : plane_density_fwd<float>(psi, out, m, log_n, pref, s));
+  }
+  return static_cast<int>(is_double ? density_split<double>(psi, out, m, log_n, pref, tw, s)
+                                    : density_split<float>(psi, out, m, log_n, pref, tw, s));
 }
 
 // K13. as K1 without the kick and the inverse: out is the forward DFT along
@@ -678,11 +734,11 @@ int msm_axis_inv_kick(const void* in, void* out, int64_t b1, int log_n, int64_t 
                 : axis_inv_kick<float>(in, out, b1, log_n, lanes, f0, f12, stages, tw, s));
 }
 
-// K10. in, rho: (m, n, n) interleaved complex, distinct; cluster and tw as
-// for K2.
+// K10. in, rho: (m, n, n) interleaved complex, distinct; cluster, stages
+// and tw as for K2.
 int msm_plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int log_n,
-                                   double pref, int is_double, int cluster, const void* tw,
-                                   void* stream) {
+                                   double pref, int is_double, int cluster, int stages,
+                                   const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
@@ -690,28 +746,41 @@ int msm_plane_inv_density_rho_only(const void* in, void* rho, int64_t m, int log
             ? inv_density_cluster<double>(in, nullptr, rho, m, log_n, cluster, pref, tw, s)
             : inv_density_cluster<float>(in, nullptr, rho, m, log_n, cluster, pref, tw, s));
   }
-  return static_cast<int>(
-      is_double ? plane_inv_density_rho_only<double>(in, rho, m, log_n, pref, s)
-                : plane_inv_density_rho_only<float>(in, rho, m, log_n, pref, s));
+  if (stages) {
+    return static_cast<int>(
+        is_double ? plane_inv_density_rho_only<double>(in, rho, m, log_n, pref, s)
+                  : plane_inv_density_rho_only<float>(in, rho, m, log_n, pref, s));
+  }
+  return static_cast<int>(is_double ? inv_density_split<double, kRhoOnly>(
+                                          in, nullptr, rho, m, log_n, pref, tw, s)
+                                    : inv_density_split<float, kRhoOnly>(
+                                          in, nullptr, rho, m, log_n, pref, tw, s));
 }
 
-// K11. in: (m, n, n) interleaved complex. cluster 0: the split form, tmp
-// (m, n, n) interleaved complex scratch, maxes (m * n * n / 2048,) real,
-// one max |Re| per row block; else the cluster form (plane_cluster.cuh)
-// with that many blocks per plane, no scratch (tmp null), maxes (m *
-// cluster,), one per block, and tw: (n,) interleaved complex w_n^m; in
-// 16-byte aligned.
+// K11. in: (m, n, n) interleaved complex, 16-byte aligned; tw: (n,)
+// interleaved complex w_n^m. cluster > 0: the cluster form
+// (plane_cluster.cuh) with that many blocks per plane, no scratch (tmp
+// null), maxes (m * cluster,), one per block; else tmp (m, n, n)
+// interleaved complex scratch, maxes (m * n * n / 2048,) real, one max |Re|
+// per row block, and stages 0: the split form (split_radix.cuh), 1: the
+// stages form (tw unused).
 int msm_plane_real_inv_max(const void* in, void* tmp, void* maxes, int64_t m, int log_n,
-                           int is_double, int cluster, const void* tw, void* stream) {
+                           int is_double, int cluster, int stages, const void* tw,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
         is_double ? real_inv_max_cluster<double>(in, maxes, m, log_n, cluster, tw, s)
                   : real_inv_max_cluster<float>(in, maxes, m, log_n, cluster, tw, s));
   }
+  if (stages) {
+    return static_cast<int>(is_double
+                                ? plane_real_inv_max<double>(in, tmp, maxes, m, log_n, s)
+                                : plane_real_inv_max<float>(in, tmp, maxes, m, log_n, s));
+  }
   return static_cast<int>(is_double
-                              ? plane_real_inv_max<double>(in, tmp, maxes, m, log_n, s)
-                              : plane_real_inv_max<float>(in, tmp, maxes, m, log_n, s));
+                              ? real_inv_max_split<double>(in, tmp, maxes, m, log_n, tw, s)
+                              : real_inv_max_split<float>(in, tmp, maxes, m, log_n, tw, s));
 }
 
 }  // extern "C"

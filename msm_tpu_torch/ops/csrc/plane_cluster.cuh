@@ -182,6 +182,26 @@ struct RealVec<double> {
   __device__ static double2 join(const double2 (&e)[2]) { return make_double2(e[0].x, e[1].x); }
 };
 
+// K7's load: psi's 16-byte vectors (Vec<T>), each complex element
+// scattered as rho = pref (re^2 + im^2) with imaginary part 0, in the plain
+// version's order; pref is the kernel's argument. The other traits' split
+// is static, called through the kernel's (empty) trait argument alike.
+template <typename T>
+struct DensityVec {
+  using type = typename Vec<T>::type;
+  using elem = typename Vec<T>::elem;
+  static constexpr int kElems = Vec<T>::kElems;
+  T pref;
+  __device__ void split(type v, elem (&e)[kElems]) const {
+    Vec<T>::split(v, e);
+#pragma unroll
+    for (int k = 0; k < kElems; ++k) {
+      e[k].x = pref * (e[k].x * e[k].x + e[k].y * e[k].y);
+      e[k].y = T(0);
+    }
+  }
+};
+
 // Vectors a thread of a block moves per batch of device-memory loads: all
 // issued before any is used.
 constexpr int kBatch = 8;
@@ -348,10 +368,12 @@ __device__ __forceinline__ void load_twiddles(typename Complex<T>::type* tw,
 
 // R contiguous rows of src into a row slab, each row scattered into the
 // transposed order a DIT row pass takes: 16-byte loads, kBatch in flight.
-// VIN: Vec<T> (complex rows) or RealVec<T> (real rows, imaginary part 0).
+// VIN: Vec<T> (complex rows), RealVec<T> (real rows, imaginary part 0) or
+// DensityVec<T> (complex rows, their density), split through `load`.
 template <typename T, int N, int R, typename VIN = Vec<T>>
 __device__ __forceinline__ void load_rows_transposed(typename Complex<T>::type* s,
-                                                     const typename VIN::elem* src) {
+                                                     const typename VIN::elem* src,
+                                                     const VIN& load = VIN{}) {
   using C = typename Complex<T>::type;
   using V = typename VIN::type;
   constexpr int E = VIN::kElems;
@@ -365,7 +387,7 @@ __device__ __forceinline__ void load_rows_transposed(typename Complex<T>::type* 
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       C e[E];
-      VIN::split(v[u], e);
+      load.split(v[u], e);
       const int x = (threadIdx.x + (b + u) * kClusterThreads) * E;
 #pragma unroll
       for (int k = 0; k < E; ++k) s[pad16((x / N) * N + transposed<N>(x % N + k))] = e[k];
@@ -452,15 +474,16 @@ __device__ __forceinline__ void store_columns(typename VOUT::elem* dst,
   }
 }
 
-// K6, K17 and K9: the ortho 2-axis DFT of plane blockIdx.x / CL, loaded
-// through VIN and stored through VOUT: K6 complex to complex (Vec<T>, both
-// directions), K17 the forward of a real plane (RealVec<T> in, imaginary
-// part 0), K9 the real part of the inverse (RealVec<T> out, half K6's
-// write).
+// K6, K17, K9 and K7: the ortho 2-axis DFT of plane blockIdx.x / CL, loaded
+// through VIN (`load`) and stored through VOUT: K6 complex to complex
+// (Vec<T>, both directions), K17 the forward of a real plane (RealVec<T> in,
+// imaginary part 0), K9 the real part of the inverse (RealVec<T> out, half
+// K6's write), K7 the forward of pref |psi|^2 (DensityVec<T> in: psi read
+// once, K6's bytes).
 template <typename T, int N, bool INV, typename VIN, typename VOUT>
 __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
     plane_cluster_kernel(const typename VIN::elem* in, typename VOUT::elem* out,
-                         const typename Complex<T>::type* twg, T scale) {
+                         const typename Complex<T>::type* twg, T scale, VIN load) {
   using C = typename Complex<T>::type;
   constexpr int CL = cluster_size<T, N>();
   constexpr int R = N / CL;
@@ -472,7 +495,7 @@ __global__ void __launch_bounds__(kClusterThreads, sizeof(T) == 4 ? 3 : 1)
   const int64_t plane = blockIdx.x / CL;
 
   load_twiddles<T, N>(tw, twg);
-  load_rows_transposed<T, N, R, VIN>(s, in + (plane * N + rank * R) * N);
+  load_rows_transposed<T, N, R, VIN>(s, in + (plane * N + rank * R) * N, load);
   __syncthreads();
   rows_to_columns<T, N, INV, kSwapOnePass>(cluster, s, tw, rank);
   store_columns<T, N, VOUT>(out + plane * N * N + rank * R, s, scale);
@@ -558,8 +581,8 @@ __device__ __forceinline__ void density_columns(typename Complex<T>::type* s,
 
 // The block's maximum of every thread's mx (NaN-keeping) into *dst, in a
 // fixed order: warp shuffles, then the warps in turn (red: one real a
-// warp). Ends in a __syncthreads.
-template <typename T>
+// warp of the block's THREADS). Ends in a __syncthreads.
+template <typename T, int THREADS = kClusterThreads>
 __device__ __forceinline__ void block_max(T mx, T* red, T* dst) {
   for (int off = 16; off > 0; off >>= 1) {
     mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
@@ -568,7 +591,7 @@ __device__ __forceinline__ void block_max(T mx, T* red, T* dst) {
   __syncthreads();
   if (threadIdx.x == 0) {
     T m = red[0];
-    for (int w = 1; w < kClusterThreads / 32; ++w) m = nan_max(m, red[w]);
+    for (int w = 1; w < THREADS / 32; ++w) m = nan_max(m, red[w]);
     *dst = m;
   }
 }
@@ -772,10 +795,23 @@ cudaError_t plane_cluster(const void* in, void* out, int64_t m, int log_n, int c
       return launch_cluster<plane_cluster_kernel<T, N, INV, VIN<T>, VOUT<T>>>(
           m, cl, cluster_smem<T, N>(), stream, static_cast<const typename VIN<T>::elem*>(in),
           static_cast<typename VOUT<T>::elem*>(out), static_cast<const C*>(tw),
-          static_cast<T>(1.0 / N));
+          static_cast<T>(1.0 / N), VIN<T>{});
     });
   };
   return is_double ? launch(double{}) : launch(float{});
+}
+
+// K7 in the cluster form: K6's forward kernel with the density load.
+template <typename T>
+cudaError_t density_cluster(const void* psi, void* out, int64_t m, int log_n, int cl,
+                            double pref, const void* tw, cudaStream_t stream) {
+  using C = typename Complex<T>::type;
+  return by_plane_size<T>(log_n, cl, [=](auto n) {
+    constexpr int N = decltype(n)::value;
+    return launch_cluster<plane_cluster_kernel<T, N, false, DensityVec<T>, Vec<T>>>(
+        m, cl, cluster_smem<T, N>(), stream, static_cast<const C*>(psi), static_cast<C*>(out),
+        static_cast<const C*>(tw), static_cast<T>(1.0 / N), DensityVec<T>{static_cast<T>(pref)});
+  });
 }
 
 // K4 in the cluster form; maxes: (m * cl,), one per block.

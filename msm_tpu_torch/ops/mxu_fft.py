@@ -58,14 +58,17 @@ plain torch.fft version beside it; any other device raises. Sizes are the
 engine's, N = 128 * {1, 2, 4, 8} (`supported`), on both routes. `launches`
 counts kernel launches per wrapper.
 
-K6, K17, K9, K4, K2, K10 and K11 take one of two forms, chosen by shape
-(`_plane_form`): at N = 128 and 256 the one-pass plane on a thread-block
-cluster (`csrc/plane_cluster.cuh`: the plane in the cluster's shared
-memory, one HBM read of each input and one write of each output; K11
-writes only a maximum a block); at N = 512 and 1024, whose planes exceed a
-portable cluster's 8 x 227 KB, the split form (a row pass and a column
-pass with the intermediate in device memory). `form_launches` counts
-their launches per form.
+K6, K17, K9, K4, K2, K10, K11 and K7 take one of two forms, chosen by
+shape (`_plane_form`): at N = 128 and 256 the one-pass plane on a
+thread-block cluster (`csrc/plane_cluster.cuh`: the plane in the cluster's
+shared memory, one HBM read of each input and one write of each output;
+K11 writes only a maximum a block); at N = 512 and 1024, whose planes
+exceed a portable cluster's 8 x 227 KB, the split form (a row pass and a
+column pass with the intermediate in device memory). For K4, K2, K10, K11
+and K7 (`SPLIT_RADIX_KERNELS`) the split form is `csrc/split_radix.cuh`'s
+radix-16 row kernel between radix column passes, and `form="stages"`
+forces the radix-2 split form before it (`row_fused_kernel`), for timing
+and tests only. `form_launches` counts their launches per form.
 
 K14-K16 run the radix form (`csrc/lane_radix.cuh` `lane_fft_kernel`: whole
 rows a block, radix-16 register passes, the `_twiddles` table); `form="row"`
@@ -115,8 +118,11 @@ launches = {
 # the plane kernels with a cluster and a split form (`_plane_form`)
 PLANE_FORM_KERNELS = (
     "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv", "plane_potkick_fwd",
-    "plane_inv_density", "plane_inv_density_rho_only", "plane_real_inv_max",
+    "plane_inv_density", "plane_inv_density_rho_only", "plane_real_inv_max", "plane_density_fwd",
 )
+# those whose split form is the radix row kernel (csrc/split_radix.cuh),
+# with the radix-2 split form before it as a forced "stages"
+SPLIT_RADIX_KERNELS = PLANE_FORM_KERNELS[3:]
 # the column-tile kernels with a radix and a stages form (`_axis_form`):
 # the round trips and the column passes
 AXIS_FORM_KERNELS = (
@@ -127,6 +133,7 @@ AXIS_FORM_KERNELS = (
 # by form ("<kernel>/<form>")
 form_launches = {
     **{f"{name}/{form}": 0 for name in PLANE_FORM_KERNELS for form in ("cluster", "split")},
+    **{f"{name}/stages": 0 for name in SPLIT_RADIX_KERNELS},
     **{
         f"{name}/{form}": 0
         for name in ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -134,8 +141,9 @@ form_launches = {
     },
     **{f"{name}/{form}": 0 for name in AXIS_FORM_KERNELS for form in ("radix", "stages")},
 }
-# elements of one row block of the fused row kernel (kRowTile in
-# csrc/fft_common.cuh): the split forms of plane_potkick_fwd and
+# elements of one row block of the split and stages forms' row kernels
+# (kSplitThreads x 16 in csrc/split_radix.cuh, kRowTile in
+# csrc/fft_common.cuh): both forms of plane_potkick_fwd and
 # plane_real_inv_max leave one max|phi| per block
 _ROW_TILE = 2048
 # threads of a full block of the lane kernels' radix form (kLaneThreads in
@@ -151,14 +159,15 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
-    """(form, cluster size) of the plane kernels (`PLANE_FORM_KERNELS`) for
-    (N, N) planes of `dtype` (complex, or the real operand of K17): the
+def _plane_form(n: int, dtype: torch.dtype, form=None, name=None) -> tuple[str, int]:
+    """(form, cluster size) of the plane kernel `name` (`PLANE_FORM_KERNELS`)
+    for (N, N) planes of `dtype` (complex, or the real operand of K17): the
     cluster form at N = 128, 256 (8 blocks a plane at 256; at 128, 2 at
     complex64 and float32, 4 at complex128 and float64: about 70 KB of
     shared memory a block, as `cluster_size` in csrc/plane_cluster.cuh),
     else ("split", 0). `form` forces one where a caller asks: "split"
-    exists at every size, "cluster" only where the shape takes it."""
+    exists at every size, "cluster" only where the shape takes it, and
+    "stages" at every size for `SPLIT_RADIX_KERNELS` only."""
     if n in (128, 256):
         single = dtype in (torch.complex64, torch.float32)
         shape_form = ("cluster", 8 if n == 256 else (2 if single else 4))
@@ -166,14 +175,14 @@ def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
         shape_form = ("split", 0)
     if form is None or form == shape_form[0]:
         return shape_form
-    if form == "split":
-        return "split", 0
+    if form == "split" or (form == "stages" and name in SPLIT_RADIX_KERNELS):
+        return form, 0
     raise ValueError(f"no {form!r} form for {n}^2 planes of {dtype}")
 
 
 def _maxes_per_plane(n: int, form: str, cluster: int) -> int:
     """Partial maxima K4 and K11 leave per plane: one per row block of the
-    split form, one per block of the cluster."""
+    split and stages forms, one per block of the cluster."""
     return cluster if form == "cluster" else n * n // _ROW_TILE
 
 
@@ -868,31 +877,38 @@ def axis_roundtrip_map(x, pmap, *, form=None):
     return out
 
 
+def _fused_plane_args(x: torch.Tensor, form: str, cluster: int) -> tuple:
+    """(cluster, stages, twiddles) of a `SPLIT_RADIX_KERNELS` entry point
+    in `form`: the (N,) table for the cluster and split forms, none for the
+    stages form."""
+    stages = form == "stages"
+    tw = None if stages else _twiddles(x.shape[-1], x.dtype, x.device).data_ptr()
+    return cluster, int(stages), tw
+
+
 def _inv_density(name: str, x, prefactor: float, form, write_psi: bool):
     """K2 (write_psi) and K10: (psi, rho) from one launch in `form`
     (`_plane_form`), psi None for K10 on the card; the plain version's
     (psi, rho) on the CPU."""
     m, log_n = _planes(x)
-    n = x.shape[-1]
-    form, cluster = _plane_form(n, x.dtype, form)
+    form, cluster = _plane_form(x.shape[-1], x.dtype, form, name)
     if not _route(x, name):
         return plane_inv_density_plain(x, prefactor)
     is_double = _check_dtype(x, (torch.complex64, torch.complex128), name)
     x = _aligned(x)
     psi = torch.empty_like(x) if write_psi else None
     rho = torch.empty_like(x)
-    tw = _twiddles(n, x.dtype, x.device).data_ptr() if cluster else None
     lib = build.load()
     with torch.cuda.device(x.device):
         if write_psi:
             rc = lib.msm_plane_inv_density(
                 x.data_ptr(), psi.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor),
-                is_double, cluster, tw, _stream(x),
+                is_double, *_fused_plane_args(x, form, cluster), _stream(x),
             )
         else:
             rc = lib.msm_plane_inv_density_rho_only(
-                x.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor), is_double, cluster,
-                tw, _stream(x),
+                x.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor), is_double,
+                *_fused_plane_args(x, form, cluster), _stream(x),
             )
     build.check(rc, name)
     launches[name] += 1
@@ -903,25 +919,26 @@ def _inv_density(name: str, x, prefactor: float, form, write_psi: bool):
 def plane_inv_density(x, prefactor: float, *, form=None):
     """K2: psi = ortho inverse DFT of x over its last two axes; returns
     (psi, the forward DFT of prefactor * |psi|^2 over the same axes).
-    form: as for `plane_pass`."""
+    form: None for the shape's (`_plane_form`); "split" or "stages" forces
+    that split form (tests and chip_smoke.py compare them)."""
     return _inv_density("plane_inv_density", x, prefactor, form, True)
 
 
 def plane_inv_density_rho_only(x, prefactor: float, *, form=None):
     """K10: the forward DFT over the last two axes of prefactor * |psi|^2,
     psi = the ortho inverse DFT of x over them; psi is never written.
-    form: as for `plane_pass`."""
+    form: as for `plane_inv_density`."""
     return _inv_density("plane_inv_density_rho_only", x, prefactor, form, False)[1]
 
 
 def plane_real_inv_max(z, *, form=None):
     """K11: max |Re of the ortho inverse DFT of z over its last two axes|
     per (N, N) plane, (m,); the real plane is never written. form: as for
-    `plane_pass`; the split form goes through a complex scratch grid, the
-    cluster form through none."""
+    `plane_inv_density`; the split and stages forms go through a complex
+    scratch grid, the cluster form through none."""
     m, log_n = _planes(z)
     n = z.shape[-1]
-    form, cluster = _plane_form(n, z.dtype, form)
+    form, cluster = _plane_form(n, z.dtype, form, "plane_real_inv_max")
     if not _route(z, "plane_real_inv_max"):
         return plane_real_inv_max_plain(z)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_real_inv_max")
@@ -929,12 +946,11 @@ def plane_real_inv_max(z, *, form=None):
     tmp = None if cluster else torch.empty_like(z)
     maxes = torch.empty(m * _maxes_per_plane(n, form, cluster), dtype=z.real.dtype,
                         device=z.device)
-    tw = _twiddles(n, z.dtype, z.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(z.device):
         rc = lib.msm_plane_real_inv_max(
             z.data_ptr(), None if tmp is None else tmp.data_ptr(), maxes.data_ptr(), m, log_n,
-            is_double, cluster, None if tw is None else tw.data_ptr(), _stream(z),
+            is_double, *_fused_plane_args(z, form, cluster), _stream(z),
         )
     build.check(rc, "plane_real_inv_max")
     launches["plane_real_inv_max"] += 1
@@ -947,10 +963,10 @@ def plane_potkick_fwd(phik, psi, coeff, *, form=None):
     returns (the forward DFT over those axes of psi * exp(i coeff_b phi),
     max|phi| per plane). The planes of phik and psi are (B, ..., N, N) with
     coeff (B,): stream b owns the b-th run of planes. form: as for
-    `plane_pass`."""
+    `plane_inv_density`."""
     m, log_n = _planes(phik)
     n = phik.shape[-1]
-    form, cluster = _plane_form(n, phik.dtype, form)
+    form, cluster = _plane_form(n, phik.dtype, form, "plane_potkick_fwd")
     if psi.shape != phik.shape or psi.dtype != phik.dtype or psi.device != phik.device:
         raise ValueError(f"psi {tuple(psi.shape)} {psi.dtype} does not match phik")
     c = coeff.to(device=phik.device, dtype=phik.real.dtype).reshape(-1).contiguous()
@@ -965,13 +981,12 @@ def plane_potkick_fwd(phik, psi, coeff, *, form=None):
     maxes = torch.empty(
         m * _maxes_per_plane(n, form, cluster), dtype=phik.real.dtype, device=phik.device
     )
-    tw = _twiddles(n, phik.dtype, phik.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(phik.device):
         rc = lib.msm_plane_potkick_fwd(
             phik.data_ptr(), psi.data_ptr(), out.data_ptr(), maxes.data_ptr(), c.data_ptr(),
-            m, m // c.numel(), log_n, is_double, cluster,
-            None if tw is None else tw.data_ptr(), _stream(phik),
+            m, m // c.numel(), log_n, is_double, *_fused_plane_args(phik, form, cluster),
+            _stream(phik),
         )
     build.check(rc, "plane_potkick_fwd")
     launches["plane_potkick_fwd"] += 1
@@ -979,22 +994,25 @@ def plane_potkick_fwd(phik, psi, coeff, *, form=None):
     return out, maxes.view(m, -1).amax(dim=-1)
 
 
-def plane_density_fwd(psi, prefactor: float):
-    """K7: ortho forward DFT over the last two axes of prefactor * |psi|^2."""
+def plane_density_fwd(psi, prefactor: float, *, form=None):
+    """K7: ortho forward DFT over the last two axes of prefactor * |psi|^2.
+    form: as for `plane_inv_density`."""
     m, log_n = _planes(psi)
+    form, cluster = _plane_form(psi.shape[-1], psi.dtype, form, "plane_density_fwd")
     if not _route(psi, "plane_density_fwd"):
         return plane_density_fwd_plain(psi, prefactor)
     is_double = _check_dtype(psi, (torch.complex64, torch.complex128), "plane_density_fwd")
-    psi = psi.contiguous()
+    psi = _aligned(psi)
     out = torch.empty_like(psi)
     lib = build.load()
     with torch.cuda.device(psi.device):
         rc = lib.msm_plane_density_fwd(
             psi.data_ptr(), out.data_ptr(), m, log_n, float(prefactor), is_double,
-            _stream(psi),
+            *_fused_plane_args(psi, form, cluster), _stream(psi),
         )
     build.check(rc, "plane_density_fwd")
     launches["plane_density_fwd"] += 1
+    form_launches[f"plane_density_fwd/{form}"] += 1
     return out
 
 

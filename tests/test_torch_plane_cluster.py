@@ -607,6 +607,7 @@ def test_plane_form_dispatch(n, cdtype):
         "plane_inv_density": lambda f: mxu_fft.plane_inv_density(z, 1.0, form=f),
         "plane_inv_density_rho_only": lambda f: mxu_fft.plane_inv_density_rho_only(z, 1.0, form=f),
         "plane_real_inv_max": lambda f: mxu_fft.plane_real_inv_max(z, form=f),
+        "plane_density_fwd": lambda f: mxu_fft.plane_density_fwd(z, 1.0, form=f),
     }
     assert tuple(calls) == mxu_fft.PLANE_FORM_KERNELS
     for name, call in calls.items():
