@@ -88,16 +88,39 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             MSM_DT_INIT_BOUND_SCALE=0.25 (both runs must replay); and the
             1-D `mxu` path (the lane kernels) on the 1-D cold Gaussian at
             1024, MFT only, 2 dumps over t = 2 (the run amplifies rounding
-            differences past that), in the three dt modes
+            differences past that), in the three dt modes; expanding mode
+            on examples/cold-gauss-cosmo.toml's physics and [cosmology]
+            table, MFT only, c128, 2 dumps (a and tau of the manifests
+            also within 1e-13 of their size): `xla` at 64^3 in optimistic
+            and exact dt and the fused engine at 128^3 in optimistic,
+            exact and lagged dt over t = 12, the unskewed engine at 128^3
+            in lagged dt, and `mxu-1d` at 1024 over t = 100 (its 1-D cut
+            is dump-bound to t = 2: one step a dump); and synthesis: the
+            fused engine at 128^3 c128 with 3 Wigner streams + MFT and
+            --online-synthesis, then `synthesize` on the card and on the
+            CPU over the same stream dumps (data roots that link them),
+            online against offline on the card within 1e-11 of each
+            field's max and of max|Qx|, card against CPU within 1e-12
   4 main    `python -m msm_tpu_torch simulate --device cuda --verbose` run
-            in-process (so the kernels' launch counts can be read) seven
+            in-process (so the kernels' launch counts can be read) nine
             times, complex64, 3 dumps over t = 40: on the tophat-collapse
             physics at 256^3 with 8 Wigner streams + MFT, MSM_FFT=xla,
             MSM_FFT=mxu with MSM_FUSE_PHASES=0, MSM_FFT=mxu alone (the
             fused engine), the fused engine with --dt-mode exact,
             MSM_SKEW_STEP=0 --dt-mode lagged (the unskewed fused engine)
             and MSM_FFT=matmul; on the 1-D cold Gaussian at 1024 with 255
-            Wigner streams + MFT, MSM_FFT=mxu (the lane kernels); checks
+            Wigner streams + MFT, MSM_FFT=mxu (the lane kernels); the
+            fused engine on cold-gauss-cosmo's expanding physics at 256^3
+            with 8 Wigner streams + MFT over t = 80 (`fused-expanding`:
+            K1-K4 every iteration in the cluster and radix forms, a
+            growing from dump to dump in every manifest, tau > 0, the
+            norms with the supercomoving volume element, a `z =` progress
+            line), and the tophat run with --online-synthesis
+            (`fused-online`), then `synthesize` on the card over its dumps,
+            held to the online files at c64 (psi, psi2 1e-6 of their max;
+            psik, psik2 2e-5; Qx 1e-4), with the combine's ms per dump
+            (CUDA events around `Stepper.combine_row`) and the offline
+            pass's seconds and GB/s of dumps read; checks
             every dump's shape, finiteness and norm, the manifests, that
             each run launched each of its kernels, that the exact run
             launched K10 and K11 and the unskewed run K12 and K13 once per
@@ -203,6 +226,8 @@ RUN_KERNELS = {
     "unskewed-lagged": UNSKEWED_KERNELS + SKEW_KERNELS[1:] + ENGINE_IO + ("kinetic_phase",),
     "matmul": PHASE_KERNELS + ("poisson_multiply",),
     "mxu-1d": PHASE_KERNELS + LANE_KERNELS,
+    "fused-expanding": SKEW_KERNELS + ENGINE_IO,
+    "fused-online": SKEW_KERNELS + ENGINE_IO,
 }
 # the main run whose launches each kernel reports: the path it was ported
 # for; K18 (on no main run's path) reports the engine check's, the copy
@@ -323,6 +348,45 @@ type = "ColdGauss"
 mean = [15.0]
 std  = [3.0]
 """
+
+# examples/cold-gauss-cosmo.toml's physics and [cosmology] table (an
+# expanding run; axis_length is the physical box at z0) with ntot for the
+# Wigner sampling; 3-D and its 1-D cut
+_COSMOLOGY = """
+[cosmology]
+omega_matter_now    = 0.3
+omega_radiation_now = 0.0
+h                   = 0.68
+z0                  = 9.0
+max_dloga           = 0.01
+"""
+_COSMO_HEAD = """
+axis_length     = 25
+final_sim_time  = {final}
+cfl             = 0.5
+num_data_dumps  = {dumps}
+total_mass      = 5e10
+hbar_           = 0.04
+ntot            = 1e10
+sim_name        = "{name}"
+k2_cutoff       = 0.95
+alias_threshold = 0.05
+size            = {size}
+"""
+COSMO = _COSMO_HEAD + """dims            = 3
+
+[ics]
+type = "ColdGauss"
+mean = [12.5, 12.5, 12.5]
+std  = [3.0, 3.0, 3.0]
+""" + _COSMOLOGY
+COSMO1D = _COSMO_HEAD + """dims            = 1
+
+[ics]
+type = "ColdGauss"
+mean = [12.5]
+std  = [3.0]
+""" + _COSMOLOGY
 
 
 class SmokeFailure(RuntimeError):
@@ -1134,17 +1198,30 @@ RUNS = {
     "unskewed-lagged": ("unskewed", "lagged", "tophat"),
     "matmul": ("matmul", "optimistic", "tophat"),
     "mxu-1d": ("mxu-1d", "optimistic", "gauss1d"),
+    # the fused engine in expanding mode, and with --online-synthesis (then
+    # the offline synthesize on the card over the same dumps)
+    "fused-expanding": ("fused", "optimistic", "cosmo"),
+    "fused-online": ("fused", "optimistic", "tophat"),
 }
-# config -> (template, name, dims, size, Wigner streams, description); both
-# c64, 3 dumps over t = 40
+ONLINE_RUNS = ("fused-online",)
+# config -> (template, name, dims, size, Wigner streams, description); all
+# c64, 3 dumps over t = FINAL (40 unless listed)
 CONFIGS = {
     "tophat": (TOPHAT, "tophat-collapse", 3, 256, 8,
                "tophat-collapse 256^3, 8 Wigner + MFT, c64, 3 dumps over t=40"),
     "gauss1d": (GAUSS1D, "gauss1d", 1, 1024, 255,
                 "1-D cold Gaussian 1024, 255 Wigner + MFT, c64, 3 dumps over t=40"),
+    "cosmo": (COSMO, "cold-gauss-cosmo", 3, 256, 8,
+              "cold-gauss-cosmo 256^3, 8 Wigner + MFT, c64, 3 dumps over t=80"),
 }
-# kernels that must launch once in every iteration of a run
-PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS}
+# the cosmology run's end: about as many iterations as the tophat run's
+# (potential-bound: about 1000 steps per unit of tau, tau(80) = 0.37)
+FINAL = {"cosmo": 80.0}
+# kernels that must launch once in every iteration of a run (K1, which
+# also closes each interval, at least once)
+PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS,
+                 "fused-expanding": ("plane_inv_density", "axis_roundtrip_poisson")}
+EVERY_ITERATION = {"fused-expanding": ("axis_roundtrip_kick",)}
 # the plane kernels whose every launch in a main run must take the cluster
 # form: K4, K2, K7 and K9 (the Poisson solve's) on the fused engines (and K10
 # and K11 in exact dt), K6, K17 and K9 on the unfused `mxu` path
@@ -1154,7 +1231,8 @@ CLUSTER_FORM = {"mxu": ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_in
                 "fused": FUSED_CLUSTER,
                 "fused-exact": FUSED_CLUSTER + ("plane_inv_density_rho_only",
                                                 "plane_real_inv_max"),
-                "unskewed-lagged": FUSED_CLUSTER}
+                "unskewed-lagged": FUSED_CLUSTER, "fused-expanding": FUSED_CLUSTER,
+                "fused-online": FUSED_CLUSTER}
 # the lane kernels whose every launch in a path's main run must take the
 # radix form (lane_fft_kernel)
 RADIX_FORM = {"mxu-1d": LANE_KERNELS}
@@ -1165,7 +1243,8 @@ RADIX_FORM = {"mxu-1d": LANE_KERNELS}
 SKEW_TRIPS = ("axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_roundtrip_map", "axis_pass")
 AXIS_RADIX_FORM = {"mxu": ("axis_pass",), "fused": SKEW_TRIPS, "fused-exact": SKEW_TRIPS,
                    "unskewed-lagged": ("axis_inv_kick", "axis_roundtrip_poisson",
-                                       "axis_fwd_reduce", "axis_roundtrip_map", "axis_pass")}
+                                       "axis_fwd_reduce", "axis_roundtrip_map", "axis_pass"),
+                   "fused-expanding": SKEW_TRIPS, "fused-online": SKEW_TRIPS}
 
 
 @contextlib.contextmanager
@@ -1213,20 +1292,26 @@ def _load_dumps(root: str, name: str, n_dumps: int) -> list:
 
 
 def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
-                 dt_mode: str = "optimistic", env: "dict | None" = None) -> None:
+                 dt_mode: str = "optimistic", env: "dict | None" = None,
+                 cosmo: bool = False) -> None:
     """One config through the CUDA kernels and through the plain versions on
     the CPU: identical step/replay counts, psi at every dump within 1e-10.
-    The tophat-collapse physics in 3-D; the 1-D cold Gaussian on `mxu-1d`.
-    env: variables set around both runs (read at Stepper construction); with
-    MSM_DT_INIT_BOUND_SCALE both runs must also have replayed."""
+    The tophat-collapse physics in 3-D; the 1-D cold Gaussian on `mxu-1d`;
+    with `cosmo`, cold-gauss-cosmo's expanding physics (3-D, or its 1-D cut
+    on `mxu-1d`), whose manifests' a and tau must also agree within 1e-13
+    of their size. env: variables set around both runs (read at Stepper
+    construction); with MSM_DT_INIT_BOUND_SCALE both runs must also have
+    replayed."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch import simulator
     from msm_tpu_torch.io.checkpoint import load_manifest
 
     env = env or {}
-    name = f"e2e-{path}-{dt_mode}" + "".join(f"-{v}" for v in env.values())
+    name = f"e2e-{path}-{dt_mode}" + ("-cosmo" if cosmo else "") + "".join(
+        f"-{v}" for v in env.values())
     oned = path == "mxu-1d"
-    text = GAUSS1D if oned else TOPHAT
+    text = {(False, False): TOPHAT, (False, True): GAUSS1D,
+            (True, False): COSMO, (True, True): COSMO1D}[(cosmo, oned)]
     toml = cfg.parse_toml_str(text.format(final=final, dumps=2, name=name, size=size))
     outs = {}
     with fft_mode(path), env_vars(env):
@@ -1242,21 +1327,105 @@ def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
             )
     (psi_g, man_g, wall_g), (psi_c, man_c, wall_c) = outs["cuda"], outs["cpu"]
     err = max(float(np.abs(a - b).max()) for a, b in zip(psi_g, psi_c))
-    emit({
+    physics = ("cold-gauss-cosmo" if cosmo else
+               "1-D cold Gaussian" if oned else "tophat-collapse")
+    rec = {
         "phase": "e2e", "path": path, "dt_mode": dt_mode, "env": env,
-        "config": (f"1-D cold Gaussian {size} MFT" if oned else f"tophat-collapse {size}^3 MFT")
+        "config": f"{physics} {size}" + ("" if oned else "^3") + " MFT"
         + f" c128, 2 dumps over t={final}",
         "n_steps": [man_g["n_steps"], man_c["n_steps"]],
         "replays": [man_g["replays"], man_c["replays"]],
         "max_abs_psi_err": err, "limit": 1e-10,
         "wall_s": {"cuda": wall_g, "cpu": wall_c}, **card,
-    })
+    }
+    if cosmo:
+        rec["rel_err"] = {k: abs(man_g[k] - man_c[k]) / abs(man_c[k]) for k in ("a", "tau")}
+        rec["a"], rec["tau"], rec["rel_limit"] = man_g["a"], man_g["tau"], 1e-13
+    emit(rec)
     check(man_g["n_steps"] == man_c["n_steps"], f"{name}: step counts differ")
     check(man_g["replays"] == man_c["replays"], f"{name}: replay counts differ")
     check(man_g["n_steps"] >= 20, f"{name}: too few steps to compare")
     check(err <= 1e-10, f"{name}: psi differs by {err}")
+    if cosmo:
+        for k, e in rec["rel_err"].items():
+            check(e <= 1e-13, f"{name}: {k} differs by {e} of its size")
+        check(man_c["a"] > 1.0 / (1.0 + toml.cosmology.z0) and man_c["tau"] > 0.0,
+              f"{name}: a {man_c['a']}, tau {man_c['tau']}: the universe did not expand")
     if "MSM_DT_INIT_BOUND_SCALE" in env:
         check(min(man_g["replays"], man_c["replays"]) >= 1, f"{name}: no replay")
+
+
+def _link_streams(data: str, root: str, streams: list) -> None:
+    """A second data root whose stream directories link the first's."""
+    os.makedirs(root)
+    for r in streams:
+        os.symlink(os.path.join(data, r), os.path.join(root, r))
+
+
+def _combined(root: str, name: str, n_dumps: int) -> dict:
+    """The `-combined/` fields of every dump and the Qx series."""
+    from msm_tpu_torch.io.npy import load_complex_pair
+
+    out = {f"{f}_{i:05d}": load_complex_pair(os.path.join(root, f"{name}-combined",
+                                                          f"{f}_{i:05d}"))
+           for f in ("psi", "psi2", "psik", "psik2") for i in range(n_dumps + 1)}
+    out["Qx"] = load_complex_pair(os.path.join(root, f"{name}-combined", "Qx"))
+    return out
+
+
+def _compare_combined(a: dict, b: dict, limits: dict) -> dict:
+    """max |a - b| / max |b| of each field kind (over every dump) and of Qx;
+    limits: kind -> the bound of that ratio. Returns the ratios."""
+    ratios = {}
+    for key, want in b.items():
+        kind = key.split("_")[0]
+        scale = float(np.abs(want).max())
+        ratios[kind] = max(ratios.get(kind, 0.0), float(np.abs(a[key] - want).max()) / scale)
+    for kind, r in ratios.items():
+        check(r <= limits[kind], f"combined {kind} differs by {r} of its max ({limits[kind]})")
+    return ratios
+
+
+def _e2e_synthesis(card: dict, work: str) -> None:
+    """The fused engine at 128^3 c128, 3 Wigner streams + MFT, with
+    --online-synthesis on the card; then `synthesize` on the same stream
+    dumps (in data roots that link them) on the card and on the CPU. Online
+    against offline on the card: each field and Qx within 1e-11 of its max;
+    offline on the card against the CPU: 1e-12."""
+    from msm_tpu_torch import cli
+
+    name, dumps = "e2e-synthesis", 2
+    text = TOPHAT.format(final=20, dumps=dumps, name=name, size=128)
+    text += '\n[sampling]\nseeds  = "1 to 3"\nscheme = "Wigner"\n'
+    base = os.path.join(work, name)
+    os.makedirs(base)
+    toml_path = os.path.join(base, f"{name}.toml")
+    with open(toml_path, "w") as f:
+        f.write(text)
+    roots = {k: os.path.join(base, k) for k in ("online", "cuda", "cpu")}
+    streams = [f"{name}-stream{s:05d}" for s in (1, 2, 3)]
+    walls = {}
+    with fft_mode("fused"), contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        rc = cli.main(["simulate", "--toml", toml_path, "--device", "cuda", "--precision",
+                       "f64", "--data-root", roots["online"], "--online-synthesis"])
+        walls["simulate"] = time.perf_counter() - t0
+        check(rc == 0, f"simulate --online-synthesis returned {rc}")
+        for device in ("cuda", "cpu"):
+            _link_streams(roots["online"], roots[device], streams)
+            t0 = time.perf_counter()
+            rc = cli.main(["synthesize", "--toml", toml_path, "--device", device,
+                           "--precision", "f64", "--data-root", roots[device]])
+            walls[f"synthesize-{device}"] = time.perf_counter() - t0
+            check(rc == 0, f"synthesize --device {device} returned {rc}")
+    got = {k: _combined(root, name, dumps) for k, root in roots.items()}
+    kinds = ("psi", "psi2", "psik", "psik2", "Qx")
+    online = _compare_combined(got["online"], got["cuda"], dict.fromkeys(kinds, 1e-11))
+    cpu = _compare_combined(got["cuda"], got["cpu"], dict.fromkeys(kinds, 1e-12))
+    emit({"phase": "e2e-synthesis", "config": "tophat-collapse 128^3, 3 Wigner + MFT, c128, "
+          f"2 dumps over t=20, fused", "online_vs_offline": online, "offline_cuda_vs_cpu": cpu,
+          "limits": {"online_vs_offline": 1e-11, "offline_cuda_vs_cpu": 1e-12},
+          "qx": got["cuda"]["Qx"].real.ravel().tolist(), "wall_s": walls, **card})
 
 
 def phase_e2e(card: dict) -> None:
@@ -1284,6 +1453,16 @@ def phase_e2e(card: dict) -> None:
         # at t = 2 (about 300 steps)
         for dt_mode in ("optimistic", "exact", "lagged"):
             _cuda_vs_cpu(card, work, "mxu-1d", 1024, 2, dt_mode)
+        # expanding mode on every path's kernels, in the dt modes that
+        # change their arguments: cold-gauss-cosmo is potential-bound, about
+        # 30 steps to t = 12 in 3-D; its 1-D cut is dump-bound to t = 2
+        # (one step a dump) and takes 34 steps to t = 100
+        for path, size, dt_mode in (("xla", 64, "optimistic"), ("xla", 64, "exact"),
+                                    ("fused", 128, "optimistic"), ("fused", 128, "exact"),
+                                    ("fused", 128, "lagged"), ("unskewed", 128, "lagged")):
+            _cuda_vs_cpu(card, work, path, size, 12, dt_mode, cosmo=True)
+        _cuda_vs_cpu(card, work, "mxu-1d", 1024, 100, cosmo=True)
+        _e2e_synthesis(card, work)
 
         golden = cfg.parse_toml_dict({
             "axis_length": 30, "final_sim_time": 1.0, "cfl": 0.5, "num_data_dumps": 2,
@@ -1300,22 +1479,102 @@ def phase_e2e(card: dict) -> None:
         check(gerr <= 1e-12, f"golden fixture differs by {gerr}")
 
 
+@contextlib.contextmanager
+def _recording(run: str):
+    """For the run's CLI call: its manifests in order (dir, current_dumps,
+    a, tau), and CUDA events around each online combine row
+    (`Stepper.combine_row`), read after the run without another sync."""
+    from msm_tpu_torch import simulator
+    from msm_tpu_torch.stepper import Stepper
+
+    manifests, events = [], []
+    write_manifest, combine_row = simulator.write_manifest, Stepper.combine_row
+
+    def record_manifest(sim_dir, **scalars):
+        manifests.append((os.path.basename(sim_dir), scalars["current_dumps"],
+                          scalars["a"], scalars["tau"]))
+        write_manifest(sim_dir, **scalars)
+
+    def timed_row(self, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        row = combine_row(self, *args)
+        end.record()
+        events.append((start, end))
+        return row
+
+    simulator.write_manifest, Stepper.combine_row = record_manifest, timed_row
+    try:
+        yield manifests, events
+    finally:
+        simulator.write_manifest, Stepper.combine_row = write_manifest, combine_row
+
+
+def _check_expanding(manifests: list, runs: list, n_dumps: int, out: str) -> dict:
+    """Every run's manifests: a grows from dump to dump and tau > 0 after
+    dump 0; the verbose output carries the redshift line. Returns the MFT's
+    a and tau at each dump."""
+    check(re.search(r"\) z = [0-9.]+", out) is not None, "no 'z =' progress line")
+    for r in runs:
+        rows = [m for m in manifests if m[0] == r]
+        check([m[1] for m in rows] == list(range(n_dumps + 1)), f"{r}: manifests {rows}")
+        a = [m[2] for m in rows]
+        check(all(x < y for x, y in zip(a, a[1:])), f"{r}: a does not grow: {a}")
+        check(all(m[3] > 0.0 for m in rows[1:]), f"{r}: tau {[m[3] for m in rows]}")
+    mft = [m for m in manifests if m[0] == runs[-1]]
+    return {"a": [m[2] for m in mft], "tau": [m[3] for m in mft]}
+
+
+def _check_online(cli, toml_path: str, data: str, work: str, name: str, runs: list,
+                  n_dumps: int, events: list) -> dict:
+    """The offline `synthesize` on the card over the online run's stream
+    dumps (a data root that links them), held against the online files at
+    c64: psi and psi2 1e-6 of their max (the same values summed in another
+    order), psik and psik2 2e-5 (one transform on each side, 1e-5 each),
+    Qx 1e-4. Returns the comparison, the combine's ms per dump and the
+    offline pass's wall seconds and rate of dump bytes read."""
+    root = os.path.join(work, "offline")
+    _link_streams(data, root, runs[:-1])
+    read = sum(os.path.getsize(os.path.join(data, r, f"psi_{i:05d}_{part}"))
+               for r in runs[:-1] for i in range(n_dumps + 1) for part in ("real", "imag"))
+    with contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        rc = cli.main(["synthesize", "--toml", toml_path, "--device", "cuda",
+                       "--data-root", root])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"synthesize returned {rc}")
+    limits = {"psi": 1e-6, "psi2": 1e-6, "psik": 2e-5, "psik2": 2e-5, "Qx": 1e-4}
+    ratios = _compare_combined(_combined(data, name, n_dumps), _combined(root, name, n_dumps),
+                               limits)
+    combine_ms = [s.elapsed_time(e) for s, e in events]
+    check(len(combine_ms) == n_dumps, f"{len(combine_ms)} combine rows for {n_dumps} dumps")
+    return {"online_vs_offline": ratios, "limits": limits, "combine_ms": combine_ms,
+            "offline_wall_s": wall, "offline_bytes_read": read,
+            "offline_gb_per_s": read / wall / 1e9}
+
+
 def phase_main(card: dict, run: str) -> dict:
     """The port's CLI on the card on one run's path, dt mode and config
     (256^3 x (8 streams + MFT), or 1-D 1024 x (255 streams + MFT)); the
     launch counts are set to 0 just before and read just after, and the run
     must have launched each of its kernels (the exact run K10/K11 and the
-    unskewed run K12/K13 once per iteration)."""
+    unskewed run K12/K13 once per iteration, the expanding run K1-K4). An
+    expanding run's a must grow and its norms use the supercomoving volume
+    element; an online run is checked against the offline synthesize."""
     from msm_tpu_torch import cli
+    from msm_tpu_torch import config as cfg
     from msm_tpu_torch.io.checkpoint import load_manifest
     from msm_tpu_torch.io.npy import read_npy_exact
     from msm_tpu_torch.ops import kernels, mxu_fft
+    from msm_tpu_torch.synthesis import volume_element
 
     path, dt_mode, config = RUNS[run]
     template, name, dims, size, streams, desc = CONFIGS[config]
     n_dumps = 3
-    text = template.format(final=40, dumps=n_dumps, name=name, size=size)
+    text = template.format(final=FINAL.get(config, 40), dumps=n_dumps, name=name, size=size)
     text += f'\n[sampling]\nseeds  = "1 to {streams}"\nscheme = "Wigner"\n'
+    online = run in ONLINE_RUNS
     with tempfile.TemporaryDirectory() as work:
         toml_path = os.path.join(work, f"{name}.toml")
         with open(toml_path, "w") as f:
@@ -1323,10 +1582,11 @@ def phase_main(card: dict, run: str) -> dict:
         data = os.path.join(work, "sim-data")
         argv = ["simulate", "--toml", toml_path, "--device", "cuda",
                 "--data-root", data, "--dt-mode", dt_mode, "--verbose"]
+        argv += ["--online-synthesis"] if online else []
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out = io.StringIO()
-        with fft_mode(path), contextlib.redirect_stdout(out):
+        with fft_mode(path), contextlib.redirect_stdout(out), _recording(run) as (mans, events):
             kernels.reset_launches()
             mxu_fft.reset_launches()
             t0 = time.perf_counter()
@@ -1346,6 +1606,9 @@ def phase_main(card: dict, run: str) -> dict:
         iterations = launches[ITERATION_KERNEL[path]]
         for k in PER_ITERATION.get(run, ()):
             check(launches[k] == iterations,
+                  f"the {run} run launched {k} {launches[k]} times in {iterations} iterations")
+        for k in EVERY_ITERATION.get(run, ()):
+            check(launches[k] >= iterations,
                   f"the {run} run launched {k} {launches[k]} times in {iterations} iterations")
         # at 256^3 every launch of the run's plane kernels takes the
         # cluster form
@@ -1367,9 +1630,18 @@ def phase_main(card: dict, run: str) -> dict:
                   f"{launches[f'{k}/radix']} in the radix form")
 
         runs = [f"{name}-stream{s:05d}" for s in range(1, streams + 1)] + [name]
-        # a dump holds the grid's axes, padded with unit axes to four
+        toml = cfg.parse_toml_str(text)
+        extra = {}
+        if toml.cosmology is not None:
+            extra["mft"] = _check_expanding(mans, runs, n_dumps, out.getvalue())
+        if online:
+            extra["synthesis"] = _check_online(cli, toml_path, data, work, name, runs,
+                                               n_dumps, events)
+        # a dump holds the grid's axes, padded with unit axes to four; its
+        # norm takes the volume element of the config's box (supercomoving
+        # when expanding)
         dump_shape = (size,) * dims + (1,) * (4 - dims)
-        dxd = (30.0 / size) ** dims
+        dxd = volume_element(toml)
         steps, replays, norm_err = {}, {}, 0.0
         for r in runs:
             m = load_manifest(os.path.join(data, r))
@@ -1397,7 +1669,7 @@ def phase_main(card: dict, run: str) -> dict:
             "loop_ms_per_iteration": float(timer.group(2)) * 1e3 / iterations,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            "launches": launches, **card,
+            **extra, "launches": launches, **card,
         }
         emit(rec)
         return rec

@@ -3,18 +3,27 @@
     python -m msm_tpu_torch simulate --toml path.toml [--device cuda|cpu]
         [--data-root DIR] [--precision f32|f64]
         [--dt-mode optimistic|exact|lagged] [--fast-dt] [--strict-alias]
-        [--verbose]
+        [--online-synthesis] [--verbose]
+    python -m msm_tpu_torch synthesize --toml path.toml [--device cuda|cpu]
+        [--data-root DIR] [--precision f32|f64] [--verbosity LEVEL]
+        [--dump-range LO:HI] [--post-only]
 
 Counterpart of msm_tpu/cli.py's `simulate` (`simulator/src/main.rs:9-17`)
-on the port's path: the batched ensemble in each of the three dt modes.
-It runs on the card unless `--device cpu` asks for the kernels' plain
-versions on the CPU; without a card, `cuda` raises and nothing falls back.
+and `synthesize` (`synthesizer/src/main.rs:30-190`). `simulate` runs the
+batched ensemble in each of the three dt modes, static or expanding (a
+config with a `[cosmology]` table); `--online-synthesis` writes the
+`-combined/` ensemble averages and the Qx series during the run.
+`synthesize` reduces the stream dumps offline into the same files;
+`--dump-range LO:HI` combines only dumps LO..=HI (and skips Qx), and
+`--post-only` then evaluates Qx from the combined files. Both run on the
+card unless `--device cpu` asks for the CPU (the kernels' plain versions,
+torch on the CPU); without a card, `cuda` raises and nothing falls back.
 An aliased stream is frozen and logged unless `--strict-alias` asks for
-the FourierAliasingError to be raised. The JAX CLI's other `simulate`
-flags (`--test`, `--sequential-streams`, `--online-synthesis`,
-`--resume`, `--mesh`, `--ignore-remote-storage`, `--debug-checks`,
-`--check-eps`, `--profile-dir`) are not ported yet, so argparse rejects
-them.
+the FourierAliasingError to be raised. The JAX CLI's other flags
+(`simulate`'s `--test`, `--sequential-streams`, `--resume`, `--mesh`,
+`--ignore-remote-storage`, `--debug-checks`, `--check-eps`,
+`--profile-dir`; `synthesize`'s `--multihost` and `--distributed`) are not
+ported yet, so argparse rejects them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device), `mxu` (the
@@ -38,14 +47,35 @@ import time
 import torch
 
 
+# env_logger-style verbosity levels (synthesizer/src/main.rs:34-41 wires
+# --verbosity straight into the logger); "trace" has no Python level below
+# DEBUG, so it maps to DEBUG.
+_VERBOSITY_LEVELS = {
+    "off": logging.CRITICAL + 10,
+    "error": logging.ERROR,
+    "warn": logging.WARNING,
+    "info": logging.INFO,
+    "debug": logging.DEBUG,
+    "trace": logging.DEBUG,
+}
+
+
+def _require_device(device: str) -> None:
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but CUDA is not available")
+
+
+def _dtype(precision: str) -> torch.dtype:
+    return torch.complex128 if precision == "f64" else torch.complex64
+
+
 def cmd_simulate(args) -> int:
     from . import config as cfg
     from . import simulator
     from .ops import fft as fft_ops
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda requested but CUDA is not available")
-    dtype = torch.complex128 if args.precision == "f64" else torch.complex64
+    _require_device(args.device)
+    dtype = _dtype(args.precision)
     toml = cfg.read_toml(args.toml)
     start = time.monotonic()
     mode = fft_ops.default_mode()
@@ -59,12 +89,57 @@ def cmd_simulate(args) -> int:
             verbose=args.verbose,
             dt_mode="lagged" if args.fast_dt else args.dt_mode,
             strict_alias=args.strict_alias,
+            online_synthesis=args.online_synthesis,
         )
     finally:
         fft_ops.set_default_mode(mode)
     if cfg.stream_count(toml) > 1:
         print(f"Finished all streams in {time.monotonic() - start:.1f} seconds")
     return 0
+
+
+def cmd_synthesize(args) -> int:
+    from . import config as cfg
+    from .synthesis import synthesize_post_only, synthesize_toml
+
+    logging.getLogger().setLevel(_VERBOSITY_LEVELS[args.verbosity])
+    _require_device(args.device)
+    toml = cfg.read_toml(args.toml)
+    if args.post_only:
+        synthesize_post_only(toml, data_root=args.data_root)
+        return 0
+    dump_range = None
+    if args.dump_range:
+        lo, hi = args.dump_range.split(":")
+        dump_range = (int(lo), int(hi))
+    synthesize_toml(
+        toml,
+        data_root=args.data_root,
+        dtype=_dtype(args.precision),
+        dump_range=dump_range,
+        device=args.device,
+    )
+    return 0
+
+
+def _add_common(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--toml", required=True, help="path to the simulation toml")
+    parser.add_argument(
+        "--data-root", default="sim-data", help="output root (default sim-data)"
+    )
+    parser.add_argument(
+        "--precision",
+        choices=("f32", "f64"),
+        default="f32",
+        help="complex64 (f32, time in float32) or complex128 (f64)",
+    )
+    parser.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="cuda (default): the card, which must be there; cpu: the "
+        "kernels' plain versions and torch on the CPU",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,23 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
         "instead, MSM_SKEW_STEP=0 the unskewed fused engine. matmul refuses "
         "TF32 matmuls.",
     )
-    sim.add_argument("--toml", required=True, help="path to the simulation toml")
-    sim.add_argument(
-        "--data-root", default="sim-data", help="output root (default sim-data)"
-    )
-    sim.add_argument(
-        "--precision",
-        choices=("f32", "f64"),
-        default="f32",
-        help="complex64 (f32, time in float32) or complex128 (f64)",
-    )
-    sim.add_argument(
-        "--device",
-        choices=("cuda", "cpu"),
-        default="cuda",
-        help="cuda (default): the CUDA kernels on the card, which must be "
-        "there; cpu: their plain versions",
-    )
+    _add_common(sim)
     sim.add_argument(
         "--dt-mode",
         choices=("optimistic", "exact", "lagged"),
@@ -120,8 +179,35 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="abort on Fourier aliasing instead of freezing the stream",
     )
+    sim.add_argument(
+        "--online-synthesis",
+        action="store_true",
+        help="write the -combined/ ensemble averages and the Qx series during "
+        "the run (no offline synthesize pass; a config with streams only)",
+    )
     sim.add_argument("--verbose", "-v", action="store_true")
     sim.set_defaults(fn=cmd_simulate)
+
+    syn = sub.add_parser("synthesize", help="combine stream dumps (msm-synthesizer)")
+    _add_common(syn)
+    syn.add_argument(
+        "--verbosity",
+        default="off",
+        choices=tuple(_VERBOSITY_LEVELS),
+        help="log level (env_logger levels; synthesizer/src/main.rs:34-41)",
+    )
+    syn.add_argument(
+        "--dump-range",
+        default=None,
+        metavar="LO:HI",
+        help="combine only dumps lo..=hi (cluster-parallel job shape)",
+    )
+    syn.add_argument(
+        "--post-only",
+        action="store_true",
+        help="evaluate only post-combine scalars (Qx) from existing combines",
+    )
+    syn.set_defaults(fn=cmd_synthesize)
     return parser
 
 

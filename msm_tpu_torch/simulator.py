@@ -9,10 +9,17 @@ on, as msm_tpu's `run_config` does by default; with `strict_alias` the
 error is raised (the reference panics: `simulation_object.rs:607-617`),
 after the manifest that records it. A config without `[sampling]` is a
 batch of one, so JAX's one-run path (`strict_alias and one run`) and its
-batched path (`strict_alias`) agree here.
+batched path (`strict_alias`) agree here. An expanding config (a
+`[cosmology]` table) reports its redshift on the progress line.
 
-Not here yet: resume, online synthesis, device meshes, remote storage,
-interval blocking and speculative dispatch.
+With `online_synthesis` the `-combined/` ensemble averages and the Qx
+series are written during the run (msm_tpu's blocked path, simulator.py:
+955-1165): dump 0 through `OnlineCombiner.on_dump`, every later dump from
+the stepper's combine row (`Stepper.combine_row`), whose scalars ride the
+host read the loop makes after each interval.
+
+Not here yet: resume, device meshes, remote storage, interval blocking and
+speculative dispatch.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import synthesis
 from .config import SimulationParameters, TomlParameters, iter_stream_parameters
 from .errors import FourierAliasingError
 from .io.checkpoint import write_manifest
@@ -86,14 +94,37 @@ _SCALARS = (
 )
 
 
+_ROW_SCALARS = ("comb_n", "comb_qx")
+
+
 class _EnsembleHostView:
     """Host copy of a batched state's per-stream scalars (one transfer)
-    and, on first use, of its psi batch."""
+    and, on first use, of its psi batch. With a combine row
+    (`Stepper.combine_row`) its two scalars join the same transfer and its
+    fields are fetched on first use."""
 
-    def __init__(self, state: SimState):
+    def __init__(self, state: SimState, row: Optional[dict] = None):
         self.state = state
-        self.scalars = {name: getattr(state, name).cpu().numpy() for name in _SCALARS}
+        tensors = {name: getattr(state, name) for name in _SCALARS}
+        if row is not None:
+            tensors.update({name: row[name] for name in _ROW_SCALARS})
+        # every scalar in float64 (exact for int32, bool, float32), one
+        # device->host copy, split and cast back
+        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors.values()]).cpu()
+        self.scalars, i = {}, 0
+        for name, t in tensors.items():
+            k = t.numel()
+            self.scalars[name] = flat[i : i + k].to(t.dtype).numpy().reshape(t.shape)
+            i += k
+        self.row = row
         self._psi: Optional[np.ndarray] = None
+
+    def row_host(self) -> dict:
+        """The combine row with every field on the host."""
+        return {
+            name: self.scalars[name] if name in _ROW_SCALARS else t.cpu().numpy()
+            for name, t in self.row.items()
+        }
 
     def scalar(self, name: str) -> np.ndarray:
         return self.scalars[name]
@@ -154,16 +185,20 @@ def run_config(
     verbose: bool = False,
     dt_mode: str = "optimistic",
     strict_alias: bool = False,
+    online_synthesis: bool = False,
 ) -> SimState:
     """Run every stream of a config plus the MFT as one batch on `device`
     (the card unless the caller asks for "cpu") in `dt_mode` (one of
     stepper.DT_MODES); returns the final batched state (streams in seed
     order, MFT last). An aliased run is logged, or raises
-    FourierAliasingError with `strict_alias`."""
+    FourierAliasingError with `strict_alias`. With `online_synthesis` the
+    run writes the `-combined/` files itself (a config with streams only)."""
     if toml.remote_storage_parameters is not None:
         raise NotImplementedError("[remote_storage_parameters] is not ported yet")
     all_params = list(iter_stream_parameters(toml))
     n = len(all_params)
+    if online_synthesis and n == 1:
+        raise ValueError("online synthesis requires batched streams")
     mft_params = all_params[-1]
     stream_params = all_params[:-1]
     stepper = Stepper(mft_params, dtype, device, dt_mode=dt_mode)
@@ -196,6 +231,9 @@ def run_config(
     timer.start()
     with AsyncGridWriter() as writer:
         runs = [SimulationRun(p, data_root, writer) for p in all_params]
+        combiner = (
+            synthesis.online_combiner_for(toml, data_root, writer) if online_synthesis else None
+        )
 
         def dump_potentials(mask: np.ndarray, dumps_idx: np.ndarray):
             """Dump phi for runs with output_potential
@@ -213,17 +251,21 @@ def run_config(
             r.dump_field(view.psi(i), 0)
             r.write_manifest(view.run_scalars(i))
         dump_potentials(np.ones(n, bool), np.zeros(n, int))
+        if combiner is not None:
+            # every stream, the MFT (the last) left out
+            combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
 
         total_steps = 0
         prev_steps_batch = 0
         while stepper.not_finished(state):
             raw = stepper.evolve_to_next_dump(state)
             state = stepper.snap_after_dump(raw)
+            row = None if combiner is None else stepper.combine_row(raw, state, n, combiner.dv)
             pre = _EnsembleHostView(raw)
             total_steps = int(pre.scalar("n_steps").max())
             aliased = pre.scalar("aliased")
             just_dumped = pre.scalar("just_dumped")
-            view = _EnsembleHostView(state)
+            view = _EnsembleHostView(state, row)
             dumps_np = view.scalar("current_dumps")
             for i, r in enumerate(runs):
                 if aliased[i]:
@@ -245,6 +287,9 @@ def run_config(
                     r.write_manifest(scalars)
             if just_dumped.any():
                 dump_potentials(just_dumped & ~aliased, dumps_np)
+            valid = just_dumped[: n - 1] & ~aliased[: n - 1]
+            if row is not None and valid.any() and float(view.scalar("comb_n")) > 0:
+                combiner.write_row(view.row_host(), int(dumps_np[int(np.flatnonzero(valid)[0])]))
             extra = _telemetry_suffix(
                 total_steps - prev_steps_batch,
                 float(pre.scalar("dt_min").min()),
@@ -252,11 +297,20 @@ def run_config(
                 int(pre.scalar("replays").sum()),
             )
             prev_steps_batch = max(prev_steps_batch, total_steps)
-            progress.update(
-                int(dumps_np.min()),
-                sim_time=float(view.scalar("time").min()),
-                extra=extra,
-            )
+            if toml.cosmology is not None:
+                progress.update(
+                    int(dumps_np.min()),
+                    redshift=1.0 / float(view.scalar("a").min()) - 1.0,
+                    extra=extra,
+                )
+            else:
+                progress.update(
+                    int(dumps_np.min()),
+                    sim_time=float(view.scalar("time").min()),
+                    extra=extra,
+                )
+        if combiner is not None:
+            combiner.finalize()
         timer.stop(n_steps=total_steps)
         if verbose:
             print(timer.summary(), flush=True)

@@ -1,9 +1,10 @@
 """Split-step (kick-drift-kick) pseudo-spectral Schrodinger-Poisson stepper.
 
-Counterpart of msm_tpu/stepper.py's static, single-device path
-(`SimulationObject::update`, `simulator/src/simulation_object.rs:
-475-661`; `get_timestep` :878-934; `calculate_potential` :1031-1110;
-`check_alias` :1249-1293) in its three dt modes and these configurations,
+Counterpart of msm_tpu/stepper.py's single-device path, static and
+expanding (`SimulationObject::update`, `simulator/src/simulation_object.rs:
+475-661` and :669-873; `get_timestep` :878-990; `calculate_potential`
+:1031-1110; `check_alias` :1249-1293), with its online-synthesis row
+(`combine_row`), in its three dt modes and these configurations,
 chosen by the transform mode (`ops.fft.get_mode`):
 
 - `xla` (with `MSM_USE_PALLAS=1` in JAX): transforms are torch.fft (cuFFT
@@ -65,8 +66,16 @@ chosen by the transform mode (`ops.fft.get_mode`):
 - Streams that reach their dump boundary (or alias) are frozen by a
   per-stream select; one stream aliasing does not stop the batch, unlike
   the reference panic (`simulation_object.rs:607-617`).
-
-Not here yet: expanding mode.
+- Expanding mode (a `[cosmology]` table; msm_tpu's `_step_expanding`
+  :959-1014) steps in supercomoving time tau on every path and dt mode:
+  the kinetic kick drops hbar_ (kcoeff = -dtau/4), and the potential kick
+  is two half-kicks -dtau/2 * a with a and t advanced by RK4 between them
+  (`cosmo.advance_a_t_by_dtau`). The fused engines sum the two
+  coefficients into K4's single rotation (both rotate by the same phi);
+  the other paths apply them in turn (K21 twice). The dumps lie on a tau
+  table computed once (`cosmo.tau_at_times`), the density prefactor is the
+  supercomoving one and the Poisson coefficient 1 (:325-345). Only
+  scalars and the constants the kernels already take change.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ import os
 import numpy as np
 import torch
 
+from . import cosmo as cosmo_mod
 from .config import SimulationParameters
 from .constants import POIS_CONST
 from .grid import spec_grid as build_spec_grid
@@ -99,8 +109,8 @@ class SimState:
     psi: torch.Tensor
     psik: torch.Tensor
     time: torch.Tensor
-    tau: torch.Tensor  # supercomoving time (expanding mode; 0 here)
-    a: torch.Tensor  # scale factor (expanding mode; 1 here)
+    tau: torch.Tensor  # supercomoving time (expanding mode; 0 static)
+    a: torch.Tensor  # scale factor (expanding mode; 1 static)
     current_dumps: torch.Tensor  # int32
     n_steps: torch.Tensor  # int32
     just_dumped: torch.Tensor  # bool: last step landed exactly on a dump
@@ -139,13 +149,28 @@ class StepConsts:
 
 @dataclasses.dataclass
 class _Advance:
-    """The step's scalar prologue (per stream)."""
+    """The step's scalar prologue (per stream). In expanding mode dt is
+    dtau, and vcoeff2 is the second potential half-kick's coefficient
+    (None static)."""
 
     dt: torch.Tensor
     is_dump: torch.Tensor
     kcoeff: torch.Tensor
     vcoeff: torch.Tensor
     time: torch.Tensor
+    tau: torch.Tensor
+    a: torch.Tensor
+    vcoeff2: "torch.Tensor | None" = None
+
+    @property
+    def vcoeffs(self) -> tuple:
+        """The potential kicks in turn (the unfused paths)."""
+        return (self.vcoeff,) if self.vcoeff2 is None else (self.vcoeff, self.vcoeff2)
+
+    @property
+    def vtotal(self) -> torch.Tensor:
+        """Their sum: one rotation by the same phi (the fused engines)."""
+        return self.vcoeff if self.vcoeff2 is None else self.vcoeff + self.vcoeff2
 
 
 DT_MODES = ("optimistic", "exact", "lagged")
@@ -173,7 +198,8 @@ def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
 
 
 class Stepper:
-    """Stepper for one resolved static configuration on one device.
+    """Stepper for one resolved configuration, static or expanding, on one
+    device.
 
     dtype: complex64 or complex128; rdtype follows it. device: the card
     unless the caller asks for "cpu" (the kernels' plain versions); "cuda"
@@ -195,8 +221,6 @@ class Stepper:
         tdtype: "torch.dtype | None" = None,
         dt_mode: str = "optimistic",
     ):
-        if params.expanding:
-            raise NotImplementedError("expanding mode is not ported yet")
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
         if dt_mode not in DT_MODES:
@@ -234,8 +258,39 @@ class Stepper:
         self.k2_max = float(s1d.max()) * p.dims
         spec = build_spec_grid(p.dx, p.dims, p.size)
         mask = (spec > p.k2_cutoff * self.k2_max).astype(np.float64)
-        self.density_prefactor = p.total_mass
-        self.poisson_coeff = POIS_CONST
+        # Dump schedule: t_dump[i] = t0 + i * T / num_dumps (final_sim_time
+        # is the DURATION from t0; PARITY.md).
+        self.t0 = float(p.time)
+        self.dump_dt = p.final_sim_time / p.num_data_dumps
+        self.dump_times = self.t0 + np.arange(p.num_data_dumps + 1) * self.dump_dt
+        # dt bounds as Python floats: static get_timestep :905-920;
+        # expanding (dtau) :939-990, no hbar_, the supercomoving box
+        if p.expanding:
+            # the tau of each dump, the supercomoving density prefactor
+            # Mtot * POIS_CONST * (2 / (3 H0^2 Omega_m))^(1/4) / hbar_^(d/2)
+            # and a Poisson coefficient of 1 (msm_tpu :325-340;
+            # calculate_density, simulation_object.rs:1032-1048)
+            c = p.cosmology
+            self.tau_dumps = cosmo_mod.tau_at_times(c, self.dump_times)
+            self.a0 = 1.0 / (1.0 + c.z0)
+            self.density_prefactor = (
+                p.total_mass
+                * POIS_CONST
+                * (2.0 / (3.0 * c.h0_per_myr**2 * c.omega_matter_now)) ** 0.25
+                / p.hbar_ ** (p.dims / 2.0)
+            )
+            self.poisson_coeff = 1.0
+            self._tau_table = torch.as_tensor(
+                self.tau_dumps, dtype=self.tdtype, device=self.device
+            )
+            self.kinetic_dt = p.cfl * 2.0 * p.comoving_boxsize / np.sqrt(self.k2_max)
+            self.potential_num = p.cfl * 2.0 * np.pi
+        else:
+            self.tau_dumps = None
+            self.density_prefactor = p.total_mass
+            self.poisson_coeff = POIS_CONST
+            self.kinetic_dt = p.cfl * 2.0 * p.axis_length / (np.sqrt(self.k2_max) * p.hbar_)
+            self.potential_num = p.cfl * 2.0 * np.pi * p.hbar_
         spec_axis0 = spec_axis12 = None
         self.engine = None
         if self.fuse_phases:
@@ -267,13 +322,6 @@ class Stepper:
             spec_axis0=spec_axis0,
             spec_axis12=spec_axis12,
         )
-        # Dump schedule: t_dump[i] = t0 + i * T / num_dumps (final_sim_time
-        # is the DURATION from t0; PARITY.md).
-        self.t0 = float(p.time)
-        self.dump_dt = p.final_sim_time / p.num_data_dumps
-        # dt bounds as Python floats (get_timestep :905-920)
-        self.kinetic_dt = p.cfl * 2.0 * p.axis_length / (np.sqrt(self.k2_max) * p.hbar_)
-        self.potential_num = p.cfl * 2.0 * np.pi * p.hbar_
 
     # ------------------------------------------------------------------
     # Grid helpers
@@ -331,12 +379,17 @@ class Stepper:
         pm0 = torch.amax(self.potential(psi).abs(), dim=self._spatial_axes).to(
             self.tdtype
         )
+        if p.expanding:
+            # tau and a at the start time (msm_tpu :586-592)
+            tau0, a0 = cosmo_mod.get_tau(p.cosmology, p.time), self.a0
+        else:
+            tau0, a0 = 0.0, 1.0
         return SimState(
             psi=psi,
             psik=psik,
             time=full(self.t0, self.tdtype),
-            tau=full(0.0, self.tdtype),
-            a=full(1.0, self.tdtype),
+            tau=full(tau0, self.tdtype),
+            a=full(a0, self.tdtype),
             current_dumps=full(0, torch.int32),
             n_steps=full(0, torch.int32),
             just_dumped=full(False, torch.bool),
@@ -389,25 +442,54 @@ class Stepper:
 
     def _scalar_advance(self, state: SimState, phi_max=None) -> _Advance:
         """dt = min(kinetic, potential(max|phi|), to next dump) (get_timestep
-        :878-934; msm_tpu's `_timestep` :726-764), the dump flag, kick
-        coefficients kcoeff = -dt/4*hbar_ and vcoeff = -dt/hbar_ (:504-516,
-        :535-545). phi_max: exact mode's max|phi(t)| of the pre-step state;
+        :878-934; msm_tpu's `_timestep` :726-764), the dump flag, the kick
+        coefficients and the advanced time (msm_tpu's `_scalar_advance`
+        :1020-1048). phi_max: exact mode's max|phi(t)| of the pre-step state;
         None takes the carried bound (lagged, optimistic). Only optimistic
-        mode scales the potential term by the safety factor."""
+        mode scales the potential term by the safety factor.
+
+        Static: kcoeff = -dt/4*hbar_, one potential kick -dt/hbar_
+        (:504-516, :535-545). Expanding (dt is dtau, :939-990): the
+        potential term cfl*2pi/(2 a max|phi|), the next dump's tau from the
+        table, kcoeff = -dtau/4 and two half-kicks -dtau/2 * a with a and t
+        advanced by RK4 between them (:699-760)."""
         p = self.params
         next_idx = torch.clamp(state.current_dumps + 1, max=p.num_data_dumps)
         bound = state.phi_max if phi_max is None else phi_max
-        potential = _rdiv(self.potential_num, 2.0 * bound)
+        if p.expanding:
+            potential = _rdiv(self.potential_num, 2.0 * state.a * bound)
+            to_next = self._tau_table[next_idx.long()] - state.tau
+        else:
+            potential = _rdiv(self.potential_num, 2.0 * bound)
+            to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
         if self.dt_mode == "optimistic":
             potential = potential * self.dt_safety
-        to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
         dt = torch.minimum(torch.clamp(potential, max=self.kinetic_dt), to_next)
+        if not p.expanding:
+            return _Advance(
+                dt=dt,
+                is_dump=dt == to_next,
+                kcoeff=(-dt / 4.0 * p.hbar_).to(self.rdtype),
+                vcoeff=(-dt / p.hbar_).to(self.rdtype),
+                time=state.time + dt,
+                tau=state.tau,
+                a=state.a,
+            )
+        a, t, tau = state.a, state.time, state.tau
+        vcoeffs = []
+        for _ in range(2):
+            vcoeffs.append(((-dt / 2.0) * a).to(self.rdtype))
+            a, t = cosmo_mod.advance_a_t_by_dtau(a, t, dt / 2.0, p.cosmology)
+            tau = tau + dt / 2.0
         return _Advance(
             dt=dt,
             is_dump=dt == to_next,
-            kcoeff=(-dt / 4.0 * p.hbar_).to(self.rdtype),
-            vcoeff=(-dt / p.hbar_).to(self.rdtype),
-            time=state.time + dt,
+            kcoeff=(-dt / 4.0).to(self.rdtype),
+            vcoeff=vcoeffs[0],
+            vcoeff2=vcoeffs[1],
+            time=t,
+            tau=tau,
+            a=a,
         )
 
     def _pre_step_bound(self, state: SimState):
@@ -429,11 +511,14 @@ class Stepper:
         growth = torch.clamp(pm_fresh / ref, 1.0, 2.0)
         return torch.maximum(pm_fresh * growth, state.phi_max * self.dt_decay)
 
-    def _dt_invalid(self, dt, phi_max_fresh):
+    def _dt_invalid(self, dt, phi_max_fresh, a):
         """Did dt violate the CFL potential bound against the FRESH midpoint
-        max|phi|? NaN in phi_max gives False: a blown-up stream is accepted
-        and caught by the monitors, never replayed forever."""
-        lhs = dt * (2.0 * phi_max_fresh.to(self.tdtype))
+        max|phi|? `a` is the scale factor the proposal used (the pre-step
+        state's; expanding mode only). NaN in phi_max gives False: a
+        blown-up stream is accepted and caught by the monitors, never
+        replayed forever."""
+        pm = phi_max_fresh.to(self.tdtype)
+        lhs = dt * (2.0 * a * pm) if self.params.expanding else dt * (2.0 * pm)
         return lhs > self.potential_num
 
     def _alias_mass(self, psik):
@@ -466,18 +551,20 @@ class Stepper:
             # the unskewed fused step (K12, K2, K3, K4, K13); its alias-band
             # sum is of the new psik, which the closing kick leaves as it is
             mid, psik, _norm, alias, pm = self.engine.fused_step(
-                state.psik, self.consts, kick, adv.vcoeff
+                state.psik, self.consts, kick, adv.vtotal
             )
             del mid  # the drift midpoint's psi; psi comes from the closing inverse
             phi_max = pm.to(self.tdtype)
             alias_mass = alias * p.dk**p.dims
         else:
             # the kinetic kick (K19), then the potential kick at the half
-            # step (K21)
+            # step (K21; the two half-kicks in turn in expanding mode)
             psi = self._inv(self._apply_kinetic(state.psik, kick))
             phi = self.potential(psi)
             phi_max = torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
-            psik = self._fwd(kernels.phase_rotate(psi, phi, adv.vcoeff))
+            for vcoeff in adv.vcoeffs:
+                psi = kernels.phase_rotate(psi, phi, vcoeff)
+            psik = self._fwd(psi)
             del psi, phi
             alias_mass = self._alias_mass(psik)
         if self.dt_mode == "exact" or any_dump:
@@ -504,6 +591,8 @@ class Stepper:
             psi=psi,
             psik=psik,
             time=adv.time,
+            tau=adv.tau,
+            a=adv.a,
             n_steps=state.n_steps + 1,
             just_dumped=adv.is_dump,
             aliased=state.aliased | (alias_mass > p.alias_threshold),
@@ -516,7 +605,7 @@ class Stepper:
         )
         if not optimistic:
             return new
-        invalid = self._dt_invalid(adv.dt, pm_fresh)
+        invalid = self._dt_invalid(adv.dt, pm_fresh, state.a)
         rev = dataclasses.replace(
             state,
             phi_max=torch.where(
@@ -590,7 +679,7 @@ class Stepper:
         else:
             adv = self._scalar_advance(s)
             kick = s.pending_k + adv.kcoeff
-        q, _norm, alias, pm = self.engine.fused_step_skewed(q, self.consts, kick, adv.vcoeff)
+        q, _norm, alias, pm = self.engine.fused_step_skewed(q, self.consts, kick, adv.vtotal)
         # the sums describe the state ENTERING this iteration: a stream
         # whose last step aliased must not advance (the aliased update
         # completes, then the stream stops, :607-617); n_steps > 0 spares
@@ -600,7 +689,7 @@ class Stepper:
         pm_fresh = pm.to(self.tdtype)
         optimistic = self.dt_mode == "optimistic"
         if optimistic:
-            invalid = active & ~newly & self._dt_invalid(adv.dt, pm_fresh)
+            invalid = active & ~newly & self._dt_invalid(adv.dt, pm_fresh, s.a)
         else:
             invalid = torch.zeros_like(newly)
         advance = active & ~newly & ~invalid
@@ -608,6 +697,8 @@ class Stepper:
             s,
             psik=q,
             time=adv.time,
+            tau=adv.tau,
+            a=adv.a,
             n_steps=s.n_steps + 1,
             just_dumped=adv.is_dump,
             phi_max=self._predict_bound(pm_fresh, s) if optimistic else pm_fresh,
@@ -685,19 +776,63 @@ class Stepper:
 
     def snap_after_dump(self, state: SimState) -> SimState:
         """Increment the dump counter and snap time onto the dump grid
-        (`simulation_object.rs:620-631`). A stream that aliased on its dump
-        step does not count that dump (it is never written)."""
+        (`simulation_object.rs:620-631` static, `:828-844` expanding, where
+        tau snaps onto the tau table and a is left as it is). A stream that
+        aliased on its dump step does not count that dump (it is never
+        written)."""
+        p = self.params
         counted = state.just_dumped & ~state.aliased
         dumps = state.current_dumps + counted.to(torch.int32)
         snapped_t = self.t0 + dumps.to(self.tdtype) * self.dump_dt
+        tau = state.tau
+        if p.expanding:
+            snapped_tau = self._tau_table[torch.clamp(dumps, max=p.num_data_dumps).long()]
+            tau = torch.where(counted, snapped_tau, state.tau)
         return dataclasses.replace(
             state,
             current_dumps=dumps,
             time=torch.where(counted, snapped_t, state.time),
+            tau=tau,
             just_dumped=torch.zeros_like(state.just_dumped),
             dt_min=torch.where(counted, float("inf"), state.dt_min),
             dt_max=torch.where(counted, 0.0, state.dt_max),
         )
+
+    def combine_row(self, raw: SimState, snapped: SimState, n_runs: int, dv: float) -> dict:
+        """One interval's online-synthesis row on the device (msm_tpu's
+        `_combine_row`, stepper.py:1422-1487, single device): the means of
+        psi, |psi|^2, psik and |psik|^2 over the streams 0..n_runs-2 that
+        produced this interval's dump (just_dumped & ~aliased before the
+        snap; the MFT, index n_runs-1, never takes part), and the Qx scalar
+        sum(<|psi|^2> - |<psi>|^2) * dv. psik takes the synthesizer's
+        UNnormalized convention (the ortho psik times N^(d/2), `lib.rs:
+        206-213`); it is in natural k order on every path. comb_n is the
+        number of streams averaged. The four fields are complex tensors
+        (|psi|^2 and |psik|^2 with a zero imaginary part, as their files
+        hold them), so the host writes them as they arrive; JAX's row
+        carries real planes instead, since its TPU transfers no complex
+        arrays."""
+        p = self.params
+        psi = snapped.psi
+        smask = torch.arange(psi.shape[0], device=psi.device) < (n_runs - 1)
+        w = (raw.just_dumped & ~raw.aliased & smask).to(self.rdtype)
+        wg = self._bcast(w)
+        nv = torch.sum(w)
+        psik = snapped.psik * (p.size ** (p.dims / 2.0))
+        den = torch.clamp(nv, min=1.0)
+        psi_m = torch.sum(psi * wg, dim=0) / den
+        psi2_m = torch.sum(self._abs2(psi) * wg, dim=0) / den
+        psik_m = torch.sum(psik * wg, dim=0) / den
+        psik2_m = torch.sum(self._abs2(psik) * wg, dim=0) / den
+        qx = torch.sum(psi2_m - self._abs2(psi_m)) * dv
+        return {
+            "comb_n": nv,
+            "comb_qx": qx,
+            "comb_psi": psi_m,
+            "comb_psi2": psi2_m.to(self.dtype),
+            "comb_psik": psik_m,
+            "comb_psik2": psik2_m.to(self.dtype),
+        }
 
     def not_finished(self, state: SimState) -> bool:
         """Whether any stream still has evolution left (not_finished,

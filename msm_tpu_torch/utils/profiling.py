@@ -22,7 +22,8 @@ class ProgressReporter:
 
     total_dumps: int
     sim_name: str
-    stream: "object" = sys.stdout
+    # None: sys.stdout when a line is printed (so a redirect applies)
+    stream: "object" = None
     enabled: bool = True
     _start: float = field(default_factory=time.monotonic)
 
@@ -49,7 +50,7 @@ class ProgressReporter:
         print(
             f"[{elapsed:7.1f}s; eta {eta_s:>6}] [{bar}] "
             f"{dumps_done:>5}/{self.total_dumps} {msg} {extra}",
-            file=self.stream,
+            file=self.stream or sys.stdout,
             flush=True,
         )
 
@@ -58,7 +59,7 @@ class ProgressReporter:
             print(
                 f"({self.sim_name}) finished in "
                 f"{time.monotonic() - self._start:.1f}s",
-                file=self.stream,
+                file=self.stream or sys.stdout,
                 flush=True,
             )
 

@@ -11,7 +11,9 @@ Run from the root of a checkout, on a machine with a CUDA device:
 Builds one of chip_smoke.py's main configurations once (--config: `tophat`,
 the tophat-collapse physics at --size^3, by default 256^3 with 8 Wigner
 streams + MFT; `gauss1d`, the 1-D cold Gaussian at --size, by default 1024
-with 255 Wigner streams + MFT; complex64, 3 dumps over t = 40) and starts
+with 255 Wigner streams + MFT; `cosmo`, cold-gauss-cosmo's expanding
+physics, by default 256^3 with 8 Wigner streams + MFT; complex64, 3 dumps
+over t = 40, or chip_smoke.FINAL's end for the config) and starts
 every run from that sampled batch, through the stepper API (no dump
 writes), in --dt-mode. Paths, as chip_smoke.py names them: `xla`
 (torch.fft), `matmul` (MSM_FFT=matmul: DFT-as-matmul transforms and K20),
@@ -66,7 +68,8 @@ def build_batch(config: str, size: int, seeds: int, dtype=torch.complex64):
     from msm_tpu_torch.models.sampling import sample_stream_batch
 
     template, name = chip_smoke.CONFIGS[config][:2]
-    text = template.format(final=40, dumps=3, name=name, size=size)
+    text = template.format(final=chip_smoke.FINAL.get(config, 40), dumps=3, name=name,
+                           size=size)
     text += f'\n[sampling]\nseeds  = "1 to {seeds}"\nscheme = "Wigner"\n'
     params = list(cfg.iter_stream_parameters(cfg.parse_toml_str(text)))
     mft = params[-1]

@@ -21,6 +21,7 @@ MODULES = (
     "msm_tpu_torch.config",
     "msm_tpu_torch.constants",
     "msm_tpu_torch.convert",
+    "msm_tpu_torch.cosmo",
     "msm_tpu_torch.errors",
     "msm_tpu_torch.grid",
     "msm_tpu_torch.io",
@@ -37,6 +38,7 @@ MODULES = (
     "msm_tpu_torch.ops.probes",
     "msm_tpu_torch.simulator",
     "msm_tpu_torch.stepper",
+    "msm_tpu_torch.synthesis",
     "msm_tpu_torch.utils.profiling",
 )
 
@@ -88,37 +90,103 @@ def test_scripts_import_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("mode,dims,size", [("mxu", 1, 128), ("matmul", 2, 64), ("matmul", 1, 16)])
-def test_paths_run_with_jax_blocked(mode, dims, size):
+_BLOCKED = (
+    "import sys\n"
+    "for m in ('jax', 'jaxlib', 'msm_tpu'): sys.modules[m] = None\n"
+)
+# an expanding config (cold-gauss-cosmo's cosmology), with Wigner streams
+_COSMO_TOML = """
+axis_length = 25
+final_sim_time = 4
+cfl = 0.5
+num_data_dumps = 2
+total_mass = 5e10
+hbar_ = 0.04
+ntot = 1e8
+sim_name = "c"
+k2_cutoff = 0.95
+alias_threshold = 0.05
+dims = 2
+size = 16
+[ics]
+type = "ColdGauss"
+mean = [12.5, 12.5]
+std = [3.0, 3.0]
+[cosmology]
+omega_matter_now = 0.3
+omega_radiation_now = 0.0
+h = 0.68
+z0 = 9.0
+max_dloga = 0.01
+[sampling]
+seeds = "1 to 3"
+scheme = "Wigner"
+"""
+
+
+@pytest.mark.parametrize(
+    "mode,dims,size",
+    [("mxu", 1, 128), ("matmul", 2, 64), ("matmul", 1, 16), ("expanding", 2, 16),
+     ("synthesize", 2, 16)],
+)
+def test_paths_run_with_jax_blocked(mode, dims, size, tmp_path):
     """The 1-D `mxu` path (the lane kernels' plain versions) and the
     `matmul` path (K20's) run a dump interval on the CPU in a process where
-    importing jax or msm_tpu fails."""
-    code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'msm_tpu'): sys.modules[m] = None\n"
-        "import torch\n"
-        "from msm_tpu_torch import config as cfg\n"
-        "from msm_tpu_torch.models import ics\n"
-        "from msm_tpu_torch.ops import fft\n"
-        "from msm_tpu_torch.stepper import Stepper\n"
-        f"fft.set_default_mode({mode!r})\n"
-        "p = cfg.resolve_parameters(cfg.TomlParameters(\n"
-        "    axis_length=30.0, final_sim_time=0.2, cfl=0.5, num_data_dumps=1,\n"
-        "    total_mass=1e8, sim_name='t', k2_cutoff=0.95, alias_threshold=0.5,\n"
-        f"    dims={dims}, size={size}, ics=cfg.ColdGauss(mean=(15.0,) * {dims}, std=(3.0,) * {dims}),\n"
-        "    hbar_=0.05))\n"
-        "st = Stepper(p, torch.complex128, 'cpu')\n"
-        f"assert st.fft_mode == {mode!r}\n"
-        "s = st.evolve_to_next_dump(st.init_state(torch.as_tensor(ics.build_ics(p))[None]))\n"
-        "assert bool(s.just_dumped.all()) and int(s.n_steps[0]) > 0\n"
-        "print('ok')\n"
-    )
+    importing jax or msm_tpu fails; so do an expanding run through the CLI
+    with --online-synthesis (`cosmo`, the expanding stepper, the combine
+    row) and the CLI's `synthesize` over its dumps, whose Qx series agrees
+    with the online one to 1e-12 (Qx, about 1e-6 here, is a difference of
+    terms that sum to the norm, 1)."""
+    if mode in ("expanding", "synthesize"):
+        toml = tmp_path / "c.toml"
+        toml.write_text(_COSMO_TOML)
+        common = (f"'--toml', {str(toml)!r}, '--device', 'cpu', '--precision', 'f64', "
+                  f"'--data-root', {str(tmp_path)!r}")
+        code = _BLOCKED + (
+            "import os\n"
+            "from msm_tpu_torch import cli\n"
+            f"assert cli.main(['simulate', {common}, '--online-synthesis']) == 0\n"
+            "man = __import__('json').load(open(os.path.join("
+            f"{str(tmp_path)!r}, 'c', 'manifest.json')))\n"
+            "assert man['a'] > 0.1 and man['tau'] > 0 and man['current_dumps'] == 2\n"
+        )
+        if mode == "synthesize":
+            code += (
+                f"os.rename(os.path.join({str(tmp_path)!r}, 'c-combined'), "
+                f"os.path.join({str(tmp_path)!r}, 'online'))\n"
+                f"assert cli.main(['synthesize', {common}]) == 0\n"
+                "from msm_tpu_torch.io.npy import load_complex_pair\n"
+                "q = [load_complex_pair(os.path.join("
+                f"{str(tmp_path)!r}, d, 'Qx')) for d in ('online', 'c-combined')]\n"
+                "assert abs(q[0] - q[1]).max() <= 1e-12, q\n"
+            )
+        code += "print('ok')\n"
+    else:
+        code = _BLOCKED + (
+            "import torch\n"
+            "from msm_tpu_torch import config as cfg\n"
+            "from msm_tpu_torch.models import ics\n"
+            "from msm_tpu_torch.ops import fft\n"
+            "from msm_tpu_torch.stepper import Stepper\n"
+            f"fft.set_default_mode({mode!r})\n"
+            "p = cfg.resolve_parameters(cfg.TomlParameters(\n"
+            "    axis_length=30.0, final_sim_time=0.2, cfl=0.5, num_data_dumps=1,\n"
+            "    total_mass=1e8, sim_name='t', k2_cutoff=0.95, alias_threshold=0.5,\n"
+            f"    dims={dims}, size={size}, ics=cfg.ColdGauss(mean=(15.0,) * {dims}, "
+            f"std=(3.0,) * {dims}),\n"
+            "    hbar_=0.05))\n"
+            "st = Stepper(p, torch.complex128, 'cpu')\n"
+            f"assert st.fft_mode == {mode!r}\n"
+            "s = st.evolve_to_next_dump(st.init_state(torch.as_tensor(ics.build_ics(p))[None]))\n"
+            "assert bool(s.just_dumped.all()) and int(s.n_steps[0]) > 0\n"
+            "print('ok')\n"
+        )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _params():
@@ -160,7 +228,7 @@ def test_cli_requires_device():
 
 @pytest.mark.parametrize(
     "extra",
-    [["--resume"], ["--sequential-streams"], ["--online-synthesis"], ["--mesh", "auto"]],
+    [["--resume"], ["--sequential-streams"], ["--debug-checks"], ["--mesh", "auto"]],
 )
 def test_cli_rejects_unported_flags(extra):
     """Flags of the JAX CLI that the port does not implement yet are

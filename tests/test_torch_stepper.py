@@ -189,14 +189,25 @@ def test_predict_bound_zero_potential_f32():
 
 
 def test_expanding_config_is_refused():
-    toml = _toml(
-        cfg,
-        cosmology=cfg.CosmologyConfig(
-            omega_matter_now=0.3, omega_radiation_now=0.0, h=0.7, z0=10.0
-        ),
-    )
-    with pytest.raises(NotImplementedError):
-        Stepper(cfg.resolve_parameters(toml), torch.complex128, "cpu")
+    """Expanding mode is no longer refused: a config with a [cosmology]
+    table constructs a stepper and steps it like JAX's (the first step of
+    the tophat at 16^3: psi to 1e-12; time, tau and a to rtol 1e-14; a
+    grows, tau > 0). test_torch_stepper_expanding.py holds every path."""
+    cosmology = dict(omega_matter_now=0.3, omega_radiation_now=0.0, h=0.7, z0=10.0)
+    jp = jcfg.resolve_parameters(_toml(jcfg, cosmology=jcfg.CosmologyConfig(**cosmology)))
+    tp = cfg.resolve_parameters(_toml(cfg, cosmology=cfg.CosmologyConfig(**cosmology)))
+    assert tp.expanding
+    tst = Stepper(tp, torch.complex128, "cpu")
+    jst = JStepper(jp, jnp.complex128, dt_mode="optimistic")
+    psi0 = ics.build_ics(tp)[None]
+    ts = tst.step(tst.init_state(torch.as_tensor(psi0)))
+    js = jst.step(jst.init_state(psi0, batched=True))
+    got = state_to_numpy(ts)
+    np.testing.assert_allclose(got["psi"], np.asarray(js.psi), atol=1e-12)
+    for name in ("time", "tau", "a"):
+        np.testing.assert_allclose(got[name], np.asarray(getattr(js, name)), rtol=1e-14)
+    assert got["a"][0] > 1.0 / 11.0 and got["tau"][0] > 0.0
+    assert got["n_steps"].tolist() == [1]
 
 
 @pytest.fixture
