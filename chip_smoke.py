@@ -135,6 +135,28 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             check too), and that every K11 launch of the exact run took the
             cluster form; then compares the runs (with each run's
             `torch.cuda.max_memory_allocated`, `peak_bytes`)
+  5 simulate-flags
+            the rest of `simulate` through the CLI on the card (each
+            item's line with the card's name and power limit): --resume
+            of the fused, skewed engine (optimistic, tophat physics at
+            128^3 c128, 2 Wigner + MFT, 4 dumps over t = 20) run to the
+            end, run again, rewound to dump 2 and resumed, with the local
+            layout and through `[remote_storage_parameters]` (the
+            directory store, read back by `load_psi`): identical n_steps
+            and replays, every dump within 1e-10 (the largest difference
+            and whether it is 0 printed), K6, K5, K7-K9 and K1-K4 launched
+            by the resumed run; --sequential-streams against the batched
+            run, identical counters, 1e-12; --debug-checks on the fused
+            engine (optimistic, exact), the unskewed one (lagged) and
+            `xla`, each run's max_norm_err below 1e-4, K1's, skew_exit's
+            and K13's norm sums against `_norm_measure` within 1e-12
+            relative, a NaN state giving +inf (K12-K13, K1-K4) and a
+            FloatingPointError from the simulator's checks; `main`'s fused
+            c64 config at 256^3 x 9 over one dump interval with and
+            without --debug-checks (ms per iteration, the same launches)
+            and the time to rebuild that state from its dumps; a fused
+            run with --profile-dir whose trace names K1-K4, beside the run
+            without; --test writing no psi dump
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
@@ -1480,10 +1502,11 @@ def phase_e2e(card: dict) -> None:
 
 
 @contextlib.contextmanager
-def _recording(run: str):
-    """For the run's CLI call: its manifests in order (dir, current_dumps,
-    a, tau), and CUDA events around each online combine row
-    (`Stepper.combine_row`), read after the run without another sync."""
+def _recording():
+    """For a CLI call: its manifests in order (the run's directory name and
+    the manifest's keywords), and CUDA events around each online combine
+    row (`Stepper.combine_row`), read after the run without another
+    sync."""
     from msm_tpu_torch import simulator
     from msm_tpu_torch.stepper import Stepper
 
@@ -1491,8 +1514,7 @@ def _recording(run: str):
     write_manifest, combine_row = simulator.write_manifest, Stepper.combine_row
 
     def record_manifest(sim_dir, **scalars):
-        manifests.append((os.path.basename(sim_dir), scalars["current_dumps"],
-                          scalars["a"], scalars["tau"]))
+        manifests.append((os.path.basename(sim_dir), scalars))
         write_manifest(sim_dir, **scalars)
 
     def timed_row(self, *args):
@@ -1516,13 +1538,14 @@ def _check_expanding(manifests: list, runs: list, n_dumps: int, out: str) -> dic
     a and tau at each dump."""
     check(re.search(r"\) z = [0-9.]+", out) is not None, "no 'z =' progress line")
     for r in runs:
-        rows = [m for m in manifests if m[0] == r]
-        check([m[1] for m in rows] == list(range(n_dumps + 1)), f"{r}: manifests {rows}")
-        a = [m[2] for m in rows]
+        rows = [kw for d, kw in manifests if d == r]
+        check([m["current_dumps"] for m in rows] == list(range(n_dumps + 1)),
+              f"{r}: manifests {rows}")
+        a = [m["a"] for m in rows]
         check(all(x < y for x, y in zip(a, a[1:])), f"{r}: a does not grow: {a}")
-        check(all(m[3] > 0.0 for m in rows[1:]), f"{r}: tau {[m[3] for m in rows]}")
-    mft = [m for m in manifests if m[0] == runs[-1]]
-    return {"a": [m[2] for m in mft], "tau": [m[3] for m in mft]}
+        check(all(m["tau"] > 0.0 for m in rows[1:]), f"{r}: tau {[m['tau'] for m in rows]}")
+    mft = [kw for d, kw in manifests if d == runs[-1]]
+    return {"a": [m["a"] for m in mft], "tau": [m["tau"] for m in mft]}
 
 
 def _check_online(cli, toml_path: str, data: str, work: str, name: str, runs: list,
@@ -1554,6 +1577,30 @@ def _check_online(cli, toml_path: str, data: str, work: str, name: str, runs: li
             "offline_gb_per_s": read / wall / 1e9}
 
 
+def _run_cli(argv: list, path: str) -> dict:
+    """The port's CLI on the card, in process, on `path`: its wall seconds,
+    output, launch counts (set to 0 just before, read just after), the
+    manifests it wrote and the CUDA events around its combine rows
+    (`_recording`). Its output goes to stderr: stdout keeps the JSON
+    lines."""
+    from msm_tpu_torch import cli
+    from msm_tpu_torch.ops import kernels, mxu_fft
+
+    out = io.StringIO()
+    with fft_mode(path), contextlib.redirect_stdout(out), _recording() as (mans, events):
+        kernels.reset_launches()
+        mxu_fft.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches}
+    sys.stderr.write(out.getvalue())
+    check(rc == 0, f"{' '.join(argv)} returned {rc}")
+    return {"wall_s": wall, "out": out.getvalue(), "launches": launches, "manifests": mans,
+            "events": events}
+
+
 def phase_main(card: dict, run: str) -> dict:
     """The port's CLI on the card on one run's path, dt mode and config
     (256^3 x (8 streams + MFT), or 1-D 1024 x (255 streams + MFT)); the
@@ -1566,7 +1613,6 @@ def phase_main(card: dict, run: str) -> dict:
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch.io.checkpoint import load_manifest
     from msm_tpu_torch.io.npy import read_npy_exact
-    from msm_tpu_torch.ops import kernels, mxu_fft
     from msm_tpu_torch.synthesis import volume_element
 
     path, dt_mode, config = RUNS[run]
@@ -1585,23 +1631,14 @@ def phase_main(card: dict, run: str) -> dict:
         argv += ["--online-synthesis"] if online else []
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        out = io.StringIO()
-        with fft_mode(path), contextlib.redirect_stdout(out), _recording(run) as (mans, events):
-            kernels.reset_launches()
-            mxu_fft.reset_launches()
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches}
-        # the CLI's own report goes to stderr: stdout keeps the JSON lines
-        sys.stderr.write(out.getvalue())
-        check(rc == 0, f"simulate returned {rc}")
-        check(TRANSFORMS_LINE[path] in out.getvalue(), f"the {run} run took another path")
-        check(f"dt {dt_mode}" in out.getvalue(), f"the {run} run took another dt mode")
+        cli_run = _run_cli(argv, path)
+        wall, launches = cli_run["wall_s"], cli_run["launches"]
+        out_text = cli_run["out"]
+        check(TRANSFORMS_LINE[path] in out_text, f"the {run} run took another path")
+        check(f"dt {dt_mode}" in out_text, f"the {run} run took another dt mode")
         for k in RUN_KERNELS[run]:
             check(launches[k] > 0, f"the {run} main run launched {k} no time")
-        timer = re.search(r"(\d+) steps in ([0-9.]+)s", out.getvalue())
+        timer = re.search(r"(\d+) steps in ([0-9.]+)s", out_text)
         check(timer is not None, "no StepTimer line in the verbose output")
         iterations = launches[ITERATION_KERNEL[path]]
         for k in PER_ITERATION.get(run, ()):
@@ -1633,10 +1670,10 @@ def phase_main(card: dict, run: str) -> dict:
         toml = cfg.parse_toml_str(text)
         extra = {}
         if toml.cosmology is not None:
-            extra["mft"] = _check_expanding(mans, runs, n_dumps, out.getvalue())
+            extra["mft"] = _check_expanding(cli_run["manifests"], runs, n_dumps, out_text)
         if online:
             extra["synthesis"] = _check_online(cli, toml_path, data, work, name, runs,
-                                               n_dumps, events)
+                                               n_dumps, cli_run["events"])
         # a dump holds the grid's axes, padded with unit axes to four; its
         # norm takes the volume element of the config's box (supercomoving
         # when expanding)
@@ -1675,6 +1712,336 @@ def phase_main(card: dict, run: str) -> dict:
         return rec
 
 
+# ---------------------------------------------------------------------------
+# simulate-flags: --resume, --sequential-streams, --debug-checks,
+# --profile-dir, --test and the object store, through the port's CLI
+# ---------------------------------------------------------------------------
+
+# the 128^3 c128 flag runs: 2 Wigner streams + MFT over t = 20 (the e2e
+# runs' length at 128^3, 20-30 steps)
+FLAGS_SIZE, FLAGS_FINAL, FLAGS_STREAMS = 128, 20, 2
+# the monitor's cost and the resume rebuild at `main`'s size (256^3, 8
+# Wigner + MFT, c64) over one dump interval of `main`'s length (t = 40,
+# about 380 iterations: `main`'s first third holds 13)
+FLAGS_BIG = (256, 8, 40.0)
+STORE_TABLE = '\n[remote_storage_parameters]\nkeypair = ""\nstorage_account = "smoke"\n'
+# the kernels the fused engine's resumed state build runs (K6 with K5,
+# K7-K9) and the kernels of every fused iteration (K1-K4)
+RESUME_KERNELS = ("plane_pass", "axis_pass", "plane_density_fwd", "axis_roundtrip_map",
+                  "plane_pass_real_inv") + SKEW_KERNELS[:4]
+
+
+def _flags_toml(work: str, name: str, dumps: int, extra: str = "", size: int = FLAGS_SIZE,
+                streams: int = FLAGS_STREAMS, final: float = FLAGS_FINAL,
+                ntot: str = "1e10") -> tuple:
+    """A tophat-collapse config file: (path, run names, streams then MFT)."""
+    text = TOPHAT.format(final=final, dumps=dumps, name=name, size=size).replace(
+        "= 1e10", f"= {ntot}")
+    if streams:
+        text += f'\n[sampling]\nseeds  = "1 to {streams}"\nscheme = "Wigner"\n'
+    path = os.path.join(work, f"{name}.toml")
+    with open(path, "w") as f:
+        f.write(text + extra)
+    return path, [f"{name}-stream{s:05d}" for s in range(1, streams + 1)] + [name]
+
+
+def _simulate(toml_path: str, root: str, *flags: str, path: str = "fused",
+              dt_mode: str = "optimistic", precision: str = "f64") -> dict:
+    """`simulate --verbose` of a config through `_run_cli`."""
+    return _run_cli(["simulate", "--toml", toml_path, "--device", "cuda", "--precision",
+                     precision, "--data-root", root, "--dt-mode", dt_mode, "--verbose",
+                     *flags], path)
+
+
+def _psi_base(root: str, run: str, dump: int) -> str:
+    """A psi dump's base path: the local layout or the store's flat key."""
+    local = os.path.join(root, run, f"psi_{dump:05d}")
+    return local if os.path.exists(local + "_real") else os.path.join(
+        root, "remote-storage", "smoke", f"{run}_psi_{dump:05d}")
+
+
+def _compare_runs(got: str, want: str, runs: list, dumps: int) -> dict:
+    """Largest |psi difference| over every dump, and each run's counters."""
+    from msm_tpu_torch.io.checkpoint import load_manifest
+    from msm_tpu_torch.io.npy import load_complex_pair
+
+    err, counters = 0.0, {}
+    for r in runs:
+        for i in range(dumps + 1):
+            a = load_complex_pair(_psi_base(got, r, i))
+            b = load_complex_pair(_psi_base(want, r, i))
+            err = max(err, float(np.abs(a - b).max()))
+        mg, mw = load_manifest(os.path.join(got, r)), load_manifest(os.path.join(want, r))
+        counters[r] = {k: [mg[k], mw[k]] for k in ("current_dumps", "n_steps", "replays")}
+    return {"max_abs_psi_err": err, "bit_exact": err == 0.0, "counters": counters,
+            "counters_equal": all(a == b for c in counters.values() for a, b in c.values())}
+
+
+def _flags_resume(card: dict, work: str, store: bool) -> dict:
+    """The fused, skewed engine, optimistic, 4 dumps: run to the end, run
+    again, rewind the second to dump 2 (its later dumps deleted, the
+    manifests it wrote at dump 2 written back) and --resume it. The resumed
+    state is built from the dumps by K6 (with K5) and K7-K9, read back from
+    the store with `store`."""
+    from msm_tpu_torch.io.checkpoint import write_manifest
+
+    name = "flags-resume" + ("-store" if store else "")
+    toml_path, runs = _flags_toml(work, name, 4, STORE_TABLE if store else "")
+    full, res = (os.path.join(work, name, k) for k in ("full", "res"))
+    _simulate(toml_path, full)
+    seen = {(d, kw["current_dumps"]): kw for d, kw in _simulate(toml_path, res)["manifests"]}
+    for r in runs:
+        for base in [_psi_base(res, r, i) for i in (3, 4)]:
+            for part in ("_real", "_imag"):
+                os.remove(base + part)
+        write_manifest(os.path.join(res, r), **seen[(r, 2)])
+    run = _simulate(toml_path, res, "--resume")
+    check("Resuming batch of 3 from dumps [2, 2, 2]" in run["out"], f"{name}: no resume")
+    for k in RESUME_KERNELS:
+        check(run["launches"][k] > 0, f"{name}: the resumed run launched {k} no time")
+    cmp = _compare_runs(res, full, runs, 4)
+    rec = {"phase": "simulate-flags", "item": "resume", "store": store,
+           "config": f"tophat-collapse {FLAGS_SIZE}^3, {FLAGS_STREAMS} Wigner + MFT, c128, "
+           f"4 dumps over t={FLAGS_FINAL}, fused optimistic, rewound to dump 2",
+           **cmp, "limit": 1e-10, "resume_wall_s": run["wall_s"],
+           "launches": {k: run["launches"][k] for k in RESUME_KERNELS}, **card}
+    emit(rec)
+    check(cmp["counters_equal"], f"{name}: counters differ: {cmp['counters']}")
+    check(cmp["max_abs_psi_err"] <= 1e-10, f"{name}: psi differs by {cmp['max_abs_psi_err']}")
+    if store:
+        check(not os.path.exists(os.path.join(res, name, "psi_00000_real")),
+              f"{name}: a local psi dump")
+    return {"full": full, "toml": toml_path, "runs": runs}
+
+
+def _flags_sequential(card: dict, work: str, batched: dict) -> None:
+    """--sequential-streams against the batched run of the same config."""
+    seq = os.path.join(work, "flags-sequential")
+    run = _simulate(batched["toml"], seq, "--sequential-streams")
+    cmp = _compare_runs(seq, batched["full"], batched["runs"], 4)
+    emit({"phase": "simulate-flags", "item": "sequential", **cmp, "limit": 1e-12,
+          "wall_s": run["wall_s"], **card})
+    check(cmp["counters_equal"], f"sequential: counters differ: {cmp['counters']}")
+    check(cmp["max_abs_psi_err"] <= 1e-12, f"sequential: psi differs by {cmp['max_abs_psi_err']}")
+
+
+def _norm_sums(card: dict) -> dict:
+    """The fused engines' kernel-summed norms against `_norm_measure` of the
+    same psik on the card, c128: K1's (of the state entering the skewed
+    step), `skew_exit`'s K1 and K13's (of the unskewed step's psik). A NaN
+    state makes the monitor +inf through the unskewed step (K12-K13) and
+    the skewed body (K1-K4), and the simulator's checks raise on it."""
+    import dataclasses
+
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch import simulator
+    from msm_tpu_torch.models.ics import build_ics
+    from msm_tpu_torch.stepper import Stepper
+
+    with fft_mode("fused"):
+        p = cfg.resolve_parameters(cfg.parse_toml_str(TOPHAT.format(
+            final=FLAGS_FINAL, dumps=2, name="norms", size=FLAGS_SIZE)))
+        st = Stepper(p, torch.complex128, "cuda", debug_checks=True)
+        base = torch.as_tensor(build_ics(p)).to("cuda", torch.complex128)
+        s = st.init_state(torch.stack([base, torch.roll(base, 7, 0)]))
+        kick = torch.full((2,), -0.01, dtype=torch.float64, device="cuda")
+        vcoeff = torch.full((2,), -0.02, dtype=torch.float64, device="cuda")
+        dkd = p.dk**p.dims
+        q = st.engine.skew_enter(s.psik)
+
+        def rel(norm, psik):
+            want = st._norm_measure(psik)
+            return float(((norm * dkd - want).abs() / want).max())
+
+        _, n1, _, _ = st.engine.fused_step_skewed(q, st.consts, kick, vcoeff)
+        _, psik_x, n_x, _ = st.engine.skew_exit(q, st.consts, torch.zeros_like(kick))
+        _, psik_13, n13, _, _ = st.engine.fused_step(s.psik, st.consts, kick, vcoeff)
+        errs = {"K1": rel(n1, s.psik), "skew_exit": rel(n_x, psik_x), "K13": rel(n13, psik_13)}
+        nan = float("nan")
+        bad = dataclasses.replace(s, psi=s.psi * nan, psik=s.psik * nan)
+        stepped = st.step(bad).max_norm_err.cpu().tolist()
+        finished = s.current_dumps >= p.num_data_dumps
+        carrier = dataclasses.replace(s, psik=q * nan)
+        body = st._skew_body(carrier, finished)[0].max_norm_err.cpu().tolist()
+    raised = []
+    for fn in (lambda: simulator._check_norm_monitor(body[0], 1e-4, "nan-state"),
+               lambda: simulator._debug_validate(bad.psi[0].cpu().numpy(), p, "nan-state", 1e-4)):
+        try:
+            fn()
+            raised.append(False)
+        except FloatingPointError as e:
+            raised.append(str(e))
+    rec = {"rel_err": errs, "limit": 1e-12, "nan_unskewed_step": stepped, "nan_skew_body": body,
+           "raised": raised}
+    check(all(e <= 1e-12 for e in errs.values()), f"kernel norm sums differ: {errs}")
+    check(all(math.isinf(x) for x in stepped + body), f"NaN state: monitor {stepped}, {body}")
+    check(all(raised), f"a NaN state did not raise FloatingPointError: {raised}")
+    return rec
+
+
+def _flags_debug(card: dict, work: str) -> None:
+    """--debug-checks on the fused, skewed engine (optimistic, exact), the
+    unskewed one (lagged) and `xla`: each run's max_norm_err from its
+    manifests below check_eps (1e-4 at c128); the kernel sums and the NaN
+    state (`_norm_sums`). The streams take ntot = 1e14: at 1e10 the Wigner
+    draws move a 128^3 stream's norm by 1.05e-4 (the cells over 2 ntot),
+    over the eps that `_debug_validate` holds each dump to."""
+    from msm_tpu_torch.io.checkpoint import load_manifest
+
+    monitor = {}
+    for path, dt_mode in (("fused", "optimistic"), ("fused", "exact"), ("unskewed", "lagged"),
+                          ("xla", "optimistic")):
+        name = f"flags-debug-{path}-{dt_mode}"
+        toml_path, runs = _flags_toml(work, name, 2, ntot="1e14")
+        root = os.path.join(work, name)
+        run = _simulate(toml_path, root, "--debug-checks", path=path, dt_mode=dt_mode)
+        check(TRANSFORMS_LINE[path] in run["out"], f"{name} took another path")
+        errs = {r: load_manifest(os.path.join(root, r))["max_norm_err"] for r in runs}
+        monitor[f"{path}-{dt_mode}"] = errs
+        check(all(e < 1e-4 for e in errs.values()), f"{name}: max_norm_err {errs}")
+    emit({"phase": "simulate-flags", "item": "debug-checks", "max_norm_err": monitor,
+          "check_eps": 1e-4, "norm_sums": _norm_sums(card), **card})
+
+
+@contextlib.contextmanager
+def _timed_evolve():
+    """CUDA events around each `Stepper.evolve_to_next_dump` (the interval's
+    loop, without its dump writes), read after the run."""
+    from msm_tpu_torch.stepper import Stepper
+
+    events, evolve = [], Stepper.evolve_to_next_dump
+
+    def timed(self, state):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = evolve(self, state)
+        end.record()
+        events.append((start, end))
+        return out
+
+    Stepper.evolve_to_next_dump = timed
+    try:
+        yield events
+    finally:
+        Stepper.evolve_to_next_dump = evolve
+
+
+def _flags_monitor_cost(card: dict, work: str) -> None:
+    """`main`'s fused c64 config at 256^3 x 9 over one dump interval,
+    without and with --debug-checks: the evolve loop's ms per iteration
+    (CUDA events around the interval over K4's launches), the StepTimer
+    line's (dumps and, with the flag, `_debug_validate` of every dump
+    included) and the same launches; then the time to rebuild the 9-grid
+    state from the dumps (`_try_resume_batch`: nine 134 MB dumps read, K6
+    with K5 and K7-K9)."""
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch import simulator
+    from msm_tpu_torch.stepper import Stepper
+
+    size, streams, final = FLAGS_BIG
+    toml_path, _ = _flags_toml(work, "flags-monitor", 1, size=size, streams=streams,
+                               final=final)
+    rec = {}
+    for key, flags in (("plain", ()), ("debug_checks", ("--debug-checks",))):
+        root = os.path.join(work, f"flags-monitor-{key}")
+        with _timed_evolve() as events:
+            run = _simulate(toml_path, root, *flags, precision="f32")
+        timer = re.search(r"(\d+) steps in ([0-9.]+)s", run["out"])
+        iterations = run["launches"]["plane_potkick_fwd"]
+        evolve_ms = sum(s.elapsed_time(e) for s, e in events)
+        rec[key] = {"evolve_ms_per_iteration": evolve_ms / iterations,
+                    "loop_ms_per_iteration": float(timer.group(2)) * 1e3 / iterations,
+                    "iterations": iterations, "wall_s": run["wall_s"],
+                    "launches": run["launches"]}
+    check(rec["plain"]["launches"] == rec["debug_checks"]["launches"],
+          "--debug-checks changed the kernel launches")
+    toml = cfg.read_toml(toml_path)
+    with fft_mode("fused"):
+        params = list(cfg.iter_stream_parameters(toml))
+        stepper = Stepper(params[-1], torch.complex64, "cuda")
+        root = os.path.join(work, "flags-monitor-plain")
+        sim_runs = [simulator.SimulationRun(p, root, None) for p in params]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = simulator._try_resume_batch(sim_runs, stepper)
+        torch.cuda.synchronize()
+        rebuild = time.perf_counter() - t0
+    check(state is not None and state.current_dumps.tolist() == [1] * len(params),
+          "the 256^3 state was not rebuilt from dump 1")
+    for r in rec.values():
+        r.pop("launches")
+    emit({"phase": "simulate-flags", "item": "monitor-cost",
+          "config": f"tophat-collapse {size}^3, {streams} Wigner + MFT, c64, 1 dump over "
+          f"t={final:.4g}, fused optimistic", **rec,
+          "monitor_over_plain": rec["debug_checks"]["evolve_ms_per_iteration"]
+          / rec["plain"]["evolve_ms_per_iteration"],
+          "resume_rebuild_s": rebuild, "resume_grids": len(params), **card})
+
+
+# K1-K4 in a trace: the round trips by their RoundTrip mode (K1 0, K3 1)
+TRACE_KERNELS = {"K1": r"axis_roundtrip_radix_kernel<[^,<>]+, ?\d+, ?(?:\(\w+\))?0\b",
+                 "K2": r"plane_inv_density_cluster_kernel",
+                 "K3": r"axis_roundtrip_radix_kernel<[^,<>]+, ?\d+, ?(?:\(\w+\))?1\b",
+                 "K4": r"plane_potkick_cluster_kernel"}
+
+
+def _flags_profile(card: dict, work: str) -> None:
+    """A short fused run (2 Wigner + MFT, 2 dumps) with --profile-dir
+    beside the same run without: the trace file exists and names K1-K4's
+    kernels; the profiled run's loop (the StepTimer line) and wall (the
+    profiler's start and the trace's export included) over the plain
+    one's."""
+    from msm_tpu_torch.utils.profiling import TRACE_NAME
+
+    toml_path, _ = _flags_toml(work, "flags-profile", 2)
+    plain = _simulate(toml_path, os.path.join(work, "flags-profile-plain"))
+    prof_dir = os.path.join(work, "flags-profile-trace")
+    prof = _simulate(toml_path, os.path.join(work, "flags-profile"), "--profile-dir", prof_dir)
+    trace_path = os.path.join(prof_dir, TRACE_NAME)
+    check(os.path.exists(trace_path), "--profile-dir wrote no trace")
+    with open(trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(n for n in names if re.search(pat, n))[:2]
+             for k, pat in TRACE_KERNELS.items()}
+    loop = {k: float(re.search(r"\d+ steps in ([0-9.]+)s", r["out"]).group(1))
+            for k, r in (("plain", plain), ("profiled", prof))}
+    emit({"phase": "simulate-flags", "item": "profile-dir", "trace_bytes":
+          os.path.getsize(trace_path), "kernels": found, "loop_s": loop, "wall_s": {
+              "plain": plain["wall_s"], "profiled": prof["wall_s"]},
+          "loop_profiled_over_plain": loop["profiled"] / loop["plain"],
+          "profiled_over_plain": prof["wall_s"] / plain["wall_s"], **card})
+    check(all(found.values()), f"the trace does not name K1-K4: {found}")
+
+
+def _flags_test_only(card: dict, work: str) -> None:
+    """--test builds the state and writes no psi dump."""
+    toml_path, runs = _flags_toml(work, "flags-test", 2)
+    root = os.path.join(work, "flags-test")
+    run = _simulate(toml_path, root, "--test")
+    dumps = [f for r in runs if os.path.isdir(os.path.join(root, r))
+             for f in os.listdir(os.path.join(root, r)) if f.startswith("psi_")]
+    emit({"phase": "simulate-flags", "item": "test-only", "psi_files": len(dumps),
+          "wall_s": run["wall_s"], **card})
+    check(not dumps, f"--test wrote {dumps}")
+
+
+def phase_simulate_flags(card: dict) -> None:
+    """The rest of `simulate` through the port's CLI on the card: resume
+    (local and from the object store), sequential streams, debug checks,
+    the monitor's cost, the profiler trace and --test; then the phase's
+    seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        batched = _flags_resume(card, work, store=False)
+        _flags_resume(card, work, store=True)
+        _flags_sequential(card, work, batched)
+        _flags_debug(card, work)
+        _flags_monitor_cost(card, work)
+        _flags_profile(card, work)
+        _flags_test_only(card, work)
+    emit({"phase": "simulate-flags", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
+
+
 def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
     """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
     return {
@@ -1707,6 +2074,7 @@ def main() -> int:
     probe_run = phase_probes(card)
     phase_e2e(card)
     mains = {run: phase_main(card, run) for run in RUNS}
+    phase_simulate_flags(card)
     mains["engine-check"] = engine_check
     mains["probes"] = probe_run
     emit({

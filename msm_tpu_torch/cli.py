@@ -3,7 +3,9 @@
     python -m msm_tpu_torch simulate --toml path.toml [--device cuda|cpu]
         [--data-root DIR] [--precision f32|f64]
         [--dt-mode optimistic|exact|lagged] [--fast-dt] [--strict-alias]
-        [--online-synthesis] [--verbose]
+        [--online-synthesis] [--test] [--sequential-streams] [--resume]
+        [--ignore-remote-storage] [--debug-checks] [--check-eps EPS]
+        [--profile-dir DIR] [--verbose]
     python -m msm_tpu_torch synthesize --toml path.toml [--device cuda|cpu]
         [--data-root DIR] [--precision f32|f64] [--verbosity LEVEL]
         [--dump-range LO:HI] [--post-only]
@@ -13,17 +15,25 @@ and `synthesize` (`synthesizer/src/main.rs:30-190`). `simulate` runs the
 batched ensemble in each of the three dt modes, static or expanding (a
 config with a `[cosmology]` table); `--online-synthesis` writes the
 `-combined/` ensemble averages and the Qx series during the run.
+`--test` builds the state and writes nothing; `--sequential-streams` runs
+the streams one by one (the reference's shape) instead of as one batch;
+`--resume` restarts every run from its manifest and last dump;
+`--ignore-remote-storage` writes local dumps although the toml has a
+`[remote_storage_parameters]` table; `--debug-checks` carries the
+stepper's unitarity monitor and checks every dump's norm and finiteness
+against `--check-eps` (default 1e-4 at f64, 1e-3 at f32);
+`--profile-dir DIR` writes a torch.profiler Chrome trace of the run to
+`DIR/trace.json`.
 `synthesize` reduces the stream dumps offline into the same files;
 `--dump-range LO:HI` combines only dumps LO..=HI (and skips Qx), and
 `--post-only` then evaluates Qx from the combined files. Both run on the
 card unless `--device cpu` asks for the CPU (the kernels' plain versions,
 torch on the CPU); without a card, `cuda` raises and nothing falls back.
 An aliased stream is frozen and logged unless `--strict-alias` asks for
-the FourierAliasingError to be raised. The JAX CLI's other flags
-(`simulate`'s `--test`, `--sequential-streams`, `--resume`, `--mesh`,
-`--ignore-remote-storage`, `--debug-checks`, `--check-eps`,
-`--profile-dir`; `synthesize`'s `--multihost` and `--distributed`) are not
-ported yet, so argparse rejects them.
+the FourierAliasingError to be raised. The JAX CLI's device meshes
+(`simulate --mesh`), its `bench` subcommand and `synthesize`'s
+`--multihost` and `--distributed` are not ported yet, so argparse rejects
+them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device), `mxu` (the
@@ -88,8 +98,15 @@ def cmd_simulate(args) -> int:
             data_root=args.data_root,
             verbose=args.verbose,
             dt_mode="lagged" if args.fast_dt else args.dt_mode,
+            test_only=args.test,
+            batch_streams=not args.sequential_streams,
             strict_alias=args.strict_alias,
             online_synthesis=args.online_synthesis,
+            resume=args.resume,
+            debug_checks=args.debug_checks,
+            check_eps=args.check_eps,
+            profile_dir=args.profile_dir,
+            use_remote_storage=not args.ignore_remote_storage,
         )
     finally:
         fft_ops.set_default_mode(mode)
@@ -184,6 +201,44 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="write the -combined/ ensemble averages and the Qx series during "
         "the run (no offline synthesize pass; a config with streams only)",
+    )
+    sim.add_argument(
+        "--test", action="store_true", help="construct sims without evolving"
+    )
+    sim.add_argument(
+        "--sequential-streams",
+        action="store_true",
+        help="run streams one-by-one (reference semantics) instead of batched",
+    )
+    sim.add_argument(
+        "--resume",
+        action="store_true",
+        help="resume every run from its checkpoint manifest + last dump",
+    )
+    sim.add_argument(
+        "--ignore-remote-storage",
+        action="store_true",
+        help="write local npy dumps even when the toml has a "
+        "[remote_storage_parameters] table",
+    )
+    sim.add_argument(
+        "--debug-checks",
+        action="store_true",
+        help="carry the unitarity monitor and validate norm and finiteness "
+        "at every dump boundary",
+    )
+    sim.add_argument(
+        "--check-eps",
+        type=float,
+        default=None,
+        help="unitarity tolerance for --debug-checks: |norm - 1| must stay "
+        "below this. Default 1e-4 at f64 (the reference's check_norm eps, "
+        "grid.rs:35-64) and 1e-3 at f32",
+    )
+    sim.add_argument(
+        "--profile-dir",
+        default=None,
+        help="write a torch.profiler Chrome trace of the run to DIR/trace.json",
     )
     sim.add_argument("--verbose", "-v", action="store_true")
     sim.set_defaults(fn=cmd_simulate)

@@ -1,16 +1,24 @@
-"""Batched stream-ensemble runner.
+"""Simulation runners: the batched stream ensemble, and one run at a time.
 
-Counterpart of msm_tpu/simulator.py's `run_config` batched path
-(`simulator/src/main.rs:21-89`): every stream of a config plus the
-mean-field (MFT) run advance as ONE batched state, dump boundary to dump
-boundary, and the host writes the npy dumps and manifests. An aliased
-stream is frozen and its FourierAliasingError logged, and the others go
-on, as msm_tpu's `run_config` does by default; with `strict_alias` the
-error is raised (the reference panics: `simulation_object.rs:607-617`),
-after the manifest that records it. A config without `[sampling]` is a
-batch of one, so JAX's one-run path (`strict_alias and one run`) and its
-batched path (`strict_alias`) agree here. An expanding config (a
-`[cosmology]` table) reports its redshift on the progress line.
+Counterpart of msm_tpu/simulator.py on one device (`simulator/src/main.rs:
+21-89`):
+
+- `run_config` (the default): every stream of a config plus the
+  mean-field (MFT) run advance as ONE batched state, dump boundary to dump
+  boundary, and the host writes the npy dumps and manifests. With
+  `batch_streams=False` (`--sequential-streams`) each run goes through
+  `run_single` in turn, the reference's shape.
+- `run_single`: one run as a batch of one, through the same one-interval
+  loop (`_drive`).
+
+An aliased stream is frozen and its FourierAliasingError logged, and the
+others go on, as msm_tpu's `run_config` does by default; with
+`strict_alias` the error is raised (the reference panics:
+`simulation_object.rs:607-617`), after the manifest that records it. A
+config without `[sampling]` is a batch of one, so JAX's one-run path
+(`strict_alias and one run`) and its batched path (`strict_alias`) agree
+here. An expanding config (a `[cosmology]` table) reports its redshift on
+the progress line.
 
 With `online_synthesis` the `-combined/` ensemble averages and the Qx
 series are written during the run (msm_tpu's blocked path, simulator.py:
@@ -18,13 +26,29 @@ series are written during the run (msm_tpu's blocked path, simulator.py:
 the stepper's combine row (`Stepper.combine_row`), whose scalars ride the
 host read the loop makes after each interval.
 
-Not here yet: resume, device meshes, remote storage, interval blocking and
-speculative dispatch.
+`resume` restarts every run from its manifest and last psi dump
+(`_try_resume_batch`); `test_only` builds the state and writes nothing;
+`debug_checks` carries the stepper's unitarity monitor and validates every
+dumped psi (`_debug_validate`); `profile_dir` traces the run with
+torch.profiler; a `[remote_storage_parameters]` table sends the grids to
+an `io.storage.ObjectBackend` unless `use_remote_storage` is False.
+Manifests stay local either way. Besides JAX's keys, a manifest holds the
+optimistic and lagged dt modes' carried bound (`phi_max`, `phi_ref`), so
+a resumed run takes the steps the uninterrupted one took; a manifest
+without them (JAX's) restarts the bound from the dump's potential, as JAX
+does.
+
+Not here yet: device meshes (`--mesh`), interval blocking, bounded
+dispatches and speculative dispatch (ROADMAP items 10 and 8; the latter
+plug into `_drive`'s one-interval loop).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
+import os
 import time as _time
 from typing import Optional
 
@@ -34,14 +58,17 @@ import torch
 from . import synthesis
 from .config import SimulationParameters, TomlParameters, iter_stream_parameters
 from .errors import FourierAliasingError
-from .io.checkpoint import write_manifest
-from .io.npy import AsyncGridWriter, dump_dir, psi_path
+from .io.checkpoint import load_manifest, write_manifest
+from .io.npy import AsyncGridWriter, dump_dir, load_complex_pair, psi_path
 from .models.ics import build_ics
-from .models.sampling import sample_stream_batch
+from .models.sampling import sample_quantum_perturbation, sample_stream_batch
 from .stepper import SimState, Stepper
-from .utils.profiling import ProgressReporter, StepTimer
+from .utils.profiling import ProgressReporter, StepTimer, profiler_trace
 
 log = logging.getLogger(__name__)
+
+# the dt modes' carried bound, kept in the manifest beside JAX's keys
+_CARRIED_BOUND = ("phi_max", "phi_ref")
 
 
 def _dump_array(psi_np: np.ndarray, params: SimulationParameters) -> np.ndarray:
@@ -51,21 +78,89 @@ def _dump_array(psi_np: np.ndarray, params: SimulationParameters) -> np.ndarray:
 
 class SimulationRun:
     """One named simulation run: its dump directory, psi dumps (through the
-    shared async writer), manifest."""
+    shared async writer), manifest.
+
+    With a `backend` (built from `[remote_storage_parameters]`), grids go
+    to the storage backend under flat keys with seed-rotated accounts
+    instead of the local npy layout, like the reference's remote-storage
+    feature (`simulator/src/utils/io.rs:352-465`,
+    `simulation_object.rs:1186-1205`), and the manifest records each
+    field's latest upload URL. Manifests stay local either way.
+    """
 
     def __init__(
-        self, params: SimulationParameters, data_root: str, writer: AsyncGridWriter
+        self,
+        params: SimulationParameters,
+        data_root: str,
+        writer: Optional[AsyncGridWriter],
+        backend=None,
     ):
         self.params = params
         self.dir = dump_dir(params.sim_name, data_root)
         self.writer = writer
+        self.backend = backend
+        self.seed = params.sampling.seed if params.sampling is not None else None
+        # destination URL of the latest upload per field (io.rs:427-465)
+        self._urls: dict = {}
 
     def dump_field(self, psi_np: np.ndarray, dump_index: int, field: str = "psi"):
         arr = _dump_array(psi_np, self.params)
+        if self.backend is not None:
+            self._urls[f"{field}_url"] = self.backend.submit_grid(
+                self.params.sim_name, field, dump_index, arr, seed=self.seed
+            )
+            return
         self.writer.submit(psi_path(self.dir, dump_index, field), arr)
 
+    def psi_base(self, dump_index: int) -> str:
+        """Base path (or URL) of a written psi dump, local or in the store."""
+        if self.backend is not None:
+            return self.backend.grid_path(self.params.sim_name, "psi", dump_index, seed=self.seed)
+        return psi_path(self.dir, dump_index)
+
+    def load_psi(self, dump_index: int, dtype=np.complex128) -> np.ndarray:
+        """Read a psi dump back, wherever it went (the store by GET)."""
+        if self.backend is not None:
+            arr = self.backend.load_grid(self.params.sim_name, "psi", dump_index, seed=self.seed)
+            arr = arr.astype(dtype, copy=False)
+        else:
+            arr = load_complex_pair(self.psi_base(dump_index), dtype)
+        return arr.reshape(self.params.shape)
+
     def write_manifest(self, state_slice: dict):
-        write_manifest(self.dir, **state_slice)
+        scalars = dict(state_slice)
+        extra = dict(self._urls)
+        extra.update({k: scalars.pop(k) for k in _CARRIED_BOUND if k in scalars})
+        write_manifest(self.dir, extra=extra or None, **scalars)
+
+
+def storage_backend_for(
+    params_or_toml, data_root: str, writer: Optional[AsyncGridWriter] = None
+):
+    """ObjectBackend from a config's `[remote_storage_parameters]`, or None.
+
+    The backend root (the stand-in for the remote drive) is
+    `$MSM_REMOTE_ROOT` or `{data_root}/remote-storage`.
+    """
+    rs = getattr(params_or_toml, "remote_storage", None) or getattr(
+        params_or_toml, "remote_storage_parameters", None
+    )
+    if rs is None:
+        return None
+    from .io.storage import ObjectBackend
+
+    root = os.environ.get("MSM_REMOTE_ROOT", os.path.join(data_root, "remote-storage"))
+    return ObjectBackend.from_config(rs, root, writer=writer)
+
+
+@contextlib.contextmanager
+def _closing(resource):
+    """contextlib.closing that tolerates None (no remote backend)."""
+    try:
+        yield resource
+    finally:
+        if resource is not None:
+            resource.close()
 
 
 def _telemetry_suffix(d_steps: int, dt_min: float, dt_max: float, replays: int) -> str:
@@ -91,7 +186,7 @@ _SCALARS = (
     "dt_min",
     "dt_max",
     "replays",
-)
+) + _CARRIED_BOUND
 
 
 _ROW_SCALARS = ("comb_n", "comb_qx")
@@ -101,11 +196,13 @@ class _EnsembleHostView:
     """Host copy of a batched state's per-stream scalars (one transfer)
     and, on first use, of its psi batch. With a combine row
     (`Stepper.combine_row`) its two scalars join the same transfer and its
-    fields are fetched on first use."""
+    fields are fetched on first use; with `norm` the unitarity monitor's
+    max_norm_err joins it too."""
 
-    def __init__(self, state: SimState, row: Optional[dict] = None):
+    def __init__(self, state: SimState, row: Optional[dict] = None, norm: bool = False):
         self.state = state
-        tensors = {name: getattr(state, name) for name in _SCALARS}
+        names = _SCALARS + (("max_norm_err",) if norm else ())
+        tensors = {name: getattr(state, name) for name in names}
         if row is not None:
             tensors.update({name: row[name] for name in _ROW_SCALARS})
         # every scalar in float64 (exact for int32, bool, float32), one
@@ -143,7 +240,89 @@ class _EnsembleHostView:
             "n_steps": int(self.scalar("n_steps")[i]),
             "aliased": bool(self.scalar("aliased")[i]),
             "replays": int(self.scalar("replays")[i]),
+            **{k: float(self.scalar(k)[i]) for k in _CARRIED_BOUND},
         }
+
+
+def _try_resume_batch(runs: list, stepper: Stepper) -> Optional[SimState]:
+    """Rebuild a batched SimState from each run's manifest and last psi
+    dump (msm_tpu's `_try_resume_batch`, simulator.py:426-465).
+
+    Returns None, a fresh start, when any run lacks a manifest or every run
+    is at dump 0. Otherwise the state is built from the dumps through
+    `init_state` (the fresh start's transforms and Poisson solve), and
+    time, tau, a, the counters, the aliased flag and the replays come from
+    the manifests, the carried dt bound too where they hold it."""
+    manifests = []
+    for r in runs:
+        m = load_manifest(r.dir)
+        if m is None:
+            return None
+        manifests.append(m)
+    if all(m["current_dumps"] == 0 for m in manifests):
+        return None
+    cdtype = np.complex128 if stepper.dtype == torch.complex128 else np.complex64
+    psi = torch.stack([
+        torch.as_tensor(r.load_psi(m["current_dumps"], cdtype)).to(stepper.device)
+        for r, m in zip(runs, manifests)
+    ])
+    state = stepper.init_state(psi)
+    del psi
+
+    def arr(key, dtype):
+        return torch.tensor([m[key] for m in manifests], dtype=dtype, device=stepper.device)
+
+    fields = dict(
+        time=arr("time", stepper.tdtype),
+        tau=arr("tau", stepper.tdtype),
+        a=arr("a", stepper.tdtype),
+        current_dumps=arr("current_dumps", torch.int32),
+        n_steps=arr("n_steps", torch.int32),
+        aliased=torch.tensor(
+            [bool(m.get("aliased", False)) for m in manifests], device=stepper.device
+        ),
+    )
+    # cumulative replay telemetry and the carried bound survive a resume
+    # where every manifest carries them
+    for key in ("replays",) + _CARRIED_BOUND:
+        if all(key in m for m in manifests):
+            fields[key] = arr(key, torch.int32 if key == "replays" else stepper.tdtype)
+    return dataclasses.replace(state, **fields)
+
+
+def _resolve_check_eps(check_eps: Optional[float], dtype: torch.dtype) -> float:
+    """Unitarity tolerance for --debug-checks (msm_tpu's
+    `_resolve_check_eps`): the reference's check_norm eps, 1e-4
+    (`grid.rs:35-64`), at complex128; 1e-3 at complex64 (JAX's measured
+    float32 drift envelope, PARITY.md); `check_eps` overrides either."""
+    if check_eps is not None:
+        return float(check_eps)
+    return 1e-4 if dtype == torch.complex128 else 1e-3
+
+
+def _debug_validate(psi_np: np.ndarray, params: SimulationParameters, where: str, eps: float):
+    """Runtime sanitizers at a dump boundary: finite psi and sum|psi|^2
+    dx^d within eps of 1 (the reference's debug_assert!(check_norm ..) and
+    check_complex_for_nans, `simulation_object.rs:485-529`); raises
+    FloatingPointError."""
+    if not np.all(np.isfinite(psi_np.real)) or not np.all(np.isfinite(psi_np.imag)):
+        raise FloatingPointError(f"NaN/Inf in psi at {where}")
+    norm = float(np.sum(np.abs(psi_np) ** 2) * params.dx**params.dims)
+    if abs(norm - 1.0) > eps:
+        raise FloatingPointError(
+            f"norm violation at {where}: sum|psi|^2 dV = {norm:.6g} (eps = {eps:g})"
+        )
+
+
+def _check_norm_monitor(err: float, eps: float, name: str):
+    """The stepper's unitarity monitor over the last dump interval must
+    stay below eps (not finite: +inf, never below); raises
+    FloatingPointError."""
+    if not err < eps:
+        raise FloatingPointError(
+            f"in-step unitarity violation in {name}: max |norm/norm0 - 1| = {err:.3g} "
+            "during the last dump interval"
+        )
 
 
 def _report_aliasing(params: SimulationParameters, mass: float, strict: bool):
@@ -176,76 +355,46 @@ def _transforms(stepper: Stepper) -> str:
     return "xla (torch.fft + K19, K21)"
 
 
-def run_config(
-    toml: TomlParameters,
-    dtype: torch.dtype = torch.complex64,
+def _drive(
+    stepper: Stepper,
+    runs: list,
+    state: SimState,
     *,
-    device: "torch.device | str" = "cuda",
-    data_root: str = "sim-data",
-    verbose: bool = False,
-    dt_mode: str = "optimistic",
-    strict_alias: bool = False,
-    online_synthesis: bool = False,
+    resumed: bool,
+    name: str,
+    verbose: bool,
+    strict_alias: bool,
+    debug_checks: bool,
+    eps: float,
+    combiner=None,
 ) -> SimState:
-    """Run every stream of a config plus the MFT as one batch on `device`
-    (the card unless the caller asks for "cpu") in `dt_mode` (one of
-    stepper.DT_MODES); returns the final batched state (streams in seed
-    order, MFT last). An aliased run is logged, or raises
-    FourierAliasingError with `strict_alias`. With `online_synthesis` the
-    run writes the `-combined/` files itself (a config with streams only)."""
-    if toml.remote_storage_parameters is not None:
-        raise NotImplementedError("[remote_storage_parameters] is not ported yet")
-    all_params = list(iter_stream_parameters(toml))
-    n = len(all_params)
-    if online_synthesis and n == 1:
-        raise ValueError("online synthesis requires batched streams")
-    mft_params = all_params[-1]
-    stream_params = all_params[:-1]
-    stepper = Stepper(mft_params, dtype, device, dt_mode=dt_mode)
-
-    base_psi = torch.as_tensor(build_ics(mft_params)).to(stepper.device, dtype)
-    if stream_params:
-        seeds = [p.sampling.seed for p in stream_params]
-        scheme = stream_params[0].sampling.scheme
-        sampled = sample_stream_batch(base_psi, mft_params, seeds, scheme)
-        batch = torch.cat([sampled, base_psi[None]])
-    else:
-        batch = base_psi[None]
-    state = stepper.init_state(batch)
-    del batch, base_psi
-
-    if verbose:
-        scheme_txt = f"{stream_params[0].sampling.scheme} " if stream_params else ""
-        print(
-            f"Running {len(stream_params)} {scheme_txt}"
-            f"streams + MFT as one batch of {n} on {stepper.device}"
-        )
-        print(f"Transforms: {_transforms(stepper)} at {mft_params.size}^{mft_params.dims}, "
-              f"dt {stepper.dt_mode}")
-    reported_alias = [False] * n
+    """The one-interval loop over a batch of runs (the last one's params
+    give the dump count, potential output and cosmology): dump 0 unless
+    resumed, then evolve, snap and write every stream that reached its dump
+    until every stream is done or aliased. Returns the final state."""
+    p = runs[-1].params
+    n = len(runs)
+    # a stream already frozen at resume time was reported (and its
+    # manifest written) by the original run
+    reported_alias = state.aliased.cpu().tolist() if resumed else [False] * n
+    start_steps = int(state.n_steps.max()) if resumed else 0
     t_start = _time.monotonic()
-    progress = ProgressReporter(
-        total_dumps=toml.num_data_dumps, sim_name=toml.sim_name, enabled=verbose
-    )
-    timer = StepTimer(cells_per_step=n * toml.size**toml.dims)
+    progress = ProgressReporter(total_dumps=p.num_data_dumps, sim_name=name, enabled=verbose)
+    timer = StepTimer(cells_per_step=n * p.size**p.dims)
     timer.start()
-    with AsyncGridWriter() as writer:
-        runs = [SimulationRun(p, data_root, writer) for p in all_params]
-        combiner = (
-            synthesis.online_combiner_for(toml, data_root, writer) if online_synthesis else None
-        )
 
-        def dump_potentials(mask: np.ndarray, dumps_idx: np.ndarray):
-            """Dump phi for runs with output_potential
-            (simulation_object.rs:1166-1180)."""
-            if not toml.output_potential:
-                return
-            pot = stepper.potential(state.psi).cpu().numpy()
-            cdtype = np.complex64 if pot.dtype == np.float32 else np.complex128
-            for i in range(n):
-                if mask[i]:
-                    runs[i].dump_field(pot[i].astype(cdtype), int(dumps_idx[i]), "potential")
+    def dump_potentials(mask: np.ndarray, dumps_idx: np.ndarray):
+        """Dump phi for runs with output_potential
+        (simulation_object.rs:1166-1180)."""
+        if not p.output_potential:
+            return
+        pot = stepper.potential(state.psi).cpu().numpy()
+        cdtype = np.complex64 if pot.dtype == np.float32 else np.complex128
+        for i in range(n):
+            if mask[i]:
+                runs[i].dump_field(pot[i].astype(cdtype), int(dumps_idx[i]), "potential")
 
+    if not resumed:
         view = _EnsembleHostView(state)
         for i, r in enumerate(runs):
             r.dump_field(view.psi(i), 0)
@@ -255,65 +404,223 @@ def run_config(
             # every stream, the MFT (the last) left out
             combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
 
-        total_steps = 0
-        prev_steps_batch = 0
-        while stepper.not_finished(state):
-            raw = stepper.evolve_to_next_dump(state)
-            state = stepper.snap_after_dump(raw)
-            row = None if combiner is None else stepper.combine_row(raw, state, n, combiner.dv)
-            pre = _EnsembleHostView(raw)
-            total_steps = int(pre.scalar("n_steps").max())
-            aliased = pre.scalar("aliased")
-            just_dumped = pre.scalar("just_dumped")
-            view = _EnsembleHostView(state, row)
-            dumps_np = view.scalar("current_dumps")
-            for i, r in enumerate(runs):
-                if aliased[i]:
-                    if not reported_alias[i]:
-                        reported_alias[i] = True
-                        # manifest before the (possibly raising) report, so
-                        # the run's record shows aliased=True
-                        r.write_manifest(view.run_scalars(i))
-                        _report_aliasing(
-                            all_params[i],
-                            float(view.scalar("alias_mass")[i]),
-                            strict_alias,
-                        )
-                    continue
-                if just_dumped[i]:
-                    r.dump_field(view.psi(i), int(dumps_np[i]))
-                    scalars = view.run_scalars(i)
-                    scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
-                    r.write_manifest(scalars)
-            if just_dumped.any():
-                dump_potentials(just_dumped & ~aliased, dumps_np)
-            valid = just_dumped[: n - 1] & ~aliased[: n - 1]
-            if row is not None and valid.any() and float(view.scalar("comb_n")) > 0:
-                combiner.write_row(view.row_host(), int(dumps_np[int(np.flatnonzero(valid)[0])]))
-            extra = _telemetry_suffix(
-                total_steps - prev_steps_batch,
-                float(pre.scalar("dt_min").min()),
-                float(pre.scalar("dt_max").max()),
-                int(pre.scalar("replays").sum()),
+    total_steps = prev_steps = start_steps
+    while stepper.not_finished(state):
+        raw = stepper.evolve_to_next_dump(state)
+        state = stepper.snap_after_dump(raw)
+        row = None if combiner is None else stepper.combine_row(raw, state, n, combiner.dv)
+        pre = _EnsembleHostView(raw)
+        total_steps = int(pre.scalar("n_steps").max())
+        aliased = pre.scalar("aliased")
+        just_dumped = pre.scalar("just_dumped")
+        view = _EnsembleHostView(state, row, norm=debug_checks)
+        dumps_np = view.scalar("current_dumps")
+        for i, r in enumerate(runs):
+            if aliased[i]:
+                if not reported_alias[i]:
+                    reported_alias[i] = True
+                    # manifest before the (possibly raising) report, so
+                    # the run's record shows aliased=True
+                    r.write_manifest(view.run_scalars(i))
+                    _report_aliasing(r.params, float(view.scalar("alias_mass")[i]), strict_alias)
+                continue
+            if just_dumped[i]:
+                scalars = view.run_scalars(i)
+                if debug_checks:
+                    _debug_validate(view.psi(i), r.params, f"{r.params.sim_name} dump", eps)
+                    err = float(view.scalar("max_norm_err")[i])
+                    _check_norm_monitor(err, eps, r.params.sim_name)
+                    scalars["max_norm_err"] = err
+                r.dump_field(view.psi(i), int(dumps_np[i]))
+                scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
+                r.write_manifest(scalars)
+        if just_dumped.any():
+            dump_potentials(just_dumped & ~aliased, dumps_np)
+        valid = just_dumped[: n - 1] & ~aliased[: n - 1]
+        if row is not None and valid.any() and float(view.scalar("comb_n")) > 0:
+            combiner.write_row(view.row_host(), int(dumps_np[int(np.flatnonzero(valid)[0])]))
+        extra = _telemetry_suffix(
+            total_steps - prev_steps,
+            float(pre.scalar("dt_min").min()),
+            float(pre.scalar("dt_max").max()),
+            int(pre.scalar("replays").sum()),
+        )
+        prev_steps = max(prev_steps, total_steps)
+        if p.expanding:
+            progress.update(
+                int(dumps_np.min()),
+                redshift=1.0 / float(view.scalar("a").min()) - 1.0,
+                extra=extra,
             )
-            prev_steps_batch = max(prev_steps_batch, total_steps)
-            if toml.cosmology is not None:
-                progress.update(
-                    int(dumps_np.min()),
-                    redshift=1.0 / float(view.scalar("a").min()) - 1.0,
-                    extra=extra,
-                )
-            else:
-                progress.update(
-                    int(dumps_np.min()),
-                    sim_time=float(view.scalar("time").min()),
-                    extra=extra,
-                )
-        if combiner is not None:
-            combiner.finalize()
-        timer.stop(n_steps=total_steps)
-        if verbose:
-            print(timer.summary(), flush=True)
-        progress.finish()
+        else:
+            progress.update(
+                int(dumps_np.min()),
+                sim_time=float(view.scalar("time").min()),
+                extra=extra,
+            )
+    if combiner is not None:
+        combiner.finalize()
+    timer.stop(n_steps=total_steps - start_steps)
+    if verbose:
+        print(timer.summary(), flush=True)
+    progress.finish()
     return state
 
+
+def run_single(
+    params: SimulationParameters,
+    dtype: torch.dtype = torch.complex64,
+    *,
+    device: "torch.device | str" = "cuda",
+    data_root: str = "sim-data",
+    verbose: bool = False,
+    test_only: bool = False,
+    resume: bool = False,
+    strict_alias: bool = True,
+    writer: Optional[AsyncGridWriter] = None,
+    dt_mode: str = "optimistic",
+    backend=None,
+    use_remote_storage: bool = True,
+    debug_checks: bool = False,
+    check_eps: Optional[float] = None,
+) -> SimState:
+    """Run one simulation to completion on `device` (the card unless the
+    caller asks for "cpu") as a batch of one, dumping psi at every boundary
+    (msm_tpu's `run_single`, simulator.py:614-806, without its interval
+    blocking and speculation). A stream run samples its own perturbation
+    from the MFT initial conditions with its seed. A resume restores what
+    the batched one does (`_try_resume_batch`), the replays, the aliased
+    flag and the carried bound included, where JAX's one-run resume
+    restarts them. `writer` and `backend` are the caller's to close;
+    without them the run makes its own (the backend from the config's
+    `[remote_storage_parameters]` when `use_remote_storage`, uploading
+    through the run's writer, as JAX's does) and closes them before it
+    returns."""
+    eps = _resolve_check_eps(check_eps, dtype)
+    stepper = Stepper(params, dtype, device, dt_mode=dt_mode, debug_checks=debug_checks)
+    with contextlib.ExitStack() as stack:
+        if writer is None and not test_only:
+            writer = stack.enter_context(AsyncGridWriter())
+        if backend is None and use_remote_storage:
+            backend = storage_backend_for(params, data_root, writer)
+            if backend is not None:
+                stack.callback(backend.close)
+        run = SimulationRun(params, data_root, writer, backend=backend)
+        state = _try_resume_batch([run], stepper) if resume else None
+        resumed = state is not None
+        if resumed:
+            log.info("resuming %s from dump %d", params.sim_name, int(state.current_dumps[0]))
+        else:
+            psi0 = torch.as_tensor(build_ics(params)).to(stepper.device, dtype)
+            if params.sampling is not None:
+                psi0 = sample_quantum_perturbation(
+                    psi0, params, params.sampling.seed, params.sampling.scheme
+                )
+            state = stepper.init_state(psi0[None])
+            del psi0
+        if verbose:
+            print(f"\nWorking on simulation {params.sim_name} on {stepper.device}")
+            print(f"Transforms: {_transforms(stepper)} at {params.size}^{params.dims}, "
+                  f"dt {stepper.dt_mode}")
+        if test_only:
+            return state
+        return _drive(
+            stepper, [run], state, resumed=resumed, name=params.sim_name, verbose=verbose,
+            strict_alias=strict_alias, debug_checks=debug_checks, eps=eps,
+        )
+
+
+def run_config(
+    toml: TomlParameters,
+    dtype: torch.dtype = torch.complex64,
+    *,
+    device: "torch.device | str" = "cuda",
+    data_root: str = "sim-data",
+    verbose: bool = False,
+    test_only: bool = False,
+    batch_streams: bool = True,
+    dt_mode: str = "optimistic",
+    strict_alias: bool = False,
+    online_synthesis: bool = False,
+    resume: bool = False,
+    debug_checks: bool = False,
+    check_eps: Optional[float] = None,
+    profile_dir: Optional[str] = None,
+    use_remote_storage: bool = True,
+) -> "SimState | list[SimState]":
+    """Run every stream of a config plus the MFT on `device` (the card
+    unless the caller asks for "cpu") in `dt_mode` (one of
+    stepper.DT_MODES). Batched (the default): one state, returned (streams
+    in seed order, MFT last). With `batch_streams=False` the runs go one by
+    one through `run_single` (one writer, one backend), and their states
+    are returned in a list. An aliased run is logged, or raises
+    FourierAliasingError with `strict_alias` (in sequential mode, only for
+    a one-run config, as JAX). With `online_synthesis` the run writes the
+    `-combined/` files itself (batched, a config with streams only)."""
+    all_params = list(iter_stream_parameters(toml))
+    n = len(all_params)
+    eps = _resolve_check_eps(check_eps, dtype)
+    if online_synthesis and (not batch_streams or n == 1):
+        raise ValueError("online synthesis requires batched streams")
+    backend = storage_backend_for(toml, data_root) if use_remote_storage else None
+    # the backend (its own upload pool) closes last on every exit path,
+    # exceptions included, so queued uploads drain and their failures
+    # surface
+    with _closing(backend), profiler_trace(profile_dir):
+        if not batch_streams:
+            with AsyncGridWriter() as writer:
+                return [
+                    run_single(
+                        p, dtype, device=device, data_root=data_root, verbose=verbose,
+                        test_only=test_only, resume=resume,
+                        strict_alias=strict_alias and n == 1, writer=writer,
+                        dt_mode=dt_mode, backend=backend,
+                        use_remote_storage=use_remote_storage,
+                        debug_checks=debug_checks, check_eps=check_eps,
+                    )
+                    for p in all_params
+                ]
+
+        mft_params = all_params[-1]
+        stream_params = all_params[:-1]
+        stepper = Stepper(mft_params, dtype, device, dt_mode=dt_mode, debug_checks=debug_checks)
+        with AsyncGridWriter() as writer:
+            runs = [SimulationRun(p, data_root, writer, backend=backend) for p in all_params]
+            state = _try_resume_batch(runs, stepper) if resume else None
+            resumed = state is not None
+            if not resumed:
+                base_psi = torch.as_tensor(build_ics(mft_params)).to(stepper.device, dtype)
+                if stream_params:
+                    seeds = [p.sampling.seed for p in stream_params]
+                    scheme = stream_params[0].sampling.scheme
+                    sampled = sample_stream_batch(base_psi, mft_params, seeds, scheme)
+                    batch = torch.cat([sampled, base_psi[None]])
+                else:
+                    batch = base_psi[None]
+                state = stepper.init_state(batch)
+                del batch, base_psi
+            if verbose:
+                if resumed:
+                    print(f"Resuming batch of {n} from dumps {state.current_dumps.tolist()}")
+                else:
+                    scheme_txt = f"{stream_params[0].sampling.scheme} " if stream_params else ""
+                    print(f"Running {len(stream_params)} {scheme_txt}"
+                          f"streams + MFT as one batch of {n} on {stepper.device}")
+                print(f"Transforms: {_transforms(stepper)} at {mft_params.size}^"
+                      f"{mft_params.dims}, dt {stepper.dt_mode}")
+            if test_only:
+                return state
+            combiner = (
+                synthesis.online_combiner_for(toml, data_root, writer)
+                if online_synthesis else None
+            )
+            return _drive(
+                stepper, runs, state, resumed=resumed, name=toml.sim_name, verbose=verbose,
+                strict_alias=strict_alias, debug_checks=debug_checks, eps=eps,
+                combiner=combiner,
+            )
+
+
+def run_toml(toml: TomlParameters, dtype: torch.dtype = torch.complex64, **kwargs):
+    """Entry point matching `msm-simulator --toml` semantics."""
+    return run_config(toml, dtype, **kwargs)

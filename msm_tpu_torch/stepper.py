@@ -76,6 +76,15 @@ chosen by the transform mode (`ops.fft.get_mode`):
   table computed once (`cosmo.tau_at_times`), the density prefactor is the
   supercomoving one and the Poisson coefficient 1 (:325-345). Only
   scalars and the constants the kernels already take change.
+- The unitarity monitor (`debug_checks`; msm_tpu's `_track_norm`
+  :630-638): max_norm_err is the running max of |norm/norm0 - 1| (+inf
+  once it is not finite). The `xla`, `matmul` and unfused `mxu` steps
+  measure sum|psik|^2 dk^d (`_norm_measure`, as `_fwd_with_kick_reduce`
+  :718-724); the fused engines take the norm sums their kernels already
+  return: K13's in the unskewed step, and in the skewed loop K1's, which
+  describe the state entering the iteration, so only streams that were
+  active are tracked (:1135-1139), with `skew_exit`'s K1 sums for the last
+  step (:1192-1211). Off, it adds no launch.
 """
 
 from __future__ import annotations
@@ -120,7 +129,7 @@ class SimState:
     phi_max: torch.Tensor
     phi_ref: torch.Tensor  # fresh midpoint max|phi| of the last accepted step
     norm0: torch.Tensor  # initial sum|psik|^2 dk^d
-    max_norm_err: torch.Tensor  # unitarity monitor (stays 0: no debug checks)
+    max_norm_err: torch.Tensor  # running max |norm/norm0 - 1| (debug checks; inf on NaN)
     dt_min: torch.Tensor  # dt range over the current dump interval
     dt_max: torch.Tensor
     replays: torch.Tensor  # int32: cumulative optimistic-dt replays
@@ -210,7 +219,7 @@ class Stepper:
     `Stepper` class itself defaults to "exact"). MSM_DT_SAFETY (clamped to
     [1e-3, 1]), MSM_DT_DECAY (clamped to [0, 1]) and
     MSM_DT_INIT_BOUND_SCALE (at least 0) are read here, with JAX's defaults
-    and clamps.
+    and clamps. debug_checks: carry the unitarity monitor max_norm_err.
     """
 
     def __init__(
@@ -220,12 +229,14 @@ class Stepper:
         device: "torch.device | str" = "cuda",
         tdtype: "torch.dtype | None" = None,
         dt_mode: str = "optimistic",
+        debug_checks: bool = False,
     ):
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
         if dt_mode not in DT_MODES:
             raise ValueError(f"dt_mode must be one of {DT_MODES}, got {dt_mode!r}")
         self.dt_mode = dt_mode
+        self.debug_checks = debug_checks
         self.dt_safety = min(1.0, max(1e-3, float(os.environ.get("MSM_DT_SAFETY", DT_SAFETY))))
         self.dt_decay = min(1.0, max(0.0, float(os.environ.get("MSM_DT_DECAY", DT_DECAY))))
         self.dt_init_bound_scale = max(
@@ -410,6 +421,15 @@ class Stepper:
         p = self.params
         return torch.sum(self._abs2(psik), dim=self._spatial_axes) * p.dk**p.dims
 
+    def _track_norm(self, state: SimState, nrm) -> torch.Tensor:
+        """The running unitarity monitor after a step whose norm is `nrm`
+        (debug checks only; else the state's value, untouched)."""
+        if not self.debug_checks:
+            return state.max_norm_err
+        err = torch.abs(nrm / state.norm0 - 1.0)
+        err = torch.where(torch.isfinite(err), err, torch.inf)
+        return torch.maximum(state.max_norm_err, err.to(state.max_norm_err.dtype))
+
     # ------------------------------------------------------------------
     # Physics pieces
     # ------------------------------------------------------------------
@@ -550,11 +570,12 @@ class Stepper:
         if self.fuse_phases:
             # the unskewed fused step (K12, K2, K3, K4, K13); its alias-band
             # sum is of the new psik, which the closing kick leaves as it is
-            mid, psik, _norm, alias, pm = self.engine.fused_step(
+            mid, psik, norm, alias, pm = self.engine.fused_step(
                 state.psik, self.consts, kick, adv.vtotal
             )
             del mid  # the drift midpoint's psi; psi comes from the closing inverse
             phi_max = pm.to(self.tdtype)
+            nrm = norm * p.dk**p.dims if self.debug_checks else None
             alias_mass = alias * p.dk**p.dims
         else:
             # the kinetic kick (K19), then the potential kick at the half
@@ -566,6 +587,7 @@ class Stepper:
                 psi = kernels.phase_rotate(psi, phi, vcoeff)
             psik = self._fwd(psi)
             del psi, phi
+            nrm = self._norm_measure(psik) if self.debug_checks else None
             alias_mass = self._alias_mass(psik)
         if self.dt_mode == "exact" or any_dump:
             psik = self._apply_kinetic(psik, adv.kcoeff)
@@ -574,10 +596,10 @@ class Stepper:
         else:
             psi = state.psi
             pending = adv.kcoeff
-        return self._finish_step(state, adv, psi, psik, alias_mass, phi_max, pending)
+        return self._finish_step(state, adv, psi, psik, alias_mass, phi_max, nrm, pending)
 
     def _finish_step(
-        self, state: SimState, adv: _Advance, psi, psik, alias_mass, pm_fresh, pending
+        self, state: SimState, adv: _Advance, psi, psik, alias_mass, pm_fresh, nrm, pending
     ) -> SimState:
         """Assemble the advanced state (`_finish_step` :905-957). Optimistic
         mode carries the predicted bound and validates: a stream whose dt
@@ -599,6 +621,7 @@ class Stepper:
             alias_mass=alias_mass,
             phi_max=self._predict_bound(pm_fresh, state) if optimistic else pm_fresh,
             phi_ref=pm_fresh,
+            max_norm_err=self._track_norm(state, nrm),
             pending_k=pending,
             dt_min=torch.minimum(state.dt_min, adv.dt),
             dt_max=torch.maximum(state.dt_max, adv.dt),
@@ -679,7 +702,7 @@ class Stepper:
         else:
             adv = self._scalar_advance(s)
             kick = s.pending_k + adv.kcoeff
-        q, _norm, alias, pm = self.engine.fused_step_skewed(q, self.consts, kick, adv.vtotal)
+        q, norm, alias, pm = self.engine.fused_step_skewed(q, self.consts, kick, adv.vtotal)
         # the sums describe the state ENTERING this iteration: a stream
         # whose last step aliased must not advance (the aliased update
         # completes, then the stream stops, :607-617); n_steps > 0 spares
@@ -721,19 +744,27 @@ class Stepper:
             ),
             replays=out.replays + invalid.to(torch.int32),
         )
+        if self.debug_checks:
+            out = dataclasses.replace(out, max_norm_err=torch.where(
+                active, self._track_norm(s, norm * dkd), s.max_norm_err
+            ))
         return out, any_active
 
     def _skew_exit(self, entry: SimState, final: SimState) -> SimState:
         """Materialize psi and psik from the carrier and account the last
-        step's alias mass (:1186-1215); streams that never stepped keep
-        their entry fields."""
+        step's alias mass and norm (:1186-1215); streams that never stepped
+        keep their entry fields."""
         p = self.params
-        psi, psik, _norm, alias = self.engine.skew_exit(
+        psi, psik, norm, alias = self.engine.skew_exit(
             final.psik, self.consts, final.pending_k
         )
         stepped = final.n_steps > entry.n_steps
         mass = alias * p.dk**p.dims
         gs = self._bcast(stepped)
+        if self.debug_checks:
+            final = dataclasses.replace(final, max_norm_err=torch.where(
+                stepped, self._track_norm(final, norm * p.dk**p.dims), final.max_norm_err
+            ))
         return dataclasses.replace(
             final,
             psi=torch.where(gs, psi, entry.psi),

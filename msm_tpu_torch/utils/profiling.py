@@ -1,15 +1,19 @@
-"""Progress line and step timer that `--verbose` prints.
+"""Progress line and step timer that `--verbose` prints, and the
+`--profile-dir` trace.
 
-Counterpart of the host-only parts of msm_tpu/utils/profiling.py: the
-reference's progress bar with ETA and live t readout
-(`simulation_object.rs:440-447,1210-1222`) and a steps/s and
-cell-updates/s counter. Host clocks only; a run that must be timed on the
-card ends its timed region with a device->host read (run_config's dump
+Counterpart of msm_tpu/utils/profiling.py: the reference's progress bar
+with ETA and live t readout (`simulation_object.rs:440-447,1210-1222`), a
+steps/s and cell-updates/s counter, and a profiler trace of the whole run
+(`profiler_trace`: torch.profiler where JAX takes jax.profiler). The
+progress line and timer use host clocks only; a run that must be timed on
+the card ends its timed region with a device->host read (run_config's dump
 fetches do).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -96,3 +100,30 @@ class StepTimer:
             f"({self.steps_per_s:.1f} steps/s, "
             f"{self.cell_updates_per_s:.3e} cell-updates/s)"
         )
+
+
+TRACE_NAME = "trace.json"
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """Trace the block with torch.profiler over the CPU and, when a card is
+    there, CUDA activities, and export it as a Chrome trace to
+    `{log_dir}/trace.json`, also when the block raises, as jax.profiler's
+    stop_trace does (no-op when log_dir is None)."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_NAME))

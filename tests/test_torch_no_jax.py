@@ -28,6 +28,7 @@ MODULES = (
     "msm_tpu_torch.io.checkpoint",
     "msm_tpu_torch.io.native",
     "msm_tpu_torch.io.npy",
+    "msm_tpu_torch.io.storage",
     "msm_tpu_torch.models.ics",
     "msm_tpu_torch.models.sampling",
     "msm_tpu_torch.ops.build",
@@ -212,7 +213,8 @@ def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
 
 def test_cli_requires_device():
     """The device defaults to the card: `cuda` unless --device cpu asks for
-    the kernels' plain versions, in the CLI, `run_config` and `Stepper`."""
+    the kernels' plain versions, in the CLI, `run_config`, `run_single` and
+    `Stepper`."""
     import inspect
 
     from msm_tpu_torch import simulator
@@ -222,18 +224,23 @@ def test_cli_requires_device():
     assert parse(["simulate", "--toml", "x.toml", "--device", "cpu"]).device == "cpu"
     with pytest.raises(SystemExit):
         parse(["simulate", "--toml", "x.toml", "--device", "tpu"])
-    for fn in (simulator.run_config, Stepper.__init__):
+    for fn in (simulator.run_config, simulator.run_single, Stepper.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize(
-    "extra",
-    [["--resume"], ["--sequential-streams"], ["--debug-checks"], ["--mesh", "auto"]],
+    "argv",
+    [
+        ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "auto"],
+        ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "space"],
+        ["bench"],
+        ["synthesize", "--toml", "x.toml", "--device", "cpu", "--multihost"],
+        ["synthesize", "--toml", "x.toml", "--device", "cpu", "--distributed"],
+    ],
 )
-def test_cli_rejects_unported_flags(extra):
-    """Flags of the JAX CLI that the port does not implement yet are
-    rejected, not silently ignored."""
+def test_cli_rejects_unported_flags(argv):
+    """What the JAX CLI has and the port does not implement yet (device
+    meshes, the bench, multi-process synthesis) is rejected, not silently
+    ignored."""
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(
-            ["simulate", "--toml", "x.toml", "--device", "cpu"] + extra
-        )
+        cli.build_parser().parse_args(argv)

@@ -126,7 +126,8 @@ def test_jax_sampled_batch_carried_across(tmp_path):
 def test_cli_writes_reference_layout(tmp_path):
     """`python -m msm_tpu_torch simulate --device cpu` at f64 writes the dump
     files (psi and, with output_potential, phi) and manifests of the JAX
-    simulator's run of the same config, with the same fields and counters."""
+    simulator's run of the same config, with the same fields and counters
+    (and, beside JAX's keys, the carried dt bound of its final state)."""
     toml_path = tmp_path / "collapse.toml"
     toml_path.write_text(COLLAPSE_TOML.replace("[ics]", "output_potential = true\n\n[ics]"))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -139,7 +140,7 @@ def test_cli_writes_reference_layout(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "cell-updates/s" in proc.stdout
 
-    jsimulator.run_config(
+    (jstate,) = jsimulator.run_config(
         jcfg.read_toml(str(toml_path)), jnp.complex128, data_root=str(tmp_path / "jax")
     )
     port_dir, jax_dir = tmp_path / "port" / "collapse", tmp_path / "jax" / "collapse"
@@ -152,9 +153,12 @@ def test_cli_writes_reference_layout(tmp_path):
             np.testing.assert_allclose(got, want, atol=1e-12)
     got_m = json.loads((port_dir / "manifest.json").read_text())
     want_m = json.loads((jax_dir / "manifest.json").read_text())
-    assert got_m.keys() == want_m.keys()
+    # the port's manifest also keeps the carried dt bound, for --resume
+    assert got_m.keys() == want_m.keys() | {"phi_max", "phi_ref"}
     for k in ("format_version", "current_dumps", "n_steps", "aliased", "replays", "time", "tau", "a"):
         assert got_m[k] == want_m[k], k
+    for k in ("phi_max", "phi_ref"):
+        assert got_m[k] == pytest.approx(float(np.asarray(getattr(jstate, k))), rel=1e-12), k
 
 
 def _noise_toml(tmp_path) -> str:

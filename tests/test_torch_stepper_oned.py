@@ -147,7 +147,8 @@ def test_run_config_matches_jax_mxu_1d(mxu_mode, tmp_path):
             np.testing.assert_allclose(got, want, atol=ATOL * max(1.0, np.abs(want).max()))
     got_m = json.loads((port_dir / "manifest.json").read_text())
     want_m = json.loads((jax_dir / "manifest.json").read_text())
-    assert got_m.keys() == want_m.keys()
+    # the port's manifest also keeps the carried dt bound, for --resume
+    assert got_m.keys() == want_m.keys() | {"phi_max", "phi_ref"}
     for k in ("format_version", "current_dumps", "n_steps", "aliased", "replays", "time", "tau", "a"):
         assert got_m[k] == want_m[k], k
     assert got_m["n_steps"] > 2
