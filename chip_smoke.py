@@ -2042,6 +2042,115 @@ def phase_simulate_flags(card: dict) -> None:
     emit({"phase": "simulate-flags", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
 
 
+# ---------------------------------------------------------------------------
+# bench: the port's `bench` at its defaults through the CLI, on the fused,
+# skewed engine and on `xla`
+# ---------------------------------------------------------------------------
+
+# run -> (MSM_FFT, the record's fft_mode, fused_phases, the kernels the run
+# must launch); MSM_FUSE_PHASES and MSM_SKEW_STEP unset
+BENCH_RUNS = {
+    "fused": ("mxu", "mxu", True, SKEW_KERNELS + EXACT_KERNELS + (
+        "axis_pass", "plane_pass", "plane_density_fwd", "axis_roundtrip_map",
+        "plane_pass_real_inv")),
+    "xla": (None, "xla", False, PHASE_KERNELS),
+}
+BENCH_STEPS = 100
+BENCH_KDK = ("exact_dt", "lagged_dt", "large_grid")
+BENCH_EXTRAS = ("exact_dt", "lagged_dt", "streams", "large_grid")
+
+
+def _bench_cli(msm_fft, budget: str) -> dict:
+    """`python -m msm_tpu_torch bench` at its defaults on the card, in
+    process, with MSM_FFT (None: unset) and MSM_BENCH_BUDGET_S: its JSON
+    records, wall seconds and kernel launches (set to 0 just before, read
+    just after). Its stdout is parsed, then written to stderr."""
+    from msm_tpu_torch import cli
+    from msm_tpu_torch.ops import kernels, mxu_fft
+
+    out = io.StringIO()
+    env = {"MSM_FFT": msm_fft, "MSM_FUSE_PHASES": None, "MSM_SKEW_STEP": None,
+           "MSM_BENCH_BUDGET_S": budget}
+    with env_vars(env), contextlib.redirect_stdout(out):
+        kernels.reset_launches()
+        mxu_fft.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["bench", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**kernels.launches, **mxu_fft.launches}
+    sys.stderr.write(out.getvalue())
+    check(rc == 0, f"bench returned {rc}")
+    lines = out.getvalue().splitlines()
+    check(bool(lines) and all(line.startswith("{") for line in lines),
+          f"bench printed other lines than JSON records: {lines[:3]}")
+    return {"records": [json.loads(line) for line in lines], "wall_s": wall,
+            "launches": launches}
+
+
+def phase_bench(card: dict) -> None:
+    """The CLI's `bench` at its defaults (256^3 x 1 stream, 100 steps,
+    --dt-mode all, MSM_BENCH_BUDGET_S=900) with MSM_FFT=mxu (the fused,
+    skewed engine) and with MSM_FFT unset (`xla`): five records, the
+    headline first and alone; every sub-record and extra present, none
+    skipped or failed; value > 0 and 0 < vs_dma_bound <= 1 for the
+    headline, exact, lagged and the 512^3 extra; the transforms and
+    fused-phase flag asked for; the card's name; each of the path's kernels
+    launched (K10 and K11 once an exact iteration). Then a run with
+    MSM_BENCH_BUDGET_S=0: the headline alone, then four skips. Each record
+    on its own line with the run's seconds."""
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    n_lo = max(2, BENCH_STEPS // 10)
+    # the exact sub-mode's chain: the warm-up, then two pairs of trip counts
+    exact_iterations = n_lo + 2 * (n_lo + n_lo + BENCH_STEPS)
+    for run, (msm_fft, fft_mode, fused, run_kernels) in BENCH_RUNS.items():
+        res = _bench_cli(msm_fft, "900")
+        records, launches = res["records"], res["launches"]
+        check(len(records) == 5, f"bench ({run}): {len(records)} records, not 5")
+        check(not set(BENCH_EXTRAS) & set(records[0]), f"bench ({run}): the headline is not alone")
+        last = records[-1]
+        for key in BENCH_EXTRAS:
+            check(isinstance(last.get(key), dict) and not {"skipped", "error"} & set(last[key]),
+                  f"bench ({run}): {key} is {last.get(key)}")
+        for name, rec in (("headline", last), *((k, last[k]) for k in BENCH_KDK)):
+            check(rec["value"] > 0 and rec["vs_dma_bound"] is not None
+                  and 0.0 < rec["vs_dma_bound"] <= 1.0,
+                  f"bench ({run}) {name}: value {rec['value']}, vs_dma_bound "
+                  f"{rec['vs_dma_bound']}")
+        for name, rec in (("headline", last), ("large_grid", last["large_grid"])):
+            check((rec["fft_mode"], rec["fused_phases"], rec["device"]) == (fft_mode, fused, kind),
+                  f"bench ({run}) {name}: {rec['fft_mode']}, fused {rec['fused_phases']}, "
+                  f"on {rec['device']}")
+        check(last["dt_mode"] == "optimistic", f"bench ({run}): headline in {last['dt_mode']}")
+        check("512^3" in last["large_grid"]["unit"], f"bench ({run}): {last['large_grid']['unit']}")
+        check(last["streams"]["metric"] == "streams_per_s" and last["streams"]["value"] > 0,
+              f"bench ({run}): streams {last['streams']}")
+        for k in run_kernels:
+            check(launches[k] > 0, f"the bench ({run}) launched {k} no time")
+        if fused:
+            for k in EXACT_KERNELS:
+                check(launches[k] == exact_iterations,
+                      f"the bench ({run}) launched {k} {launches[k]} times in "
+                      f"{exact_iterations} exact iterations")
+        emit({"phase": "bench", "run": run, "msm_fft": msm_fft, "record": last,
+              "ms_per_iteration": {
+                  name: 1e3 / rec["steps_per_s"]
+                  for name, rec in (("headline", last), *((k, last[k]) for k in BENCH_KDK))},
+              "wall_s": res["wall_s"],
+              "launches": {k: v for k, v in launches.items() if v}, **card})
+    res = _bench_cli("mxu", "0")
+    records = res["records"]
+    check(len(records) == 5 and not set(BENCH_EXTRAS) & set(records[0]),
+          f"bench (zero budget): {len(records)} records, the first {sorted(records[0])}")
+    check(all("wall budget" in records[-1][k].get("skipped", "") for k in BENCH_EXTRAS),
+          f"bench (zero budget): {[records[-1][k] for k in BENCH_EXTRAS]}")
+    check(records[0]["value"] > 0, "bench (zero budget): no headline")
+    emit({"phase": "bench", "run": "zero-budget", "headline": records[0], "last": records[-1],
+          "wall_s": res["wall_s"], **card})
+    emit({"phase": "bench", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
+
+
 def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
     """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
     return {
@@ -2075,6 +2184,7 @@ def main() -> int:
     phase_e2e(card)
     mains = {run: phase_main(card, run) for run in RUNS}
     phase_simulate_flags(card)
+    phase_bench(card)
     mains["engine-check"] = engine_check
     mains["probes"] = probe_run
     emit({

@@ -9,6 +9,9 @@
     python -m msm_tpu_torch synthesize --toml path.toml [--device cuda|cpu]
         [--data-root DIR] [--precision f32|f64] [--verbosity LEVEL]
         [--dump-range LO:HI] [--post-only]
+    python -m msm_tpu_torch bench [--device cuda|cpu] [--size N] [--dims D]
+        [--streams B] [--steps S] [--metric kdk|streams]
+        [--dt-mode optimistic|exact|lagged|all]
 
 Counterpart of msm_tpu/cli.py's `simulate` (`simulator/src/main.rs:9-17`)
 and `synthesize` (`synthesizer/src/main.rs:30-190`). `simulate` runs the
@@ -30,10 +33,14 @@ against `--check-eps` (default 1e-4 at f64, 1e-3 at f32);
 card unless `--device cpu` asks for the CPU (the kernels' plain versions,
 torch on the CPU); without a card, `cuda` raises and nothing falls back.
 An aliased stream is frozen and logged unless `--strict-alias` asks for
-the FourierAliasingError to be raised. The JAX CLI's device meshes
-(`simulate --mesh`), its `bench` subcommand and `synthesize`'s
-`--multihost` and `--distributed` are not ported yet, so argparse rejects
-them.
+the FourierAliasingError to be raised. `bench` (msm_tpu's `bench`,
+`utils/benchmarks.py`) prints the port's speed as JSON records on stdout:
+`--metric kdk` the KDK step's cell-updates/s on one grid, fail-soft under
+MSM_BENCH_BUDGET_S, `--metric streams` the ensemble's stream-dump
+intervals/s; on the card unless `--device cpu`. The JAX CLI's device
+meshes (`simulate --mesh`), the bench's `--metric scaling`,
+`--processes` and `--devices-per-proc`, and `synthesize`'s `--multihost`
+and `--distributed` are not ported yet, so argparse rejects them.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device), `mxu` (the
@@ -139,6 +146,24 @@ def cmd_synthesize(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .utils import benchmarks
+
+    _require_device(args.device)
+    benchmarks.main(args)
+    return 0
+
+
+def _add_device(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="cuda (default): the card, which must be there; cpu: the "
+        "kernels' plain versions and torch on the CPU",
+    )
+
+
 def _add_common(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--toml", required=True, help="path to the simulation toml")
     parser.add_argument(
@@ -150,13 +175,7 @@ def _add_common(parser: argparse.ArgumentParser) -> None:
         default="f32",
         help="complex64 (f32, time in float32) or complex128 (f64)",
     )
-    parser.add_argument(
-        "--device",
-        choices=("cuda", "cpu"),
-        default="cuda",
-        help="cuda (default): the card, which must be there; cpu: the "
-        "kernels' plain versions and torch on the CPU",
-    )
+    _add_device(parser)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -263,6 +282,37 @@ def build_parser() -> argparse.ArgumentParser:
         help="evaluate only post-combine scalars (Qx) from existing combines",
     )
     syn.set_defaults(fn=cmd_synthesize)
+
+    bench = sub.add_parser(
+        "bench",
+        help="run the performance benchmarks (JSON records on stdout)",
+        epilog="kdk: cell-updates/s of the KDK step, the optimistic-dt "
+        "headline first, then the exact and lagged sub-records and the "
+        "streams and large-grid (2 x size) extras, each within "
+        "MSM_BENCH_BUDGET_S (default 900 s); parse the last JSON line. "
+        "streams: the Wigner ensemble's stream-dump-intervals/s. MSM_FFT "
+        "chooses the transforms (auto, i.e. xla, when unset).",
+    )
+    # size/steps default per metric (utils/benchmarks.resolve_metric_defaults)
+    bench.add_argument("--size", type=int, default=None, help="grid size (default 256)")
+    bench.add_argument("--dims", type=int, default=3)
+    bench.add_argument(
+        "--streams", type=int, default=None,
+        help="batch of grids (default 1 for kdk and 128 for streams and the "
+        "kdk run's streams extra)",
+    )
+    bench.add_argument("--steps", type=int, default=None, help="timed steps (default 100)")
+    bench.add_argument("--metric", choices=("kdk", "streams"), default="kdk")
+    bench.add_argument(
+        "--dt-mode",
+        choices=("optimistic", "exact", "lagged", "all", "both"),
+        default="all",
+        dest="dt_mode",
+        help="all (default; both is its old name): the optimistic headline "
+        "with exact and lagged sub-records; or one mode alone",
+    )
+    _add_device(bench)
+    bench.set_defaults(fn=cmd_bench)
     return parser
 
 

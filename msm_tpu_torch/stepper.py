@@ -790,12 +790,17 @@ class Stepper:
         return self._skew_exit(state, s)
 
     def _chain_n_steps(self, state: SimState, n: int) -> SimState:
-        """Exactly n iterations of the skewed loop's body (no dump or alias
-        exit), then its exit (msm_tpu's `_chain_n_steps`, :1524-1547): the
-        slope between two n measures the steady-state cost of an
-        iteration."""
+        """Exactly n iterations of the evolve loop's body with no dump or
+        alias exit (msm_tpu's `_chain_n_steps`, :1524-1547): the slope
+        between two n measures the steady-state cost of an iteration. The
+        skewed engine runs its loop body n times between its entry and
+        exit; every other path runs `step()` n times (JAX's
+        `fori_loop(0, n, _step)`), with the loop's one device->host read
+        an iteration."""
         if not self.skew:
-            raise NotImplementedError("_chain_n_steps runs the skewed loop only")
+            for _ in range(n):
+                state = self.step(state)
+            return state
         finished = state.current_dumps >= self.params.num_data_dumps
         s = dataclasses.replace(state, psik=self.engine.skew_enter(state.psik))
         for _ in range(n):

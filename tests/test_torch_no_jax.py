@@ -40,6 +40,7 @@ MODULES = (
     "msm_tpu_torch.simulator",
     "msm_tpu_torch.stepper",
     "msm_tpu_torch.synthesis",
+    "msm_tpu_torch.utils.benchmarks",
     "msm_tpu_torch.utils.profiling",
 )
 
@@ -233,14 +234,28 @@ def test_cli_requires_device():
     [
         ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "auto"],
         ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "space"],
-        ["bench"],
+        ["bench", "--device", "cpu", "--metric", "scaling"],
         ["synthesize", "--toml", "x.toml", "--device", "cpu", "--multihost"],
         ["synthesize", "--toml", "x.toml", "--device", "cpu", "--distributed"],
     ],
 )
 def test_cli_rejects_unported_flags(argv):
     """What the JAX CLI has and the port does not implement yet (device
-    meshes, the bench, multi-process synthesis) is rejected, not silently
-    ignored."""
+    meshes, the bench's scaling sweep, multi-process synthesis) is
+    rejected, not silently ignored."""
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(argv)
+
+
+def test_cli_bench_parses_and_needs_the_card(monkeypatch):
+    """`bench` parses with JAX's defaults, on the card unless --device cpu
+    asks for the CPU; without a card it raises before measuring."""
+    args = cli.build_parser().parse_args(["bench"])
+    assert (args.device, args.metric, args.dt_mode, args.dims) == ("cuda", "kdk", "all", 3)
+    assert (args.size, args.steps, args.streams) == (None, None, None)
+    for flags in (["--processes", "2"], ["--devices-per-proc", "4"]):
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(["bench", *flags])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["bench", "--size", "16", "--steps", "4"])
