@@ -135,6 +135,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             check too), and that every K11 launch of the exact run took the
             cluster form; then compares the runs (with each run's
             `torch.cuda.max_memory_allocated`, `peak_bytes`)
+  2d restore
+            the evolve loop's masked_restore (csrc/restore_kernels.cu, no
+            TPU kernel) against torch.where bit for bit at (9, 256^3) and
+            (256, 1024), c64 and c128, every stream advancing, half and all
+            frozen: the medians of each, torch.where's, and their bounds
   5 simulate-flags
             the rest of `simulate` through the CLI on the card (each
             item's line with the card's name and power limit): --resume
@@ -158,11 +163,31 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             run with --profile-dir whose trace names K1-K4, beside the run
             without; --test writing no psi dump
 
+  6 bench   the CLI's `bench` at its defaults, fused and `xla`, and with a
+            zero budget
+  7 graphs  the evolve loop as replayed CUDA graphs against the same chunks
+            run eagerly (`Stepper(graphs=False)`), on the first two dump
+            intervals of the fused engine (optimistic at `main`'s 256^3 x 9;
+            exact and lagged at 128^3 x 3), the fused engine expanding
+            (256^3 x 9), the unskewed engine in exact dt, `xla` and unfused
+            `mxu` (128^3 x 3) and 1-D `mxu` (1024 x 256): the states bit for
+            bit, identical counters and launches, the iterations the loop
+            ran against those the chunks executed (the waste), the host
+            reads and ms per iteration of both in the second interval run
+            again in turns (eager, graphed, graphed, eager: the steady
+            state, every graph captured), and the device's idle share of
+            the fused static run (that interval under torch.profiler); the
+            bench's headline graphed and eager in turns; `simulate` with
+            MSM_INTERVAL_BLOCK unset against 1 (fused) and
+            MSM_MAX_STEPS_PER_DISPATCH=4 against 0 (`xla`), the same bytes
+            and manifests; the peak memory of the fused 512^3 x 4 chunk
+
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
 and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
-from the engine check; P1/P2 from the probe run), with `floor_ms` (its
+from the engine check; P1/P2 from the probe run; masked_restore, which replaces no TPU kernel, the
+fused run's), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2, K10, K11
 and K7 with their form, cluster size and the forced split form's median,
@@ -180,6 +205,7 @@ checkout, it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import importlib.util
 import io
@@ -199,6 +225,7 @@ import torch
 PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
+RESTORE_SOURCE = "msm_tpu_torch/ops/csrc/restore_kernels.cu"
 # K6, K17, K9, K4, K2, K10, K11 and K7 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
@@ -230,6 +257,8 @@ KERNELS = {
     "axis_inv_map": (AXIS_SOURCE, "msm_tpu/ops/mxu_fft.py:839"),
     "copy_pass": (COPY_SOURCE, "scripts/microbench_mxu.py:115"),
     "copy_pass_lane": (COPY_SOURCE, "scripts/probe_mxu_floor.py:101"),
+    # no TPU kernel: JAX's evolve loop freezes with a lax.cond of a select
+    "masked_restore": (RESTORE_SOURCE, "msm_tpu/stepper.py:1122"),
 }
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
 LANE_KERNELS = ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -265,6 +294,7 @@ OWN_RUN = {
     **{k: "mxu-1d" for k in LANE_KERNELS},
     "axis_inv_map": "engine-check",
     **{k: "probes" for k in PROBE_KERNELS},
+    "masked_restore": "fused",
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -665,6 +695,70 @@ def phase_kernels(card: dict) -> dict:
                 if shape == MAIN_SHAPE and cdtype == torch.complex64:
                     main[name] = rec
             del z, field, cases
+            torch.cuda.empty_cache()
+    return main
+
+
+def phase_restore(card: dict) -> dict:
+    """masked_restore (the evolve loop's freeze, replacing no TPU kernel)
+    against its plain version torch.where, bit for bit, at the main shape
+    (9, 256^3) and the 1-D main run's (256, 1024), c64 and c128, with every
+    stream advancing, half of them frozen and all: the median of 20 launches
+    in place in each case, torch.where's, and the bound (2 x the frozen
+    streams' bytes and the mask at 3.35 TB/s). Returns the main shape's c64
+    record: `ms` and `bound_ms` with every stream advancing (the steady
+    state; `slope_ms` its device time between chains of launches, which
+    hides the host's time per call), `ms_half_frozen` and
+    `bound_ms_half_frozen` beside them."""
+    from msm_tpu_torch.ops import kernels
+    from msm_tpu_torch.ops.probes import HBM_BYTES_PER_S
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    main = {}
+    for cdtype in (torch.complex64, torch.complex128):
+        for shape in (MAIN_SHAPE, (256, 1024)):
+            new = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+            old = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+            b = shape[0]
+            stream_bytes = new[0].numel() * new.element_size()
+            masks = {"all": torch.ones(b, dtype=torch.bool, device="cuda"),
+                     "half": torch.arange(b, device="cuda") % 2 == 0,
+                     "none": torch.zeros(b, dtype=torch.bool, device="cuda")}
+            cases = {}
+            for key, mask in masks.items():
+                want = kernels.masked_restore_plain(new, old, mask)
+                got = kernels.masked_restore(new.clone(), old, mask)
+                exact = _bitwise(got, want)
+                del got, want
+                work = new.clone()
+                nbytes = 2 * (b - int(mask.sum())) * stream_bytes + b
+                cases[key] = {"bit_exact": exact,
+                              "ms": median_ms(lambda: kernels.masked_restore(work, old, mask)),
+                              "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                del work
+                check(exact, f"masked_restore {cdtype} {shape} ({key}): not bit for bit")
+            where_ms = median_ms(lambda: torch.where(masks["half"].view((-1,) + (1,) * (
+                len(shape) - 1)), new, old))
+            # the steady state's device time: a median carries the host's
+            # time per call, far above blocks that exit at once
+            work = new.clone()
+            slope = device_slope_ms(lambda: kernels.masked_restore(work, old, masks["all"]))
+            del work
+            rec = {
+                "phase": "kernels", "kernel": "masked_restore",
+                "dtype": str(cdtype).split(".")[-1], "shape": list(shape), "max_abs_err": 0.0,
+                "ms": cases["all"]["ms"], "slope_ms": slope, "bound_ms": cases["all"]["bound_ms"],
+                "bytes": cases["all"]["bytes"], "bound_by": "bytes",
+                "ms_half_frozen": cases["half"]["ms"],
+                "bound_ms_half_frozen": cases["half"]["bound_ms"],
+                "ms_all_frozen": cases["none"]["ms"],
+                "bound_ms_all_frozen": cases["none"]["bound_ms"],
+                "plain_ms": where_ms, "library_ms": where_ms, "cases": cases, **card,
+            }
+            emit(rec)
+            if shape == MAIN_SHAPE and cdtype == torch.complex64:
+                main["masked_restore"] = rec
+            del new, old
             torch.cuda.empty_cache()
     return main
 
@@ -1905,31 +1999,34 @@ def _flags_debug(card: dict, work: str) -> None:
 
 @contextlib.contextmanager
 def _timed_evolve():
-    """CUDA events around each `Stepper.evolve_to_next_dump` (the interval's
-    loop, without its dump writes), read after the run."""
+    """CUDA events around each run of the evolve loop (`Stepper._evolve`:
+    the interval's bounded dispatches, which `simulate` takes by default
+    for a state of MSM_CHUNK_BYTES or more, and its evolve; without the
+    dump writes), read after the run."""
     from msm_tpu_torch.stepper import Stepper
 
-    events, evolve = [], Stepper.evolve_to_next_dump
+    events, evolve = [], Stepper._evolve
 
-    def timed(self, state):
+    def timed(self, state, max_steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = evolve(self, state)
+        out = evolve(self, state, max_steps)
         end.record()
         events.append((start, end))
         return out
 
-    Stepper.evolve_to_next_dump = timed
+    Stepper._evolve = timed
     try:
         yield events
     finally:
-        Stepper.evolve_to_next_dump = evolve
+        Stepper._evolve = evolve
 
 
 def _flags_monitor_cost(card: dict, work: str) -> None:
     """`main`'s fused c64 config at 256^3 x 9 over one dump interval,
     without and with --debug-checks: the evolve loop's ms per iteration
-    (CUDA events around the interval over K4's launches), the StepTimer
+    (CUDA events around its runs, the interval's bounded dispatches and the
+    graphs' captures included, over K4's launches), the StepTimer
     line's (dumps and, with the flag, `_debug_validate` of every dump
     included) and the same launches; then the time to rebuild the 9-grid
     state from the dumps (`_try_resume_batch`: nine 134 MB dumps read, K6
@@ -2102,8 +2199,9 @@ def phase_bench(card: dict) -> None:
     t0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     n_lo = max(2, BENCH_STEPS // 10)
-    # the exact sub-mode's chain: the warm-up, then two pairs of trip counts
-    exact_iterations = n_lo + 2 * (n_lo + n_lo + BENCH_STEPS)
+    # the exact sub-mode's chain: the warm-up (n_lo + steps: every chunk
+    # graph's capture), then two pairs of trip counts
+    exact_iterations = n_lo + BENCH_STEPS + 2 * (n_lo + n_lo + BENCH_STEPS)
     for run, (msm_fft, fft_mode, fused, run_kernels) in BENCH_RUNS.items():
         res = _bench_cli(msm_fft, "900")
         records, launches = res["records"], res["launches"]
@@ -2151,6 +2249,285 @@ def phase_bench(card: dict) -> None:
     emit({"phase": "bench", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
 
 
+# ---------------------------------------------------------------------------
+# graphs: the evolve loop as replayed CUDA graphs against the same chunks
+# run eagerly, the interval blocking and bounded dispatch of `simulate`, and
+# the fused 512^3 x 4 chunk's peak memory
+# ---------------------------------------------------------------------------
+
+# run -> (path, dt mode, config, size, Wigner streams, end time): `main`'s
+# configs at their widths for the runs whose times PERF.md predicts (over a
+# shorter time: the per-iteration time is what is compared), 128^3 with two
+# streams (+ MFT) for the others
+GRAPH_RUNS = {
+    "fused": ("fused", "optimistic", "tophat", 256, 8, 40.0),
+    "fused-exact": ("fused", "exact", "tophat", 128, 2, 40.0),
+    "fused-lagged": ("fused", "lagged", "tophat", 128, 2, 40.0),
+    "fused-expanding": ("fused", "optimistic", "cosmo", 256, 8, 40.0),
+    "unskewed-exact": ("unskewed", "exact", "tophat", 128, 2, 40.0),
+    "xla": ("xla", "optimistic", "tophat", 128, 2, 40.0),
+    "mxu": ("mxu", "optimistic", "tophat", 128, 2, 40.0),
+    "mxu-1d": ("mxu-1d", "optimistic", "gauss1d", 1024, 255, 10.0),
+}
+# the run whose steady interval is profiled too, graphed and eager: the
+# device's idle share (the others': scripts/profile_torch_paths.py)
+IDLE_RUNS = ("fused",)
+# the bench's headline (256^3 x 1 stream, 100 steps) graphed and eager
+BENCH_TURNS = (False, True, True, False)
+
+
+def sampled_batch(config: str, size: int, seeds: int, dtype=torch.complex64, final=None):
+    """The sampled (seeds + 1, *grid) batch of a main configuration on the
+    card (3 dumps over t = `final`, by default 40 or FINAL's end for the
+    config) and the MFT's parameters."""
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch.models.ics import build_ics
+    from msm_tpu_torch.models.sampling import sample_stream_batch
+
+    template, name = CONFIGS[config][:2]
+    text = template.format(final=final or FINAL.get(config, 40), dumps=3, name=name, size=size)
+    if seeds:
+        text += f'\n[sampling]\nseeds  = "1 to {seeds}"\nscheme = "Wigner"\n'
+    params = list(cfg.iter_stream_parameters(cfg.parse_toml_str(text)))
+    mft = params[-1]
+    base = torch.as_tensor(build_ics(mft)).to("cuda", dtype)
+    if not seeds:
+        return base[None], mft
+    sampled = sample_stream_batch(
+        base, mft, [p.sampling.seed for p in params[:-1]], params[0].sampling.scheme
+    )
+    return torch.cat([sampled, base[None]]), mft
+
+
+def _interval_twice(dt_mode: str, batch, mft) -> dict:
+    """A graphed and an eager stepper of one run, each through its first
+    two dump intervals (a branch's first chunk eager, every chunk length's
+    graph captured at its first use)."""
+    from msm_tpu_torch.stepper import Stepper
+
+    runs = {}
+    for graphs in (True, False):
+        st = Stepper(mft, torch.complex64, "cuda", dt_mode=dt_mode, graphs=graphs)
+        first = st.snap_after_dump(st.evolve_to_next_dump(st.init_state(batch)))
+        second = st.evolve_to_next_dump(first)
+        torch.cuda.synchronize()
+        runs["graphs" if graphs else "eager"] = {"st": st, "first": first, "second": second}
+    return runs
+
+
+def _timed_rerun(r: dict, profile: bool = False) -> dict:
+    """The second interval once more from the same state (the steady
+    state: every graph captured): its wall, launches and the loop's counts,
+    or with `profile` the device's busy ms per iteration under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from msm_tpu_torch.ops import kernels, mxu_fft
+
+    st = r["st"]
+    stats0 = dict(st.stats)
+    kernels.reset_launches()
+    mxu_fft.reset_launches()
+    prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof:
+        again = st.evolve_to_next_dump(r["first"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(_bitwise(getattr(again, f.name), getattr(r["second"], f.name))
+              for f in dataclasses.fields(type(again))),
+          "graphs: the second interval run twice differs")
+    stats = {k: v - stats0[k] for k, v in st.stats.items()}
+    out = {"wall_s": wall, "stats": stats,
+           "launches": {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches}}
+    if profile:
+        out["device_ms_per_iteration"] = sum(
+            e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == DeviceType.CUDA) / stats["iterations"]
+    return out
+
+
+def _bitwise(a, b) -> bool:
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return bool(torch.equal(a, b))
+
+
+def _graphs_runs(card: dict) -> None:
+    """Each GRAPH_RUNS run's first two intervals graphed and eager: psi,
+    psik and every counter bit for bit after each. Then the second interval
+    once more from the same state in turns (eager, graphed, graphed, eager;
+    the steady state, every graph captured), timed with the host clock
+    around work that ends in a synchronize: identical kernel launches, its
+    iterations (JAX's while_loop runs the same) against those the chunks
+    executed, its host reads and ms per iteration of both turns of each;
+    for IDLE_RUNS once more under torch.profiler, the device's idle share
+    (1 - busy over the faster turn's ms per iteration)."""
+    from msm_tpu_torch.stepper import SimState
+
+    for run, (path, dt_mode, config, size, streams, final) in GRAPH_RUNS.items():
+        batch, mft = sampled_batch(config, size, streams, final=final)
+        with fft_mode(path):
+            both = _interval_twice(dt_mode, batch, mft)
+            del batch
+            same = {
+                f.name: all(_bitwise(getattr(both["graphs"][k], f.name),
+                                     getattr(both["eager"][k], f.name))
+                            for k in ("first", "second"))
+                for f in dataclasses.fields(SimState)
+            }
+            turns = {"graphs": [], "eager": []}
+            for key in ("eager", "graphs", "graphs", "eager"):
+                turns[key].append(_timed_rerun(both[key]))
+            idle = {}
+            if run in IDLE_RUNS:
+                for key in ("graphs", "eager"):
+                    busy = _timed_rerun(both[key], profile=True)["device_ms_per_iteration"]
+                    it = turns[key][0]["stats"]["iterations"]
+                    fastest = min(t["wall_s"] for t in turns[key]) * 1e3 / it
+                    idle[key] = {"device_ms_per_iteration": busy,
+                                 "device_idle_share": 1.0 - busy / fastest}
+        g, e = turns["graphs"][0], turns["eager"][0]
+        s = both["graphs"]["second"]
+        rec = {
+            "phase": "graphs", "run": run, "path": path, "dt_mode": dt_mode,
+            "config": f"{config} {size}^{CONFIGS[config][2]}, {streams} Wigner + MFT, c64, "
+                      f"3 dumps over t={final:g}",
+            "bit_exact": same, "launches_equal": g["launches"] == e["launches"],
+            "n_steps_range": [int(s.n_steps.min()), int(s.n_steps.max())],
+            "replays": int(s.replays.sum()), "aliased": int(s.aliased.sum()),
+            "iterations": g["stats"]["iterations"],
+            "executed": {"graphs": g["stats"]["executed"], "eager": e["stats"]["executed"]},
+            "waste_iterations": g["stats"]["executed"] - g["stats"]["iterations"],
+            "chunks": g["stats"]["chunks"],
+            "host_reads_per_interval": g["stats"]["host_reads"],
+            "ms_per_iteration": {
+                k: [t["wall_s"] * 1e3 / t["stats"]["iterations"] for t in v]
+                for k, v in turns.items()},
+            **({"idle": idle} if idle else {}),
+            **card,
+        }
+        emit(rec)
+        check(all(same.values()), f"graphs {run}: not bit for bit: {same}")
+        check(rec["launches_equal"], f"graphs {run}: launches differ")
+        check(g["stats"]["iterations"] == e["stats"]["iterations"] > 0,
+              f"graphs {run}: iterations {g['stats']} against {e['stats']}")
+        check(int(s.current_dumps.min()) == 1 and bool(s.just_dumped.all()),
+              f"graphs {run}: the second interval did not end on its dump")
+        del both, turns, s
+        torch.cuda.empty_cache()
+
+
+def _graphs_bench(card: dict) -> None:
+    """The bench's headline (`run_kdk_bench`, 256^3 x 1 stream, 100 steps,
+    optimistic) with the chain graphed and eager, in turns."""
+    from msm_tpu_torch.utils import benchmarks
+
+    turns = []
+    with env_vars({"MSM_FFT": "mxu", "MSM_FUSE_PHASES": None, "MSM_SKEW_STEP": None}):
+        for graphs in BENCH_TURNS:
+            rec = benchmarks.run_kdk_bench(256, 3, 1, BENCH_STEPS, "optimistic", "cuda",
+                                           graphs=graphs)
+            turns.append({"graphs": graphs, "ms_per_iteration": 1e3 / rec["steps_per_s"],
+                          "value": rec["value"], "vs_dma_bound": rec["vs_dma_bound"]})
+    emit({"phase": "graphs", "item": "bench-headline", "turns": turns, **card})
+
+
+def _files_equal(a: str, b: str) -> dict:
+    """Every file of two simulate roots: npy bytes equal, manifests equal
+    but for wall_time_ms."""
+    differ, count = [], 0
+    for dirpath, _, names in os.walk(a):
+        for name in names:
+            pa = os.path.join(dirpath, name)
+            pb = os.path.join(b, os.path.relpath(pa, a))
+            count += 1
+            if name == "manifest.json":
+                ma, mb = (json.load(open(p)) for p in (pa, pb))
+                ma.pop("wall_time_ms", None)
+                mb.pop("wall_time_ms", None)
+                if ma != mb:
+                    differ.append(pa)
+            elif not os.path.exists(pb) or open(pa, "rb").read() != open(pb, "rb").read():
+                differ.append(pa)
+    return {"files": count, "differ": [os.path.relpath(p, a) for p in differ]}
+
+
+def _graphs_simulate(card: dict, work: str) -> None:
+    """`simulate` (128^3 c128, 2 Wigner + MFT, 4 dumps): on the fused
+    engine MSM_INTERVAL_BLOCK unset (4 intervals a dispatch here) against
+    1; on `xla` MSM_MAX_STEPS_PER_DISPATCH=4 against 0 (with one interval a
+    dispatch): the same dump bytes and manifests. (The fused, skewed
+    engine's bounded dispatch leaves through its exit, which materializes
+    psi, so its trajectory equals the unbounded one to rounding only, in
+    JAX as here.)"""
+    toml_path, _ = _flags_toml(work, "graphs-block", 4)
+    roots = {}
+    for key, path, env in (
+            ("block-unset", "fused", {"MSM_INTERVAL_BLOCK": None}),
+            ("block-1", "fused", {"MSM_INTERVAL_BLOCK": "1"}),
+            ("chunk-4", "xla", {"MSM_INTERVAL_BLOCK": "1", "MSM_MAX_STEPS_PER_DISPATCH": "4"}),
+            ("chunk-0", "xla", {"MSM_INTERVAL_BLOCK": "1", "MSM_MAX_STEPS_PER_DISPATCH": "0"})):
+        roots[key] = os.path.join(work, key)
+        with env_vars({"MSM_MAX_STEPS_PER_DISPATCH": None, **env}):
+            run = _simulate(toml_path, roots[key], path=path)
+        check(run["launches"][ITERATION_KERNEL[path]] > 0, f"simulate {key}: no iteration")
+    for a, b in (("block-unset", "block-1"), ("chunk-4", "chunk-0")):
+        cmp = _files_equal(roots[a], roots[b])
+        emit({"phase": "graphs", "item": "simulate", "runs": [a, b], **cmp, **card})
+        check(cmp["files"] > 0 and not cmp["differ"], f"simulate {a} against {b}: {cmp}")
+
+
+def _graphs_peak(card: dict) -> None:
+    """The fused engine at 512^3 x 4 (a Gaussian four times, on the tophat
+    config's box), c64:
+    the peak of torch.cuda.max_memory_allocated over the state build and
+    two graphed chunks of 32 iterations (`evolve_bounded`), against PR 13's
+    35434552320 bytes for the whole run."""
+    from msm_tpu_torch.stepper import Stepper
+
+    from msm_tpu_torch import config as cfg
+
+    text = TOPHAT.format(final=40, dumps=3, name="peak", size=512)
+    mft = list(cfg.iter_stream_parameters(cfg.parse_toml_str(text)))[-1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # a Gaussian of width 3 at the box's centre, made on the card
+    x = (torch.arange(512, dtype=torch.float64, device="cuda") + 0.5) * mft.dx - 15.0
+    base = torch.exp(-(x[:, None, None] ** 2 + x[None, :, None] ** 2 + x[None, None, :] ** 2)
+                     / 18.0)
+    base = (base / torch.sqrt(torch.sum(base**2) * mft.dx**3)).to(torch.complex64)
+    del x
+    with fft_mode("fused"):
+        st = Stepper(mft, torch.complex64, "cuda")
+        s = st.init_state(base.expand(4, -1, -1, -1).contiguous())
+        del base
+        s, _ = st.evolve_bounded(s, 64)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "graphs", "item": "peak-512", "config": "tophat 512^3 x 4, c64, fused",
+          "iterations": st.stats["iterations"], "chunks": st.stats["chunks"],
+          "peak_bytes": peak, "reserved_bytes": torch.cuda.max_memory_reserved(),
+          "pr13_peak_bytes": 35434552320, **card})
+    check(peak < 80e9, f"the 512^3 x 4 chunk's peak is {peak} bytes")
+    del st, s
+    torch.cuda.empty_cache()
+
+
+def phase_graphs(card: dict) -> None:
+    t0 = time.perf_counter()
+    _graphs_runs(card)
+    _graphs_bench(card)
+    with tempfile.TemporaryDirectory() as work:
+        _graphs_simulate(card, work)
+    _graphs_peak(card)
+    emit({"phase": "graphs", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
+
+
 def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
     """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
     return {
@@ -2176,6 +2553,7 @@ def main() -> int:
     floor = phase_floor(card)
     measured = dict(floor["records"])
     measured.update(phase_kernels(card))
+    measured.update(phase_restore(card))
     measured.update(phase_fft_kernels(card))
     measured.update(phase_fused_kernels(card))
     measured.update(phase_lane_kernels(card))
@@ -2185,6 +2563,7 @@ def main() -> int:
     mains = {run: phase_main(card, run) for run in RUNS}
     phase_simulate_flags(card)
     phase_bench(card)
+    phase_graphs(card)
     mains["engine-check"] = engine_check
     mains["probes"] = probe_run
     emit({
@@ -2246,6 +2625,14 @@ def main() -> int:
             # stages form's median
             **({"form": measured[k]["form"], "stages_ms": measured[f"{k}/stages"]["ms"]}
                if k in mxu_fft.AXIS_FORM_KERNELS else {}),
+            # masked_restore: no TPU kernel; its times with half and all the
+            # streams frozen beside the steady state's
+            **({"note": "replaces no TPU kernel: the evolve loop's freeze, JAX's "
+                        "lax.cond(all(mask), new, select)",
+                **{key: measured[k][key] for key in (
+                    "slope_ms", "ms_half_frozen", "bound_ms_half_frozen", "ms_all_frozen",
+                    "bound_ms_all_frozen")}}
+               if k == "masked_restore" else {}),
             # P1/P2: the device slopes of the kernel and of Tensor.copy_
             **({"slope_ms": measured[k]["slope_ms"],
                 "library_slope_ms": measured[k]["library_slope_ms"]}

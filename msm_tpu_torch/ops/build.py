@@ -25,7 +25,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(
     os.path.join(_CSRC, name)
-    for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu", "copy_kernels.cu")
+    for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu", "copy_kernels.cu",
+                 "restore_kernels.cu")
 )
 # headers the sources include: part of the library's hash, not compiled alone
 HEADERS = tuple(
@@ -106,6 +107,8 @@ _SIGNATURES = {
     "msm_poisson_multiply": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # a, b, ca, cb, n, stream
     "msm_copy_planes": [_P, _P, _P, _P, _I64, _P],
+    # new, old, mask, batch, bytes a stream, stream
+    "msm_masked_restore": [_P, _P, _P, _I64, _I64, _P],
 }
 
 

@@ -6,6 +6,11 @@ Counterparts of msm_tpu/ops/pallas_kernels.py:
   poisson_multiply : z * scale_b / q^2, q = 0 -> 0, q^2 from indices (K20)
   phase_rotate     : z * exp(i * coeff_b * field)                     (K21)
 
+and the evolve loop's per-stream freeze, which replaces no TPU kernel:
+
+  masked_restore   : new[b] = old[b] where mask[b] is False, in place
+                     (JAX's `lax.cond(all(mask), new, select)`)
+
 A CUDA tensor goes to the hand-written Hopper kernel in
 `csrc/phase_kernels.cu` (built by `ops.build`); a CPU tensor goes to the
 plain torch version beside it, which is the same math. There is no other
@@ -26,7 +31,7 @@ import torch
 from . import build
 from .phase import apply_potential_phase, rotate
 
-launches = {"kinetic_phase": 0, "poisson_multiply": 0, "phase_rotate": 0}
+launches = {"kinetic_phase": 0, "poisson_multiply": 0, "phase_rotate": 0, "masked_restore": 0}
 
 
 def reset_launches() -> None:
@@ -195,3 +200,45 @@ def phase_rotate(
     build.check(rc, "phase_rotate")
     launches["phase_rotate"] += 1
     return out
+
+
+def masked_restore_plain(new: torch.Tensor, old: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of `masked_restore`: a new tensor."""
+    return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+def masked_restore(new: torch.Tensor, old: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """new where mask[b], else old, per stream b: the evolve loop's freeze
+    of the streams that do not advance.
+
+    new, old: (B, ...) of one shape and dtype; mask: (B,) bool. On the card
+    the kernel (`csrc/restore_kernels.cu`) copies old into new in place for
+    the streams whose mask is False and returns new; a stream whose mask is
+    True costs its blocks one flag read. Use the return value: the CPU's
+    plain version is `torch.where`, a new tensor.
+    """
+    if new.device.type == "cpu":
+        return masked_restore_plain(new, old, mask)
+    if new.device.type != "cuda":
+        raise ValueError(f"no masked_restore kernel for device {new.device}")
+    if old.shape != new.shape or old.dtype != new.dtype or old.device != new.device:
+        raise ValueError(f"old {tuple(old.shape)} {old.dtype} does not match new")
+    if mask.dtype != torch.bool or mask.shape != new.shape[:1] or mask.device != new.device:
+        raise ValueError(f"mask must be ({new.shape[0]},) bool on {new.device}")
+    if new.shape[0] > 65535:
+        raise ValueError(f"batch {new.shape[0]} exceeds the launch grid (65535)")
+    new = new.contiguous()
+    old = old.contiguous()
+    mask = mask.contiguous()
+    nbytes = new[0].numel() * new.element_size()
+    if nbytes % 8 or new.data_ptr() % 8 or old.data_ptr() % 8:
+        raise ValueError("masked_restore takes 8-byte aligned streams")
+    lib = build.load()
+    with torch.cuda.device(new.device):
+        rc = lib.msm_masked_restore(
+            new.data_ptr(), old.data_ptr(), mask.data_ptr(), new.shape[0], nbytes,
+            torch.cuda.current_stream(new.device).cuda_stream,
+        )
+    build.check(rc, "masked_restore")
+    launches["masked_restore"] += 1
+    return new

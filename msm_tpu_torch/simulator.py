@@ -8,8 +8,23 @@ Counterpart of msm_tpu/simulator.py on one device (`simulator/src/main.rs:
   boundary, and the host writes the npy dumps and manifests. With
   `batch_streams=False` (`--sequential-streams`) each run goes through
   `run_single` in turn, the reference's shape.
-- `run_single`: one run as a batch of one, through the same one-interval
-  loop (`_drive`).
+- `run_single`: one run as a batch of one, through the same driver
+  (`_drive`).
+
+The driver is msm_tpu's dispatch layer (simulator.py:137-237, the blocked
+and speculative loops of `run_single` :690-796 and `run_config`
+:1044-1250): each dispatch advances `_interval_block_k` dump intervals
+(`Stepper.evolve_intervals`) and returns their stacked dump payload; with
+`_chunk_steps_per_dispatch` above 0 the interval is first stepped in
+bounded dispatches (`_bounded_prelude`); when `_speculation_ok`, block i+1
+is dispatched before block i's host work, while block i's payload travels
+to pinned host memory on a side stream (`_Fetch`) and its files go through
+the async writer. The stepper's evolve loop itself runs on the device in
+chunks, replayed as CUDA graphs on the card (`Stepper`). JAX donates the
+state it dispatches (MSM_DONATE, msm_tpu/stepper.py:123); torch has no
+donation, and the port's loop updates its own state buffers in place
+instead, so no MSM_DONATE is read and `_speculation_ok` budgets one state
+unless its caller says otherwise, as JAX's default does.
 
 An aliased stream is frozen and its FourierAliasingError logged, and the
 others go on, as msm_tpu's `run_config` does by default; with
@@ -23,8 +38,8 @@ the progress line.
 With `online_synthesis` the `-combined/` ensemble averages and the Qx
 series are written during the run (msm_tpu's blocked path, simulator.py:
 955-1165): dump 0 through `OnlineCombiner.on_dump`, every later dump from
-the stepper's combine row (`Stepper.combine_row`), whose scalars ride the
-host read the loop makes after each interval.
+the stepper's combine row (`Stepper.combine_row`), which rides the block's
+payload.
 
 `resume` restarts every run from its manifest and last psi dump
 (`_try_resume_batch`); `test_only` builds the state and writes nothing;
@@ -38,9 +53,8 @@ a resumed run takes the steps the uninterrupted one took; a manifest
 without them (JAX's) restarts the bound from the dump's potential, as JAX
 does.
 
-Not here yet: device meshes (`--mesh`), interval blocking, bounded
-dispatches and speculative dispatch (ROADMAP items 10 and 8; the latter
-plug into `_drive`'s one-interval loop).
+Not here yet: device meshes (`--mesh`) and the multi-process branches of
+the dispatch policy (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -174,74 +188,23 @@ def _telemetry_suffix(d_steps: int, dt_min: float, dt_max: float, replays: int) 
     return s + "]"
 
 
-_SCALARS = (
-    "time",
-    "tau",
-    "a",
-    "current_dumps",
-    "n_steps",
-    "just_dumped",
-    "aliased",
-    "alias_mass",
-    "dt_min",
-    "dt_max",
-    "replays",
-) + _CARRIED_BOUND
+# a manifest's fields of the state
+_MANIFEST_FIELDS = ("current_dumps", "time", "tau", "a", "n_steps", "aliased",
+                    "replays") + _CARRIED_BOUND
 
 
-_ROW_SCALARS = ("comb_n", "comb_qx")
-
-
-class _EnsembleHostView:
-    """Host copy of a batched state's per-stream scalars (one transfer)
-    and, on first use, of its psi batch. With a combine row
-    (`Stepper.combine_row`) its two scalars join the same transfer and its
-    fields are fetched on first use; with `norm` the unitarity monitor's
-    max_norm_err joins it too."""
-
-    def __init__(self, state: SimState, row: Optional[dict] = None, norm: bool = False):
-        self.state = state
-        names = _SCALARS + (("max_norm_err",) if norm else ())
-        tensors = {name: getattr(state, name) for name in names}
-        if row is not None:
-            tensors.update({name: row[name] for name in _ROW_SCALARS})
-        # every scalar in float64 (exact for int32, bool, float32), one
-        # device->host copy, split and cast back
-        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors.values()]).cpu()
-        self.scalars, i = {}, 0
-        for name, t in tensors.items():
-            k = t.numel()
-            self.scalars[name] = flat[i : i + k].to(t.dtype).numpy().reshape(t.shape)
-            i += k
-        self.row = row
-        self._psi: Optional[np.ndarray] = None
-
-    def row_host(self) -> dict:
-        """The combine row with every field on the host."""
-        return {
-            name: self.scalars[name] if name in _ROW_SCALARS else t.cpu().numpy()
-            for name, t in self.row.items()
-        }
-
-    def scalar(self, name: str) -> np.ndarray:
-        return self.scalars[name]
-
-    def psi(self, i: int) -> np.ndarray:
-        if self._psi is None:
-            self._psi = self.state.psi.cpu().numpy()
-        return self._psi[i]
-
-    def run_scalars(self, i: int) -> dict:
-        return {
-            "current_dumps": int(self.scalar("current_dumps")[i]),
-            "time": float(self.scalar("time")[i]),
-            "tau": float(self.scalar("tau")[i]),
-            "a": float(self.scalar("a")[i]),
-            "n_steps": int(self.scalar("n_steps")[i]),
-            "aliased": bool(self.scalar("aliased")[i]),
-            "replays": int(self.scalar("replays")[i]),
-            **{k: float(self.scalar(k)[i]) for k in _CARRIED_BOUND},
-        }
+def _run_scalars(scalars: dict, i: int) -> dict:
+    """Run i's manifest scalars from host arrays of the state's fields."""
+    return {
+        "current_dumps": int(scalars["current_dumps"][i]),
+        "time": float(scalars["time"][i]),
+        "tau": float(scalars["tau"][i]),
+        "a": float(scalars["a"][i]),
+        "n_steps": int(scalars["n_steps"][i]),
+        "aliased": bool(scalars["aliased"][i]),
+        "replays": int(scalars["replays"][i]),
+        **{k: float(scalars[k][i]) for k in _CARRIED_BOUND},
+    }
 
 
 def _try_resume_batch(runs: list, stepper: Stepper) -> Optional[SimState]:
@@ -355,6 +318,110 @@ def _transforms(stepper: Stepper) -> str:
     return "xla (torch.fft + K19, K21)"
 
 
+# ---------------------------------------------------------------------------
+# The dispatch policy (msm_tpu/simulator.py:137-237), single-process
+# ---------------------------------------------------------------------------
+
+
+def _interval_block_k(params, n_batch: int, dtype, stepper, online: bool = False) -> int:
+    """Dump intervals advanced and fetched per dispatch
+    (`Stepper.evolve_intervals`; msm_tpu's `_interval_block_k`). Bounded by
+    the stacked dump payload (k x batch x grid psi, x1.5 with
+    output_potential, plus 3 grids for the online-synthesis row):
+    MSM_INTERVAL_BLOCK sets k directly, MSM_INTERVAL_BLOCK_MB the budget
+    (default 512 MB, at most 32 and the dump count). `dtype` is the state's
+    complex torch dtype. JAX's multi-process branch waits for the
+    multi-device layouts."""
+    max_k = max(1, int(params.num_data_dumps))
+    if not hasattr(stepper, "evolve_intervals"):
+        return 1
+    env = os.environ.get("MSM_INTERVAL_BLOCK")
+    if env:
+        return max(1, min(int(env), max_k))
+    grid = int(np.prod(params.shape)) * dtype.itemsize
+    per_interval = n_batch * grid
+    if params.output_potential:
+        per_interval += per_interval // 2
+    if online:
+        per_interval += 3 * grid
+    budget = float(os.environ.get("MSM_INTERVAL_BLOCK_MB", "512")) * 2**20
+    return max(1, min(int(budget // max(per_interval, 1)), 32, max_k))
+
+
+def _chunk_steps_per_dispatch(params, n_batch: int, dtype, kblock: int) -> int:
+    """The most evolve-loop iterations a dispatch runs before the interval
+    block (0: unbounded; msm_tpu's `_chunk_steps_per_dispatch`, the TPU
+    worker-watchdog workaround): 32 once the batched state reaches
+    MSM_CHUNK_BYTES (1 GiB) and only when kblock == 1;
+    MSM_MAX_STEPS_PER_DISPATCH overrides (0 disables)."""
+    env = os.environ.get("MSM_MAX_STEPS_PER_DISPATCH")
+    if env is not None:
+        return max(0, int(env))
+    if kblock != 1:
+        return 0
+    grid = n_batch * int(np.prod(params.shape)) * dtype.itemsize
+    limit = float(os.environ.get("MSM_CHUNK_BYTES", 2**30))
+    return 32 if grid >= limit else 0
+
+
+def _bounded_prelude(stepper: Stepper, state: SimState, chunk: int) -> SimState:
+    """Advance the current dump interval in `chunk`-iteration dispatches
+    (`Stepper.evolve_bounded`) until every stream reaches its boundary; the
+    interval block that follows then finds its first loop done and builds
+    its payload as without chunking. Each dispatch's `more` is one host
+    read."""
+    while True:
+        state, more = stepper.evolve_bounded(state, chunk)
+        if not bool(more):
+            return state
+
+
+def _speculation_ok(params, n_batch: int, dtype, kblock: int, donated: bool = True) -> bool:
+    """Whether block i+1 may be dispatched before block i's host work: the
+    live state (one, or two where the dispatch does not take its input's
+    place, `donated=False`) plus two blocks' payloads within
+    MSM_SPECULATE_MB (default 4096 MB with one state, 3072 with two;
+    msm_tpu's `_speculation_ok`, whose MSM_DONATE has no counterpart
+    here)."""
+    grid = n_batch * int(np.prod(params.shape)) * dtype.itemsize
+    payload = kblock * grid * (3 if params.output_potential else 2) // 2
+    states = 1 if donated else 2
+    live = states * (2 * grid) + 2 * payload
+    default_mb = 4096 if states == 1 else 3072
+    budget = float(os.environ.get("MSM_SPECULATE_MB", default_mb)) * 2**20
+    return live <= budget
+
+
+class _Fetch:
+    """A block's payload on its way to the host. On the card the copy runs
+    on the side stream `stream` into pinned host memory, started as the
+    block ends, so the next block computes while it travels; `wait` blocks
+    until it has arrived and returns numpy arrays (which keep the pinned
+    memory alive while the async writer holds them). On the CPU (`stream`
+    None) the payload is already there."""
+
+    def __init__(self, outs: dict, stream: "torch.cuda.Stream | None"):
+        self.host = outs
+        self.event = None
+        if stream is None:
+            return
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            self.host = {
+                k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                for k, v in outs.items()
+            }
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+        self._device = outs  # alive until the copy has run
+
+    def wait(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+            self._device = None
+        return {k: v.numpy() for k, v in self.host.items()}
+
+
 def _drive(
     stepper: Stepper,
     runs: list,
@@ -366,98 +433,119 @@ def _drive(
     strict_alias: bool,
     debug_checks: bool,
     eps: float,
+    kblock: int,
+    chunk: int,
+    speculate: bool,
     combiner=None,
 ) -> SimState:
-    """The one-interval loop over a batch of runs (the last one's params
-    give the dump count, potential output and cosmology): dump 0 unless
-    resumed, then evolve, snap and write every stream that reached its dump
-    until every stream is done or aliased. Returns the final state."""
+    """The blocked loop over a batch of runs (the last one's params give
+    the dump count, potential output and cosmology; msm_tpu's `run_config`
+    :1044-1201 and `run_single` :690-796): dump 0 unless resumed, then
+    dispatches of `kblock` intervals (after a bounded prelude of `chunk`
+    iterations a dispatch when `chunk`), block i+1 dispatched before block
+    i's host work when `speculate`, and every stream that reached its dump
+    written, until every stream is done or aliased. Returns the final
+    state."""
     p = runs[-1].params
     n = len(runs)
     # a stream already frozen at resume time was reported (and its
     # manifest written) by the original run
-    reported_alias = state.aliased.cpu().tolist() if resumed else [False] * n
+    reported_alias = state.aliased.cpu().numpy().copy() if resumed else np.zeros(n, bool)
     start_steps = int(state.n_steps.max()) if resumed else 0
     t_start = _time.monotonic()
     progress = ProgressReporter(total_dumps=p.num_data_dumps, sim_name=name, enabled=verbose)
     timer = StepTimer(cells_per_step=n * p.size**p.dims)
     timer.start()
-
-    def dump_potentials(mask: np.ndarray, dumps_idx: np.ndarray):
-        """Dump phi for runs with output_potential
-        (simulation_object.rs:1166-1180)."""
-        if not p.output_potential:
-            return
-        pot = stepper.potential(state.psi).cpu().numpy()
-        cdtype = np.complex64 if pot.dtype == np.float32 else np.complex128
-        for i in range(n):
-            if mask[i]:
-                runs[i].dump_field(pot[i].astype(cdtype), int(dumps_idx[i]), "potential")
+    want_pot = bool(p.output_potential)
 
     if not resumed:
-        view = _EnsembleHostView(state)
+        psi = state.psi.cpu().numpy()
+        scalars = {name: getattr(state, name).cpu().numpy() for name in _MANIFEST_FIELDS}
         for i, r in enumerate(runs):
-            r.dump_field(view.psi(i), 0)
-            r.write_manifest(view.run_scalars(i))
-        dump_potentials(np.ones(n, bool), np.zeros(n, int))
+            r.dump_field(psi[i], 0)
+            r.write_manifest(_run_scalars(scalars, i))
+        if want_pot:
+            # simulation_object.rs:1166-1180
+            pot = stepper.potential(state.psi).cpu().numpy()
+            for i, r in enumerate(runs):
+                r.dump_field(pot[i].astype(psi.dtype), 0, "potential")
+        del psi
         if combiner is not None:
             # every stream, the MFT (the last) left out
             combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
+    combine = None if combiner is None else (n, combiner.dv)
+    copies = torch.cuda.Stream(stepper.device) if stepper.device.type == "cuda" else None
+
+    def advance(s):
+        if chunk:
+            s = _bounded_prelude(stepper, s, chunk)
+        final, outs = stepper.evolve_intervals(s, kblock, with_potential=want_pot,
+                                               combine=combine)
+        return final, _Fetch(outs, copies)
 
     total_steps = prev_steps = start_steps
-    while stepper.not_finished(state):
-        raw = stepper.evolve_to_next_dump(state)
-        state = stepper.snap_after_dump(raw)
-        row = None if combiner is None else stepper.combine_row(raw, state, n, combiner.dv)
-        pre = _EnsembleHostView(raw)
-        total_steps = int(pre.scalar("n_steps").max())
-        aliased = pre.scalar("aliased")
-        just_dumped = pre.scalar("just_dumped")
-        view = _EnsembleHostView(state, row, norm=debug_checks)
-        dumps_np = view.scalar("current_dumps")
-        for i, r in enumerate(runs):
-            if aliased[i]:
-                if not reported_alias[i]:
-                    reported_alias[i] = True
-                    # manifest before the (possibly raising) report, so
-                    # the run's record shows aliased=True
-                    r.write_manifest(view.run_scalars(i))
-                    _report_aliasing(r.params, float(view.scalar("alias_mass")[i]), strict_alias)
+    inflight = advance(state) if stepper.not_finished(state) else None
+    while inflight is not None:
+        state, fetch = inflight
+        # block i+1 before block i's host work: its payload copies to the
+        # host meanwhile; a wrong speculation (the final block) is a no-op
+        # dispatch, since a finished state's loop does not start
+        speculative = advance(state) if speculate else None
+        host = fetch.wait()
+        for j in range(kblock):
+            jd, al = host["just_dumped"][j], host["aliased"][j]
+            # rows with nothing to do: no dump and no newly aliased stream
+            if not (jd.any() or (al & ~reported_alias).any()):
                 continue
-            if just_dumped[i]:
-                scalars = view.run_scalars(i)
+            total_steps = max(total_steps, int(host["n_steps"][j].max()))
+            row = {k: v[j] for k, v in host.items()}
+            dumps_j = row["current_dumps"]
+            for i, r in enumerate(runs):
+                if al[i]:
+                    if not reported_alias[i]:
+                        reported_alias[i] = True
+                        # manifest before the (possibly raising) report, so
+                        # the run's record shows aliased=True
+                        r.write_manifest(_run_scalars(row, i))
+                        _report_aliasing(r.params, float(row["alias_mass"][i]), strict_alias)
+                    continue
+                if not jd[i]:
+                    continue
+                psi = row["psi"][i]
+                scalars = _run_scalars(row, i)
                 if debug_checks:
-                    _debug_validate(view.psi(i), r.params, f"{r.params.sim_name} dump", eps)
-                    err = float(view.scalar("max_norm_err")[i])
+                    _debug_validate(psi, r.params, f"{r.params.sim_name} dump", eps)
+                    err = float(row["max_norm_err"][i])
                     _check_norm_monitor(err, eps, r.params.sim_name)
                     scalars["max_norm_err"] = err
-                r.dump_field(view.psi(i), int(dumps_np[i]))
+                r.dump_field(psi, int(dumps_j[i]))
                 scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
                 r.write_manifest(scalars)
-        if just_dumped.any():
-            dump_potentials(just_dumped & ~aliased, dumps_np)
-        valid = just_dumped[: n - 1] & ~aliased[: n - 1]
-        if row is not None and valid.any() and float(view.scalar("comb_n")) > 0:
-            combiner.write_row(view.row_host(), int(dumps_np[int(np.flatnonzero(valid)[0])]))
-        extra = _telemetry_suffix(
-            total_steps - prev_steps,
-            float(pre.scalar("dt_min").min()),
-            float(pre.scalar("dt_max").max()),
-            int(pre.scalar("replays").sum()),
-        )
-        prev_steps = max(prev_steps, total_steps)
-        if p.expanding:
-            progress.update(
-                int(dumps_np.min()),
-                redshift=1.0 / float(view.scalar("a").min()) - 1.0,
-                extra=extra,
+                if want_pot:
+                    r.dump_field(row["pot"][i].astype(psi.dtype), int(dumps_j[i]), "potential")
+            valid = jd[: n - 1] & ~al[: n - 1]
+            if combine is not None and valid.any() and float(row["comb_n"]) > 0:
+                combiner.write_row(row, int(dumps_j[int(np.flatnonzero(valid)[0])]))
+            extra = _telemetry_suffix(
+                total_steps - prev_steps,
+                float(row["dt_min"].min()),
+                float(row["dt_max"].max()),
+                int(row["replays"].sum()),
             )
+            prev_steps = max(prev_steps, total_steps)
+            if p.expanding:
+                progress.update(int(dumps_j.min()), redshift=1.0 / float(row["a"].min()) - 1.0,
+                                extra=extra)
+            else:
+                progress.update(int(dumps_j.min()), sim_time=float(row["time"].min()),
+                                extra=extra)
+        if np.all((host["current_dumps"][-1] >= p.num_data_dumps) | host["aliased"][-1]):
+            if speculative is not None:
+                # a finished state's dispatch returns it as it is
+                state = speculative[0]
+            inflight = None
         else:
-            progress.update(
-                int(dumps_np.min()),
-                sim_time=float(view.scalar("time").min()),
-                extra=extra,
-            )
+            inflight = speculative if speculate else advance(state)
     if combiner is not None:
         combiner.finalize()
     timer.stop(n_steps=total_steps - start_steps)
@@ -486,8 +574,7 @@ def run_single(
 ) -> SimState:
     """Run one simulation to completion on `device` (the card unless the
     caller asks for "cpu") as a batch of one, dumping psi at every boundary
-    (msm_tpu's `run_single`, simulator.py:614-806, without its interval
-    blocking and speculation). A stream run samples its own perturbation
+    (msm_tpu's `run_single`, simulator.py:614-806). A stream run samples its own perturbation
     from the MFT initial conditions with its seed. A resume restores what
     the batched one does (`_try_resume_batch`), the replays, the aliased
     flag and the carried bound included, where JAX's one-run resume
@@ -524,9 +611,12 @@ def run_single(
                   f"dt {stepper.dt_mode}")
         if test_only:
             return state
+        kblock = _interval_block_k(params, 1, dtype, stepper)
         return _drive(
             stepper, [run], state, resumed=resumed, name=params.sim_name, verbose=verbose,
-            strict_alias=strict_alias, debug_checks=debug_checks, eps=eps,
+            strict_alias=strict_alias, debug_checks=debug_checks, eps=eps, kblock=kblock,
+            chunk=_chunk_steps_per_dispatch(params, 1, dtype, kblock),
+            speculate=_speculation_ok(params, 1, dtype, kblock),
         )
 
 
@@ -614,10 +704,20 @@ def run_config(
                 synthesis.online_combiner_for(toml, data_root, writer)
                 if online_synthesis else None
             )
+            # k intervals a dispatch; one a dispatch falls back to JAX's
+            # one-interval loop's policy: bounded dispatches for a big
+            # state, and speculation budgeted for two states
+            kblock = _interval_block_k(mft_params, n, dtype, stepper,
+                                       online=combiner is not None)
+            if kblock > 1:
+                chunk, speculate = 0, _speculation_ok(mft_params, n, dtype, kblock)
+            else:
+                chunk = _chunk_steps_per_dispatch(mft_params, n, dtype, 1)
+                speculate = _speculation_ok(mft_params, n, dtype, 1, donated=False)
             return _drive(
                 stepper, runs, state, resumed=resumed, name=toml.sim_name, verbose=verbose,
                 strict_alias=strict_alias, debug_checks=debug_checks, eps=eps,
-                combiner=combiner,
+                kblock=kblock, chunk=chunk, speculate=speculate, combiner=combiner,
             )
 
 

@@ -38,7 +38,7 @@ chosen by the transform mode (`ops.fft.get_mode`):
   each iteration first runs the four-pass prefix (K1 without its sums,
   K10, K3, K11) for max|phi(t)|.
 - `mxu`, fused and unskewed (3-D with `MSM_SKEW_STEP=0`, and a single
-  `step()` of any fused stepper, as in JAX): the host loop below with the
+  `step()` of any fused stepper, as in JAX): the loop below with the
   fused step (`SingleEngine.fused_step`: K12, K2, K3, K4, K13); the closing
   half-kick and psi's inverse are K19 and the engine transforms (K5, K6),
   and exact dt's pre-step potential is the three-pass solve (K7, K8, K9).
@@ -54,18 +54,33 @@ chosen by the transform mode (`ops.fft.get_mode`):
   closing half-kick and inverts on every step. `lagged` takes dt from the previous step's midpoint max|phi|,
   never validated. Lagged and optimistic defer the closing half-kick into
   pending_k except on steps that land on a dump.
-- Torch has no on-device while loop, so `evolve_to_next_dump` steps on the
-  host. Each iteration makes ONE device->host read (in exact dt, after the
-  pre-step potential): the per-stream active mask (it ends the loop and decides whether the per-stream freeze blend
-  is needed, skipped when every stream is active, as `lax.cond` does in
-  the JAX loop) together with whether any stream's step lands on a dump
-  (which decides the closing half-kick, the JAX `_finalize_step` cond).
-  The skewed loop reads whether every stream advanced (the blend) and
-  whether any stream is still active after the iteration; it never needs
-  the dump flag.
-- Streams that reach their dump boundary (or alias) are frozen by a
-  per-stream select; one stream aliasing does not stop the batch, unlike
-  the reference panic (`simulation_object.rs:607-617`).
+- The evolve loop runs on the device in chunks (JAX's `lax.while_loop`,
+  :1255-1301 and :1155-1220). Torch has no device-side loop, and a CUDA
+  graph cannot branch, so every decision of an iteration is a device
+  tensor: the loop's condition (any stream active, JAX's iteration cap of
+  `evolve_bounded`) gates the iteration; the freeze of the streams that do
+  not advance is `ops.kernels.masked_restore` on the grids (JAX's
+  `lax.cond(all(mask), new, select)`: a launch and no traffic when every
+  stream advances) and torch.where on the scalars; the closing half-kick's
+  branch (JAX's `lax.cond(any(is_dump))` in `_finalize_step`) is the
+  chunk's, "defer" or "materialize", and an iteration that asks for the
+  other one leaves the state as it is for the host to switch. A chunk of a
+  power of two up to MAX_CHUNK iterations (`_chunk`) ends in one report
+  read by the host, which picks the next chunk's length from the
+  iterations the active streams need at their current dt, so the
+  iterations past the loop's end stay few (`stats`). On the card each chunk
+  is captured once as a CUDA graph and replayed (`graphs.ChunkGraphs`)
+  unless the Stepper is built with graphs=False; the CPU runs the same
+  chunks eagerly. A stream whose dt is not finite (a NaN state, whose time
+  would never reach its dump) raises FloatingPointError naming it.
+- `evolve_bounded` (at most max_steps iterations; JAX :1307-1349),
+  `evolve_intervals` (k intervals with their dump payloads stacked on the
+  device; :1351-1420) and `_chain_n_steps` (the bench's step chain, the
+  loop's chunks with the exit taken out; :1524-1547) run on the same
+  chunks.
+- Streams that reach their dump boundary (or alias) are frozen; one stream
+  aliasing does not stop the batch, unlike the reference panic
+  (`simulation_object.rs:607-617`).
 - Expanding mode (a `[cosmology]` table; msm_tpu's `_step_expanding`
   :959-1014) steps in supercomoving time tau on every path and dt mode:
   the kinetic kick drops hbar_ (kcoeff = -dtau/4), and the potential kick
@@ -90,12 +105,14 @@ chosen by the transform mode (`ops.fft.get_mode`):
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import numpy as np
 import torch
 
 from . import cosmo as cosmo_mod
+from . import graphs as graphs_mod
 from .config import SimulationParameters
 from .constants import POIS_CONST
 from .grid import spec_grid as build_spec_grid
@@ -182,6 +199,64 @@ class _Advance:
         return self.vcoeff if self.vcoeff2 is None else self.vcoeff + self.vcoeff2
 
 
+@dataclasses.dataclass
+class _Ctl:
+    """The evolve loop's control on the device, for one evolve call:
+    `finished` (B,) the streams past their last dump; `n0`, `r0` (B,) the
+    step and replay counts at entry and `cap` () the most iterations, as
+    JAX's `_iteration_cap` counts them (:1235-1253; unbounded: _NO_CAP);
+    `it` () the iterations run since entry; `nan_at` (B,) the iteration at
+    which a running stream's dt was first not finite, -1 if never."""
+
+    finished: torch.Tensor
+    n0: torch.Tensor
+    r0: torch.Tensor
+    cap: torch.Tensor
+    it: torch.Tensor
+    nan_at: torch.Tensor
+
+
+class _Report:
+    """The host's copy of a chunk's report (`Stepper._report`)."""
+
+    def __init__(self, values: list):
+        (self.go, self.dump, self.fewest, self.most, self.it, self.used, self.nan,
+         self.nan_stream, self.nan_iteration) = values
+
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+_CTL_FIELDS = tuple(f.name for f in dataclasses.fields(_Ctl))
+
+
+def _flatten(s: SimState, ctl: _Ctl) -> list:
+    return [getattr(s, n) for n in _STATE_FIELDS] + [getattr(ctl, n) for n in _CTL_FIELDS]
+
+
+def _unflatten(tensors: list) -> tuple:
+    k = len(_STATE_FIELDS)
+    return (SimState(**dict(zip(_STATE_FIELDS, tensors[:k]))),
+            _Ctl(**dict(zip(_CTL_FIELDS, tensors[k:]))))
+
+
+# the longest chunk of loop iterations (a power of two), and the cap of an
+# unbounded loop
+MAX_CHUNK = 32
+_NO_CAP = 2**62
+
+
+def _pow2_floor(x: float) -> int:
+    """The largest power of two at most x, within [1, MAX_CHUNK]."""
+    n = int(min(max(x, 1.0), MAX_CHUNK)) if x == x else 1
+    return 1 << (n.bit_length() - 1)
+
+
+# the dump payload of `evolve_intervals`: fields of the state before the
+# snap, then after it
+_PAYLOAD_RAW = ("just_dumped", "aliased", "alias_mass", "max_norm_err", "n_steps", "dt_min",
+                "dt_max", "replays", "phi_max", "phi_ref")
+_PAYLOAD_SNAPPED = ("current_dumps", "time", "tau", "a", "psi")
+
+
 DT_MODES = ("optimistic", "exact", "lagged")
 # Optimistic-dt defaults, the JAX stepper's (msm_tpu/stepper.py:202-229),
 # overridden by MSM_DT_SAFETY, MSM_DT_DECAY and MSM_DT_INIT_BOUND_SCALE at
@@ -230,6 +305,7 @@ class Stepper:
         tdtype: "torch.dtype | None" = None,
         dt_mode: str = "optimistic",
         debug_checks: bool = False,
+        graphs: bool = True,
     ):
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
@@ -237,6 +313,14 @@ class Stepper:
             raise ValueError(f"dt_mode must be one of {DT_MODES}, got {dt_mode!r}")
         self.dt_mode = dt_mode
         self.debug_checks = debug_checks
+        # the loop's chunks as replayed CUDA graphs (the card only; False
+        # runs the same chunks eagerly, for comparison), and what the loop
+        # did: its chunks, the iterations it ran (JAX's while_loop would run
+        # the same), those it executed (the chunks' lengths: the surplus
+        # are no-ops past the loop's end or before a branch switch) and its
+        # device->host reads
+        self._graphs = None
+        self.stats = {"chunks": 0, "iterations": 0, "executed": 0, "host_reads": 0}
         self.dt_safety = min(1.0, max(1e-3, float(os.environ.get("MSM_DT_SAFETY", DT_SAFETY))))
         self.dt_decay = min(1.0, max(0.0, float(os.environ.get("MSM_DT_DECAY", DT_DECAY))))
         self.dt_init_bound_scale = max(
@@ -246,6 +330,7 @@ class Stepper:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
+        self.graphs = graphs and self.device.type == "cuda"
         self.dtype = dtype
         self.rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
         if tdtype is None:
@@ -460,6 +545,22 @@ class Stepper:
         phi_k = self.consts.poisson_map * rho_k
         return torch.fft.irfftn(phi_k, s=(p.size,) * p.dims, dim=axes).to(self.rdtype)
 
+    def _timestep(self, state: SimState, phi_max=None):
+        """(dt, the distance to the next dump) of `_scalar_advance`, in time
+        static and in tau expanding."""
+        p = self.params
+        next_idx = torch.clamp(state.current_dumps + 1, max=p.num_data_dumps)
+        bound = state.phi_max if phi_max is None else phi_max
+        if p.expanding:
+            potential = _rdiv(self.potential_num, 2.0 * state.a * bound)
+            to_next = self._tau_table[next_idx.long()] - state.tau
+        else:
+            potential = _rdiv(self.potential_num, 2.0 * bound)
+            to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
+        if self.dt_mode == "optimistic":
+            potential = potential * self.dt_safety
+        return torch.minimum(torch.clamp(potential, max=self.kinetic_dt), to_next), to_next
+
     def _scalar_advance(self, state: SimState, phi_max=None) -> _Advance:
         """dt = min(kinetic, potential(max|phi|), to next dump) (get_timestep
         :878-934; msm_tpu's `_timestep` :726-764), the dump flag, the kick
@@ -474,17 +575,7 @@ class Stepper:
         table, kcoeff = -dtau/4 and two half-kicks -dtau/2 * a with a and t
         advanced by RK4 between them (:699-760)."""
         p = self.params
-        next_idx = torch.clamp(state.current_dumps + 1, max=p.num_data_dumps)
-        bound = state.phi_max if phi_max is None else phi_max
-        if p.expanding:
-            potential = _rdiv(self.potential_num, 2.0 * state.a * bound)
-            to_next = self._tau_table[next_idx.long()] - state.tau
-        else:
-            potential = _rdiv(self.potential_num, 2.0 * bound)
-            to_next = (self.t0 + next_idx.to(self.tdtype) * self.dump_dt) - state.time
-        if self.dt_mode == "optimistic":
-            potential = potential * self.dt_safety
-        dt = torch.minimum(torch.clamp(potential, max=self.kinetic_dt), to_next)
+        dt, to_next = self._timestep(state, phi_max)
         if not p.expanding:
             return _Advance(
                 dt=dt,
@@ -554,16 +645,22 @@ class Stepper:
     def step(self, state: SimState) -> SimState:
         """One step of every stream, with no freeze mask (msm_tpu's
         Stepper.step); on a fused stepper the unskewed fused step, as JAX
-        runs it."""
+        runs it. The closing half-kick's branch is read on the host."""
         adv = self._scalar_advance(state, self._pre_step_bound(state))
-        return self._step(state, adv, bool(adv.is_dump.any()))
+        materialize = self.dt_mode == "exact" or bool(adv.is_dump.any())
+        new, invalid, pm_fresh = self._step(state, adv, materialize)
+        return self._commit(state, new, torch.ones_like(invalid), invalid, pm_fresh)
 
-    def _step(self, state: SimState, adv: _Advance, any_dump: bool) -> SimState:
-        """One static KDK step (update, :475-661; msm_tpu's `_step_static`
-        :853-903). The closing half-kick (`_finalize_step` :815-841) is
-        applied and psi materialized on every step in exact mode; in the
-        other modes only when `any_dump` (whether any stream's dt lands on a
-        dump), else it is deferred into pending_k."""
+    def _step(self, state: SimState, adv: _Advance, materialize: bool):
+        """One static or expanding KDK step of every stream (update,
+        :475-661; msm_tpu's `_step_static` :853-903, `_step_expanding`
+        :959-1014), before validation and freeze: returns (the advanced
+        state, whether each stream's dt was invalid, the fresh midpoint
+        max|phi|). The closing half-kick (`_finalize_step` :815-841) is
+        applied and psi materialized when `materialize` (always in exact
+        dt, else when any stream's dt lands on a dump: JAX's
+        `lax.cond(any(is_dump))`, which the loop decides on the device),
+        else it is deferred into pending_k."""
         p = self.params
         # the opening half kick merged with the deferred one
         kick = state.pending_k + adv.kcoeff
@@ -589,24 +686,13 @@ class Stepper:
             del psi, phi
             nrm = self._norm_measure(psik) if self.debug_checks else None
             alias_mass = self._alias_mass(psik)
-        if self.dt_mode == "exact" or any_dump:
+        if materialize:
             psik = self._apply_kinetic(psik, adv.kcoeff)
             psi = self._inv(psik)
             pending = torch.zeros_like(adv.kcoeff)
         else:
             psi = state.psi
             pending = adv.kcoeff
-        return self._finish_step(state, adv, psi, psik, alias_mass, phi_max, nrm, pending)
-
-    def _finish_step(
-        self, state: SimState, adv: _Advance, psi, psik, alias_mass, pm_fresh, nrm, pending
-    ) -> SimState:
-        """Assemble the advanced state (`_finish_step` :905-957). Optimistic
-        mode carries the predicted bound and validates: a stream whose dt
-        fails keeps its old state, adopts the fresh bound inflated by
-        1/safety and counts a replay. Lagged and exact carry the fresh
-        midpoint max|phi| and never replay."""
-        p = self.params
         optimistic = self.dt_mode == "optimistic"
         new = dataclasses.replace(
             state,
@@ -619,78 +705,122 @@ class Stepper:
             just_dumped=adv.is_dump,
             aliased=state.aliased | (alias_mass > p.alias_threshold),
             alias_mass=alias_mass,
-            phi_max=self._predict_bound(pm_fresh, state) if optimistic else pm_fresh,
-            phi_ref=pm_fresh,
+            phi_max=self._predict_bound(phi_max, state) if optimistic else phi_max,
+            phi_ref=phi_max,
             max_norm_err=self._track_norm(state, nrm),
             pending_k=pending,
             dt_min=torch.minimum(state.dt_min, adv.dt),
             dt_max=torch.maximum(state.dt_max, adv.dt),
         )
-        if not optimistic:
-            return new
-        invalid = self._dt_invalid(adv.dt, pm_fresh, state.a)
-        rev = dataclasses.replace(
-            state,
+        if optimistic:
+            invalid = self._dt_invalid(adv.dt, phi_max, state.a)
+        else:
+            invalid = torch.zeros_like(adv.is_dump)
+        return new, invalid, phi_max
+
+    def _commit(self, old: SimState, new: SimState, keep, invalid, pm_fresh) -> SimState:
+        """The per-stream outcome of a step (`_finish_step` :905-957 and the
+        loop's freeze): a stream that keeps its step with a valid dt takes
+        `new`, every other one keeps `old`. Optimistic mode validates: a
+        kept stream whose dt failed adopts the fresh bound inflated by
+        1/safety and counts a replay. Lagged and exact never replay."""
+        out = self._select(keep & ~invalid, new, old)
+        if self.dt_mode != "optimistic":
+            return out
+        replay = keep & invalid
+        return dataclasses.replace(
+            out,
             phi_max=torch.where(
-                invalid,
-                torch.maximum(pm_fresh, state.phi_max) / self.dt_safety,
-                state.phi_max,
+                replay, torch.maximum(pm_fresh, old.phi_max) / self.dt_safety, out.phi_max
             ),
-            replays=state.replays + invalid.to(torch.int32),
+            replays=out.replays + replay.to(torch.int32),
         )
-        return self._select(~invalid, new, rev)
 
     # ------------------------------------------------------------------
-    # Dump-to-dump evolution (host loop)
+    # Dump-to-dump evolution: device-side iterations in chunks
     # ------------------------------------------------------------------
 
     def _active(self, state: SimState, finished):
         return ~(state.just_dumped | state.aliased | finished)
 
     def _select(self, mask, new: SimState, old: SimState) -> SimState:
-        """Per-stream select: take `new` where mask, else `old`."""
-        gmask = self._bcast(mask)
+        """Per-stream select: take `new` where mask, else `old`. Grids go
+        through `masked_restore` (in place on new's grid on the card, which
+        costs nothing for a stream that advances), scalars through
+        torch.where."""
 
         def pick(f: dataclasses.Field):
             n, o = getattr(new, f.name), getattr(old, f.name)
             if n is o:  # a field the step did not touch (the skewed loop's psi)
                 return n
-            return torch.where(gmask if n.ndim == gmask.ndim else mask, n, o)
+            if n.ndim > 1:
+                return kernels.masked_restore(n, o, mask)
+            return torch.where(mask, n, o)
 
         return SimState(**{f.name: pick(f) for f in dataclasses.fields(SimState)})
 
-    def evolve_to_next_dump(self, state: SimState) -> SimState:
-        """Advance every active stream until its step lands on the next dump
-        boundary (or it aliases). The dump counter increment and time snap
-        happen in `snap_after_dump`, as in update() (:620-631)."""
-        if self.skew:
-            return self._evolve_to_next_dump_skewed(state)
-        finished = state.current_dumps >= self.params.num_data_dumps
-        while True:
-            mask = self._active(state, finished)
-            adv = self._scalar_advance(state, self._pre_step_bound(state))
-            # the loop's one device->host read
-            any_active, all_active, any_dump = torch.stack(
-                [mask.any(), mask.all(), adv.is_dump.any()]
-            ).tolist()
-            if not any_active:
-                return state
-            new = self._step(state, adv, any_dump)
-            state = new if all_active else self._select(mask, new, state)
+    def _cap_ok(self, s: SimState, ctl: _Ctl):
+        """JAX's `_iteration_cap` (:1235-1253): accepted steps plus
+        optimistic replays since the loop's entry, maxed over streams, below
+        the cap."""
+        return ((s.n_steps - ctl.n0) + (s.replays - ctl.r0)).max() < ctl.cap
+
+    def _go(self, s: SimState, ctl: _Ctl, loop: bool):
+        """Whether an iteration runs: the loop's condition (any stream
+        active, the cap holds; JAX's `cond`), always in the step chain."""
+        if loop:
+            return self._active(s, ctl.finished).any() & self._cap_ok(s, ctl)
+        return torch.ones((), dtype=torch.bool, device=s.aliased.device)
+
+    def _tally(self, ctl: _Ctl, go, ran, dt) -> _Ctl:
+        """The control after an iteration: its count, and the first
+        iteration at which a stream that ran had a dt that is not finite."""
+        bad = ran & ~torch.isfinite(dt)
+        return dataclasses.replace(
+            ctl,
+            nan_at=torch.where(bad & (ctl.nan_at < 0), ctl.it, ctl.nan_at),
+            it=ctl.it + go.to(torch.int64),
+        )
+
+    def _plain_iteration(self, s: SimState, ctl: _Ctl, mode: str, loop: bool):
+        """One iteration of the non-skewed loop with no host read. In the
+        loop (`loop`) it runs while any stream is active and the cap holds,
+        and freezes the inactive streams (JAX's body, :1282-1301); in the
+        step chain every stream steps (JAX's `fori_loop` of `_step`). The
+        closing half-kick's branch is the chunk's `mode` ("defer" or
+        "materialize"): an iteration whose `any(is_dump)` asks for the other
+        branch is a no-op, and the state it leaves asks for it again until
+        the host switches. Exact dt always materializes."""
+        materialize = mode == "materialize"
+        adv = self._scalar_advance(s, self._pre_step_bound(s))
+        active = self._active(s, ctl.finished) if loop else torch.ones_like(s.aliased)
+        go = self._go(s, ctl, loop)
+        if self.dt_mode != "exact":
+            go = go & (adv.is_dump.any() == materialize)
+        keep = active & go
+        new, invalid, pm_fresh = self._step(s, adv, materialize)
+        return self._commit(s, new, keep, invalid, pm_fresh), self._tally(ctl, go, keep, adv.dt)
 
     # ------------------------------------------------------------------
     # The skewed loop of the fused engine
     # ------------------------------------------------------------------
 
-    def _skew_body(self, s: SimState, finished) -> tuple[SimState, bool]:
-        """One iteration of the skewed loop (`_make_skew_body`, :1050-1153):
-        s.psik is the mixed-space carrier q, s.psi stays stale. Returns the
-        next carrier state and whether any stream is still active, read
-        with whether every stream advanced in the loop's one device->host
-        read."""
+    def _skew_body(self, s: SimState, finished, go=None) -> tuple:
+        """One iteration of the skewed loop (`_make_skew_body`, :1050-1153)
+        with no host read: s.psik is the mixed-space carrier q, s.psi stays
+        stale. `go` (a device bool, or None for always) gates the
+        iteration: the loop's condition. Returns the next carrier state and
+        whether any stream is still active after it."""
+        out, still, _, _ = self._skew_iteration(s, finished, go)
+        return out, still
+
+    def _skew_iteration(self, s: SimState, finished, go):
+        """`_skew_body`, with the iteration's dt and active streams."""
         p = self.params
         dkd = p.dk**p.dims
         active = self._active(s, finished)
+        if go is not None:
+            active = active & go
         q = s.psik
         if self.dt_mode == "exact":
             # max|phi(t)| of the pre-step state: the prefix applies the
@@ -733,8 +863,7 @@ class Stepper:
         still = ~(
             torch.where(advance, adv.is_dump, s.just_dumped) | s.aliased | newly | finished
         )
-        all_advance, any_active = torch.stack([advance.all(), still.any()]).tolist()
-        out = new if all_advance else self._select(advance, new, s)
+        out = self._select(advance, new, s)
         out = dataclasses.replace(
             out,
             aliased=s.aliased | newly,
@@ -748,7 +877,7 @@ class Stepper:
             out = dataclasses.replace(out, max_norm_err=torch.where(
                 active, self._track_norm(s, norm * dkd), s.max_norm_err
             ))
-        return out, any_active
+        return out, still.any(), adv.dt, active
 
     def _skew_exit(self, entry: SimState, final: SimState) -> SimState:
         """Materialize psi and psik from the carrier and account the last
@@ -774,37 +903,210 @@ class Stepper:
             pending_k=torch.zeros_like(final.pending_k),
         )
 
-    def _evolve_to_next_dump_skewed(self, state: SimState) -> SimState:
-        """The fused engine's evolve loop, skewed by half a pass
-        (`_evolve_to_next_dump_skewed`, :1155-1220): enter with one z
-        inverse, iterate `_skew_body` while any stream is active, exit with
-        `_skew_exit`. An interval where no stream is active returns the
-        state unchanged."""
-        finished = state.current_dumps >= self.params.num_data_dumps
-        if not bool(self._active(state, finished).any()):
+    def _carrier(self, state: SimState) -> SimState:
+        """The skewed loop's carrier: psik -> q (K5); psi, which no
+        iteration reads, is left out (`_skew_exit` takes the entry's)."""
+        return dataclasses.replace(
+            state, psik=self.engine.skew_enter(state.psik), psi=state.psi.new_empty(0)
+        )
+
+    # ------------------------------------------------------------------
+    # Chunks: iterations decided on the device, one host read each
+    # ------------------------------------------------------------------
+
+    def _new_ctl(self, state: SimState, max_steps: "int | None") -> _Ctl:
+        dev = state.n_steps.device
+        return _Ctl(
+            finished=state.current_dumps >= self.params.num_data_dumps,
+            n0=state.n_steps.clone(),
+            r0=state.replays.clone(),
+            cap=torch.tensor(_NO_CAP if max_steps is None else int(max_steps), device=dev),
+            it=torch.zeros((), dtype=torch.int64, device=dev),
+            nan_at=torch.full(state.n_steps.shape, -1, dtype=torch.int64, device=dev),
+        )
+
+    def _report(self, s: SimState, ctl: _Ctl) -> torch.Tensor:
+        """The chunk's one host read, float64 (`_Report`): whether the loop
+        goes on, whether the next proposal lands a stream on its dump (the
+        non-skewed loop's next branch), the fewest and the most iterations
+        the active streams need at their next proposal's dt (floor of
+        distance over dt), the iterations run, the cap's count, and the
+        stream whose dt was first not finite with that iteration."""
+        active = self._active(s, ctl.finished)
+        dt, to_next = self._timestep(s)
+        need = torch.floor(to_next / dt)
+        inf = torch.full_like(need, math.inf)
+        bad = ctl.nan_at >= 0
+        # (no tensor indexing: a 0-dim index would be read on the host)
+        first_at = torch.where(bad, ctl.nan_at, _NO_CAP)
+        used = ((s.n_steps - ctl.n0) + (s.replays - ctl.r0)).max()
+        return torch.stack([
+            t.to(torch.float64) for t in (
+                active.any() & (used < ctl.cap), (dt == to_next).any(),
+                torch.where(active, need, inf).amin(), torch.where(active, need, -inf).amax(),
+                ctl.it, used, bad.any(), first_at.argmin(), first_at.min(),
+            )
+        ])
+
+    def _chunk(self, s: SimState, ctl: _Ctl, n: int, mode, loop: bool):
+        """n loop iterations with no host read, then the report: the eager
+        chunk, and the body that `graphs.ChunkGraphs` captures."""
+        for _ in range(n):
+            if self.skew:
+                go = self._go(s, ctl, loop)
+                s, _, dt, ran = self._skew_iteration(s, ctl.finished, go)
+                ctl = self._tally(ctl, go, ran, dt)
+            else:
+                s, ctl = self._plain_iteration(s, ctl, mode, loop)
+        return s, ctl, self._report(s, ctl)
+
+    def _flat_chunk(self, tensors: list, n: int, mode, loop: bool):
+        s, ctl = _unflatten(tensors)
+        s, ctl, report = self._chunk(s, ctl, n, mode, loop)
+        return _flatten(s, ctl), report
+
+    def _run_chunks(
+        self, s: SimState, ctl: _Ctl, loop: bool, n: int = 0, cap: "int | None" = None
+    ) -> SimState:
+        """Chunks until the loop ends (`loop`) or n iterations ran (the step
+        chain). The host reads one report a chunk and picks the next chunk's
+        length (a power of two up to MAX_CHUNK) and branch from it: in the
+        loop, at most the iterations the active streams need at their
+        current dt (the fewest while the closing kick is deferred, the most
+        otherwise) and at most what the cap leaves, so the iterations past
+        the loop's end (`stats["executed"]` over `stats["iterations"]`)
+        stay few. On the card every chunk is a replayed CUDA graph unless
+        the Stepper was built with graphs=False. Raises FloatingPointError
+        when an active stream's dt was not finite (its state is NaN: its
+        time would never reach the dump)."""
+        rep = _Report(self._report(s, ctl).tolist())
+        self.stats["host_reads"] += 1
+        graphs = self._chunk_graphs() if self.graphs else None
+        if graphs is not None:
+            graphs.load(_flatten(s, ctl))
+        while (rep.go if loop else rep.it < n):
+            mode = None
+            if not self.skew:
+                mode = "materialize" if self.dt_mode == "exact" or rep.dump else "defer"
+            if loop:
+                need = rep.fewest if mode == "defer" else rep.most
+                size = _pow2_floor(need if cap is None else min(need, cap - rep.used))
+            else:
+                size = _pow2_floor(n - rep.it)
+            if graphs is not None:
+                report = graphs.run(
+                    (mode, loop), (size, mode, loop),
+                    lambda t, size=size, mode=mode: self._flat_chunk(t, size, mode, loop),
+                )
+            else:
+                s, ctl, report = self._chunk(s, ctl, size, mode, loop)
+            done = rep.it
+            rep = _Report(report.tolist())
+            self.stats["host_reads"] += 1
+            self.stats["chunks"] += 1
+            self.stats["executed"] += size
+            self.stats["iterations"] += int(rep.it - done)
+            if rep.nan:
+                raise FloatingPointError(
+                    f"stream {int(rep.nan_stream)} of the batch: dt is not finite at "
+                    f"iteration {int(rep.nan_iteration)} of the evolve loop (its state is "
+                    "not finite, so its time would never reach the dump)"
+                )
+        if graphs is not None:
+            s, ctl = _unflatten(graphs.unload())
+        return s
+
+    def _chunk_graphs(self) -> "graphs_mod.ChunkGraphs":
+        if self._graphs is None:
+            self._graphs = graphs_mod.ChunkGraphs()
+        return self._graphs
+
+    def _evolve(self, state: SimState, max_steps: "int | None") -> SimState:
+        """The evolve loop (JAX's `_evolve_to_next_dump`, :1255-1301, and
+        `_evolve_to_next_dump_skewed`, :1155-1220), at most `max_steps`
+        iterations when given. A loop that would not start returns the
+        state as it is (the skewed engine's entry and exit skipped)."""
+        ctl = self._new_ctl(state, max_steps)
+        if not self.skew:
+            return self._run_chunks(state, ctl, loop=True, cap=max_steps)
+        rep = _Report(self._report(state, ctl).tolist())
+        self.stats["host_reads"] += 1
+        if not rep.go:
             return state
-        s = dataclasses.replace(state, psik=self.engine.skew_enter(state.psik))
-        more = True
-        while more:
-            s, more = self._skew_body(s, finished)
-        return self._skew_exit(state, s)
+        final = self._run_chunks(self._carrier(state), ctl, loop=True, cap=max_steps)
+        return self._skew_exit(state, final)
+
+    def evolve_to_next_dump(self, state: SimState) -> SimState:
+        """Advance every active stream until its step lands on the next dump
+        boundary (or it aliases). The dump counter increment and time snap
+        happen in `snap_after_dump`, as in update() (:620-631)."""
+        return self._evolve(state, None)
+
+    def evolve_bounded(self, state: SimState, max_steps: int):
+        """Advance at most `max_steps` loop iterations toward the next dump
+        (msm_tpu's `evolve_bounded`, :1307-1349); returns (state, more),
+        `more` a device bool: whether any stream is still mid-interval
+        (neither dumped, aliased nor finished). Iterations count as JAX's
+        cap counts them (`_iteration_cap`). A capped exit leaves a
+        consistent mid-interval state: the skewed loop's exit materializes
+        psi and psik and applies the deferred kick, so a loop re-entered
+        from it continues the trajectory to rounding; the other paths keep
+        their deferred kick and continue it exactly."""
+        out = self._evolve(state, max_steps)
+        finished = out.current_dumps >= self.params.num_data_dumps
+        return out, self._active(out, finished).any()
+
+    def evolve_intervals(
+        self,
+        state: SimState,
+        k: int,
+        with_potential: bool = False,
+        combine: "tuple[int, float] | None" = None,
+    ):
+        """Advance k dump intervals (msm_tpu's `evolve_intervals`,
+        :1351-1420 and :1489-1519): each interval's evolve loop, its snap,
+        and its dump payload, stacked on the device along a leading (k,)
+        axis so the host fetches a block at once. Returns (final, outs),
+        `outs` with JAX's keys: before the snap `just_dumped`, `aliased`,
+        `alias_mass`, `max_norm_err`, `n_steps`, `dt_min`, `dt_max`,
+        `replays` (and the carried bound `phi_max`, `phi_ref`, which the
+        port's manifests keep); after it `current_dumps`, `time`, `tau`,
+        `a` and `psi` (complex; JAX's `psi_re`, `psi_im`), `pot` with
+        `with_potential`, and with `combine=(n_runs, dv)` the
+        online-synthesis row (`combine_row`: `comb_n`, `comb_qx`, and the
+        complex `comb_psi`, `comb_psi2`, `comb_psik`, `comb_psik2`).
+        Intervals after every stream has finished are no-ops: the loop does
+        not start and the snap changes nothing, so their rows carry
+        just_dumped False. JAX donates the input state; the port's loop
+        works on its own buffers and leaves the input as it is."""
+        s, outs = state, {}
+        for j in range(k):
+            raw = self.evolve_to_next_dump(s)
+            s = self.snap_after_dump(raw)
+            row = {name: getattr(raw, name) for name in _PAYLOAD_RAW}
+            row.update({name: getattr(s, name) for name in _PAYLOAD_SNAPPED})
+            if with_potential:
+                row["pot"] = self.potential(s.psi)
+            if combine is not None:
+                row.update(self.combine_row(raw, s, *combine))
+            for name, value in row.items():
+                if name not in outs:
+                    outs[name] = value.new_empty((k,) + tuple(value.shape))
+                outs[name][j].copy_(value)
+        return s, outs
 
     def _chain_n_steps(self, state: SimState, n: int) -> SimState:
         """Exactly n iterations of the evolve loop's body with no dump or
-        alias exit (msm_tpu's `_chain_n_steps`, :1524-1547): the slope
-        between two n measures the steady-state cost of an iteration. The
-        skewed engine runs its loop body n times between its entry and
-        exit; every other path runs `step()` n times (JAX's
-        `fori_loop(0, n, _step)`), with the loop's one device->host read
-        an iteration."""
+        alias exit (msm_tpu's `_chain_n_steps`, :1524-1547, a `fori_loop`):
+        the slope between two n measures the steady-state cost of an
+        iteration. The skewed engine runs its loop body n times between its
+        entry and exit; every other path steps every stream n times (JAX's
+        `fori_loop(0, n, _step)`). Both run as the loop's chunks, with the
+        exit taken out (replayed CUDA graphs on the card)."""
+        ctl = self._new_ctl(state, None)
         if not self.skew:
-            for _ in range(n):
-                state = self.step(state)
-            return state
-        finished = state.current_dumps >= self.params.num_data_dumps
-        s = dataclasses.replace(state, psik=self.engine.skew_enter(state.psik))
-        for _ in range(n):
-            s, _ = self._skew_body(s, finished)
+            return self._run_chunks(state, ctl, loop=False, n=n)
+        s = self._run_chunks(self._carrier(state), ctl, loop=False, n=n)
         psi, psik, _, _ = self.engine.skew_exit(s.psik, self.consts, s.pending_k)
         return dataclasses.replace(
             s, psi=psi, psik=psik, pending_k=torch.zeros_like(s.pending_k)

@@ -6,8 +6,9 @@ for one device:
 
 - `--metric kdk` (`run_kdk_bench`): grid-updates/s of the KDK step on one
   grid, timed as the slope between two trip counts of the stepper's step
-  chain (`Stepper._chain_n_steps`, the evolve loop's body with its one
-  device->host read an iteration). `main` emits the optimistic-dt headline
+  chain (`Stepper._chain_n_steps`, the evolve loop's body as JAX's
+  `fori_loop` runs it: chunks of iterations replayed as CUDA graphs on the
+  card, one device->host read a chunk). `main` emits the optimistic-dt headline
   alone first, then re-emits the merged record with the `exact_dt` and
   `lagged_dt` sub-records and the `streams` and `large_grid` (2 x size)
   extras, each gated by the wall budget MSM_BENCH_BUDGET_S (default 900 s)
@@ -249,13 +250,16 @@ def _bench_toml(size: int, dims: int, **kw):
 
 def run_kdk_bench(
     size: int, dims: int, streams: int, steps: int, dt_mode: str = "lagged",
-    device="cuda",
+    device="cuda", graphs: bool = True,
 ) -> dict:
     """Cell-updates/s of the KDK step on a (streams, size^dims) complex64
-    batch: warm with n_lo = max(2, steps // 10) iterations, then the best
-    of two slopes (t(n_lo + steps) - t(n_lo)) / steps of the step chain,
-    each call ended by a sync, so the per-call cost (the skewed engine's
-    entry and exit, the host's start) cancels."""
+    batch: warm with n_lo + steps iterations (n_lo = max(2, steps // 10);
+    on the card this captures the graph of every chunk length the timed
+    chains replay),
+    then the best of two slopes (t(n_lo + steps) - t(n_lo)) / steps of the
+    step chain, each call ended by a sync, so the per-call cost (the skewed
+    engine's entry and exit, the host's start) cancels. graphs=False runs
+    the chain's chunks eagerly on the card (`Stepper`), for comparison."""
     from .. import config as cfg
     from ..models.ics import build_ics
     from ..stepper import Stepper
@@ -265,14 +269,14 @@ def run_kdk_bench(
         num_data_dumps=1, sim_name="bench",
     ))
     with _transform_mode():
-        stepper = Stepper(params, torch.complex64, device, dt_mode=dt_mode)
+        stepper = Stepper(params, torch.complex64, device, dt_mode=dt_mode, graphs=graphs)
         psi0 = torch.as_tensor(build_ics(params)).to(torch.complex64).to(stepper.device)
         state = stepper.init_state(psi0.expand((streams,) + psi0.shape).contiguous())
         del psi0
         chain = stepper._chain_n_steps
 
         n_lo = max(2, steps // 10)
-        state = chain(state, n_lo)  # warm
+        state = chain(state, n_lo + steps)  # warm
         _sync(device)
 
         def timed(s, n):
@@ -298,14 +302,6 @@ def run_kdk_bench(
     )
 
 
-def _run_intervals(stepper, state, dumps: int):
-    """`dumps` dump intervals of the port's one-interval loop, as
-    `simulator._drive` runs them, without the writes."""
-    for _ in range(dumps):
-        state = stepper.snap_after_dump(stepper.evolve_to_next_dump(state))
-    return state
-
-
 def run_ensemble_bench(
     size: int = 16, dims: int = 3, streams: int = 128, dumps: int = 8, device="cuda",
 ) -> dict:
@@ -313,10 +309,9 @@ def run_ensemble_bench(
     (128 Wigner streams at 16^3), batched, in optimistic dt. Warms on the
     streams of seeds from 1, then times a different batch.
 
-    JAX times all intervals in one dispatch (`evolve_intervals`); the port
-    has no interval blocking yet, so the timed region is its one-interval
-    loop (`evolve_to_next_dump`, then `snap_after_dump`) run `dumps`
-    times. The unit keeps JAX's text."""
+    The timed region is JAX's: every interval in one dispatch
+    (`Stepper.evolve_intervals`, the driver's interval blocking), its
+    payload left on the device. The unit keeps JAX's text."""
     from .. import config as cfg
     from ..models.ics import build_ics
     from ..models.sampling import sample_stream_batch
@@ -334,12 +329,12 @@ def run_ensemble_bench(
             seeds = range(seed0, seed0 + streams)
             return stepper.init_state(sample_stream_batch(psi0, params, seeds, "Wigner"))
 
-        _run_intervals(stepper, make_state(1), dumps)
+        stepper.evolve_intervals(make_state(1), dumps)
         _sync(device)
         state = make_state(1 + streams)
         _sync(device)  # the state's build stays out of the timed region
         t0 = time.perf_counter()
-        state = _run_intervals(stepper, state, dumps)
+        state, _ = stepper.evolve_intervals(state, dumps)
         _sync(device)
         elapsed = time.perf_counter() - t0
     total_steps = int(state.n_steps.sum())

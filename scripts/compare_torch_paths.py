@@ -29,7 +29,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 import chip_smoke  # noqa: E402  (the configuration and the path switches)
-from profile_torch_paths import build_batch, emit  # noqa: E402
+from profile_torch_paths import emit  # noqa: E402
 
 
 def run(path: str, batch, mft, dtype) -> tuple[dict, torch.Tensor]:
@@ -71,7 +71,7 @@ def main() -> int:
 
     card = probes.card()
     chip_smoke.phase_build(card)
-    batch, mft = build_batch(args.size, args.seeds, torch.complex128)
+    batch, mft = chip_smoke.sampled_batch("tophat", args.size, args.seeds, torch.complex128)
     ref = None
     for dtype in (torch.complex128, torch.complex64):
         for path in ("xla", "mxu", "fused"):

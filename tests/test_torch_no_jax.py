@@ -23,6 +23,7 @@ MODULES = (
     "msm_tpu_torch.convert",
     "msm_tpu_torch.cosmo",
     "msm_tpu_torch.errors",
+    "msm_tpu_torch.graphs",
     "msm_tpu_torch.grid",
     "msm_tpu_torch.io",
     "msm_tpu_torch.io.checkpoint",
@@ -65,6 +66,7 @@ SCRIPTS = (
     "chip_smoke.py", "scripts/torch_microbench_mxu.py", "scripts/torch_probe_mxu_floor.py",
     "scripts/torch_probe_plane_cluster.py", "scripts/torch_kernel_resources.py",
     "scripts/torch_probe_lane_radix.py", "scripts/torch_probe_axis_radix.py",
+    "scripts/profile_torch_paths.py",
 )
 
 

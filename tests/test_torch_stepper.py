@@ -236,7 +236,9 @@ def test_cuda_stepper_matches_cpu(cuda_device):
             s = st.snap_after_dump(st.evolve_to_next_dump(s))
         states[str(dev)] = state_to_numpy(s)
     cpu, gpu = states["cpu"], states[str(cuda_device)]
-    assert all(n > 0 for n in kernels.launches.values())
+    # `xla` runs K19, K21 and the loop's freeze (K20 is `matmul`'s)
+    assert all(kernels.launches[k] > 0 for k in ("kinetic_phase", "phase_rotate",
+                                                  "masked_restore"))
     for k in ("n_steps", "replays", "current_dumps", "aliased"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
     np.testing.assert_allclose(gpu["psi"], cpu["psi"], atol=1e-10)

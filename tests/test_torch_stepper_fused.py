@@ -152,9 +152,10 @@ def test_cuda_fused_stepper_matches_cpu(cuda_device, fused_mode):
             s = st.snap_after_dump(st.evolve_to_next_dump(s))
         states[str(dev)] = state_to_numpy(s)
     cpu, gpu = states["cpu"], states[str(cuda_device)]
-    unused = {"plane_pass_real_fwd", "kinetic_phase", "phase_rotate",
+    unused = {"plane_pass_real_fwd", "kinetic_phase", "phase_rotate", "poisson_multiply",
               "plane_inv_density_rho_only", "plane_real_inv_max", "axis_inv_kick",
-              "axis_fwd_reduce"}
+              "axis_fwd_reduce", "lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv",
+              "axis_inv_map"}
     launched = {**kernels.launches, **mxu_fft.launches}
     assert all(launched[k] == 0 for k in unused), launched
     assert all(n > 0 for k, n in launched.items() if k not in unused), launched

@@ -279,7 +279,7 @@ def test_cuda_mxu_stepper_matches_cpu(cuda_device, mxu_mode):
     launched = {k: n for k, n in {**kernels.launches, **mxu_fft.launches}.items() if n}
     # 2-D runs no axis pass, and the unfused path none of the fused kernels
     path = {"kinetic_phase", "phase_rotate", "plane_pass", "plane_pass_real_fwd",
-            "plane_pass_real_inv"}
+            "plane_pass_real_inv", "masked_restore"}
     assert set(launched) == path, launched
     for k in ("n_steps", "replays", "current_dumps", "aliased"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)

@@ -191,7 +191,7 @@ def test_cuda_1d_mxu_stepper_matches_cpu(cuda_device, mxu_mode, mode):
     cpu, gpu = states["cpu"], states[str(cuda_device)]
     launched = {k for k, n in {**kernels.launches, **mxu_fft.launches}.items() if n}
     assert launched == {"kinetic_phase", "phase_rotate", "lane_pass", "lane_pass_real_fwd",
-                        "lane_pass_real_inv"}, launched
+                        "lane_pass_real_inv", "masked_restore"}, launched
     for k in ("n_steps", "replays", "current_dumps", "aliased"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
     np.testing.assert_allclose(gpu["psi"], cpu["psi"], atol=1e-10)
