@@ -181,6 +181,31 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             MSM_INTERVAL_BLOCK unset against 1 (fused) and
             MSM_MAX_STEPS_PER_DISPATCH=4 against 0 (`xla`), the same bytes
             and manifests; the peak memory of the fused 512^3 x 4 chunk
+  8 mesh    the multi-device layer (msm_tpu_torch.parallel): the twelve
+            kernels of the space-sharded fused engine (K1, K3, K5, K12, K13
+            on the (9, 256, 256^2 / d) mixed layout with the shard's rows of
+            s12; K2, K4, K6, K7, K9, K10, K11 on the 9 * 256 / d gathered
+            planes) on rank d - 1's shard of (9, 256^3) c64 for d = 2, 4, 8,
+            each against its plain version and the whole grid's launch
+            sliced (whether bit for bit; K1's and K13's sums after the
+            fixed-order sum over the d shards), the d = 4 shard timed; a
+            one-rank NCCL group: the mesh's collectives, the relayout's
+            local cost and the relayout bytes of a skewed step against its
+            bound, and `MeshStepper` on its (1, 1, 1) mesh at 256^3 x 9
+            (fused and `xla`, graphs on) against the plain `Stepper`, bit
+            for bit over two intervals' states and payloads, the second
+            interval timed in turns with its launches; the space-sharded
+            paths as wholes on that group, `Stepper(mesh=, spatial_axis=
+            ("x",))` at d = 1 (every all_to_all a copy) on the same batch
+            through its first dump interval: the sharded fused engine
+            optimistic, exact and unskewed (lagged), and with
+            MSM_MXU_SHARDED=0 the pfft path, against the plain `Stepper`
+            (`xla` for pfft), the counters bit for bit and the float fields
+            to SHARDED_LIMIT, each run launching its kernels and no K8,
+            K19 or K21; `simulate --mesh auto` under torchrun with one
+            process against `simulate` alone, the same bytes and manifests;
+            `bench --metric scaling` at its defaults (one process: the
+            sweep over the cards there are), its record's keys
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
@@ -197,7 +222,10 @@ bound, floor and launches by form; K1, K3, K8, K13, K5, K12 and K18 with their f
 stages form's median, `stages_ms`; P1/P2 with the device slopes; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
-1024), and their medians at (9 * 256^2, 256) under `grid`); and last
+1024), and their medians at (9 * 256^2, 256) under `grid`; the twelve
+kernels of the sharded engine with `shard`, their shard records, the
+d = 4 shard's median, plain median and bound, and their launches in the
+space-sharded engine's runs); and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
 checkout, it exits 1 and prints no result.
 """
@@ -2528,6 +2556,515 @@ def phase_graphs(card: dict) -> None:
     emit({"phase": "graphs", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer (msm_tpu_torch.parallel): kernels on shard shapes,
+# a one-rank NCCL group, the CLI under torchrun
+# ---------------------------------------------------------------------------
+
+# the kernels of the space-sharded fused engine: the column kernels on the
+# (B, N, N^2/d) mixed layout with the shard's rows of s12, the plane
+# kernels on the B N/d gathered planes
+SHARD_AXIS_KERNELS = ("axis_roundtrip_kick", "axis_roundtrip_poisson", "axis_pass",
+                      "axis_inv_kick", "axis_fwd_reduce")
+SHARD_PLANE_KERNELS = ("plane_inv_density", "plane_potkick_fwd", "plane_pass",
+                       "plane_density_fwd", "plane_pass_real_inv", "plane_inv_density_rho_only",
+                       "plane_real_inv_max")
+SHARD_COUNTS = (2, 4, 8)
+# the shard count whose shapes are timed for the kernels line
+SHARD_TIMED = 4
+# the one-rank NCCL group's MeshStepper runs: path -> kernels it must launch
+MESH_RUNS = {"fused": SKEW_KERNELS[:4], "xla": PHASE_KERNELS}
+# the space-sharded paths on the one-rank NCCL group, run by `Stepper` with
+# the grid sharded over the mesh's x axis of extent 1 (so every all_to_all
+# is a copy and every method of the sharded engine launches its kernels),
+# eagerly as `MeshStepper` runs them: name -> (path, dt mode,
+# MSM_MXU_SHARDED, the plain stepper's path, the kernels it must launch)
+# the counters, which must agree bit for bit; the float fields to
+# SHARDED_LIMIT, relative to the field's largest magnitude: FUSED_LIMITS'
+# complex64 limit of one kernel, since on one rank the engine's paths
+# launch the plain stepper's kernels in its order (the Poisson solve's K3
+# in place of K8; the unskewed step's operands in another order), and the
+# pfft path's complex torch.fft and plain phases stand beside `xla`'s rfft
+# and K19/K21
+COUNTER_FIELDS = ("current_dumps", "n_steps", "just_dumped", "aliased", "replays")
+SHARDED_LIMIT = 2e-5
+ENGINE_CORE = ("plane_inv_density", "axis_roundtrip_poisson", "plane_potkick_fwd",
+               "plane_density_fwd") + ENGINE_IO
+SHARDED_RUNS = {
+    "engine": ("fused", "optimistic", None, "fused", ("axis_roundtrip_kick",) + ENGINE_CORE),
+    "engine-exact": ("fused", "exact", None, "fused",
+                     ("axis_roundtrip_kick",) + ENGINE_CORE + EXACT_KERNELS),
+    "engine-unskewed": ("unskewed", "lagged", None, "unskewed", UNSKEWED_KERNELS + ENGINE_CORE),
+    "pfft": ("fused", "optimistic", "0", "xla", ()),
+}
+# K1's and K13's sums: the fixed-order sum of the shards' sums against the
+# whole grid's, relative. The partials are double in both and only their
+# grouping differs; the float32 result rounds once, so 2 ulp of float32.
+SHARD_SUM_LIMIT = 2.4e-7
+
+
+def _shard_cases(z, w, s0, s12, kcoeff, vcoeff, cut) -> dict:
+    """name -> fn(z, w, s12) -> outputs, and its plain version, for the
+    twelve kernels of the sharded engine on one operand (whole or a
+    shard)."""
+    from msm_tpu_torch.ops import mxu_fft as mx
+
+    def kick_plain(x, y, t):
+        f0, f12 = mx.kick_factors(kcoeff, s0, t)
+        return mx.axis_roundtrip_kick_plain(x, s0, t, f0, f12, cut)
+
+    def inv_kick_plain(x, y, t):
+        f0, f12 = mx.kick_factors(kcoeff, s0, t)
+        return (mx.axis_inv_kick_plain(x, f0, f12),)
+
+    return {
+        "axis_roundtrip_kick": (lambda x, y, t: mx.axis_roundtrip_kick(x, s0, t, kcoeff, cut),
+                                kick_plain),
+        "axis_roundtrip_poisson": (
+            lambda x, y, t: (mx.axis_roundtrip_poisson(x, s0, t, 1.0),),
+            lambda x, y, t: (mx.axis_roundtrip_poisson_plain(x, s0, t, 1.0),)),
+        "axis_pass": (lambda x, y, t: (mx.axis_pass(x, 1, inverse=False),),
+                      lambda x, y, t: (mx.axis_pass_plain(x, 1, False),)),
+        "axis_inv_kick": (lambda x, y, t: (mx.axis_inv_kick(x, s0, t, kcoeff),),
+                          inv_kick_plain),
+        "axis_fwd_reduce": (lambda x, y, t: mx.axis_fwd_reduce(x, s0, t, cut),
+                            lambda x, y, t: mx.axis_fwd_reduce_plain(x, s0, t, cut)),
+        "plane_inv_density": (lambda x, y, t: mx.plane_inv_density(x, 2.0),
+                              lambda x, y, t: mx.plane_inv_density_plain(x, 2.0)),
+        "plane_potkick_fwd": (lambda x, y, t: mx.plane_potkick_fwd(x, y, vcoeff),
+                              lambda x, y, t: mx.plane_potkick_fwd_plain(x, y, vcoeff)),
+        "plane_pass": (lambda x, y, t: (mx.plane_pass(x, inverse=True),),
+                       lambda x, y, t: (mx.plane_pass_plain(x, True),)),
+        "plane_density_fwd": (lambda x, y, t: (mx.plane_density_fwd(y, 2.0),),
+                              lambda x, y, t: (mx.plane_density_fwd_plain(y, 2.0),)),
+        "plane_pass_real_inv": (lambda x, y, t: (mx.plane_pass_real_inv(x),),
+                                lambda x, y, t: (mx.plane_pass_real_inv_plain(x),)),
+        "plane_inv_density_rho_only": (
+            lambda x, y, t: (mx.plane_inv_density_rho_only(x, 2.0),),
+            lambda x, y, t: (mx.plane_inv_density_rho_only_plain(x, 2.0),)),
+        "plane_real_inv_max": (lambda x, y, t: (mx.plane_real_inv_max(x),),
+                               lambda x, y, t: (mx.plane_real_inv_max_plain(x),)),
+    }
+
+
+def _shard_ops(name: str, shape) -> float:
+    """The operations of one call, as `_fused_cases` counts them."""
+    cells = math.prod(shape)
+    trip, plane2 = fft_ops(shape, 1) * 2, fft_ops(shape, 2) * 2
+    return {
+        "axis_roundtrip_kick": trip + 19.0 * cells, "axis_roundtrip_poisson": trip + 4.0 * cells,
+        "axis_pass": trip / 2, "axis_inv_kick": trip / 2 + 12.0 * cells,
+        "axis_fwd_reduce": trip / 2 + 7.0 * cells, "plane_inv_density": plane2 + 4.0 * cells,
+        "plane_potkick_fwd": plane2 + 29.0 * cells, "plane_pass": plane2 / 2,
+        "plane_density_fwd": plane2 / 2 + 4.0 * cells, "plane_pass_real_inv": plane2 / 2,
+        "plane_inv_density_rho_only": plane2 + 4.0 * cells,
+        "plane_real_inv_max": plane2 / 2 + 2.0 * cells,
+    }[name]
+
+
+def _mesh_shards(card: dict) -> dict:
+    """The twelve kernels of the space-sharded fused engine on rank r's
+    shard of MAIN_SHAPE c64 for d in SHARD_COUNTS (r = d - 1, the last, and
+    every r for the sums), each against its plain version on the same
+    shard (FUSED_LIMITS; FFT_LIMITS for the one-transform kernels) and
+    against the matching slice of the same kernel's launch on the whole
+    grid (columns and planes are independent: the same bits are expected,
+    and the record says whether they were; held to the plain version's
+    limit). K1's and K13's sums are compared after the fixed-order sum over
+    the d shards (SHARD_SUM_LIMIT), K4's and K11's per-plane maxima plane
+    by plane. The shape at d = SHARD_TIMED is timed. Returns name ->
+    record."""
+    from msm_tpu_torch.grid import spec_grid
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2026)
+    cdtype, shape = torch.complex64, MAIN_SHAPE
+    b, n = shape[0], shape[-1]
+    z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+    w = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
+    s1d = spec_grid(30.0 / n, 1, n)
+    s0 = torch.as_tensor(s1d, dtype=torch.float32).cuda()
+    s12 = (s0[:, None] + s0[None, :]).reshape(-1)
+    kcoeff = (torch.rand(b, device="cuda", generator=gen) - 0.5) * 0.1
+    vcoeff = (torch.rand(b, device="cuda", generator=gen) - 0.5) * 0.6
+    cut = 0.95 * 3 * float(s1d.max())
+    cases = _shard_cases(z, w, s0, s12, kcoeff, vcoeff, cut)
+    out = {}
+    for name, (kernel, plain) in cases.items():
+        column = name in SHARD_AXIS_KERNELS
+        limit = (FFT_LIMITS if name in ONE_TRANSFORM + ("axis_pass", "plane_pass",
+                                                        "plane_pass_real_inv")
+                 else FUSED_LIMITS)[cdtype]
+        whole = kernel(z, w, s12)
+        rec = {"shapes": {}, "limit_rel": limit}
+        for d in SHARD_COUNTS:
+            per = n // d
+
+            def shard(t, r, d=d, per=per):
+                # the mixed layout's rows of Y, or the gathered planes of Z
+                return (t[:, :, r * per:(r + 1) * per] if column
+                        else t[:, r * per:(r + 1) * per]).contiguous()
+
+            def rows(r, per=per):
+                return s12.view(n, n)[r * per:(r + 1) * per].reshape(-1).contiguous()
+
+            r = d - 1
+            got = kernel(shard(z, r), shard(w, r), rows(r))
+            want = plain(shard(z, r), shard(w, r), rows(r))
+            torch.cuda.synchronize()
+            errs, diffs, same = [], [], True
+            for i, (g, p) in enumerate(zip(got, want)):
+                errs.append((g - p).abs().max().item() / max(p.abs().max().item(), 1e-30))
+                if g.ndim == 1:  # sums (b,) or per-plane maxima
+                    if name in ("plane_potkick_fwd", "plane_real_inv_max"):
+                        ref = whole[i].view(b, n)[:, r * per:(r + 1) * per].reshape(-1)
+                    else:
+                        continue
+                else:
+                    ref = shard(whole[i], r)
+                same = same and _bitwise(g, ref)
+                diffs.append((g - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30))
+            sums = {}
+            if name in ("axis_roundtrip_kick", "axis_fwd_reduce"):
+                parts = [kernel(shard(z, q), shard(w, q), rows(q)) for q in range(d)]
+                for i, key in ((1, "norm"), (2, "alias")):
+                    total = parts[0][i]
+                    for part in parts[1:]:
+                        total = total + part[i]
+                    sums[key] = ((total - whole[i]).abs() / whole[i].abs().clamp_min(1e-30)
+                                 ).max().item()
+            shard_shape = list(shard(z, r).shape)
+            rec["shapes"][str(d)] = {
+                "shape": shard_shape, "rank": r, "plain_rel_err": errs,
+                "whole_slice_rel_diff": diffs, "bit_exact_with_whole": same,
+                **({"sum_rel_err": sums} if sums else {}),
+            }
+            check(all(e <= limit for e in errs),
+                  f"mesh {name} d={d}: against its plain version {errs} (limit {limit})")
+            check(all(e <= limit for e in diffs),
+                  f"mesh {name} d={d}: against the whole grid's slice {diffs}")
+            check(all(v <= SHARD_SUM_LIMIT for v in sums.values()),
+                  f"mesh {name} d={d}: summed shard sums against the whole grid's {sums}")
+            if d == SHARD_TIMED:
+                x, y, t = shard(z, r), shard(w, r), rows(r)
+                inputs = [x] + ([y] if name in ("plane_potkick_fwd",) else []) + \
+                    ([t] if column else [])
+                if name == "plane_density_fwd":
+                    inputs = [y]
+                rec.update({
+                    "timed_shape": shard_shape,
+                    "ms": median_ms(lambda: kernel(x, y, t)),
+                    "plain_ms": median_ms(lambda: plain(x, y, t)),
+                    **bound(inputs, list(got), _shard_ops(name, shard_shape)),
+                })
+            del got, want
+        emit({"phase": "mesh", "item": "shard", "kernel": name, "dtype": "complex64",
+              "whole_shape": list(shape), **rec, **card})
+        out[name] = rec
+        del whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_collectives(mesh) -> dict:
+    """The mesh's collectives on the one-rank NCCL group, each against what
+    it must give on one rank, and the relayout's local cost: an all_to_all
+    of the sharded engine's (9, 256, 64, 256) c64 mixed shard (d = 4),
+    beside the bound of its three passes of the shard."""
+    from msm_tpu_torch.ops.probes import HBM_BYTES_PER_S
+
+    x = torch.randn(MAIN_SHAPE[0], 256, 64, 256, dtype=torch.complex64, device=mesh.device)
+    for axes in (("stream",), ("x",), ("x", "y")):
+        check(torch.equal(mesh.all_to_all(x, 1, 2, axes), x), f"mesh all_to_all over {axes}")
+        check(torch.equal(mesh.psum(x, axes), x), f"mesh psum over {axes}")
+        check(torch.equal(mesh.pmax(x.real, axes), x.real), f"mesh pmax over {axes}")
+        check(torch.equal(mesh.all_gather(x, axes, 0), x), f"mesh all_gather over {axes}")
+    nbytes = x.numel() * x.element_size()
+    # the pack into the send buffer, NCCL's copy and the unpack: three
+    # passes of the shard on one rank
+    ms = median_ms(lambda: mesh.all_to_all(x, 1, 2, ("x", "y")))
+    return {"relayout_shape": list(x.shape), "relayout_bytes": nbytes,
+            "relayout_one_rank_ms": ms,
+            "relayout_one_rank_bound_ms": 6 * nbytes / HBM_BYTES_PER_S * 1e3,
+            "relayout_one_rank_shard_bytes_per_s": nbytes / (ms / 1e3)}
+
+
+def _mesh_stepper_runs(card: dict, mesh) -> dict:
+    """`MeshStepper` on the (1, 1, 1) mesh of the one-rank NCCL group at
+    256^3 x 9 (8 Wigner + MFT, c64, graphs as the port runs them) against
+    the plain `Stepper` on the same batch, per path of MESH_RUNS: two dump
+    intervals through `evolve_intervals` (the payload through the mesh's
+    gathers), every state field and payload entry bit for bit, then the
+    second interval once more on each, in turns (plain, mesh, mesh, plain),
+    timed per iteration, with the kernel launches of each turn set to 0
+    before and read after."""
+    from msm_tpu_torch.ops import kernels, mxu_fft
+    from msm_tpu_torch.parallel.sharded import MeshStepper
+    from msm_tpu_torch.stepper import SimState, Stepper
+
+    out = {}
+    for path, must in MESH_RUNS.items():
+        batch, mft = sampled_batch("tophat", 256, 8)
+        with fft_mode(path):
+            runs = {}
+            for key in ("plain", "mesh"):
+                st = (Stepper(mft, torch.complex64, "cuda") if key == "plain"
+                      else MeshStepper(mft, mesh, torch.complex64))
+                s0 = st.init_state(batch)
+                first, outs = st.evolve_intervals(s0, 1)
+                second, outs2 = st.evolve_intervals(first, 1)
+                torch.cuda.synchronize()
+                runs[key] = {"st": st, "first": first, "second": second, "outs": outs2}
+            del batch
+            same = {f.name: _bitwise(getattr(runs["plain"]["second"], f.name),
+                                     getattr(runs["mesh"]["second"], f.name))
+                    for f in dataclasses.fields(SimState)}
+            same.update({f"outs.{k}": _bitwise(v, runs["mesh"]["outs"][k])
+                         for k, v in runs["plain"]["outs"].items()})
+            turns = {"plain": [], "mesh": []}
+            for key in ("plain", "mesh", "mesh", "plain"):
+                r = runs[key]
+                inner = getattr(r["st"], "stepper", r["st"])
+                it0 = inner.stats["iterations"]
+                kernels.reset_launches()
+                mxu_fft.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r["st"].evolve_intervals(r["first"], 1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {**kernels.launches, **mxu_fft.launches}
+                its = inner.stats["iterations"] - it0
+                turns[key].append({"ms_per_iteration": wall * 1e3 / its, "iterations": its,
+                                   "launches": {k: v for k, v in launches.items() if v}})
+        s = runs["mesh"]["second"]
+        rec = {
+            "phase": "mesh", "item": "one-rank-nccl", "path": path,
+            "config": "tophat 256^3, 8 Wigner + MFT, c64, 3 dumps over t=40",
+            "mesh": [1, 1, 1], "backend": torch.distributed.get_backend(),
+            "graphs": runs["mesh"]["st"].stepper.graphs, "bit_exact": same,
+            "n_steps_range": [int(s.n_steps.min()), int(s.n_steps.max())],
+            "turns": turns,
+            "mesh_over_plain": (min(t["ms_per_iteration"] for t in turns["mesh"])
+                                / min(t["ms_per_iteration"] for t in turns["plain"])),
+            **card,
+        }
+        emit(rec)
+        check(all(same.values()), f"mesh {path}: the one-rank mesh differs: {same}")
+        check(rec["graphs"], f"mesh {path}: the stream-only mesh did not replay graphs")
+        for t in turns["mesh"] + turns["plain"]:
+            check(t["iterations"] > 0 and all(t["launches"].get(k, 0) > 0 for k in must),
+                  f"mesh {path}: a turn did not launch {must}: {t}")
+        check(turns["mesh"][0]["launches"] == turns["plain"][0]["launches"],
+              f"mesh {path}: the mesh's launches differ from the plain stepper's")
+        out[path] = rec
+        del runs, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def _state_diffs(a, b) -> dict:
+    """Field -> whether two SimStates hold the same bits there, and the
+    float fields' largest difference relative to the first's largest
+    magnitude."""
+    from msm_tpu_torch.stepper import SimState
+
+    out = {}
+    for f in dataclasses.fields(SimState):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        rec = {"bit_exact": _bitwise(x, y)}
+        if (x.is_floating_point() or x.is_complex()) and not rec["bit_exact"]:
+            x, y = x.to(torch.complex128), y.to(torch.complex128)
+            fx, fy = torch.isfinite(x.abs()), torch.isfinite(y.abs())
+            rec["same_nonfinite"] = bool(torch.equal(fx, fy))
+            fin = fx & fy
+            rec["rel_diff"] = ((x - y)[fin].abs().max().item()
+                               / max(x[fin].abs().max().item(), 1e-30)) if fin.any() else 0.0
+        out[f.name] = rec
+    return out
+
+
+def _mesh_sharded_runs(card: dict, mesh) -> dict:
+    """The space-sharded paths as wholes on the one-rank NCCL group, per
+    SHARDED_RUNS: `Stepper(mesh=, spatial_axis=("x",))` (the sharded fused
+    engine, or with MSM_MXU_SHARDED=0 the pfft transforms and plain torch
+    phases) on the 256^3 x 9 batch through its first dump interval, the
+    kernel launches set to 0 before `init_state` and read after, against
+    the plain `Stepper` of the same path (for pfft `xla`, the transforms
+    JAX's rule puts beside it) from the same batch: the counters bit for
+    bit, the float fields to SHARDED_LIMIT."""
+    from msm_tpu_torch.ops import kernels, mxu_fft
+    from msm_tpu_torch.stepper import Stepper
+
+    batch, mft = sampled_batch("tophat", 256, 8)
+    out = {}
+    for name, (path, dt_mode, sharded, plain_path, must) in SHARDED_RUNS.items():
+        runs = {}
+        for key in ("plain", "sharded"):
+            with fft_mode(plain_path if key == "plain" else path), \
+                    env_vars({"MSM_MXU_SHARDED": sharded}):
+                st = (Stepper(mft, torch.complex64, mesh.device, dt_mode=dt_mode)
+                      if key == "plain"
+                      else Stepper(mft, torch.complex64, mesh.device, dt_mode=dt_mode,
+                                   graphs=False, mesh=mesh, spatial_axis=("x",)))
+                kernels.reset_launches()
+                mxu_fft.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                final, _ = st.evolve_intervals(st.init_state(batch), 1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: v for k, v in {**kernels.launches, **mxu_fft.launches}.items()
+                            if v}
+            runs[key] = {"st": st, "final": final, "wall_s": wall, "launches": launches,
+                         "iterations": st.stats["iterations"]}
+        st = runs["sharded"]["st"]
+        diffs = _state_diffs(runs["plain"]["final"], runs["sharded"]["final"])
+        rec = {
+            "phase": "mesh", "item": "one-rank-sharded", "run": name, "path": path,
+            "dt_mode": dt_mode, "MSM_MXU_SHARDED": sharded, "against": plain_path,
+            "config": "tophat 256^3, 8 Wigner + MFT, c64, the first of 3 dumps over t=40",
+            "mesh": [1, 1, 1], "spatial_axis": ["x"], "backend": torch.distributed.get_backend(),
+            "sharded_engine": st.sharded_engine, "skew": st.skew, "use_pallas": st.use_pallas,
+            "limit_rel": SHARDED_LIMIT, "diffs": diffs,
+            **{f"{key}_{k}": runs[key][k] for key in runs
+               for k in ("wall_s", "iterations", "launches")},
+            **card,
+        }
+        emit(rec)
+        check(st.sharded_engine == (sharded is None) and not st.use_pallas,
+              f"mesh {name}: not the path asked for: {rec}")
+        for field in COUNTER_FIELDS:
+            check(diffs[field]["bit_exact"], f"mesh {name}: {field} differs: {diffs[field]}")
+        for field, d in diffs.items():
+            check(d["bit_exact"] or (d["same_nonfinite"] and d["rel_diff"] <= SHARDED_LIMIT),
+                  f"mesh {name}: {field} against the plain stepper: {d}")
+        launched = runs["sharded"]["launches"]
+        check(all(launched.get(k, 0) > 0 for k in must),
+              f"mesh {name}: did not launch {must}: {launched}")
+        # no K8 (the sharded solve is K3 on the s12 rows) and no K19/K21
+        # (use_pallas is off); the pfft path launches no transform kernel
+        barred = ("axis_roundtrip_map",) + PHASE_KERNELS + (
+            tuple(mxu_fft.launches) if sharded else ())
+        check(not any(launched.get(k, 0) for k in barred),
+              f"mesh {name}: launched a kernel off its path: {launched}")
+        out[name] = rec
+        del runs, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_bench_scaling(card: dict) -> None:
+    """`python -m msm_tpu_torch bench --metric scaling` at its defaults on
+    the card, in process (it joins and leaves a process group of its own):
+    one process, so the sweep runs over the cards there are (its 1-device
+    point on a one-card machine); its record's keys and points."""
+    from msm_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with env_vars({"MSM_FFT": None}), contextlib.redirect_stdout(out):
+        rc = cli.main(["bench", "--metric", "scaling", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    sys.stderr.write(out.getvalue())
+    check(rc == 0, f"bench --metric scaling returned {rc}")
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    emit({"phase": "mesh", "item": "bench-scaling", "record": rec, "wall_s": wall, **card})
+    check(rec["metric"] == "weak_scaling" and rec["processes"] == 1
+          and rec["transport"] == "nccl" and rec["points"][0]["devices"] == 1
+          and rec["points"][-1]["devices"] <= torch.cuda.device_count()
+          and all(math.isfinite(p["cell_updates_per_s"]) and p["cell_updates_per_s"] > 0
+                  for p in rec["points"]),
+          f"bench --metric scaling: {rec}")
+
+
+def _mesh_cli(card: dict, work: str) -> None:
+    """`simulate --mesh auto` under torchrun with one process (one rank: the
+    plain stepper, JAX's rule) against `simulate` alone (`--mesh none`):
+    the same dump bytes and manifests."""
+    toml_path, _ = _flags_toml(work, "mesh-cli", 2)
+    env = dict(os.environ, PYTHONPATH=HERE, MSM_FFT="mxu")
+    common = ["simulate", "--toml", toml_path, "--device", "cuda", "--precision", "f64",
+              "--verbose"]
+    roots = {key: os.path.join(work, key) for key in ("torchrun", "alone")}
+    for key, head in (("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                                    "--standalone", "--nproc-per-node=1"]),
+                      ("alone", [sys.executable])):
+        proc = subprocess.run(
+            head + ["-m", "msm_tpu_torch", *common, "--data-root", roots[key],
+                    *(["--mesh", "auto"] if key == "torchrun" else [])],
+            capture_output=True, text=True, env=env, cwd=work, timeout=600,
+        )
+        sys.stderr.write(proc.stdout[-2000:] + proc.stderr[-2000:])
+        check(proc.returncode == 0, f"mesh cli {key}: rc {proc.returncode}")
+    cmp = _files_equal(roots["torchrun"], roots["alone"])
+    emit({"phase": "mesh", "item": "cli", "runs": ["torchrun --mesh auto", "--mesh none"],
+          **cmp, **card})
+    check(cmp["files"] > 0 and not cmp["differ"], f"mesh cli: {cmp}")
+
+
+def _mesh_relayout_model(card: dict, collectives: dict) -> None:
+    """The relayout bytes of a skewed step on the space-sharded engine at
+    MAIN_SHAPE c64 against its bound: 4 all_to_alls a step, each a pass of
+    the local shard ((d - 1) / d of it leaving the rank), beside the
+    kernels' bytes (`step_bytes_per_cell`), at the card's published link and
+    memory rates (`benchmarks.LINK_BYTES_PER_S`, `HBM_BYTES_PER_S`)."""
+    from msm_tpu_torch.utils import benchmarks
+
+    kind = torch.cuda.get_device_name(0)
+    cells = math.prod(MAIN_SHAPE)
+    link, hbm = benchmarks.LINK_BYTES_PER_S.get(kind), benchmarks.hbm_bytes_per_s(kind)
+    rows = []
+    for d in SHARD_COUNTS:
+        shard_bytes = cells * 8 / d
+        sent = 4 * shard_bytes * (d - 1) / d
+        rows.append({
+            "d": d, "shard_bytes": shard_bytes, "bytes_sent_per_step": sent,
+            "link_ms": None if link is None else sent / link * 1e3,
+            "kernels_bound_ms": (None if hbm is None else
+                                 cells / d * benchmarks.step_bytes_per_cell("optimistic", True)
+                                 / hbm * 1e3),
+            "modeled_a2a_fraction": benchmarks.modeled_a2a_fraction(d, kind),
+            # the four relayouts' local copies (pack, exchange, unpack), at
+            # the one rank's measured rate
+            "local_copies_ms": (4 * shard_bytes
+                                / collectives["relayout_one_rank_shard_bytes_per_s"] * 1e3),
+        })
+    emit({"phase": "mesh", "item": "relayout-bound", "shape": list(MAIN_SHAPE),
+          "dtype": "complex64", "rows": rows, **collectives, **card})
+
+
+def phase_mesh(card: dict) -> dict:
+    """The multi-device layer on the card: the sharded engine's kernels on
+    shard shapes; a one-rank NCCL group (a file store in a temporary
+    directory) with the mesh's collectives, `MeshStepper` against the plain
+    `Stepper`, and the space-sharded paths as wholes against it; the CLI
+    under torchrun; `bench --metric scaling`. Returns the shard records by
+    kernel, each with its launches in the space-sharded engine's runs."""
+    from msm_tpu_torch.parallel import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    shards = _mesh_shards(card)
+    with tempfile.TemporaryDirectory() as work:
+        device = mesh_mod.init_distributed("cuda", init_method=f"file://{work}/store", rank=0,
+                                           world_size=1, timeout_s=300.0)
+        try:
+            mesh = mesh_mod.Mesh((1, 1, 1), device)
+            collectives = _mesh_collectives(mesh)
+            _mesh_relayout_model(card, collectives)
+            _mesh_stepper_runs(card, mesh)
+            sharded = _mesh_sharded_runs(card, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+        _mesh_cli(card, work)
+    _mesh_bench_scaling(card)
+    for name, rec in shards.items():
+        rec["launches"] = sum(r["sharded_launches"].get(name, 0) for r in sharded.values())
+        check(rec["launches"] > 0, f"mesh {name}: no launch on the space-sharded engine")
+    emit({"phase": "mesh", "item": "wall", "wall_s": time.perf_counter() - t0, **card})
+    return shards
+
+
 def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
     """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
     return {
@@ -2564,6 +3101,7 @@ def main() -> int:
     phase_simulate_flags(card)
     phase_bench(card)
     phase_graphs(card)
+    shards = phase_mesh(card)
     mains["engine-check"] = engine_check
     mains["probes"] = probe_run
     emit({
@@ -2633,6 +3171,13 @@ def main() -> int:
                     "slope_ms", "ms_half_frozen", "bound_ms_half_frozen", "ms_all_frozen",
                     "bound_ms_all_frozen")}}
                if k == "masked_restore" else {}),
+            # the twelve kernels of the space-sharded fused engine: rank
+            # r's shard at d = 2, 4, 8 against the plain version and the
+            # whole grid's slice, and the d = 4 shard's times
+            **({"shard": {key: shards[k][key] for key in (
+                "shapes", "timed_shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "launches")}}
+               if k in shards else {}),
             # P1/P2: the device slopes of the kernel and of Tensor.copy_
             **({"slope_ms": measured[k]["slope_ms"],
                 "library_slope_ms": measured[k]["library_slope_ms"]}

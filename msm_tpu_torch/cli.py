@@ -5,13 +5,14 @@
         [--dt-mode optimistic|exact|lagged] [--fast-dt] [--strict-alias]
         [--online-synthesis] [--test] [--sequential-streams] [--resume]
         [--ignore-remote-storage] [--debug-checks] [--check-eps EPS]
-        [--profile-dir DIR] [--verbose]
+        [--profile-dir DIR] [--mesh none|auto|space] [--verbose]
     python -m msm_tpu_torch synthesize --toml path.toml [--device cuda|cpu]
         [--data-root DIR] [--precision f32|f64] [--verbosity LEVEL]
-        [--dump-range LO:HI] [--post-only]
+        [--dump-range LO:HI] [--post-only] [--multihost] [--distributed]
     python -m msm_tpu_torch bench [--device cuda|cpu] [--size N] [--dims D]
-        [--streams B] [--steps S] [--metric kdk|streams]
-        [--dt-mode optimistic|exact|lagged|all]
+        [--streams B] [--steps S] [--metric kdk|streams|scaling]
+        [--dt-mode optimistic|exact|lagged|all] [--processes P]
+        [--devices-per-proc D]
 
 Counterpart of msm_tpu/cli.py's `simulate` (`simulator/src/main.rs:9-17`)
 and `synthesize` (`synthesizer/src/main.rs:30-190`). `simulate` runs the
@@ -37,10 +38,20 @@ the FourierAliasingError to be raised. `bench` (msm_tpu's `bench`,
 `utils/benchmarks.py`) prints the port's speed as JSON records on stdout:
 `--metric kdk` the KDK step's cell-updates/s on one grid, fail-soft under
 MSM_BENCH_BUDGET_S, `--metric streams` the ensemble's stream-dump
-intervals/s; on the card unless `--device cpu`. The JAX CLI's device
-meshes (`simulate --mesh`), the bench's `--metric scaling`,
-`--processes` and `--devices-per-proc`, and `synthesize`'s `--multihost`
-and `--distributed` are not ported yet, so argparse rejects them.
+intervals/s; on the card unless `--device cpu`.
+
+Device meshes run one process a device, NCCL on the card and gloo on the
+CPU (`parallel.mesh`). Under torchrun (`python -m torch.distributed.run
+--nproc-per-node P -m msm_tpu_torch simulate ...`) `simulate` joins the
+process group that the environment describes, on cuda:LOCAL_RANK, and
+`--mesh auto` lays the ensemble out over its ranks (streams, then spatial
+pencils), `--mesh space` shards every grid over every rank; one rank runs
+the plain stepper. `synthesize --distributed` joins the group the same way
+(JAX's `jax.distributed.initialize()`), and `--multihost` splits the dump
+list over its ranks. `bench --metric scaling` is the weak-scaling sweep,
+one device a rank, which it starts itself: over the devices there are
+with `--processes 1`, else over `--processes P` x `--devices-per-proc D`
+ranks.
 
 `MSM_FFT` chooses the transforms, as for the JAX CLI, and is read when a
 command runs: `xla` (torch.fft; the default on either device), `mxu` (the
@@ -86,12 +97,32 @@ def _dtype(precision: str) -> torch.dtype:
     return torch.complex128 if precision == "f64" else torch.complex64
 
 
+def _join_group(device: str) -> str:
+    """Join the launcher's process group (torchrun's environment) when
+    there is one; returns this rank's device."""
+    from .parallel import mesh as mesh_mod
+
+    if mesh_mod.under_launcher():
+        return str(mesh_mod.init_distributed(device))
+    return device
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def cmd_simulate(args) -> int:
     from . import config as cfg
     from . import simulator
     from .ops import fft as fft_ops
+    from .parallel import mesh as mesh_mod
 
     _require_device(args.device)
+    device = _join_group(args.device)
+    rank0 = mesh_mod.world()[0] == 0
     dtype = _dtype(args.precision)
     toml = cfg.read_toml(args.toml)
     start = time.monotonic()
@@ -101,7 +132,7 @@ def cmd_simulate(args) -> int:
         simulator.run_config(
             toml,
             dtype=dtype,
-            device=args.device,
+            device=device,
             data_root=args.data_root,
             verbose=args.verbose,
             dt_mode="lagged" if args.fast_dt else args.dt_mode,
@@ -114,10 +145,12 @@ def cmd_simulate(args) -> int:
             check_eps=args.check_eps,
             profile_dir=args.profile_dir,
             use_remote_storage=not args.ignore_remote_storage,
+            mesh=args.mesh,
         )
     finally:
         fft_ops.set_default_mode(mode)
-    if cfg.stream_count(toml) > 1:
+        _leave_group()
+    if cfg.stream_count(toml) > 1 and rank0:
         print(f"Finished all streams in {time.monotonic() - start:.1f} seconds")
     return 0
 
@@ -128,21 +161,30 @@ def cmd_synthesize(args) -> int:
 
     logging.getLogger().setLevel(_VERBOSITY_LEVELS[args.verbosity])
     _require_device(args.device)
-    toml = cfg.read_toml(args.toml)
-    if args.post_only:
-        synthesize_post_only(toml, data_root=args.data_root)
-        return 0
-    dump_range = None
-    if args.dump_range:
-        lo, hi = args.dump_range.split(":")
-        dump_range = (int(lo), int(hi))
-    synthesize_toml(
-        toml,
-        data_root=args.data_root,
-        dtype=_dtype(args.precision),
-        dump_range=dump_range,
-        device=args.device,
-    )
+    device = args.device
+    if args.distributed:
+        from .parallel import mesh as mesh_mod
+
+        device = str(mesh_mod.init_distributed(args.device))
+    try:
+        toml = cfg.read_toml(args.toml)
+        if args.post_only:
+            synthesize_post_only(toml, data_root=args.data_root)
+            return 0
+        dump_range = None
+        if args.dump_range:
+            lo, hi = args.dump_range.split(":")
+            dump_range = (int(lo), int(hi))
+        synthesize_toml(
+            toml,
+            data_root=args.data_root,
+            dtype=_dtype(args.precision),
+            dump_range=dump_range,
+            multihost=args.multihost,
+            device=device,
+        )
+    finally:
+        _leave_group()
     return 0
 
 
@@ -152,6 +194,13 @@ def cmd_bench(args) -> int:
     _require_device(args.device)
     benchmarks.main(args)
     return 0
+
+
+def _positive(text: str) -> int:
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"{text} is not a positive count")
+    return value
 
 
 def _add_device(parser: argparse.ArgumentParser) -> None:
@@ -259,6 +308,15 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="write a torch.profiler Chrome trace of the run to DIR/trace.json",
     )
+    sim.add_argument(
+        "--mesh",
+        choices=("none", "auto", "space"),
+        default="none",
+        help="auto: lay the ensemble out over the ranks of the process group "
+        "(torchrun's; one device a rank): streams over ranks, then spatial "
+        "pencils; space: shard every grid over every rank (2-D pencil); "
+        "none (default) and one rank: the plain stepper",
+    )
     sim.add_argument("--verbose", "-v", action="store_true")
     sim.set_defaults(fn=cmd_simulate)
 
@@ -281,6 +339,16 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="evaluate only post-combine scalars (Qx) from existing combines",
     )
+    syn.add_argument(
+        "--multihost",
+        action="store_true",
+        help="split the dump list over the ranks of the process group",
+    )
+    syn.add_argument(
+        "--distributed",
+        action="store_true",
+        help="join torchrun's process group (env://) before anything else",
+    )
     syn.set_defaults(fn=cmd_synthesize)
 
     bench = sub.add_parser(
@@ -302,7 +370,7 @@ def build_parser() -> argparse.ArgumentParser:
         "kdk run's streams extra)",
     )
     bench.add_argument("--steps", type=int, default=None, help="timed steps (default 100)")
-    bench.add_argument("--metric", choices=("kdk", "streams"), default="kdk")
+    bench.add_argument("--metric", choices=("kdk", "streams", "scaling"), default="kdk")
     bench.add_argument(
         "--dt-mode",
         choices=("optimistic", "exact", "lagged", "all", "both"),
@@ -310,6 +378,16 @@ def build_parser() -> argparse.ArgumentParser:
         dest="dt_mode",
         help="all (default; both is its old name): the optimistic headline "
         "with exact and lagged sub-records; or one mode alone",
+    )
+    bench.add_argument(
+        "--processes", type=_positive, default=1,
+        help="scaling metric: processes of the sweep; 1 (default) sweeps the devices "
+        "there are, one rank a device",
+    )
+    bench.add_argument(
+        "--devices-per-proc", type=_positive, default=4, dest="devices_per_proc",
+        help="scaling metric with --processes P > 1: devices a process (default 4); "
+        "the sweep runs P x D ranks, and more ranks than cards raises",
     )
     _add_device(bench)
     bench.set_defaults(fn=cmd_bench)

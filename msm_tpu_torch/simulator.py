@@ -53,8 +53,18 @@ a resumed run takes the steps the uninterrupted one took; a manifest
 without them (JAX's) restarts the bound from the dump's potential, as JAX
 does.
 
-Not here yet: device meshes (`--mesh`) and the multi-process branches of
-the dispatch policy (ROADMAP item 10).
+On a device mesh (`mesh="auto"` or `"space"`, one process a device under a
+process group, `parallel.mesh`) the batch runs on `parallel.sharded.
+MeshStepper` in the layout of msm_tpu's `_make_stepper` (simulator.py:
+523-605): streams over ranks when the run count divides, else spatial
+pencils, the batch padded with MFT copies when nothing divides it; one
+rank (or `mesh="none"`) runs the plain `Stepper`. Each stream's dumps and
+manifests are written by the lowest rank holding it (its space group's
+leader, after the space gather of its grids), the combined files and the
+Qx series by rank 0, and every rank waits for the others before
+`run_config` returns (:1332-1343). A plain `Stepper` under a process group
+of several ranks runs the whole batch on every rank and only rank 0
+writes, one interval a dispatch (:154).
 """
 
 from __future__ import annotations
@@ -76,6 +86,7 @@ from .io.checkpoint import load_manifest, write_manifest
 from .io.npy import AsyncGridWriter, dump_dir, load_complex_pair, psi_path
 from .models.ics import build_ics
 from .models.sampling import sample_quantum_perturbation, sample_stream_batch
+from .parallel import mesh as mesh_mod
 from .stepper import SimState, Stepper
 from .utils.profiling import ProgressReporter, StepTimer, profiler_trace
 
@@ -207,7 +218,7 @@ def _run_scalars(scalars: dict, i: int) -> dict:
     }
 
 
-def _try_resume_batch(runs: list, stepper: Stepper) -> Optional[SimState]:
+def _try_resume_batch(runs: list, stepper, pad_to: "int | None" = None) -> Optional[SimState]:
     """Rebuild a batched SimState from each run's manifest and last psi
     dump (msm_tpu's `_try_resume_batch`, simulator.py:426-465).
 
@@ -215,7 +226,9 @@ def _try_resume_batch(runs: list, stepper: Stepper) -> Optional[SimState]:
     is at dump 0. Otherwise the state is built from the dumps through
     `init_state` (the fresh start's transforms and Poisson solve), and
     time, tau, a, the counters, the aliased flag and the replays come from
-    the manifests, the carried dt bound too where they hold it."""
+    the manifests, the carried dt bound too where they hold it. A mesh's
+    batch is padded to `pad_to` rows with copies of the last run (the MFT),
+    as JAX pads it; each rank keeps its own rows."""
     manifests = []
     for r in runs:
         m = load_manifest(r.dir)
@@ -225,15 +238,18 @@ def _try_resume_batch(runs: list, stepper: Stepper) -> Optional[SimState]:
     if all(m["current_dumps"] == 0 for m in manifests):
         return None
     cdtype = np.complex128 if stepper.dtype == torch.complex128 else np.complex64
-    psi = torch.stack([
-        torch.as_tensor(r.load_psi(m["current_dumps"], cdtype)).to(stepper.device)
-        for r, m in zip(runs, manifests)
-    ])
+    psis = [torch.as_tensor(r.load_psi(m["current_dumps"], cdtype)) for r, m in zip(runs, manifests)]
+    pad = (pad_to or len(runs)) - len(runs)
+    psis += psis[-1:] * pad
+    manifests += manifests[-1:] * pad
+    psi = torch.stack(psis).to(stepper.device)
+    del psis
     state = stepper.init_state(psi)
     del psi
 
     def arr(key, dtype):
-        return torch.tensor([m[key] for m in manifests], dtype=dtype, device=stepper.device)
+        return stepper.local_streams(torch.tensor([m[key] for m in manifests], dtype=dtype,
+                                                  device=stepper.device))
 
     fields = dict(
         time=arr("time", stepper.tdtype),
@@ -241,9 +257,9 @@ def _try_resume_batch(runs: list, stepper: Stepper) -> Optional[SimState]:
         a=arr("a", stepper.tdtype),
         current_dumps=arr("current_dumps", torch.int32),
         n_steps=arr("n_steps", torch.int32),
-        aliased=torch.tensor(
+        aliased=stepper.local_streams(torch.tensor(
             [bool(m.get("aliased", False)) for m in manifests], device=stepper.device
-        ),
+        )),
     )
     # cumulative replay telemetry and the carried bound survive a resume
     # where every manifest carries them
@@ -318,6 +334,83 @@ def _transforms(stepper: Stepper) -> str:
     return "xla (torch.fft + K19, K21)"
 
 
+def _describe(stepper) -> str:
+    """The verbose line's transforms, with a mesh's layout."""
+    inner = getattr(stepper, "stepper", stepper)
+    if inner.sharded_engine:
+        text = ("mxu (sharded fused engine: K1-K4 + K5, K6, K7, K3, K9"
+                + (" + K10, K11" if inner.dt_mode == "exact" else "") + ")")
+    elif inner.spatial_axis is not None:
+        text = "pfft (torch.fft + all_to_all)"
+    else:
+        text = _transforms(inner)
+    if inner.mesh is not None:
+        shape = tuple(inner.mesh.shape.values())
+        text += f" on a (stream, x, y) = {shape} mesh"
+    return text
+
+
+def _make_stepper(params, dtype, dt_mode: str, mesh: str, n_runs: int, device,
+                  debug_checks: bool = False):
+    """The engine for the batched ensemble (msm_tpu's `_make_stepper`,
+    simulator.py:523-605): (stepper, pad_to). `mesh="none"`, or one rank,
+    is the plain `Stepper`. `mesh="auto"` lays the ranks out (stream,
+    space): the largest stream axis dividing the run count and the world
+    whose space factor the grid takes, ranks holding whole streams first;
+    else the batch is padded to a multiple of a workable stream axis with
+    MFT copies (`pad_to`), and with no workable layout at all the run is
+    the plain `Stepper` with a warning. `mesh="space"` shards every grid
+    over every rank. A 3-D space factor becomes a (px, py) pencil with px
+    >= py, both dividing the grid."""
+    rank, n_dev = mesh_mod.world()
+    if mesh == "none" or n_dev <= 1:
+        return Stepper(params, dtype, device, dt_mode=dt_mode, debug_checks=debug_checks), n_runs
+    from .parallel.sharded import MeshStepper
+
+    n_proc = n_dev  # one device a process
+    best, pad_to = None, n_runs
+    if mesh == "space":
+        if params.dims >= 2:
+            best = (1, n_dev)
+    else:
+        for whole_streams in (True, False):
+            for n_stream in range(min(n_dev, n_runs), 0, -1):
+                if n_runs % n_stream == 0 and n_dev % n_stream == 0:
+                    n_space = n_dev // n_stream
+                    if n_space == 1 or (params.dims >= 2 and params.size % n_space == 0):
+                        if whole_streams and n_stream % n_proc:
+                            continue
+                        best = (n_stream, n_space)
+                        break
+            if best is not None:
+                break
+        if best is None:
+            for n_stream in range(min(n_dev, n_runs + n_dev), 0, -1):
+                if n_dev % n_stream:
+                    continue
+                n_space = n_dev // n_stream
+                if n_space > 1 and (params.dims < 2 or params.size % n_space):
+                    continue
+                best = (n_stream, n_space)
+                pad_to = -(-n_runs // n_stream) * n_stream
+                break
+    if best is None:
+        log.warning("mesh=%s: no workable layout; running single-device", mesh)
+        return Stepper(params, dtype, device, dt_mode=dt_mode, debug_checks=debug_checks), n_runs
+    n_stream, n_space = best
+    px, py = n_space, 1
+    if params.dims == 3:
+        for cand in range(int(n_space**0.5), 0, -1):
+            if (n_space % cand == 0 and params.size % cand == 0
+                    and params.size % (n_space // cand) == 0):
+                px, py = n_space // cand, cand
+                break
+    log.info("mesh=%s: (stream=%d, x=%d, y=%d) over %d ranks%s", mesh, n_stream, px, py, n_dev,
+             f", batch padded {n_runs}->{pad_to}" if pad_to != n_runs else "")
+    m = mesh_mod.Mesh((n_stream, px, py), device)
+    return MeshStepper(params, m, dtype, dt_mode=dt_mode, debug_checks=debug_checks), pad_to
+
+
 # ---------------------------------------------------------------------------
 # The dispatch policy (msm_tpu/simulator.py:137-237), single-process
 # ---------------------------------------------------------------------------
@@ -330,9 +423,12 @@ def _interval_block_k(params, n_batch: int, dtype, stepper, online: bool = False
     output_potential, plus 3 grids for the online-synthesis row):
     MSM_INTERVAL_BLOCK sets k directly, MSM_INTERVAL_BLOCK_MB the budget
     (default 512 MB, at most 32 and the dump count). `dtype` is the state's
-    complex torch dtype. JAX's multi-process branch waits for the
-    multi-device layouts."""
+    complex torch dtype. A plain Stepper under a process group of several
+    ranks takes one interval a dispatch, as JAX's multi-process branch; a
+    MeshStepper blocks on any number of ranks."""
     max_k = max(1, int(params.num_data_dumps))
+    if isinstance(stepper, Stepper) and mesh_mod.world()[1] > 1:
+        return 1
     if not hasattr(stepper, "evolve_intervals"):
         return 1
     env = os.environ.get("MSM_INTERVAL_BLOCK")
@@ -448,10 +544,16 @@ def _drive(
     state."""
     p = runs[-1].params
     n = len(runs)
+    # the streams of the (padded) batch this process holds, from row lo
+    # on, and the runs it writes (`owned`)
+    rank0 = mesh_mod.world()[0] == 0
+    lo, hi = stepper.stream_block()
+    owned = set(range(lo, min(hi, n))) if stepper.writes_dumps else set()
     # a stream already frozen at resume time was reported (and its
     # manifest written) by the original run
-    reported_alias = state.aliased.cpu().numpy().copy() if resumed else np.zeros(n, bool)
-    start_steps = int(state.n_steps.max()) if resumed else 0
+    reported_alias = (stepper.global_streams(state.aliased).cpu().numpy()[:n].copy() if resumed
+                      else np.zeros(n, bool))
+    start_steps = int(stepper.global_streams(state.n_steps).max()) if resumed else 0
     t_start = _time.monotonic()
     progress = ProgressReporter(total_dumps=p.num_data_dumps, sim_name=name, enabled=verbose)
     timer = StepTimer(cells_per_step=n * p.size**p.dims)
@@ -459,20 +561,28 @@ def _drive(
     want_pot = bool(p.output_potential)
 
     if not resumed:
-        psi = state.psi.cpu().numpy()
-        scalars = {name: getattr(state, name).cpu().numpy() for name in _MANIFEST_FIELDS}
-        for i, r in enumerate(runs):
-            r.dump_field(psi[i], 0)
-            r.write_manifest(_run_scalars(scalars, i))
+        psi = stepper.gather_spatial(state.psi).cpu().numpy()
+        scalars = {name: stepper.global_streams(getattr(state, name)).cpu().numpy()
+                   for name in _MANIFEST_FIELDS}
+        for i in sorted(owned):
+            runs[i].dump_field(psi[i - lo], 0)
+            runs[i].write_manifest(_run_scalars(scalars, i))
         if want_pot:
             # simulation_object.rs:1166-1180
-            pot = stepper.potential(state.psi).cpu().numpy()
-            for i, r in enumerate(runs):
-                r.dump_field(pot[i].astype(psi.dtype), 0, "potential")
+            pot = stepper.gather_spatial(stepper.potential(state.psi)).cpu().numpy()
+            for i in sorted(owned):
+                runs[i].dump_field(pot[i - lo].astype(psi.dtype), 0, "potential")
         del psi
         if combiner is not None:
-            # every stream, the MFT (the last) left out
-            combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
+            # every stream, the MFT (the last) left out, rank 0 writing; a
+            # mesh holds no batch whole, so its stepper reduces the row
+            if stepper.mesh is None:
+                if rank0:
+                    combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
+            else:
+                row = stepper.combine_dump(state, n, combiner.dv)
+                if rank0:
+                    combiner.write_row({k: v.cpu().numpy() for k, v in row.items()}, 0)
     combine = None if combiner is None else (n, combiner.dv)
     copies = torch.cuda.Stream(stepper.device) if stepper.device.type == "cuda" else None
 
@@ -505,13 +615,18 @@ def _drive(
                     if not reported_alias[i]:
                         reported_alias[i] = True
                         # manifest before the (possibly raising) report, so
-                        # the run's record shows aliased=True
-                        r.write_manifest(_run_scalars(row, i))
-                        _report_aliasing(r.params, float(row["alias_mass"][i]), strict_alias)
+                        # the run's record shows aliased=True; a strict
+                        # abort raises on every rank, or the others would
+                        # wait in the next collective (msm_tpu :1104-1125)
+                        if i in owned:
+                            r.write_manifest(_run_scalars(row, i))
+                        if i in owned or strict_alias:
+                            _report_aliasing(r.params, float(row["alias_mass"][i]),
+                                             strict_alias)
                     continue
-                if not jd[i]:
+                if not jd[i] or i not in owned:
                     continue
-                psi = row["psi"][i]
+                psi = row["psi"][i - lo]
                 scalars = _run_scalars(row, i)
                 if debug_checks:
                     _debug_validate(psi, r.params, f"{r.params.sim_name} dump", eps)
@@ -522,22 +637,24 @@ def _drive(
                 scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
                 r.write_manifest(scalars)
                 if want_pot:
-                    r.dump_field(row["pot"][i].astype(psi.dtype), int(dumps_j[i]), "potential")
+                    r.dump_field(row["pot"][i - lo].astype(psi.dtype), int(dumps_j[i]),
+                                 "potential")
             valid = jd[: n - 1] & ~al[: n - 1]
-            if combine is not None and valid.any() and float(row["comb_n"]) > 0:
+            if (combine is not None and rank0 and valid.any()
+                    and float(row["comb_n"]) > 0):
                 combiner.write_row(row, int(dumps_j[int(np.flatnonzero(valid)[0])]))
             extra = _telemetry_suffix(
                 total_steps - prev_steps,
-                float(row["dt_min"].min()),
-                float(row["dt_max"].max()),
-                int(row["replays"].sum()),
+                float(row["dt_min"][:n].min()),
+                float(row["dt_max"][:n].max()),
+                int(row["replays"][:n].sum()),
             )
             prev_steps = max(prev_steps, total_steps)
             if p.expanding:
-                progress.update(int(dumps_j.min()), redshift=1.0 / float(row["a"].min()) - 1.0,
-                                extra=extra)
+                progress.update(int(dumps_j[:n].min()),
+                                redshift=1.0 / float(row["a"][:n].min()) - 1.0, extra=extra)
             else:
-                progress.update(int(dumps_j.min()), sim_time=float(row["time"].min()),
+                progress.update(int(dumps_j[:n].min()), sim_time=float(row["time"][:n].min()),
                                 extra=extra)
         if np.all((host["current_dumps"][-1] >= p.num_data_dumps) | host["aliased"][-1]):
             if speculative is not None:
@@ -546,7 +663,7 @@ def _drive(
             inflight = None
         else:
             inflight = speculative if speculate else advance(state)
-    if combiner is not None:
+    if combiner is not None and rank0:
         combiner.finalize()
     timer.stop(n_steps=total_steps - start_steps)
     if verbose:
@@ -637,6 +754,7 @@ def run_config(
     check_eps: Optional[float] = None,
     profile_dir: Optional[str] = None,
     use_remote_storage: bool = True,
+    mesh: str = "none",
 ) -> "SimState | list[SimState]":
     """Run every stream of a config plus the MFT on `device` (the card
     unless the caller asks for "cpu") in `dt_mode` (one of
@@ -646,10 +764,16 @@ def run_config(
     are returned in a list. An aliased run is logged, or raises
     FourierAliasingError with `strict_alias` (in sequential mode, only for
     a one-run config, as JAX). With `online_synthesis` the run writes the
-    `-combined/` files itself (batched, a config with streams only)."""
+    `-combined/` files itself (batched, a config with streams only).
+    `mesh` ("none", "auto" or "space") lays the batch out over the ranks of
+    the process group (`_make_stepper`); `device` is this rank's device.
+    The returned state holds this rank's streams."""
+    if mesh not in ("none", "auto", "space"):
+        raise ValueError(f"mesh must be none, auto or space, got {mesh!r}")
     all_params = list(iter_stream_parameters(toml))
     n = len(all_params)
     eps = _resolve_check_eps(check_eps, dtype)
+    verbose = verbose and mesh_mod.world()[0] == 0
     if online_synthesis and (not batch_streams or n == 1):
         raise ValueError("online synthesis requires batched streams")
     backend = storage_backend_for(toml, data_root) if use_remote_storage else None
@@ -657,68 +781,88 @@ def run_config(
     # exceptions included, so queued uploads drain and their failures
     # surface
     with _closing(backend), profiler_trace(profile_dir):
-        if not batch_streams:
-            with AsyncGridWriter() as writer:
-                return [
-                    run_single(
-                        p, dtype, device=device, data_root=data_root, verbose=verbose,
-                        test_only=test_only, resume=resume,
-                        strict_alias=strict_alias and n == 1, writer=writer,
-                        dt_mode=dt_mode, backend=backend,
-                        use_remote_storage=use_remote_storage,
-                        debug_checks=debug_checks, check_eps=check_eps,
-                    )
-                    for p in all_params
-                ]
+        out = _run_config(
+            toml, all_params, dtype, device=device, data_root=data_root, verbose=verbose,
+            test_only=test_only, batch_streams=batch_streams, dt_mode=dt_mode,
+            strict_alias=strict_alias, online_synthesis=online_synthesis, resume=resume,
+            debug_checks=debug_checks, check_eps=check_eps, eps=eps, backend=backend,
+            use_remote_storage=use_remote_storage, mesh=mesh,
+        )
+    # every rank's files are written when run_config returns on any rank
+    mesh_mod.barrier()
+    return out
 
-        mft_params = all_params[-1]
-        stream_params = all_params[:-1]
-        stepper = Stepper(mft_params, dtype, device, dt_mode=dt_mode, debug_checks=debug_checks)
+
+def _run_config(toml, all_params, dtype, *, device, data_root, verbose, test_only,
+                batch_streams, dt_mode, strict_alias, online_synthesis, resume, debug_checks,
+                check_eps, eps, backend, use_remote_storage, mesh):
+    """`run_config` inside its backend and profiler contexts."""
+    n = len(all_params)
+    if not batch_streams:
         with AsyncGridWriter() as writer:
-            runs = [SimulationRun(p, data_root, writer, backend=backend) for p in all_params]
-            state = _try_resume_batch(runs, stepper) if resume else None
-            resumed = state is not None
-            if not resumed:
-                base_psi = torch.as_tensor(build_ics(mft_params)).to(stepper.device, dtype)
-                if stream_params:
-                    seeds = [p.sampling.seed for p in stream_params]
-                    scheme = stream_params[0].sampling.scheme
-                    sampled = sample_stream_batch(base_psi, mft_params, seeds, scheme)
-                    batch = torch.cat([sampled, base_psi[None]])
-                else:
-                    batch = base_psi[None]
-                state = stepper.init_state(batch)
-                del batch, base_psi
-            if verbose:
-                if resumed:
-                    print(f"Resuming batch of {n} from dumps {state.current_dumps.tolist()}")
-                else:
-                    scheme_txt = f"{stream_params[0].sampling.scheme} " if stream_params else ""
-                    print(f"Running {len(stream_params)} {scheme_txt}"
-                          f"streams + MFT as one batch of {n} on {stepper.device}")
-                print(f"Transforms: {_transforms(stepper)} at {mft_params.size}^"
-                      f"{mft_params.dims}, dt {stepper.dt_mode}")
-            if test_only:
-                return state
-            combiner = (
-                synthesis.online_combiner_for(toml, data_root, writer)
-                if online_synthesis else None
-            )
-            # k intervals a dispatch; one a dispatch falls back to JAX's
-            # one-interval loop's policy: bounded dispatches for a big
-            # state, and speculation budgeted for two states
-            kblock = _interval_block_k(mft_params, n, dtype, stepper,
-                                       online=combiner is not None)
-            if kblock > 1:
-                chunk, speculate = 0, _speculation_ok(mft_params, n, dtype, kblock)
+            return [
+                run_single(
+                    p, dtype, device=device, data_root=data_root, verbose=verbose,
+                    test_only=test_only, resume=resume,
+                    strict_alias=strict_alias and n == 1, writer=writer,
+                    dt_mode=dt_mode, backend=backend,
+                    use_remote_storage=use_remote_storage,
+                    debug_checks=debug_checks, check_eps=check_eps,
+                )
+                for p in all_params
+            ]
+
+    mft_params = all_params[-1]
+    stream_params = all_params[:-1]
+    stepper, pad_to = _make_stepper(mft_params, dtype, dt_mode, mesh, n, device,
+                                    debug_checks=debug_checks)
+    with AsyncGridWriter() as writer:
+        runs = [SimulationRun(p, data_root, writer, backend=backend) for p in all_params]
+        state = _try_resume_batch(runs, stepper, pad_to) if resume else None
+        resumed = state is not None
+        if not resumed:
+            base_psi = torch.as_tensor(build_ics(mft_params)).to(stepper.device, dtype)
+            parts = [base_psi[None].expand(1 + pad_to - n, *base_psi.shape)]
+            if stream_params:
+                seeds = [p.sampling.seed for p in stream_params]
+                scheme = stream_params[0].sampling.scheme
+                parts.insert(0, sample_stream_batch(base_psi, mft_params, seeds, scheme))
+            batch = torch.cat(parts)
+            state = stepper.init_state(batch)
+            del batch, base_psi, parts
+        if verbose:
+            if resumed:
+                dumps = stepper.global_streams(state.current_dumps)[:n].tolist()
+                print(f"Resuming batch of {n} from dumps {dumps}")
             else:
-                chunk = _chunk_steps_per_dispatch(mft_params, n, dtype, 1)
-                speculate = _speculation_ok(mft_params, n, dtype, 1, donated=False)
-            return _drive(
-                stepper, runs, state, resumed=resumed, name=toml.sim_name, verbose=verbose,
-                strict_alias=strict_alias, debug_checks=debug_checks, eps=eps,
-                kblock=kblock, chunk=chunk, speculate=speculate, combiner=combiner,
-            )
+                scheme_txt = f"{stream_params[0].sampling.scheme} " if stream_params else ""
+                print(f"Running {len(stream_params)} {scheme_txt}"
+                      f"streams + MFT as one batch of {n} on {stepper.device}")
+            print(f"Transforms: {_describe(stepper)} at {mft_params.size}^"
+                  f"{mft_params.dims}, dt {stepper.dt_mode}")
+        if test_only:
+            return state
+        combiner = (
+            synthesis.online_combiner_for(toml, data_root, writer)
+            if online_synthesis else None
+        )
+        # k intervals a dispatch; one a dispatch falls back to JAX's
+        # one-interval loop's policy: bounded dispatches for a big
+        # state, and speculation budgeted for two states
+        kblock = _interval_block_k(mft_params, pad_to, dtype, stepper,
+                                   online=combiner is not None)
+        if kblock > 1:
+            chunk, speculate = 0, _speculation_ok(mft_params, pad_to, dtype, kblock)
+        else:
+            # a MeshStepper has no bounded dispatch (as JAX's)
+            chunk = (_chunk_steps_per_dispatch(mft_params, pad_to, dtype, 1)
+                     if isinstance(stepper, Stepper) else 0)
+            speculate = _speculation_ok(mft_params, pad_to, dtype, 1, donated=False)
+        return _drive(
+            stepper, runs, state, resumed=resumed, name=toml.sim_name, verbose=verbose,
+            strict_alias=strict_alias, debug_checks=debug_checks, eps=eps,
+            kblock=kblock, chunk=chunk, speculate=speculate, combiner=combiner,
+        )
 
 
 def run_toml(toml: TomlParameters, dtype: torch.dtype = torch.complex64, **kwargs):

@@ -119,6 +119,11 @@ from .grid import spec_grid as build_spec_grid
 from .ops import fft as fft_ops
 from .ops import kernels
 from .ops import mxu_fft
+from .ops import phase as phase_ops
+from .parallel import pfft
+from .parallel import mesh as mesh_mod
+from .parallel.mesh import STREAM_AXIS
+from .parallel.pfft_fused import ShardedEngine
 
 
 @dataclasses.dataclass
@@ -164,13 +169,18 @@ class StepConsts:
     needs no k^2 grid: q^2 is built from indices (ops.kernels). The fused
     engine reads spec_axis0, the 1-D k^2 table s0 (N,), and spec_axis12,
     s12 = s0[:, None] + s0[None, :] flattened (N*N,) (msm_tpu's
-    stepper.py:366-373 in natural order); None off that path.
+    stepper.py:366-373 in natural order); None off that path. spec_grid:
+    the full k^2 grid, which only the space-sharded non-engine path reads
+    (its kinetic phase is plain torch on the shard, as JAX's: the phase
+    kernels build q^2 from global indices); None elsewhere. On a mesh each
+    field holds this rank's shard (`parallel.sharded.MeshStepper`).
     """
 
     alias_mask: torch.Tensor
     poisson_map: "torch.Tensor | None"
     spec_axis0: "torch.Tensor | None" = None
     spec_axis12: "torch.Tensor | None" = None
+    spec_grid: "torch.Tensor | None" = None
 
 
 @dataclasses.dataclass
@@ -295,6 +305,19 @@ class Stepper:
     [1e-3, 1]), MSM_DT_DECAY (clamped to [0, 1]) and
     MSM_DT_INIT_BOUND_SCALE (at least 0) are read here, with JAX's defaults
     and clamps. debug_checks: carry the unitarity monitor max_norm_err.
+
+    mesh, spatial_axis: JAX's `stream_axis`, `spatial_axis` and
+    `space_devices` (msm_tpu/stepper.py:133-170) as a `parallel.mesh.Mesh`
+    and the tuple of its axis names the grid is sharded over (None: not
+    sharded). The stepper then holds this rank's streams (and shard), which
+    `parallel.sharded.MeshStepper` builds; with spatial_axis its grid
+    reductions finish over the space group, its transforms are the
+    distributed FFTs (`parallel.pfft`), or, for 3-D `mxu` grids whose size
+    the space ranks divide, the sharded fused engine
+    (`parallel.pfft_fused`; MSM_MXU_SHARDED=0 takes the pfft pencils), and
+    the phase kernels K19 and K21 give way to plain torch phases on the
+    shard, as JAX's `use_pallas` does (:262-268). The combine row's sums
+    finish over the stream group on any mesh.
     """
 
     def __init__(
@@ -306,6 +329,8 @@ class Stepper:
         dt_mode: str = "optimistic",
         debug_checks: bool = False,
         graphs: bool = True,
+        mesh=None,
+        spatial_axis: "tuple | None" = None,
     ):
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
@@ -338,22 +363,45 @@ class Stepper:
         self.tdtype = tdtype
 
         p = params
+        if spatial_axis is not None and mesh is None:
+            raise ValueError("spatial_axis names axes of a mesh, and no mesh was given")
+        self.mesh = mesh
+        self.n_streams = None  # the batch, set by init_state
+        self.spatial_axis = tuple(spatial_axis) if spatial_axis else None
+        spatial = self.spatial_axis is not None
         # The transform mode, read at construction: the MXU engine's
         # transforms (stepper.py:238-242), whose fused-phase engine is what
         # 3-D grids run unless MSM_FUSE_PHASES=0 (:293-298), skewed unless
         # MSM_SKEW_STEP=0 (:309-311), both read here as JAX reads them; or
-        # the matmul DFT (:697).
+        # the matmul DFT (:697). On a space-sharded mesh, the sharded fused
+        # engine by JAX's rule (:248-256), else the pfft transforms.
         self.fft_mode = fft_ops.get_mode(p.size)
-        self.fuse_phases = (
-            self.fft_mode == "mxu" and p.dims == 3 and not _env_off("MSM_FUSE_PHASES")
+        self.sharded_engine = (
+            spatial
+            and p.dims == 3
+            and p.size % mesh.size(self.spatial_axis) == 0
+            and self.fft_mode == "mxu"
+            and not _env_off("MSM_MXU_SHARDED")
+        )
+        self.fuse_phases = self.sharded_engine or (
+            not spatial
+            and self.fft_mode == "mxu" and p.dims == 3 and not _env_off("MSM_FUSE_PHASES")
         )
         self.skew = self.fuse_phases and not _env_off("MSM_SKEW_STEP")
+        # the phase kernels K19/K21 (JAX's use_pallas, :262-268) build q^2
+        # from global indices, so they never run on a shard
+        self.use_pallas = not spatial
         # k2_max from the separable 1-D table: max(sum_i k_i^2) = dims *
         # max(k_1d^2), identical to the full grid's max
         s1d = build_spec_grid(p.dx, 1, p.size)
         self.k2_max = float(s1d.max()) * p.dims
-        spec = build_spec_grid(p.dx, p.dims, p.size)
-        mask = (spec > p.k2_cutoff * self.k2_max).astype(np.float64)
+        if self.sharded_engine:
+            # the engine builds every k-space constant from s0 and s12 in
+            # its kernels: no full grid is built (msm_tpu :275-281)
+            spec = mask = np.zeros((1,) * p.dims)
+        else:
+            spec = build_spec_grid(p.dx, p.dims, p.size)
+            mask = (spec > p.k2_cutoff * self.k2_max).astype(np.float64)
         # Dump schedule: t_dump[i] = t0 + i * T / num_dumps (final_sim_time
         # is the DURATION from t0; PARITY.md).
         self.t0 = float(p.time)
@@ -387,25 +435,40 @@ class Stepper:
             self.poisson_coeff = POIS_CONST
             self.kinetic_dt = p.cfl * 2.0 * p.axis_length / (np.sqrt(self.k2_max) * p.hbar_)
             self.potential_num = p.cfl * 2.0 * np.pi * p.hbar_
-        spec_axis0 = spec_axis12 = None
+        spec_axis0 = spec_axis12 = spec_grid = None
         self.engine = None
         if self.fuse_phases:
             # the full-grid map as msm_tpu builds it (:362-365: float64,
-            # rounded once), and the separable tables (:366-373)
-            inv_k2 = np.where(spec > 0.0, 1.0, 0.0) / np.where(spec > 0.0, spec, 1.0)
-            poisson_map = torch.as_tensor(-self.poisson_coeff * inv_k2, dtype=self.rdtype)
+            # rounded once), and the separable tables (:366-373); the
+            # sharded engine's solve takes no map
+            poisson_map = None
+            if not self.sharded_engine:
+                inv_k2 = np.where(spec > 0.0, 1.0, 0.0) / np.where(spec > 0.0, spec, 1.0)
+                poisson_map = torch.as_tensor(-self.poisson_coeff * inv_k2, dtype=self.rdtype)
             spec_axis0 = torch.as_tensor(s1d, dtype=self.rdtype, device=self.device)
             spec_axis12 = torch.as_tensor(
                 (s1d[:, None] + s1d[None, :]).reshape(-1), dtype=self.rdtype, device=self.device
             )
-            self.engine = mxu_fft.SingleEngine(
-                p.dims, self.poisson_coeff, p.k2_cutoff * self.k2_max, self.density_prefactor
-            )
-        elif self.fft_mode == "matmul":
+            cutoff = p.k2_cutoff * self.k2_max
+            if self.sharded_engine:
+                self.engine = ShardedEngine(
+                    mesh, self.spatial_axis, p.dims, self.poisson_coeff, cutoff,
+                    self.density_prefactor,
+                )
+            else:
+                self.engine = mxu_fft.SingleEngine(
+                    p.dims, self.poisson_coeff, cutoff, self.density_prefactor
+                )
+        elif self.fft_mode == "matmul" and not spatial:
             poisson_map = None
         else:
-            # -coeff / k^2 on the spectrum the Poisson solve transforms to
-            if self.fft_mode == "xla":
+            # -coeff / k^2 on the spectrum the Poisson solve transforms to:
+            # the rfft half spectrum on one device's `xla`, the full one on
+            # a shard (msm_tpu's `_poisson_multiply` :545-555), whose
+            # kinetic phase reads the k^2 grid too
+            if spatial:
+                spec_grid = torch.as_tensor(spec, dtype=self.rdtype, device=self.device)
+            elif self.fft_mode == "xla":
                 spec = spec[..., : p.size // 2 + 1]
             spec_t = torch.as_tensor(spec, dtype=self.rdtype)
             inv_k2 = torch.where(spec_t > 0.0, 1.0, 0.0) / torch.where(
@@ -417,6 +480,7 @@ class Stepper:
             poisson_map=None if poisson_map is None else poisson_map.to(self.device),
             spec_axis0=spec_axis0,
             spec_axis12=spec_axis12,
+            spec_grid=spec_grid,
         )
 
     # ------------------------------------------------------------------
@@ -441,17 +505,55 @@ class Stepper:
         """Broadcast a per-stream scalar over the spatial axes."""
         return scalar.reshape(scalar.shape + (1,) * self.params.dims)
 
+    def _spatial_max(self, x):
+        """max over the spatial axes, finished over the space group."""
+        out = torch.amax(x, dim=self._spatial_axes)
+        if self.spatial_axis is not None:
+            out = self.mesh.pmax(out, self.spatial_axis)
+        return out
+
+    def _spatial_sum(self, x):
+        """sum over the spatial axes, finished over the space group in a
+        fixed order."""
+        out = torch.sum(x, dim=self._spatial_axes)
+        if self.spatial_axis is not None:
+            out = self.mesh.psum(out, self.spatial_axis)
+        return out
+
     def _fwd(self, x):
-        return fft_ops.forward(x, self.params.dims, self.fft_mode)
+        if self.spatial_axis is None:
+            return fft_ops.forward(x, self.params.dims, self.fft_mode)
+        if self.sharded_engine:
+            return self.engine.forward(x)
+        return pfft.forward(x, self.params.dims, self.mesh, self.spatial_axis)
 
     def _inv(self, xk):
-        return fft_ops.inverse(xk, self.params.dims, self.fft_mode)
+        if self.spatial_axis is None:
+            return fft_ops.inverse(xk, self.params.dims, self.fft_mode)
+        if self.sharded_engine:
+            return self.engine.inverse(xk)
+        return pfft.inverse(xk, self.params.dims, self.mesh, self.spatial_axis)
 
     def _apply_kinetic(self, psik, coeff):
-        """psik * exp(i * coeff * k^2) (K19); coeff per stream."""
+        """psik * exp(i * coeff * k^2) (K19; on a shard plain torch on the
+        shard's k^2 grid); coeff per stream."""
+        if not self.use_pallas:
+            c = self.consts
+            k2 = c.spec_grid
+            if self.sharded_engine:
+                # no k^2 grid on the engine path: the shard's, s0 plus its
+                # rows of s12 (msm_tpu :509-516)
+                k2 = c.spec_axis0[:, None, None] + c.spec_axis12.view(-1, self.params.size)[None]
+            return phase_ops.apply_kinetic_phase(psik, k2, self._bcast(coeff))
         p = self.params
         scale = kernels.kinetic_scale(coeff, p.size, p.dx)
         return kernels.kinetic_phase(psik, scale, p.dims)
+
+    def _apply_potential(self, psi, phi, coeff):
+        """psi * exp(i * coeff * phi) (K21; on a shard plain torch)."""
+        if not self.use_pallas:
+            return phase_ops.apply_potential_phase(psi, phi, self._bcast(coeff))
+        return kernels.phase_rotate(psi, phi, coeff)
 
     def _abs2(self, z):
         return (z * z.conj()).real
@@ -467,14 +569,12 @@ class Stepper:
             raise ValueError(f"expected a (B, *grid) batch, got {tuple(psi0.shape)}")
         psi = psi0.to(device=self.device, dtype=self.dtype)
         psik = self._fwd(psi)
-        b = psi.shape[0]
+        b = self.n_streams = psi.shape[0]
 
         def full(value, dtype):
             return torch.full((b,), value, dtype=dtype, device=self.device)
 
-        pm0 = torch.amax(self.potential(psi).abs(), dim=self._spatial_axes).to(
-            self.tdtype
-        )
+        pm0 = self._spatial_max(self.potential(psi).abs()).to(self.tdtype)
         if p.expanding:
             # tau and a at the start time (msm_tpu :586-592)
             tau0, a0 = cosmo_mod.get_tau(p.cosmology, p.time), self.a0
@@ -501,10 +601,38 @@ class Stepper:
             pending_k=full(0.0, self.rdtype),
         )
 
+    # ------------------------------------------------------------------
+    # The batch's layout over processes: one process holds every stream
+    # whole (`parallel.sharded.MeshStepper` gives a mesh's layout)
+    # ------------------------------------------------------------------
+
+    def stream_block(self) -> tuple[int, int]:
+        """The rows [lo, hi) of the global batch that this process holds."""
+        return 0, self.n_streams
+
+    def local_streams(self, t: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a global per-stream tensor."""
+        return t
+
+    def global_streams(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-stream tensor of every stream of the batch."""
+        return t
+
+    def gather_spatial(self, arr: torch.Tensor) -> torch.Tensor:
+        """Whole grids of this process's streams."""
+        return arr
+
+    @property
+    def writes_dumps(self) -> bool:
+        """Whether this process writes its streams' dumps: rank 0 of a
+        process group (each rank runs the whole batch), or the one
+        process."""
+        return mesh_mod.world()[0] == 0
+
     def _norm_measure(self, psik):
         """sum|psik|^2 dk^d — equals the real-space norm (ortho + dk = dx)."""
         p = self.params
-        return torch.sum(self._abs2(psik), dim=self._spatial_axes) * p.dk**p.dims
+        return self._spatial_sum(self._abs2(psik)) * p.dk**p.dims
 
     def _track_norm(self, state: SimState, nrm) -> torch.Tensor:
         """The running unitarity monitor after a step whose norm is `nrm`
@@ -525,12 +653,18 @@ class Stepper:
         phi = Re F^-1[phi_k]. Fused engine: the three-pass solve (K7, K8,
         K9); `mxu`: the engine's real-input forward and real-output inverse
         over the full spectrum; `matmul`: the matmul transforms over the
-        full spectrum around K20; `xla`: rfft/irfft on the half spectrum."""
+        full spectrum around K20; `xla`: rfft/irfft on the half spectrum.
+        On a space-sharded mesh the sharded engine's solve (K7, K3, K9), or
+        the pfft transforms over the full spectrum with the shard's map
+        (msm_tpu :694-712)."""
         if self.fuse_phases:
             return self.engine.poisson_solve(psi, self.consts)
         p = self.params
         axes = self._spatial_axes
         rho = self.density_prefactor * self._abs2(psi)
+        if self.spatial_axis is not None:
+            phi_k = self.consts.poisson_map * self._fwd(rho.to(self.dtype))
+            return self._inv(phi_k).real
         if self.fft_mode == "mxu":
             rho_k = mxu_fft.forward_engine_real(rho, p.dims)
             return mxu_fft.inverse_engine_real(self.consts.poisson_map * rho_k, p.dims)
@@ -610,7 +744,7 @@ class Stepper:
         if self.dt_mode != "exact":
             return None
         phi = self.potential(state.psi)
-        return torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
+        return self._spatial_max(phi.abs()).to(self.tdtype)
 
     def _predict_bound(self, pm_fresh, state: SimState):
         """Optimistic proposal bound for the next step: the fresh midpoint
@@ -635,7 +769,7 @@ class Stepper:
     def _alias_mass(self, psik):
         """Probability mass above the alias cutoff (check_alias, :1249-1293)."""
         p = self.params
-        mass = torch.sum(self._abs2(psik) * self.consts.alias_mask, dim=self._spatial_axes)
+        mass = self._spatial_sum(self._abs2(psik) * self.consts.alias_mask)
         return mass * p.dk**p.dims
 
     # ------------------------------------------------------------------
@@ -679,9 +813,9 @@ class Stepper:
             # step (K21; the two half-kicks in turn in expanding mode)
             psi = self._inv(self._apply_kinetic(state.psik, kick))
             phi = self.potential(psi)
-            phi_max = torch.amax(phi.abs(), dim=self._spatial_axes).to(self.tdtype)
+            phi_max = self._spatial_max(phi.abs()).to(self.tdtype)
             for vcoeff in adv.vcoeffs:
-                psi = kernels.phase_rotate(psi, phi, vcoeff)
+                psi = self._apply_potential(psi, phi, vcoeff)
             psik = self._fwd(psi)
             del psi, phi
             nrm = self._norm_measure(psik) if self.debug_checks else None
@@ -1149,20 +1283,33 @@ class Stepper:
         (|psi|^2 and |psik|^2 with a zero imaginary part, as their files
         hold them), so the host writes them as they arrive; JAX's row
         carries real planes instead, since its TPU transfers no complex
-        arrays."""
+        arrays.
+
+        On a mesh (msm_tpu :1422-1487) the stream mask takes global stream
+        indices (the batch is split in contiguous blocks over the stream
+        axis; padding rows sit at n_runs and beyond) and the sums finish
+        over the stream group, in a fixed order; on a space-sharded mesh the
+        fields stay sharded (psi's and psik's layouts) and Qx finishes over
+        the space group."""
         p = self.params
         psi = snapped.psi
-        smask = torch.arange(psi.shape[0], device=psi.device) < (n_runs - 1)
+        idx = torch.arange(psi.shape[0], device=psi.device)
+        if self.mesh is not None:
+            idx = idx + self.mesh.axis_index(STREAM_AXIS) * psi.shape[0]
+        smask = idx < (n_runs - 1)
         w = (raw.just_dumped & ~raw.aliased & smask).to(self.rdtype)
         wg = self._bcast(w)
-        nv = torch.sum(w)
         psik = snapped.psik * (p.size ** (p.dims / 2.0))
+        sums = [torch.sum(w), torch.sum(psi * wg, dim=0), torch.sum(self._abs2(psi) * wg, dim=0),
+                torch.sum(psik * wg, dim=0), torch.sum(self._abs2(psik) * wg, dim=0)]
+        if self.mesh is not None:
+            sums = [self.mesh.psum(t, STREAM_AXIS) for t in sums]
+        nv = sums[0]
         den = torch.clamp(nv, min=1.0)
-        psi_m = torch.sum(psi * wg, dim=0) / den
-        psi2_m = torch.sum(self._abs2(psi) * wg, dim=0) / den
-        psik_m = torch.sum(psik * wg, dim=0) / den
-        psik2_m = torch.sum(self._abs2(psik) * wg, dim=0) / den
+        psi_m, psi2_m, psik_m, psik2_m = (t / den for t in sums[1:])
         qx = torch.sum(psi2_m - self._abs2(psi_m)) * dv
+        if self.spatial_axis is not None:
+            qx = self.mesh.psum(qx, self.spatial_axis)
         return {
             "comb_n": nv,
             "comb_qx": qx,

@@ -1,8 +1,7 @@
 """Ensemble synthesis: reduce per-stream dumps into ensemble averages.
 
 Counterpart of msm_tpu/synthesis.py (the reference's `msm-synthesizer`,
-`synthesizer/src/main.rs`, `synthesizer/src/lib.rs:106-609`), single
-process:
+`synthesizer/src/main.rs`, `synthesizer/src/lib.rs:106-609`):
 
 - `analyze_sims`: for every dump, average registered per-stream functions
   (psi, |psi|^2, psik, |psik|^2 by default, `main.rs:63-93`) over all
@@ -24,8 +23,12 @@ the simulator's convention by powers of N^(d/2) (PARITY.md divergence 8).
 The files are 4-D padded npy pairs, so the two packages' `-combined/`
 directories are interchangeable.
 
-Not here: the multi-process dump split (`synthesize_toml(multihost=True)`
-raises NotImplementedError).
+With `multihost` the dump list is split over the ranks of the process
+group (`parallel.mesh.local_dump_range`, the reference's Balancer), each
+rank writes the combined files of its dumps, the post-combine scalar
+series is gathered from every rank (`_gather_scalar_series`, the
+reference's MPI gather, `lib.rs:467-583`) and written by rank 0, and every
+rank waits for the others before returning.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 
 from .config import TomlParameters, determine_pmass_hbar, get_supercomoving_boxsize
 from .io.npy import AsyncGridWriter, load_complex_pair, write_complex_pair
+from .parallel import mesh as mesh_mod
 
 # Streams are reduced in device batches of this many grids to bound memory.
 DEFAULT_STREAM_CHUNK = 16
@@ -227,30 +231,50 @@ def _eval_post_dumps(
 
 
 def _gather_scalar_series(local: dict[int, complex], all_dumps: Sequence[int]) -> np.ndarray:
-    """The full series, sorted by dump (msm_tpu's single-process branch; the
-    multi-process gather of `lib.rs:467-583` is not ported)."""
+    """The full series, sorted by dump, from every rank's share (msm_tpu's
+    `_gather_scalar_series`): alone, this rank's values; under a process
+    group of several ranks every rank contributes the dumps it owns through
+    one all_gather (the reference's MPI gather of `Scalar{dump, re, im}`,
+    `lib.rs:467-583`), and every rank gets the merged series."""
     index = {d: i for i, d in enumerate(all_dumps)}
-    out = np.zeros(len(all_dumps), np.complex128)
+    buf = np.zeros((len(all_dumps), 3))
     for d, v in local.items():
-        out[index[d]] = v
+        buf[index[d]] = (v.real, v.imag, 1.0)
+    gathered = mesh_mod.all_gather_host(buf)
+    out = np.zeros(len(all_dumps), np.complex128)
+    seen = np.zeros(len(all_dumps), bool)
+    for part in gathered:
+        owned = part[:, 2] > 0.0
+        out[owned] = part[owned, 0] + 1j * part[owned, 1]
+        seen |= owned
+    if not seen.all():
+        raise RuntimeError(f"dumps {np.flatnonzero(~seen).tolist()} were combined by no rank")
     return out
 
 
 def post_combine(
-    functions: SynthesisFunctions, sim_base: str, dumps: Sequence[int]
+    functions: SynthesisFunctions,
+    sim_base: str,
+    dumps: Sequence[int],
+    all_dumps: Optional[Sequence[int]] = None,
 ) -> dict[str, np.ndarray]:
     """Evaluate post-combine functions on combined fields and write series.
 
     Reference: `post_combine` (`synthesizer/src/lib.rs:351-609`). Each
     series is shaped (n_dumps, 1, 1, 1) like the reference's non-MPI path
-    (`lib.rs:586-605`).
+    (`lib.rs:586-605`). With `all_dumps` (multi-process), `dumps` is this
+    rank's share: the series is gathered from every rank and written by
+    rank 0.
     """
     out_dir = combined_dir(sim_base)
     results = _eval_post_dumps(functions, out_dir, dumps)
+    all_dumps = list(dumps) if all_dumps is None else list(all_dumps)
+    write = mesh_mod.world()[0] == 0
     out = {}
     for name in sorted(results):
-        arr = _gather_scalar_series(results[name], list(dumps)).reshape(-1, 1, 1, 1)
-        write_complex_pair(os.path.join(out_dir, name), arr)
+        arr = _gather_scalar_series(results[name], all_dumps).reshape(-1, 1, 1, 1)
+        if write:
+            write_complex_pair(os.path.join(out_dir, name), arr)
         out[name] = arr
     return out
 
@@ -289,19 +313,26 @@ def synthesize_toml(
     dumps lo..=hi (the cluster-parallel shape of the reference's per-dump
     jobs, `gen_sbatch.py:6-51`) and skips the Qx post-combine unless the
     range covers every dump; `synthesize_post_only` finishes such a split
-    run. `multihost` is not ported and raises NotImplementedError.
+    run. `multihost` splits the dump list over the ranks of the process
+    group (the Balancer's local_set, `balancer.rs:75-83`) and gathers the
+    post-combine series from every rank, so no `--post-only` pass is needed;
+    every rank waits for the others' files before returning.
     """
-    if multihost:
-        raise NotImplementedError("multihost synthesis is not ported yet")
     all_dumps = list(range(toml.num_data_dumps + 1))
     dumps = all_dumps
     if dump_range is not None:
         lo, hi = dump_range
         dumps = [d for d in all_dumps if lo <= d <= hi]
+    elif multihost:
+        dumps = list(mesh_mod.local_dump_range(all_dumps))
     if functions is None:
         functions = _default_functions(toml)
     sim_base = os.path.join(data_root, toml.sim_name)
     analyze_sims(functions, sim_base, dumps, toml.dims, dtype, stream_chunk, device=device)
+    if multihost:
+        out = post_combine(functions, sim_base, dumps, all_dumps=all_dumps)
+        mesh_mod.barrier()
+        return out
     if dumps != all_dumps:
         return {}
     return post_combine(functions, sim_base, dumps)

@@ -31,10 +31,18 @@ of 44 passes of 8 B a cell at the same bandwidth: a yardstick that stays
 comparable across rounds and may exceed 1, not a share of any roofline.
 On the CPU, or on a card not in the table, both are null.
 
-Not ported: `--metric scaling` (`run_scaling_bench`, the modeled
-all-to-all share and the multi-process spawn) needs the multi-device
-layouts, so the CLI's parser has no `scaling`, `--processes` or
-`--devices-per-proc`.
+- `--metric scaling` (`run_scaling_bench`): the weak-scaling sweep at a
+  fixed per-device pencil on `parallel.sharded.MeshStepper`, one device a
+  rank. With `--processes 1` (the default) the sweep runs over the devices
+  there are, as JAX's single process does: every card, or the one CPU;
+  `--processes P --devices-per-proc D` with P > 1 runs P x D ranks. `main`
+  starts the ranks itself (`_spawn_scaling_procs`, a file store in a
+  temporary directory) and visits JAX's device counts; more ranks than
+  there are cards raises (two ranks never share a card), so on a machine
+  with one card the sweep is its 1-device point. `transport` names the
+  collectives' backend (nccl, gloo); `comm_fraction_modeled` is the
+  all_to_all share of a skewed step at the card's published link and
+  memory rates (null off a card in `LINK_BYTES_PER_S`).
 """
 
 from __future__ import annotations
@@ -348,6 +356,180 @@ def run_ensemble_bench(
     }
 
 
+# device name -> published bytes/s a card sends to its peers in one
+# direction (NVLink 4 on the H100 SXM: 18 links of 25 GB/s); only cards the
+# port was measured on
+LINK_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 450e9,
+}
+
+
+def modeled_a2a_fraction(n_space: int, kind: str) -> Optional[float]:
+    """The modeled all_to_all share of a skewed step on the space-sharded
+    fused engine (msm_tpu's `modeled_a2a_fraction`): 4 relayouts a step,
+    each sending 8 B x (d - 1) / d a cell (complex64) over the card's links,
+    against the step's `step_bytes_per_cell` through its memory, with no
+    overlap assumed. 0 on one device; None off a card in both tables."""
+    if n_space <= 1:
+        return 0.0
+    link, hbm = LINK_BYTES_PER_S.get(kind), hbm_bytes_per_s(kind)
+    if link is None or hbm is None:
+        return None
+    t_comm = 4 * 8.0 * (n_space - 1) / n_space / link
+    t_mem = step_bytes_per_cell("optimistic", True) / hbm
+    return round(t_comm / (t_comm + t_mem), 3)
+
+
+def _scaling_counts(n_proc: int, n_devices: int) -> list:
+    """The device counts of the sweep (msm_tpu's): 1, then powers of two
+    (one process), or every multiple of the process count (several)."""
+    if n_proc == 1:
+        counts, n = [1], 2
+        while n <= n_devices:
+            counts.append(n)
+            n *= 2
+        return counts
+    return [1] + [k * n_proc for k in range(1, n_devices // n_proc + 1)]
+
+
+def run_scaling_bench(size: int = 64, dims: int = 3, steps: int = 5, device="cuda",
+                      n_proc: int = 1) -> Optional[dict]:
+    """Weak-scaling sweep (msm_tpu's `run_scaling_bench`): at each device
+    count n the KDK step of one stream over a (1, px, py) pencil mesh of
+    ranks 0..n-1, the global grid grown so that every rank holds at least a
+    size^dims pencil; efficiency = per-device throughput over the
+    1-device point's. Runs in every rank of the process group (the world
+    is the sweep's devices, `n_proc` its processes); rank 0 returns the
+    record, the others None."""
+    from .. import config as cfg
+    from ..models.ics import build_ics
+    from ..parallel import mesh as mesh_mod
+    from ..parallel.sharded import MeshStepper
+
+    rank, world = mesh_mod.world()
+    dev = mesh_mod.rank_device(device)
+    kind = device_kind(dev)
+    points = []
+    for n in _scaling_counts(n_proc, world):
+        py = int(n**0.5)
+        while n % py:
+            py -= 1
+        px = n // py
+        gsize = size
+        while (gsize // px) * (gsize // py) * gsize < size**dims or gsize % max(px, py):
+            gsize += size
+        params = cfg.resolve_parameters(cfg.TomlParameters(
+            axis_length=30.0, final_sim_time=1e9, cfl=0.5, num_data_dumps=1, total_mass=1e11,
+            sim_name="bench-scale", k2_cutoff=0.95, alias_threshold=1e9, dims=dims, size=gsize,
+            ics=cfg.SphericalTophat(radius=5.0, delta=100.0, slope=50.0), hbar_=0.05,
+        ))
+        mesh = mesh_mod.Mesh((1, px, py), dev, ranks=range(n))
+        if mesh.member:
+            stepper = MeshStepper(params, mesh, torch.complex64)
+            state = stepper.init_state(torch.as_tensor(build_ics(params))[None])
+            state = stepper.step(state)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state = stepper.step(state)
+            _sync(dev)
+            dt = (time.perf_counter() - t0) / steps
+            points.append({
+                "devices": n, "mesh": f"(1,{px},{py})", "global_grid": gsize,
+                "step_ms": round(dt * 1e3, 2),
+                "cell_updates_per_s": round(gsize**dims / dt, 1),
+            })
+            del stepper, state
+        mesh_mod.barrier()
+    if rank != 0:
+        return None
+    base = points[0]["cell_updates_per_s"]
+    for pt in points:
+        pt["weak_scaling_efficiency"] = round((pt["cell_updates_per_s"] / pt["devices"]) / base, 3)
+        pt["comm_fraction_measured"] = round(max(0.0, 1.0 - pt["weak_scaling_efficiency"]), 3)
+        pt["comm_fraction_modeled"] = modeled_a2a_fraction(pt["devices"], kind)
+    return {
+        "metric": "weak_scaling",
+        "value": points[-1]["weak_scaling_efficiency"],
+        "unit": f"per-device throughput at {points[-1]['devices']} devices / "
+                "1-device throughput",
+        "vs_baseline": points[-1]["weak_scaling_efficiency"],
+        "processes": n_proc,
+        "transport": mesh_mod.backend_for(dev),
+        "device": kind,
+        "points": points,
+    }
+
+
+def _scaling_world(args, device) -> int:
+    """The sweep's ranks, one device a rank: with one process every device
+    there is (JAX's single process sweeps the visible devices: the cards,
+    or the one CPU), with several P x D."""
+    if args.processes == 1:
+        return max(1, torch.cuda.device_count()) if _is_cuda(device) else 1
+    return args.processes * args.devices_per_proc
+
+
+def _spawn_scaling_procs(args, world: int, device) -> None:
+    """Start the sweep's `world` ranks (`python -m msm_tpu_torch bench
+    --metric scaling` each, with its rank in the environment), joined over a
+    file store in a temporary directory; rank 0 prints the record. Raises
+    when a rank fails."""
+    import subprocess
+    import tempfile
+
+    if _is_cuda(device) and world > torch.cuda.device_count():
+        raise RuntimeError(
+            f"the sweep needs {world} ranks and this machine has {torch.cuda.device_count()} "
+            "cards: two ranks never share a card"
+        )
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for rank in range(world):
+            env = dict(os.environ, MSM_BENCH_RANK=str(rank), MSM_BENCH_WORLD=str(world),
+                       MSM_BENCH_STORE=f"file://{os.path.join(tmp, 'store')}",
+                       LOCAL_RANK=str(rank),
+                       PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+            cmd = [sys.executable, "-m", "msm_tpu_torch", "bench", "--metric", "scaling",
+                   "--size", str(args.size), "--dims", str(args.dims), "--steps", str(args.steps),
+                   "--processes", str(args.processes),
+                   "--devices-per-proc", str(args.devices_per_proc),
+                   "--device", device]
+            procs.append(subprocess.Popen(
+                cmd, env=env, stdout=None if rank == 0 else subprocess.DEVNULL,
+            ))
+        rcs = [p.wait() for p in procs]
+    if any(rcs):
+        raise RuntimeError(f"scaling ranks failed: rc={rcs}")
+
+
+def _scaling_main(args) -> None:
+    """`--metric scaling`: start the ranks, or be one."""
+    from ..parallel import mesh as mesh_mod
+
+    device = getattr(args, "device", "cuda")
+    rank = os.environ.get("MSM_BENCH_RANK")
+    world = _scaling_world(args, device) if rank is None else int(os.environ["MSM_BENCH_WORLD"])
+    if rank is None and world > 1:
+        _spawn_scaling_procs(args, world, device)
+        return
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.environ.get("MSM_BENCH_STORE", f"file://{os.path.join(tmp, 'store')}")
+        mesh_mod.init_distributed(device, init_method=store, rank=int(rank or 0),
+                                  world_size=world)
+        try:
+            wait_for_backend(device=mesh_mod.rank_device(device))
+            _build_kernels(device)
+            out = run_scaling_bench(args.size, args.dims, args.steps, device, args.processes)
+            if out is not None:
+                _emit(out)
+        finally:
+            torch.distributed.destroy_process_group()
+
+
 def resolve_metric_defaults(args) -> None:
     """Per-metric size/steps defaults (bench.py passes None): the scaling
     sweep holds size^dims per DEVICE and scales the GLOBAL grid up to
@@ -382,8 +564,11 @@ def main(args) -> None:
         _build_kernels(device)
         _emit(run_ensemble_bench(streams=args.streams or 128, device=device))
         return
+    if metric == "scaling":
+        _scaling_main(args)
+        return
     if metric != "kdk":
-        raise ValueError(f"metric {metric!r} is not ported (kdk, streams)")
+        raise ValueError(f"unknown metric {metric!r} (kdk, streams, scaling)")
     streams = args.streams or 1
     dt_mode = getattr(args, "dt_mode", "all")
     if dt_mode not in ("both", "all"):

@@ -38,6 +38,11 @@ MODULES = (
     "msm_tpu_torch.ops.mxu_fft",
     "msm_tpu_torch.ops.phase",
     "msm_tpu_torch.ops.probes",
+    "msm_tpu_torch.parallel",
+    "msm_tpu_torch.parallel.mesh",
+    "msm_tpu_torch.parallel.pfft",
+    "msm_tpu_torch.parallel.pfft_fused",
+    "msm_tpu_torch.parallel.sharded",
     "msm_tpu_torch.simulator",
     "msm_tpu_torch.stepper",
     "msm_tpu_torch.synthesis",
@@ -234,19 +239,27 @@ def test_cli_requires_device():
 @pytest.mark.parametrize(
     "argv",
     [
-        ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "auto"],
-        ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "space"],
-        ["bench", "--device", "cpu", "--metric", "scaling"],
-        ["synthesize", "--toml", "x.toml", "--device", "cpu", "--multihost"],
-        ["synthesize", "--toml", "x.toml", "--device", "cpu", "--distributed"],
+        ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh", "bogus"],
+        ["simulate", "--toml", "x.toml", "--device", "cpu", "--mesh"],
+        ["bench", "--device", "cpu", "--metric", "bogus"],
+        ["bench", "--device", "cpu", "--metric", "scaling", "--processes", "0"],
+        ["synthesize", "--toml", "x.toml", "--device", "cpu", "--distributed=yes"],
     ],
 )
 def test_cli_rejects_unported_flags(argv):
-    """What the JAX CLI has and the port does not implement yet (device
-    meshes, the bench's scaling sweep, multi-process synthesis) is
-    rejected, not silently ignored."""
+    """The multi-device flags (device meshes, the bench's scaling sweep,
+    multi-process synthesis) parse, and a value that stays invalid is
+    rejected, not silently ignored: a mesh that is not none, auto or space,
+    a missing mesh, a metric the bench does not have, no processes, a
+    value given to a switch."""
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(argv)
+    ok = list(argv)
+    ok[ok.index(argv[-1])] = {"bogus": "auto", "--mesh": "--verbose", "0": "2",
+                              "--distributed=yes": "--distributed"}[argv[-1]]
+    if argv[-1] == "bogus" and argv[0] == "bench":
+        ok[-1] = "scaling"
+    cli.build_parser().parse_args(ok)
 
 
 def test_cli_bench_parses_and_needs_the_card(monkeypatch):
@@ -255,9 +268,11 @@ def test_cli_bench_parses_and_needs_the_card(monkeypatch):
     args = cli.build_parser().parse_args(["bench"])
     assert (args.device, args.metric, args.dt_mode, args.dims) == ("cuda", "kdk", "all", 3)
     assert (args.size, args.steps, args.streams) == (None, None, None)
-    for flags in (["--processes", "2"], ["--devices-per-proc", "4"]):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(["bench", *flags])
+    assert (args.processes, args.devices_per_proc) == (1, 4)
+    args = cli.build_parser().parse_args(
+        ["bench", "--metric", "scaling", "--processes", "2", "--devices-per-proc", "3"]
+    )
+    assert (args.metric, args.processes, args.devices_per_proc) == ("scaling", 2, 3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["bench", "--size", "16", "--steps", "4"])

@@ -280,11 +280,12 @@ def test_cli_synthesize_split_passes(tmp_path):
 
 
 def test_synthesis_refusals(tmp_path, monkeypatch):
-    """What is not ported or not possible is refused: a multi-process
-    synthesis, online synthesis of a single run, and the card without one
-    (the synthesizer, its CLI and `--online-synthesis` on the card)."""
+    """What is not possible is refused: a multi-process synthesis (ported,
+    test_torch_multihost.py) with no stream dumps to combine, online
+    synthesis of a single run, and the card without one (the synthesizer,
+    its CLI and `--online-synthesis` on the card)."""
     toml = cfg.parse_toml_dict(_spec())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="no stream directories"):
         synthesis.synthesize_toml(toml, data_root=str(tmp_path), multihost=True, device="cpu")
     single = cfg.parse_toml_dict({k: v for k, v in _spec().items() if k != "sampling"})
     with pytest.raises(ValueError, match="batched streams"):
