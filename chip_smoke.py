@@ -206,6 +206,22 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             process against `simulate` alone, the same bytes and manifests;
             `bench --metric scaling` at its defaults (one process: the
             sweep over the cards there are), its record's keys
+  9 analysis
+            the quantum analysis and the tools (msm_tpu_torch.models.quantum,
+            msm_tpu_torch.tools): (a) inside `main`'s fused run, the last
+            dump of its 256^3 x (8 Wigner + MFT) ensemble from its own data
+            root; (b) the reference's headline ensemble, 128 Wigner streams
+            at 16^3, through the CLI on the card (`simulate`, `synthesize`,
+            then `check_var` and `analyze`, which takes the half-box
+            branch); (c) tests/test_workflow.py's Zel'dovich pipeline (16^3
+            x 4 Wigner + MFT, expanding, c128) with that test's checks.
+            Each ensemble is analysed by `analyze_dump` on the card at
+            complex64 and complex128 and on the CPU at complex128: the
+            card's complex128 record within 1e-10 of the CPU's (each value
+            relative to max(1, |value|)), complex64 within
+            ANALYSIS_C64_LIMIT, with the wall seconds of each stage (load,
+            transfer, transforms, sort, eigvalsh) on each; TF32 refused
+            for the complex64 density matrices
 
 It then prints the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
@@ -1831,6 +1847,8 @@ def phase_main(card: dict, run: str) -> dict:
             **extra, "launches": launches, **card,
         }
         emit(rec)
+        if run == ANALYSED_RUN:
+            _analyse_main_run(card, toml, data, n_dumps, desc)
         return rec
 
 
@@ -3065,6 +3083,276 @@ def phase_mesh(card: dict) -> dict:
     return shards
 
 
+# ---------------------------------------------------------------------------
+# analysis: the quantum analysis and the tools on the card, on the fused main
+# run's ensemble, the reference's headline ensemble and the Zel'dovich
+# pipeline
+# ---------------------------------------------------------------------------
+
+# the main run whose last dump is analysed, in its own data root
+ANALYSED_RUN = "fused"
+# the card's complex128 analysis against the CPU's on the same files: every
+# value within ANALYSIS_LIMIT of the CPU's, relative to max(1, |value|)
+ANALYSIS_LIMIT = 1e-10
+# the card's complex64 analysis against the CPU's complex128: ten times the
+# largest gap measured on an H100 (4.9e-5, the half-box entropy of the
+# 128-stream 16^3 ensemble; 2.0e-6, the von Neumann entropy, at 256^3 x 8)
+ANALYSIS_C64_LIMIT = 5e-4
+# the reference's headline ensemble (the bench's `streams` cell): 128
+# Wigner streams at 16^3 on the tophat physics, 8 dumps over t = 1.6
+ENSEMBLE = (16, 128, 8, 1.6)
+# tests/test_workflow.py's plane-wave pipeline: 16^3 x 4 Wigner streams +
+# MFT, expanding, 4 dumps over 500 Myr, complex128
+PLANE_WAVE = dict(sim_name="pw", size=16, n_streams=4, ntot=1e8, num_data_dumps=4,
+                  final_sim_time=500.0)
+COUNT_KEYS = ("dump", "n_streams", "n_modes")
+
+
+def _analysis_gap(got: dict, want: dict) -> dict:
+    """Per key, |got - want| / max(1, |want|) of two analyze_dump records
+    (the largest over a key's parts); the keys, their order and the counts
+    must agree."""
+    check(list(got) == list(want), f"analysis keys {list(got)} against {list(want)}")
+    gaps = {}
+    for k, w in want.items():
+        if k in COUNT_KEYS:
+            check(got[k] == w, f"analysis {k}: {got[k]} against {w}")
+            continue
+        gaps[k] = max(abs(a - b) / max(1.0, abs(b))
+                      for a, b in zip(np.atleast_1d(got[k]), np.atleast_1d(w)))
+    return gaps
+
+
+def _timed_call(fn, device: str, warm: bool = False):
+    """fn's result and wall seconds, ended by a sync on the card; warm runs
+    it once untimed first (cuFFT's plan, the allocator's blocks)."""
+    if warm:
+        fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _analysis_stages(toml, data: str, dump: int, n_modes: int, device: str, dtype) -> dict:
+    """Wall seconds of analyze_dump's stages on one device and dtype, each
+    run alone and ended by a sync: `load` (the stream files into one host
+    stack; a warm read, the files were just written or read), `transfer`
+    (to the device), and after an untimed first call each, `transforms`
+    (the ortho fftn of the stack), `sort` (the stable argsort of the
+    occupations), `eigvalsh` (the mode matrix's, and `eigvalsh_halfbox` the
+    half-box matrix's where analyze forms it); then `analyze_dump` whole."""
+    from msm_tpu_torch.io.npy import load_complex_pair
+    from msm_tpu_torch.models import quantum
+    from msm_tpu_torch.synthesis import find_stream_dirs, volume_element
+    from msm_tpu_torch.tools import analyze
+
+    dims = toml.dims
+    host = np.complex128 if dtype == torch.complex128 else np.complex64
+    dirs = find_stream_dirs(os.path.join(data, toml.sim_name))
+    t = {}
+    stack, t["load"] = _timed_call(lambda: np.stack([
+        load_complex_pair(os.path.join(d, f"psi_{dump:05d}"), host).reshape((toml.size,) * dims)
+        for d in dirs]), device)
+    batch, t["transfer"] = _timed_call(lambda: torch.from_numpy(stack).to(device), device)
+    del stack
+    axes = tuple(range(-dims, 0))
+    psik, t["transforms"] = _timed_call(
+        lambda: torch.fft.fftn(batch, dim=axes, norm="ortho"), device, warm=True)
+    occ = torch.mean(torch.abs(psik.reshape(psik.shape[0], -1)) ** 2, dim=0)
+    del psik
+    _, t["sort"] = _timed_call(lambda: torch.argsort(-occ, stable=True), device, warm=True)
+    del occ
+    k = min(n_modes, batch.shape[0] * 4, toml.size**dims)
+    rho_k, _ = quantum.mode_density_matrix(batch, dims, k)
+    _, t["eigvalsh"] = _timed_call(lambda: torch.linalg.eigvalsh(rho_k), device, warm=True)
+    if toml.size**dims <= 4096:
+        mask = np.zeros((toml.size,) * dims, bool)
+        mask[: toml.size // 2] = True
+        rho_a = quantum.subregion_density_matrix(batch, dims, volume_element(toml), mask)
+        _, t["eigvalsh_halfbox"] = _timed_call(lambda: torch.linalg.eigvalsh(rho_a), device,
+                                               warm=True)
+    del batch
+    result, t["analyze_dump"] = _timed_call(
+        lambda: analyze.analyze_dump(toml, data, dump, n_modes, device=device, dtype=dtype),
+        device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"result": result, "wall_s": t}
+
+
+def _analyse(toml, data: str, dump: int, n_modes: int = 64) -> dict:
+    """analyze_dump on the card at complex64 and complex128 and on the CPU
+    at complex128, with each one's stage times: the card's complex128
+    within ANALYSIS_LIMIT of the CPU's, complex64 within
+    ANALYSIS_C64_LIMIT."""
+    runs = {f"{device}-{name}": _analysis_stages(toml, data, dump, n_modes, device, dtype)
+            for device, name, dtype in (("cuda", "c64", torch.complex64),
+                                        ("cuda", "c128", torch.complex128),
+                                        ("cpu", "c128", torch.complex128))}
+    want = runs["cpu-c128"]["result"]
+    gap = _analysis_gap(runs["cuda-c128"]["result"], want)
+    gap64 = _analysis_gap(runs["cuda-c64"]["result"], want)
+    check(max(gap.values()) <= ANALYSIS_LIMIT, f"card c128 analysis off the CPU's: {gap}")
+    check(max(gap64.values()) <= ANALYSIS_C64_LIMIT, f"card c64 analysis off the CPU's: {gap64}")
+    for name, run in runs.items():
+        check(all(math.isfinite(v) for k, v in run["result"].items() if k not in ("Qx", "Qk"))
+              and all(math.isfinite(v) for v in run["result"]["Qx"] + run["result"]["Qk"]),
+              f"analysis {name}: not finite")
+    return {
+        "result": want, "result_c64": runs["cuda-c64"]["result"], "gap_c128": gap,
+        "gap_c64": gap64,
+        "limits": {"c128": ANALYSIS_LIMIT, "c64": ANALYSIS_C64_LIMIT},
+        "wall_s": {name: run["wall_s"] for name, run in runs.items()},
+    }
+
+
+def _analyse_main_run(card: dict, toml, data: str, dump: int, desc: str) -> None:
+    """(a) The fused main run's last dump, 256^3 x (8 Wigner + MFT), from
+    its own data root: no half-box (256^3 > 4096 cells), n_modes 32."""
+    t0 = time.perf_counter()
+    rec = _analyse(toml, data, dump)
+    result = rec["result"]
+    check(result["n_streams"] == toml.sampling.seeds[-1]
+          and result["n_modes"] == min(64, 4 * result["n_streams"])
+          and ("halfbox_entanglement_entropy" in result) == (toml.size**toml.dims <= 4096),
+          f"main-run analysis: {result}")
+    emit({"phase": "analysis", "item": "main-run", "config": desc, "dump": dump, **rec,
+          "phase_wall_s": time.perf_counter() - t0, **card})
+
+
+def _cli_output(fn, argv: list) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    check(rc == 0, f"{argv} returned {rc}")
+    return out.getvalue()
+
+
+def _analysis_ensemble(card: dict, work: str) -> None:
+    """(b) The reference's headline ensemble through the port's CLI on the
+    card: `simulate`, `synthesize`, then `check_var` and `analyze` (which
+    takes the half-box branch at 16^3); the same files analysed on the card
+    and on the CPU."""
+    from msm_tpu_torch import cli
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch.tools import analyze, check_var
+
+    size, streams, dumps, final = ENSEMBLE
+    name = "ensemble"
+    text = TOPHAT.format(final=final, dumps=dumps, name=name, size=size)
+    text += f'\n[sampling]\nseeds  = "1 to {streams}"\nscheme = "Wigner"\n'
+    os.makedirs(work)
+    toml_path = os.path.join(work, f"{name}.toml")
+    with open(toml_path, "w") as f:
+        f.write(text)
+    data = os.path.join(work, "sim-data")
+    common = ["--toml", toml_path, "--device", "cuda", "--data-root", data]
+    walls = {}
+    with fft_mode("xla"), contextlib.redirect_stdout(sys.stderr):
+        for cmd in ("simulate", "synthesize"):
+            t0 = time.perf_counter()
+            rc = cli.main([cmd, *common])
+            walls[cmd] = time.perf_counter() - t0
+            check(rc == 0, f"{cmd} returned {rc}")
+    t0 = time.perf_counter()
+    excess = _cli_output(check_var.main, ["--toml", toml_path, "--data-root", data])
+    walls["check_var"] = time.perf_counter() - t0
+    check(excess.startswith("count excess: mean = "), f"check_var printed {excess!r}")
+    t0 = time.perf_counter()
+    printed = json.loads(_cli_output(analyze.main, common))
+    walls["analyze"] = time.perf_counter() - t0
+    toml = cfg.parse_toml_str(text)
+    rec = _analyse(toml, data, dumps)
+    cli_gap = _analysis_gap(printed, rec["result"])
+    check(max(cli_gap.values()) <= ANALYSIS_C64_LIMIT, f"the analyze CLI off the CPU's: {cli_gap}")
+    stats = check_var.check_toml(toml, data_root=data)
+    check(all(math.isfinite(v) for v in stats.values()) and stats["var"] > 0,
+          f"check_var: {stats}")
+    check(rec["result"]["n_streams"] == streams and "halfbox_entanglement_entropy" in printed,
+          f"ensemble analysis: {printed}")
+    emit({"phase": "analysis", "item": "ensemble",
+          "config": f"tophat-collapse {size}^3, {streams} Wigner + MFT, c64, {dumps} dumps over "
+                    f"t={final}, xla", "check_var": stats, "analyze_cli": printed,
+          "gap_cli": cli_gap, **rec,
+          "cli_wall_s": walls, **card})
+
+
+def _analysis_plane_wave(card: dict, work: str) -> None:
+    """(c) tests/test_workflow.py's pipeline on the card: Zel'dovich ICs,
+    `simulate` and `synthesize` of the expanding 16^3 x (4 Wigner + MFT)
+    config at complex128, `check_var`, and `analyze_dump` of the last dump
+    (n_modes 16) on the card and the CPU, with that test's assertions."""
+    from msm_tpu_torch import cli
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch.io.npy import load_complex_pair
+    from msm_tpu_torch.tools import analyze, check_var, zeldovich
+
+    zcfg = zeldovich.PlaneWaveConfig(**PLANE_WAVE)
+    paths = zeldovich.generate(zcfg, work)
+    data = os.path.join(work, "sim-data")
+    common = ["--toml", paths["toml"], "--device", "cuda", "--precision", "f64",
+              "--data-root", data]
+    walls = {}
+    with fft_mode("xla"), contextlib.redirect_stdout(sys.stderr):
+        for cmd in ("simulate", "synthesize"):
+            t0 = time.perf_counter()
+            rc = cli.main([cmd, *common])
+            walls[cmd] = time.perf_counter() - t0
+            check(rc == 0, f"{cmd} returned {rc}")
+    n = zcfg.num_data_dumps
+    for d in [zcfg.sim_name] + [f"{zcfg.sim_name}-stream{s:05d}"
+                                for s in range(1, zcfg.n_streams + 1)]:
+        for i in range(n + 1):
+            psi = load_complex_pair(os.path.join(data, d, f"psi_{i:05d}"))
+            check(psi.shape == (16, 16, 16, 1) and bool(np.isfinite(psi).all()),
+                  f"{d} dump {i}: shape {psi.shape} or not finite")
+    qx = load_complex_pair(os.path.join(data, f"{zcfg.sim_name}-combined", "Qx"))[:, 0, 0, 0]
+    check(qx.shape == (n + 1,) and bool(np.all(qx.real >= -1e-12)) and qx.real[1:].max() > 0,
+          f"Qx series {qx}")
+    toml = cfg.read_toml(paths["toml"])
+    stats = check_var.check_toml(toml, data_root=data, dump=0)
+    check(math.isfinite(stats["mean"]) and stats["var"] > 0, f"check_var: {stats}")
+    q = analyze.analyze_dump(toml, data, n, 16, device="cuda", dtype=torch.complex128)
+    want = analyze.analyze_dump(toml, data, n, 16, device="cpu", dtype=torch.complex128)
+    gap = _analysis_gap(q, want)
+    check(max(gap.values()) <= ANALYSIS_LIMIT, f"plane-wave analysis off the CPU's: {gap}")
+    check(0.0 < q["coherent_fraction"] <= 1.0 + 1e-9 and q["purity"] <= 1.0 + 1e-9
+          and q["von_neumann_entropy"] >= -1e-9, f"plane-wave analysis: {q}")
+    emit({"phase": "analysis", "item": "plane-wave",
+          "config": "Zel'dovich plane wave 16^3, 4 Wigner + MFT, expanding, c128, 4 dumps over "
+                    "500 Myr, xla", "qx": qx.real.tolist(), "check_var": stats, "result": q,
+          "gap_c128": gap, "cli_wall_s": walls, **card})
+
+
+def phase_analysis(card: dict) -> None:
+    """The headline ensemble (b) and the plane-wave pipeline (c); (a), the
+    fused main run's ensemble, runs inside `phase_main`, where its files
+    are. Then TF32 refused for the complex64 density matrices."""
+    from msm_tpu_torch.models import quantum
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        _analysis_ensemble(card, os.path.join(work, "ensemble"))
+        _analysis_plane_wave(card, os.path.join(work, "plane-wave"))
+    batch = torch.ones((2, 8, 8, 8), dtype=torch.complex64, device="cuda")
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        quantum.mode_density_matrix(batch, 3, 4)
+        refused = False
+    except RuntimeError as err:
+        refused = "quantum analysis" in str(err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    check(refused, "the complex64 analysis ran with TF32 allowed")
+    emit({"phase": "analysis", "item": "wall", "tf32_refused": refused,
+          "wall_s": time.perf_counter() - t0, **card})
+
+
 def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
     """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
     return {
@@ -3102,6 +3390,7 @@ def main() -> int:
     phase_bench(card)
     phase_graphs(card)
     shards = phase_mesh(card)
+    phase_analysis(card)
     mains["engine-check"] = engine_check
     mains["probes"] = probe_run
     emit({

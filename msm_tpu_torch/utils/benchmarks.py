@@ -264,9 +264,10 @@ def run_kdk_bench(
     batch: warm with n_lo + steps iterations (n_lo = max(2, steps // 10);
     on the card this captures the graph of every chunk length the timed
     chains replay),
-    then the best of two slopes (t(n_lo + steps) - t(n_lo)) / steps of the
-    step chain, each call ended by a sync, so the per-call cost (the skewed
-    engine's entry and exit, the host's start) cancels. graphs=False runs
+    then the slope (min t(n_lo + steps) - min t(n_lo)) / steps of the step
+    chain, each trip count's best of two repeats, each call ended by a
+    sync, so the per-call cost (the skewed engine's entry and exit, the
+    host's start) cancels. graphs=False runs
     the chain's chunks eagerly on the card (`Stepper`), for comparison."""
     from .. import config as cfg
     from ..models.ics import build_ics
@@ -293,11 +294,15 @@ def run_kdk_bench(
             _sync(device)
             return time.perf_counter() - t0, s
 
-        best = float("inf")
+        # each trip count's best time over the repeats, then their slope: a
+        # minimum of per-repeat differences would keep the repeat whose
+        # short call the host slowed most, and can read negative
+        lo = hi = float("inf")
         for _ in range(2):
             t_lo, state = timed(state, n_lo)
             t_hi, state = timed(state, n_lo + steps)
-            best = min(best, (t_hi - t_lo) / steps)
+            lo, hi = min(lo, t_lo), min(hi, t_hi)
+        best = (hi - lo) / steps
     if not best > 0.0:
         raise RuntimeError(
             f"the step chain's slope is {best:.3g} s: the timing noise exceeds "

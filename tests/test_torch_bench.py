@@ -138,15 +138,21 @@ def test_chain_matches_jax(modes, path, mode):
     assert got["n_steps"].min() > 0
 
 
+# the chain's steps in the record tests: about 45 ms of work at 16^3 on
+# the CPU, well above the timing noise of a loaded test run (4 steps, 5
+# ms, were not)
+KDK_STEPS = 32
+
+
 @pytest.mark.parametrize("mode", DT_MODES)
 def test_kdk_record_matches_jax(modes, monkeypatch, mode):
-    """`run_kdk_bench(16, 3, 1, 4)` in each dt mode: JAX's keys, dt mode,
-    transforms (`auto` is `xla` off a TPU) and fused-phase flag; a positive
-    rate; null shares on the CPU."""
+    """`run_kdk_bench(16, 3, 1, KDK_STEPS)` in each dt mode: JAX's keys, dt
+    mode, transforms (`auto` is `xla` off a TPU) and fused-phase flag; a
+    positive rate; null shares on the CPU."""
     monkeypatch.delenv("MSM_FFT", raising=False)
     modes("xla")
-    want = jbench.run_kdk_bench(16, 3, 1, 4, dt_mode=mode)
-    got = benchmarks.run_kdk_bench(16, 3, 1, 4, dt_mode=mode, device="cpu")
+    want = jbench.run_kdk_bench(16, 3, 1, KDK_STEPS, dt_mode=mode)
+    got = benchmarks.run_kdk_bench(16, 3, 1, KDK_STEPS, dt_mode=mode, device="cpu")
     assert list(got) == list(want)
     for key in ("metric", "unit", "dt_mode", "fft_mode", "fused_phases"):
         assert got[key] == want[key], key
@@ -154,6 +160,45 @@ def test_kdk_record_matches_jax(modes, monkeypatch, mode):
     assert got["value"] > 0 and got["steps_per_s"] > 0
     assert got["vs_baseline"] is None and got["vs_dma_bound"] is None
     assert fft.default_mode() == "xla"  # the bench put the mode back
+
+
+def test_slope_ignores_one_slow_short_call(modes, monkeypatch):
+    """The bench's slope is (min t_hi - min t_lo) / steps over its two
+    repeats: one short call slowed by the host (here by 1 s, on a clock
+    that advances exactly C s a step) leaves the record equal to the
+    undisturbed run's, where the least of the per-repeat differences
+    would read C - 1 / steps, negative."""
+    C, steps = 2.0**-10, 8
+    modes("xla")
+    monkeypatch.delenv("MSM_FFT", raising=False)
+    chain = Stepper._chain_n_steps
+
+    def run(slow_call):
+        clock = SimpleNamespace(now=0.0, calls=0, timed=[])
+
+        def fake_chain(self, state, n):
+            clock.calls += 1
+            clock.now += n * C + (1.0 if clock.calls == slow_call else 0.0)
+            clock.timed.append(n)
+            return chain(self, state, n)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(Stepper, "_chain_n_steps", fake_chain)
+            mp.setattr(benchmarks.time, "perf_counter", lambda: clock.now)
+            record = benchmarks.run_kdk_bench(16, 3, 1, steps, dt_mode="lagged", device="cpu")
+        return record, clock.timed
+
+    # call 1 warms; calls 2-5 are (short, long) twice
+    want, calls = run(slow_call=None)
+    n_lo = max(2, steps // 10)
+    assert calls == [n_lo + steps, n_lo, n_lo + steps, n_lo, n_lo + steps]
+    got, _ = run(slow_call=2)
+    assert got == want
+    assert got["steps_per_s"] == round(1 / C, 3) and got["value"] > 0
+    # the old estimator on the same readings
+    t_lo = [n_lo * C + 1.0, n_lo * C]
+    t_hi = [(n_lo + steps) * C] * 2
+    assert min((h - lo) / steps for h, lo in zip(t_hi, t_lo)) < 0
 
 
 def test_ensemble_record_matches_jax(modes, monkeypatch):

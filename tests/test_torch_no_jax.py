@@ -30,7 +30,9 @@ MODULES = (
     "msm_tpu_torch.io.native",
     "msm_tpu_torch.io.npy",
     "msm_tpu_torch.io.storage",
+    "msm_tpu_torch.models.fock",
     "msm_tpu_torch.models.ics",
+    "msm_tpu_torch.models.quantum",
     "msm_tpu_torch.models.sampling",
     "msm_tpu_torch.ops.build",
     "msm_tpu_torch.ops.fft",
@@ -46,6 +48,12 @@ MODULES = (
     "msm_tpu_torch.simulator",
     "msm_tpu_torch.stepper",
     "msm_tpu_torch.synthesis",
+    "msm_tpu_torch.tools",
+    "msm_tpu_torch.tools.analyze",
+    "msm_tpu_torch.tools.check_var",
+    "msm_tpu_torch.tools.jobs",
+    "msm_tpu_torch.tools.plotting",
+    "msm_tpu_torch.tools.zeldovich",
     "msm_tpu_torch.utils.benchmarks",
     "msm_tpu_torch.utils.profiling",
 )
@@ -67,11 +75,34 @@ def test_import_loads_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_device_paths_load_no_matplotlib():
+    """The card's machine may lack matplotlib: the analysis, the other
+    tools but plotting, and chip_smoke.py import none of it."""
+    code = (
+        "import importlib, importlib.util, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "for m in ('msm_tpu_torch.tools', 'msm_tpu_torch.tools.analyze',\n"
+        "          'msm_tpu_torch.tools.check_var', 'msm_tpu_torch.tools.jobs',\n"
+        "          'msm_tpu_torch.tools.zeldovich', 'msm_tpu_torch.models.quantum'):\n"
+        "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120,
+        cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 SCRIPTS = (
     "chip_smoke.py", "scripts/torch_microbench_mxu.py", "scripts/torch_probe_mxu_floor.py",
     "scripts/torch_probe_plane_cluster.py", "scripts/torch_kernel_resources.py",
     "scripts/torch_probe_lane_radix.py", "scripts/torch_probe_axis_radix.py",
-    "scripts/profile_torch_paths.py",
+    "scripts/profile_torch_paths.py", "scripts/torch_bench_slope.py",
 )
 
 
