@@ -37,10 +37,15 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             `plane_potkick_fwd/split`, `plane_inv_density/split`,
             `plane_inv_density_rho_only/split`, `plane_real_inv_max/split`,
             `plane_density_fwd/split`), the before/after in one call; the
-            split form of K4, K2, K10, K11 and K7 is split_radix.cuh's
-            radix row kernel, and at (3, 512^3) c64, where it is the shape's
+            split form of K6, K17 and K9 is lane_radix.cuh's lane_fft_kernel
+            rows and axis_radix.cuh's axis_pass_kernel columns, that of K4,
+            K2, K10, K11 and K7 split_radix.cuh's radix row kernel between
+            such columns, and at (3, 512^3) c64, where it is the shape's
             form, their forced stages forms (the radix-2 split form before
-            it: `plane_potkick_fwd/stages` ...) are timed beside it;
+            it: `plane_pass/stages`, `plane_potkick_fwd/stages` ...) are
+            timed beside it, K6's, K17's and K9's also at (256, 1024^2) c64,
+            each of those records with its first call's launches by form
+            and whether a second call gave the same bits;
             the fused engine's kernels K1 axis_roundtrip_kick, K2
             plane_inv_density, K3 axis_roundtrip_poisson, K4
             plane_potkick_fwd, K7 plane_density_fwd and K8
@@ -81,7 +86,11 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             complex128, 2 dumps, in optimistic and exact dt on `xla` and on
             `matmul` (MSM_FFT=matmul); the golden config on the card
             against its frozen fixture; at 128^3 over t = 20 the unfused
-            `mxu` path (MSM_FFT=mxu, MSM_FUSE_PHASES=0), the fused, skewed
+            `mxu` path (MSM_FFT=mxu, MSM_FUSE_PHASES=0) and, in 2-D at
+            512^2 (tests/test_torch_stepper_mxu.py's config, 3 Wigner + MFT
+            sampled on the CPU as one batch, through the Stepper to its
+            first dump at t = 8, every K6, K17 and K9 launch in the split
+            form, the counters bit for bit), the fused, skewed
             engine (MSM_FFT=mxu alone) in optimistic, exact and lagged dt,
             and the unskewed fused engine (MSM_SKEW_STEP=0) in exact and
             lagged dt, the fused engine once more with
@@ -232,9 +241,10 @@ fused run's), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2, K10, K11
 and K7 with their form, cluster size and the forced split form's median,
-`split_ms`; K4, K2, K10, K11 and K7 also with `n512`, their split form at
-(3, 512^3) c64 beside the forced stages form's median `stages_ms`, its
-bound, floor and launches by form; K1, K3, K8, K13, K5, K12 and K18 with their form and the forced
+`split_ms`; each of them also with `n512`, its split form at (3, 512^3)
+c64 beside the forced stages form's median `stages_ms`, its library call's
+median (K6, K17, K9; null for the others), bound, floor and launches by
+form, and K6, K17 and K9 with `n1024`, the same at (256, 1024^2) c64; K1, K3, K8, K13, K5, K12 and K18 with their form and the forced
 stages form's median, `stages_ms`; P1/P2 with the device slopes; K14-K16 with
 their form, the forced row form's median `row_ms`, the device slopes
 `slope_ms`, `row_slope_ms` and torch.fft's `library_slope_ms` at (256,
@@ -363,8 +373,13 @@ PROBE_SHAPES = {"copy_pass": ((256, 256, 256), (512, 512, 512)), "copy_pass_lane
 # the limits leave about an order of magnitude above that, and a wrong
 # index or twiddle gives errors of order 1.
 FFT_LIMITS = {torch.complex128: 1e-12, torch.complex64: 1e-5}
-# the second is where K4, K2, K10, K11 and K7 take the split form
+# the second is where the plane kernels take the split form
 BIG_SHAPE = (3, 512, 512, 512)
+# K6, K17 and K9 in the split form, timed at complex64 beside the forced
+# stages form: BIG_SHAPE's (1536, 512, 512) planes and 256 planes of 1024^2
+# (the planes of a 1024^3 grid a quarter deep), keyed as the kernels line
+# names them
+SPLIT_FFT_SHAPES = {BIG_SHAPE: "n512", (256, 1024, 1024): "n1024"}
 FUSED_SHAPES = (MAIN_SHAPE, BIG_SHAPE)
 # Fused kernels, every output (fields, K1's sums, K4's maxima): max |kernel
 # - plain| <= limit * max |plain|. Each is two transforms deep: a round trip
@@ -443,6 +458,31 @@ size            = {size}
 type = "ColdGauss"
 mean = [15.0]
 std  = [3.0]
+"""
+
+# tests/test_torch_stepper_mxu.py's 2-D config (a tophat with the potential
+# written at each dump): on the unfused `mxu` path at N = 512 and 1024 every
+# iteration runs K6, K17 and K9 in their split form
+TOPHAT2D = """
+axis_length      = 30
+final_sim_time   = {final}
+cfl              = 0.5
+num_data_dumps   = {dumps}
+total_mass       = 1e11
+ntot             = 1e6
+hbar_            = 0.05
+sim_name         = "{name}"
+k2_cutoff        = 0.95
+alias_threshold  = 0.5
+dims             = 2
+size             = {size}
+output_potential = true
+
+[ics]
+type   = "SphericalTophat"
+radius = 5.0
+slope  = 50
+delta  = 10
 """
 
 # examples/cold-gauss-cosmo.toml's physics and [cosmology] table (an
@@ -818,17 +858,25 @@ def _form(name: str, n: int, cdtype, forced=None) -> dict:
         return {"form": mxu_fft._axis_form(forced)}
     if base not in mxu_fft.PLANE_FORM_KERNELS:
         return {}
-    form, cluster = mxu_fft._plane_form(n, cdtype, forced, base)
+    form, cluster = mxu_fft._plane_form(n, cdtype, forced)
     return {"form": form, "cluster": cluster}
 
 
 def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library,
-                 extra=None) -> dict:
+                 extra=None, split=False) -> dict:
     """One transform kernel against its plain version, held to FFT_LIMITS
     of max|plain|, and both timed; library: the plain version is one torch
-    call that computes the same function. extra: fields for the record."""
+    call that computes the same function. extra: fields for the record.
+    split: also the launches by form of the first call (`form_launches`,
+    held to the record's `form`) and whether a second call gives the same
+    bits (`bitwise`, held)."""
+    from msm_tpu_torch.ops import mxu_fft
+
+    before = dict(mxu_fft.form_launches)
     got = kernel()
     torch.cuda.synchronize()
+    forms = {k: c - before[k] for k, c in mxu_fft.form_launches.items() if c != before[k]}
+    bitwise = torch.equal(kernel(), got) if split else None
     want = plain()
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
@@ -841,76 +889,83 @@ def _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, library,
         "limit": FFT_LIMITS[cdtype] * scale, "ms": ms, "plain_ms": plain_ms,
         "library_ms": plain_ms if library else None, **(extra or {}), **bnd, **card,
     }
+    if split:
+        rec.update(form_launches=forms, bitwise=bitwise)
     emit(rec)
     check(err <= FFT_LIMITS[cdtype] * scale, f"{name} {cdtype} {shape}: error {err}")
+    if split:
+        check(forms == {f"{name.split('/')[0]}/{rec['form']}": 1},
+              f"{name} {cdtype} {shape}: launched {forms}, not the {rec['form']} form")
+        check(bitwise, f"{name} {cdtype} {shape}: two launches differ")
     return rec
 
 
 def phase_fft_kernels(card: dict) -> dict:
-    """K5/K6/K17/K9 vs plain (cuFFT) on the card, and at the main shape c64
-    the forced other forms (`/split`, `/stages`); returns the main-shape
-    complex64 measurements."""
+    """K5/K6/K17/K9 vs plain (cuFFT) on the card, at the main shape c64 the
+    forced other forms (`/split`, `/stages`), and at SPLIT_FFT_SHAPES c64
+    K6, K17 and K9 in the split form beside the forced stages form, each
+    with its first call's launches by form and a second call's bits;
+    returns the complex64 measurements, keyed by name at the main shape and
+    by `<name>@512` / `<name>@1024` at SPLIT_FFT_SHAPES."""
     from msm_tpu_torch.ops import mxu_fft
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2024)
     main = {}
     for cdtype in (torch.complex64, torch.complex128):
-        for shape in FFT_SHAPES:
+        c64 = cdtype == torch.complex64
+        for shape in FFT_SHAPES + tuple(s for s in SPLIT_FFT_SHAPES
+                                        if c64 and s not in FFT_SHAPES):
+            split = c64 and shape in SPLIT_FFT_SHAPES
             z = torch.randn(shape, dtype=cdtype, device="cuda", generator=gen)
             planes = z.reshape((-1,) + shape[-2:])
             x = planes.real.contiguous()
-            # the plain versions are one torch.fft (cuFFT) call each, so
-            # they are also the library yardstick
+            plane_ops = fft_ops(planes.shape, 2)
+            # K6, K17 and K9 in a form (None: the shape's), their plain
+            # version and inputs; the plain versions are one torch.fft
+            # (cuFFT) call each, so they are also the library yardstick
+            plane_cases = {
+                "plane_pass": (lambda f: mxu_fft.plane_pass(planes, False, form=f),
+                               lambda: mxu_fft.plane_pass_plain(planes, False), [planes]),
+                "plane_pass_real_fwd": (lambda f: mxu_fft.plane_pass_real_fwd(x, form=f),
+                                        lambda: mxu_fft.plane_pass_real_fwd_plain(x), [x]),
+                "plane_pass_real_inv": (lambda f: mxu_fft.plane_pass_real_inv(planes, form=f),
+                                        lambda: mxu_fft.plane_pass_real_inv_plain(planes),
+                                        [planes]),
+            }
+            # the forced forms timed here: at the main shape the split form
+            # (the before of the cluster form's after), at SPLIT_FFT_SHAPES
+            # the stages form (the before of the split form's after)
+            forced = ("split",) if shape == MAIN_SHAPE and c64 else ("stages",) if split else ()
             cases = {
                 "axis_pass": (
                     lambda: mxu_fft.axis_pass(z, 1, False),
                     lambda: mxu_fft.axis_pass_plain(z, 1, False),
                     [z], fft_ops(shape[:2], 1) * math.prod(shape[2:]),
                 ),
-                "plane_pass": (
-                    lambda: mxu_fft.plane_pass(planes, False),
-                    lambda: mxu_fft.plane_pass_plain(planes, False),
-                    [planes], fft_ops(planes.shape, 2),
-                ),
-                "plane_pass_real_fwd": (
-                    lambda: mxu_fft.plane_pass_real_fwd(x),
-                    lambda: mxu_fft.plane_pass_real_fwd_plain(x),
-                    [x], fft_ops(planes.shape, 2),
-                ),
-                "plane_pass_real_inv": (
-                    lambda: mxu_fft.plane_pass_real_inv(planes),
-                    lambda: mxu_fft.plane_pass_real_inv_plain(planes),
-                    [planes], fft_ops(planes.shape, 2),
-                ),
+                **{
+                    name + (f"/{form}" if form else ""):
+                        (functools.partial(call, form), plain, inputs, plane_ops)
+                    for name, (call, plain, inputs) in plane_cases.items()
+                    for form in (None,) + forced
+                },
             }
-            if shape == MAIN_SHAPE and cdtype == torch.complex64:
-                # K6's, K17's and K9's forced split forms: the before of the
-                # cluster form's after
-                cases["plane_pass/split"] = (
-                    lambda: mxu_fft.plane_pass(planes, False, form="split"),
-                    cases["plane_pass"][1], [planes], fft_ops(planes.shape, 2),
-                )
-                cases["plane_pass_real_fwd/split"] = (
-                    lambda: mxu_fft.plane_pass_real_fwd(x, form="split"),
-                    cases["plane_pass_real_fwd"][1], [x], fft_ops(planes.shape, 2),
-                )
-                cases["plane_pass_real_inv/split"] = (
-                    lambda: mxu_fft.plane_pass_real_inv(planes, form="split"),
-                    cases["plane_pass_real_inv"][1], [planes], fft_ops(planes.shape, 2),
-                )
+            if shape == MAIN_SHAPE and c64:
                 # K5's forced stages form (axis_fft_kernel)
                 cases["axis_pass/stages"] = (
                     lambda: mxu_fft.axis_pass(z, 1, False, form="stages"),
                     cases["axis_pass"][1], [z], fft_ops(shape[:2], 1) * math.prod(shape[2:]),
                 )
             for name, (kernel, plain, inputs, ops) in cases.items():
-                forced = name.split("/")[1] if "/" in name else None
+                form = name.split("/")[1] if "/" in name else None
+                is_plane = name.split("/")[0] in plane_cases
                 rec = _measure_fft(card, name, cdtype, shape, kernel, plain, inputs, ops, True,
-                                   _form(name, shape[-1], cdtype, forced))
-                if shape == MAIN_SHAPE and cdtype == torch.complex64:
+                                   _form(name, shape[-1], cdtype, form), split and is_plane)
+                if shape == MAIN_SHAPE and c64:
                     main[name] = rec
-            del z, planes, x, cases
+                elif split:
+                    main[f"{name}@{shape[-1]}"] = rec
+            del z, planes, x, cases, plane_cases
             torch.cuda.empty_cache()
     return main
 
@@ -1249,8 +1304,8 @@ def _fused_cases(shape, cdtype, gen) -> dict:
 def _timed_forms(shape, cdtype) -> tuple:
     """The forced forms phase_fused_kernels times at a shape: at the main
     shape c64 the plane kernels' split forms and the column-tile kernels'
-    stages forms; at BIG_SHAPE c64 the stages forms of K4, K2, K10, K11 and
-    K7; none elsewhere."""
+    stages forms; at BIG_SHAPE c64 the plane kernels' stages forms (those
+    of K4, K2, K10, K11 and K7 are its cases); none elsewhere."""
     from msm_tpu_torch.ops import mxu_fft
 
     if cdtype != torch.complex64:
@@ -1259,7 +1314,7 @@ def _timed_forms(shape, cdtype) -> tuple:
         return (tuple(f"{k}/split" for k in mxu_fft.PLANE_FORM_KERNELS)
                 + tuple(f"{k}/stages" for k in mxu_fft.AXIS_FORM_KERNELS))
     if shape == BIG_SHAPE:
-        return tuple(f"{k}/stages" for k in mxu_fft.SPLIT_RADIX_KERNELS)
+        return tuple(f"{k}/stages" for k in mxu_fft.PLANE_FORM_KERNELS)
     return ()
 
 
@@ -1373,10 +1428,12 @@ CONFIGS = {
                 "1-D cold Gaussian 1024, 255 Wigner + MFT, c64, 3 dumps over t=40"),
     "cosmo": (COSMO, "cold-gauss-cosmo", 3, 256, 8,
               "cold-gauss-cosmo 256^3, 8 Wigner + MFT, c64, 3 dumps over t=80"),
+    "tophat2d": (TOPHAT2D, "tophat2d", 2, 512, 3,
+                 "2-D tophat 512^2, 3 Wigner + MFT, c64, 3 dumps over t=8"),
 }
 # the cosmology run's end: about as many iterations as the tophat run's
 # (potential-bound: about 1000 steps per unit of tau, tau(80) = 0.37)
-FINAL = {"cosmo": 80.0}
+FINAL = {"cosmo": 80.0, "tophat2d": 8.0}
 # kernels that must launch once in every iteration of a run (K1, which
 # also closes each interval, at least once)
 PER_ITERATION = {"fused-exact": EXACT_KERNELS, "unskewed-lagged": UNSKEWED_KERNELS,
@@ -1515,6 +1572,52 @@ def _cuda_vs_cpu(card: dict, work: str, path: str, size: int, final: float,
         check(min(man_g["replays"], man_c["replays"]) >= 1, f"{name}: no replay")
 
 
+def _cuda_vs_cpu_split(card: dict) -> None:
+    """The 2-D unfused `mxu` path at the tophat2d config's 512^2 in c128, 3
+    Wigner streams + MFT as one batch, through its first dump interval (t =
+    8 of 24, about 57 steps), on the card's kernels and on the plain
+    versions on the CPU, from one batch sampled on the CPU (each device's
+    generators draw other streams): the counters bit for bit, psi within
+    1e-10; every K6, K17 and K9 launch of the card's run took the split
+    form, the radix rows and columns."""
+    from msm_tpu_torch.ops import mxu_fft
+    from msm_tpu_torch.stepper import Stepper
+
+    _, _, _, size, streams, _ = CONFIGS["tophat2d"]
+    final = 3 * FINAL["tophat2d"]
+    batch, mft = sampled_batch("tophat2d", size, streams, torch.complex128, final, "cpu")
+    states, walls = {}, {}
+    with fft_mode("mxu"):
+        for device in ("cuda", "cpu"):
+            mxu_fft.reset_launches()
+            t0 = time.perf_counter()
+            st = Stepper(mft, torch.complex128, device)
+            states[device] = st.evolve_to_next_dump(st.init_state(batch.to(device)))
+            walls[device] = time.perf_counter() - t0
+            if device == "cuda":
+                forms = dict(mxu_fft.form_launches)
+    got, want = states["cuda"], states["cpu"]
+    err = (got.psi.cpu() - want.psi).abs().max().item()
+    same = {f: _bitwise(getattr(got, f).cpu(), getattr(want, f)) for f in COUNTER_FIELDS}
+    plane = ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv")
+    by_form = {k: {f: forms[f"{k}/{f}"] for f in ("cluster", "split", "stages")} for k in plane}
+    emit({
+        "phase": "e2e", "path": "mxu", "dt_mode": "optimistic",
+        "config": f"2-D tophat {size}^2, {streams} Wigner + MFT (sampled on the CPU), c128, "
+                  f"the first dump interval of 3 over t={final}",
+        "n_steps": [got.n_steps.tolist(), want.n_steps.tolist()],
+        "replays": [got.replays.tolist(), want.replays.tolist()],
+        "counters_equal": same, "launches_by_form": by_form,
+        "max_abs_psi_err": err, "limit": 1e-10, "wall_s": walls, **card,
+    })
+    check(all(same.values()), f"2-D mxu: counters differ: {same}")
+    check(int(want.n_steps.min()) >= 20, "2-D mxu: too few steps to compare")
+    check(err <= 1e-10, f"2-D mxu: psi differs by {err}")
+    for k in plane:
+        check(by_form[k]["split"] > 0 and by_form[k]["cluster"] == by_form[k]["stages"] == 0,
+              f"2-D mxu: {k} launched {by_form[k]}, not only the split form")
+
+
 def _link_streams(data: str, root: str, streams: list) -> None:
     """A second data root whose stream directories link the first's."""
     os.makedirs(root)
@@ -1597,6 +1700,7 @@ def phase_e2e(card: dict) -> None:
         _cuda_vs_cpu(card, work, "xla", 64, 40)
         _cuda_vs_cpu(card, work, "xla", 64, 40, "exact")
         _cuda_vs_cpu(card, work, "mxu", 128, 20)
+        _cuda_vs_cpu_split(card)
         for path, dt_mode in (("fused", "optimistic"), ("fused", "exact"), ("fused", "lagged"),
                               ("unskewed", "exact"), ("unskewed", "lagged")):
             _cuda_vs_cpu(card, work, path, 128, 20, dt_mode)
@@ -2322,9 +2426,10 @@ IDLE_RUNS = ("fused",)
 BENCH_TURNS = (False, True, True, False)
 
 
-def sampled_batch(config: str, size: int, seeds: int, dtype=torch.complex64, final=None):
-    """The sampled (seeds + 1, *grid) batch of a main configuration on the
-    card (3 dumps over t = `final`, by default 40 or FINAL's end for the
+def sampled_batch(config: str, size: int, seeds: int, dtype=torch.complex64, final=None,
+                  device="cuda"):
+    """The sampled (seeds + 1, *grid) batch of a main configuration on
+    `device` (3 dumps over t = `final`, by default 40 or FINAL's end for the
     config) and the MFT's parameters."""
     from msm_tpu_torch import config as cfg
     from msm_tpu_torch.models.ics import build_ics
@@ -2336,7 +2441,7 @@ def sampled_batch(config: str, size: int, seeds: int, dtype=torch.complex64, fin
         text += f'\n[sampling]\nseeds  = "1 to {seeds}"\nscheme = "Wigner"\n'
     params = list(cfg.iter_stream_parameters(cfg.parse_toml_str(text)))
     mft = params[-1]
-    base = torch.as_tensor(build_ics(mft)).to("cuda", dtype)
+    base = torch.as_tensor(build_ics(mft)).to(device, dtype)
     if not seeds:
         return base[None], mft
     sampled = sample_stream_batch(
@@ -3354,10 +3459,12 @@ def phase_analysis(card: dict) -> None:
 
 
 def _big_record(rec: dict, stages: dict, floor: dict) -> dict:
-    """A kernel's split form at BIG_SHAPE c64 for the kernels line."""
+    """A plane kernel's split form at BIG_SHAPE (K6, K17, K9 also at
+    (256, 1024^2)) c64 for the kernels line."""
     return {
         "shape": rec["shape"], "form": rec["form"], "ms": rec["ms"], "stages_ms": stages["ms"],
-        "plain_ms": rec["plain_ms"], "max_abs_err": rec["max_abs_err"],
+        "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
+        "max_abs_err": rec["max_abs_err"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "floor_ms": rec["bytes"] / floor["bytes_per_s"] * 1e3,
         "form_launches": rec["form_launches"],
@@ -3408,11 +3515,13 @@ def main() -> int:
                "library_ms": measured[k]["library_ms"],
                "cluster_over_split": measured[k]["ms"] / measured[f"{k}/split"]["ms"]}
            for k in mxu_fft.PLANE_FORM_KERNELS},
-        "n512": {k: {"split_ms": measured[f"{k}@512"]["ms"],
-                     "stages_ms": measured[f"{k}/stages@512"]["ms"],
-                     "split_over_stages": measured[f"{k}@512"]["ms"]
-                     / measured[f"{k}/stages@512"]["ms"]}
-                 for k in mxu_fft.SPLIT_RADIX_KERNELS},
+        **{key: {k: {"split_ms": measured[f"{k}@{n}"]["ms"],
+                     "stages_ms": measured[f"{k}/stages@{n}"]["ms"],
+                     "library_ms": measured[f"{k}@{n}"]["library_ms"],
+                     "split_over_stages": measured[f"{k}@{n}"]["ms"]
+                     / measured[f"{k}/stages@{n}"]["ms"]}
+                 for k in mxu_fft.PLANE_FORM_KERNELS if f"{k}@{n}" in measured}
+           for key, n in (("n512", 512), ("n1024", 1024))},
         **{k: {"radix_ms": measured[k]["ms"], "stages_ms": measured[f"{k}/stages"]["ms"],
                "plain_ms": measured[k]["plain_ms"],
                "radix_over_stages": measured[k]["ms"] / measured[f"{k}/stages"]["ms"]}
@@ -3444,10 +3553,12 @@ def main() -> int:
             **({"form": measured[k]["form"], "cluster": measured[k]["cluster"],
                 "split_ms": measured[f"{k}/split"]["ms"]}
                if k in mxu_fft.PLANE_FORM_KERNELS else {}),
-            # K4, K2, K10, K11, K7: the split form at BIG_SHAPE c64 and the
-            # forced stages form's median there
-            **({"n512": _big_record(measured[f"{k}@512"], measured[f"{k}/stages@512"], floor)}
-               if k in mxu_fft.SPLIT_RADIX_KERNELS else {}),
+            # the plane kernels: the split form at BIG_SHAPE c64 (K6, K17,
+            # K9 also at (256, 1024^2)) and the forced stages form's median
+            # there
+            **{key: _big_record(measured[f"{k}@{n}"], measured[f"{k}/stages@{n}"], floor)
+               for key, n in (("n512", 512), ("n1024", 1024))
+               if k in mxu_fft.PLANE_FORM_KERNELS and f"{k}@{n}" in measured},
             # K1, K3, K8, K13, K5, K12, K18: the radix form and the forced
             # stages form's median
             **({"form": measured[k]["form"], "stages_ms": measured[f"{k}/stages"]["ms"]}

@@ -55,13 +55,14 @@ _SIGNATURES = {
     # in, out, b1, log_n, lanes, inverse, is_double, stages (0: radix),
     # twiddles, stream
     "msm_fft_axis": [_P, _P, _I64, _I, _I64, _I, _I, _I, _P, _P],
-    # in, out, m, log_n, inverse, is_double, cluster (0: split), twiddles, stream
-    "msm_fft_plane": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
-    # in, out, m, log_n, is_double, cluster (0: split), twiddles, stream
-    "msm_fft_plane_real_fwd": [_P, _P, _I64, _I, _I, _I, _P, _P],
-    # in, tmp (the split form's scratch, else None), out, m, log_n,
-    # is_double, cluster (0: split), twiddles, stream
-    "msm_fft_plane_real_inv": [_P, _P, _P, _I64, _I, _I, _I, _P, _P],
+    # in, out, m, log_n, inverse, is_double, cluster (0: split or stages),
+    # stages (1: the stages form), twiddles, stream
+    "msm_fft_plane": [_P, _P, _I64, _I, _I, _I, _I, _I, _P, _P],
+    # in, out, m, log_n, is_double, cluster, stages, twiddles, stream
+    "msm_fft_plane_real_fwd": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
+    # in, tmp (the split and stages forms' scratch, else None), out, m,
+    # log_n, is_double, cluster, stages, twiddles, stream
+    "msm_fft_plane_real_inv": [_P, _P, _P, _I64, _I, _I, _I, _I, _P, _P],
     # in, out, b1, log_n, lanes, s0, s12, f0, f12, cutoff, partials (or None),
     # is_double, stages (0: radix), twiddles, stream
     "msm_axis_roundtrip_kick": [_P, _P, _I64, _I, _I64, _P, _P, _P, _P, _D, _P, _I, _I, _P, _P],

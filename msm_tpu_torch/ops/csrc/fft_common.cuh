@@ -5,7 +5,7 @@
 //
 //   axis pass (axis_fft_kernel; the stages form of K5, K12 and K18, whose
 //     radix form is axis_radix.cuh's axis_pass_kernel, and the column half of
-//     the split plane forms): one block loads an n x W tile of W
+//     the plane kernels' stages forms): one block loads an n x W tile of W
 //     contiguous columns (W * sizeof(complex) = 128 bytes of each row, so
 //     every row segment is one coalesced 128-byte run), runs an in-place
 //     radix-2 decimation-in-time FFT down each column in shared memory (the
@@ -201,7 +201,8 @@ __global__ void __launch_bounds__(1024)
 }
 
 // Elements per row-pass block (row_fft_kernel, the fused row kernels): whole
-// rows, n <= 1024 divides it. K14-K16 run lane_fft_kernel (lane_radix.cuh).
+// rows, n <= 1024 divides it. K14-K16 and the split form of K6, K17 and K9
+// run lane_fft_kernel (lane_radix.cuh).
 constexpr int kRowTile = 2048;
 constexpr int kRowThreads = 256;
 

@@ -30,16 +30,17 @@
 //
 // K14-K16 (the 1-D engine and any last-axis transform) are one launch, one
 // read and one write of the grid: lane_fft_kernel (lane_radix.cuh), radix-16
-// register passes over whole rows with the wrapper's twiddle table. The row
-// pass below (row_fft_kernel) stays reachable for them only as the forced
-// `form="row"` of the wrappers (mxu_fft._lane_form), which chip_smoke.py and
-// the `cuda` tests time and hold beside it; no path takes it. K5 and K18 are
-// the radix form's column pass (axis_radix.cuh axis_pass_kernel: one column
-// tile a block, radix-16 register passes, a natural-order store; K18 with
-// the map multiplied in on load, one extra read of n * lanes reals, which
-// the batch shares); the radix-2 column pass (axis_fft_kernel) is their
-// forced `form="stages"` (mxu_fft._axis_form), and stays the column half of
-// the split plane forms below.
+// register passes over whole rows with the wrapper's twiddle table. K5 and
+// K18 are the radix form's column pass (axis_radix.cuh axis_pass_kernel: one
+// column tile a block, radix-16 register passes, a natural-order store; K18
+// with the map multiplied in on load, one extra read of n * lanes reals,
+// which the batch shares). K6, K17 and K9 at n >= 512 are these two passes
+// in turn (the split form below). The radix-2 kernels they replaced stay
+// reachable only as forced forms, which chip_smoke.py and the `cuda` tests
+// time and hold beside them; no path takes one: row_fft_kernel is K14-K16's
+// `form="row"` (mxu_fft._lane_form), axis_fft_kernel (fft_common.cuh) K5's
+// and K18's `form="stages"` (mxu_fft._axis_form), and the two together K6,
+// K17 and K9's `form="stages"` (mxu_fft._plane_form).
 //
 // Data are interleaved complex (torch.view_as_real layout), k in natural
 // fftn order. The TPU kernels' radix-R butterfly plus 128-point DFT matmul,
@@ -51,38 +52,38 @@
 // writes its output once (16 bytes per complex64 cell, 32 per complex128):
 // at (9, 256^3) complex64 one grid is 1.21 GB, 0.36 ms at 3.35 TB/s, so a
 // pass (K5, K14) or a 2-axis plane (K6) must move 2 grids, 0.72 ms, as long
-// as the transform in shared memory keeps up. Four geometries:
+// as the transform in shared memory keeps up. Three geometries:
 //
 //   axis pass (K5, K18: axis_pass_kernel, axis_radix.cuh): one column tile
 //     of 128-byte row segments a block (64 at n = 1024), 16 elements of a
 //     column a thread in registers, two or three radix-16 passes with one
-//     barrier between them; the stages form and the split planes' column
-//     half: axis_fft_kernel (fft_common.cuh), radix-2 DIT in shared memory.
-//   row pass (row_fft_kernel): a block takes whole contiguous rows (2048
-//     elements) and runs a radix-2 Stockham FFT on each row between two
-//     shared-memory buffers (natural order in and out, no bit reversal, whose
-//     scattered accesses along a row would conflict on every bank). The row
-//     half of the split plane kernels (K6, K17, K9 at n >= 512).
+//     barrier between them.
 //   lanes (lane_fft_kernel, lane_radix.cuh): R whole rows a block, N / 16
 //     threads a row, each length-N transform in two or three radix-16 (and
 //     8, 4, 2) register passes in padded shared memory, the digit order
-//     undone on the store; 16-byte loads and stores.
+//     undone on the store; 16-byte loads and stores (K15's real load and
+//     K16's real store four floats or two doubles a vector).
 //   plane (K6, K17, K9): at n = 128 and 256 the one-pass cluster form
 //     (plane_cluster.cuh): the plane in the shared memory of a cluster of 2-8
 //     blocks, radix-16 register passes for rows and columns, one transpose
 //     across the cluster between them, 2 grids of traffic (K17, K9: 1.5, a
 //     real grid on one side). At n = 512 and 1024 a plane (2 MB and 8 MB at
-//     complex64) exceeds a portable cluster's 8 x 227 KB, so they keep the
-//     split form (`plane`, `plane_real_fwd`, `plane_real_inv`): the row pass
-//     and the axis pass, the intermediate in device memory (mostly the 50 MB
-//     L2), 4 grids of traffic for K6. The wrapper picks the form by shape
+//     complex64) exceeds a portable cluster's 8 x 227 KB, so they take the
+//     split form: the lane pass over the plane's n rows and the axis pass
+//     over its columns (the (m, n, n) view with lanes = n), the intermediate
+//     in device memory (partly the 50 MB L2). K6: rows in -> out, then the
+//     columns in place in out; K17: rows with K15's real load in -> out,
+//     then the columns in place; K9: the inverse columns in -> tmp (the
+//     wrapper's complex scratch), then rows with K16's real store tmp ->
+//     out. 4 grids of traffic for K6, 3.5 for K17 and K9, against the
+//     cluster form's 2 and 1.5. The wrapper picks the form by shape
 //     (mxu_fft._plane_form).
 //
 // Accuracy: FP32 (or FP64) CUDA-core arithmetic only, no tensor cores.
 // Twiddles are computed in double and rounded once to the kernel's precision:
-// per block with sincospi in the split kernels, once per (n, dtype) by the
-// wrapper for the cluster form and the lane kernels; the file is built
-// without --use_fast_math.
+// once per (n, dtype) by the wrapper (mxu_fft._twiddles) for every radix and
+// cluster kernel, per block with sincospi in the radix-2 forced forms; the
+// file is built without --use_fast_math.
 // The ortho 1/sqrt(n) of each axis is applied as the pass writes.
 // Offsets are 64-bit (batch * n^3 passes 2^31 at 1024^3). Every entry point
 // launches on the stream it is given and returns cudaGetLastError().
@@ -166,39 +167,14 @@ cudaError_t launch_rows(const void* in, void* out, int64_t rows, int log_n,
   return cudaGetLastError();
 }
 
-// Rows (last axis) into out, then the columns (axis -2) in place in out.
-template <typename T>
-cudaError_t plane(const void* in, void* out, int64_t m, int log_n, bool inverse,
-                  cudaStream_t stream) {
-  const int64_t rows = m << log_n;
-  cudaError_t err = inverse ? launch_rows<T, true, false, false>(in, out, rows, log_n, stream)
-                            : launch_rows<T, false, false, false>(in, out, rows, log_n, stream);
-  if (err != cudaSuccess) return err;
-  return axis<T>(out, out, m, log_n, int64_t(1) << log_n, inverse, stream);
-}
-
-template <typename T>
-cudaError_t plane_real_fwd(const void* in, void* out, int64_t m, int log_n,
-                           cudaStream_t stream) {
-  cudaError_t err = launch_rows<T, false, true, false>(in, out, m << log_n, log_n, stream);
-  if (err != cudaSuccess) return err;
-  return axis<T>(out, out, m, log_n, int64_t(1) << log_n, false, stream);
-}
-
-// Columns into tmp (complex), then the rows into the real out.
-template <typename T>
-cudaError_t plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int log_n,
-                           cudaStream_t stream) {
-  cudaError_t err = axis<T>(in, tmp, m, log_n, int64_t(1) << log_n, true, stream);
-  if (err != cudaSuccess) return err;
-  return launch_rows<T, true, false, true>(tmp, out, m << log_n, log_n, stream);
-}
-
-template <typename T>
-cudaError_t lane(const void* in, void* out, int64_t rows, int log_n, bool inverse,
-                 cudaStream_t stream) {
-  return inverse ? launch_rows<T, true, false, false>(in, out, rows, log_n, stream)
-                 : launch_rows<T, false, false, false>(in, out, rows, log_n, stream);
+// Contiguous rows of n = 2^log_n: the radix form (lane_fft_kernel, tw: (n,)
+// w_n^m), or with row_form the radix-2 row pass (row_fft_kernel; tw
+// unused). K14-K16, and the row half of K6, K17 and K9's split forms.
+template <typename T, bool INV, bool IN_REAL, bool OUT_REAL>
+cudaError_t rows_pass(const void* in, void* out, int64_t rows, int log_n, int row_form,
+                      const void* tw, cudaStream_t stream) {
+  return row_form ? launch_rows<T, INV, IN_REAL, OUT_REAL>(in, out, rows, log_n, stream)
+                  : launch_lane<T, INV, IN_REAL, OUT_REAL>(in, out, rows, log_n, tw, stream);
 }
 
 // K5 in the radix form (axis_radix.cuh, tw: (n,) w_n^m) or the stages form.
@@ -210,6 +186,40 @@ cudaError_t axis_pass(const void* in, void* out, int64_t b1, int log_n, int64_t 
                                                                         {}, tw, stream)
                  : launch_axis_pass_radix<T, false, AxisPrologue::kNone>(in, out, b1, log_n,
                                                                          lanes, {}, tw, stream);
+}
+
+// The split forms of K6, K17 and K9 on (m, n, n): the row pass and the
+// column pass (the (m, n, n) view with lanes = n), both radix (stages 0)
+// or both radix-2 (stages 1). K6 and K17: the rows into out, then the
+// columns in place in out.
+template <typename T>
+cudaError_t plane(const void* in, void* out, int64_t m, int log_n, bool inverse, int stages,
+                  const void* tw, cudaStream_t stream) {
+  const int64_t n = int64_t(1) << log_n;
+  cudaError_t err =
+      inverse ? rows_pass<T, true, false, false>(in, out, m * n, log_n, stages, tw, stream)
+              : rows_pass<T, false, false, false>(in, out, m * n, log_n, stages, tw, stream);
+  if (err != cudaSuccess) return err;
+  return axis_pass<T>(out, out, m, log_n, n, inverse, stages, tw, stream);
+}
+
+template <typename T>
+cudaError_t plane_real_fwd(const void* in, void* out, int64_t m, int log_n, int stages,
+                           const void* tw, cudaStream_t stream) {
+  const int64_t n = int64_t(1) << log_n;
+  cudaError_t err = rows_pass<T, false, true, false>(in, out, m * n, log_n, stages, tw, stream);
+  if (err != cudaSuccess) return err;
+  return axis_pass<T>(out, out, m, log_n, n, false, stages, tw, stream);
+}
+
+// K9: the columns into tmp (complex), then the rows into the real out.
+template <typename T>
+cudaError_t plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int log_n,
+                           int stages, const void* tw, cudaStream_t stream) {
+  const int64_t n = int64_t(1) << log_n;
+  cudaError_t err = axis_pass<T>(in, tmp, m, log_n, n, true, stages, tw, stream);
+  if (err != cudaSuccess) return err;
+  return rows_pass<T, true, false, true>(tmp, out, m * n, log_n, stages, tw, stream);
 }
 
 // K18 in either form.
@@ -241,47 +251,50 @@ int msm_fft_axis(const void* in, void* out, int64_t b1, int log_n, int64_t lanes
 }
 
 // K6. in, out: (m, n, n) interleaved complex, n = 2^log_n, 16-byte
-// aligned; in != out. cluster 0: the split form; else the cluster form
-// (plane_cluster.cuh) with that many blocks per plane and tw: (n,)
-// interleaved complex w_n^m.
+// aligned; in != out. cluster > 0: the cluster form (plane_cluster.cuh)
+// with that many blocks per plane; 0: the split form, radix (stages 0) or
+// radix-2 (stages 1). tw: (n,) interleaved complex w_n^m (unused by the
+// stages form).
 int msm_fft_plane(const void* in, void* out, int64_t m, int log_n, int inverse,
-                  int is_double, int cluster, const void* tw, void* stream) {
+                  int is_double, int cluster, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
         inverse ? plane_cluster<true, Vec, Vec>(in, out, m, log_n, cluster, is_double, tw, s)
                 : plane_cluster<false, Vec, Vec>(in, out, m, log_n, cluster, is_double, tw, s));
   }
-  return static_cast<int>(is_double ? plane<double>(in, out, m, log_n, inverse, s)
-                                    : plane<float>(in, out, m, log_n, inverse, s));
+  return static_cast<int>(is_double ? plane<double>(in, out, m, log_n, inverse, stages, tw, s)
+                                    : plane<float>(in, out, m, log_n, inverse, stages, tw, s));
 }
 
 // K17. in: (m, n, n) real; out: (m, n, n) interleaved complex; both 16-byte
-// aligned. cluster and tw as for K6.
+// aligned. cluster, stages and tw as for K6.
 int msm_fft_plane_real_fwd(const void* in, void* out, int64_t m, int log_n, int is_double,
-                           int cluster, const void* tw, void* stream) {
+                           int cluster, int stages, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
         plane_cluster<false, RealVec, Vec>(in, out, m, log_n, cluster, is_double, tw, s));
   }
-  return static_cast<int>(is_double ? plane_real_fwd<double>(in, out, m, log_n, s)
-                                    : plane_real_fwd<float>(in, out, m, log_n, s));
+  return static_cast<int>(is_double ? plane_real_fwd<double>(in, out, m, log_n, stages, tw, s)
+                                    : plane_real_fwd<float>(in, out, m, log_n, stages, tw, s));
 }
 
 // K9. in: (m, n, n) interleaved complex; out: (m, n, n) real, the real part
 // of the inverse; both 16-byte aligned. tmp: (m, n, n) interleaved complex
-// scratch of the split form (cluster 0); the cluster form takes null.
-// cluster and tw as for K6.
+// scratch of the split form (cluster 0), 16-byte aligned; the cluster form
+// takes null. cluster, stages and tw as for K6.
 int msm_fft_plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int log_n,
-                           int is_double, int cluster, const void* tw, void* stream) {
+                           int is_double, int cluster, int stages, const void* tw,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster) {
     return static_cast<int>(
         plane_cluster<true, Vec, RealVec>(in, out, m, log_n, cluster, is_double, tw, s));
   }
-  return static_cast<int>(is_double ? plane_real_inv<double>(in, tmp, out, m, log_n, s)
-                                    : plane_real_inv<float>(in, tmp, out, m, log_n, s));
+  return static_cast<int>(
+      is_double ? plane_real_inv<double>(in, tmp, out, m, log_n, stages, tw, s)
+                : plane_real_inv<float>(in, tmp, out, m, log_n, stages, tw, s));
 }
 
 // K14. in, out: (rows, 2^log_n) interleaved complex, 16-byte aligned;
@@ -291,18 +304,14 @@ int msm_fft_plane_real_inv(const void* in, void* tmp, void* out, int64_t m, int 
 int msm_fft_lane(const void* in, void* out, int64_t rows, int log_n, int inverse,
                  int is_double, int row_form, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_form) {
-    return static_cast<int>(is_double ? lane<double>(in, out, rows, log_n, inverse, s)
-                                      : lane<float>(in, out, rows, log_n, inverse, s));
-  }
   if (is_double) {
     return static_cast<int>(
-        inverse ? launch_lane<double, true, false, false>(in, out, rows, log_n, tw, s)
-                : launch_lane<double, false, false, false>(in, out, rows, log_n, tw, s));
+        inverse ? rows_pass<double, true, false, false>(in, out, rows, log_n, row_form, tw, s)
+                : rows_pass<double, false, false, false>(in, out, rows, log_n, row_form, tw, s));
   }
   return static_cast<int>(
-      inverse ? launch_lane<float, true, false, false>(in, out, rows, log_n, tw, s)
-              : launch_lane<float, false, false, false>(in, out, rows, log_n, tw, s));
+      inverse ? rows_pass<float, true, false, false>(in, out, rows, log_n, row_form, tw, s)
+              : rows_pass<float, false, false, false>(in, out, rows, log_n, row_form, tw, s));
 }
 
 // K15. in: (rows, 2^log_n) real; out: (rows, 2^log_n) interleaved complex;
@@ -310,14 +319,9 @@ int msm_fft_lane(const void* in, void* out, int64_t rows, int log_n, int inverse
 int msm_fft_lane_real_fwd(const void* in, void* out, int64_t rows, int log_n, int is_double,
                           int row_form, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_form) {
-    return static_cast<int>(
-        is_double ? launch_rows<double, false, true, false>(in, out, rows, log_n, s)
-                  : launch_rows<float, false, true, false>(in, out, rows, log_n, s));
-  }
   return static_cast<int>(
-      is_double ? launch_lane<double, false, true, false>(in, out, rows, log_n, tw, s)
-                : launch_lane<float, false, true, false>(in, out, rows, log_n, tw, s));
+      is_double ? rows_pass<double, false, true, false>(in, out, rows, log_n, row_form, tw, s)
+                : rows_pass<float, false, true, false>(in, out, rows, log_n, row_form, tw, s));
 }
 
 // K16. in: (rows, 2^log_n) interleaved complex; out: (rows, 2^log_n) real, the
@@ -325,14 +329,9 @@ int msm_fft_lane_real_fwd(const void* in, void* out, int64_t rows, int log_n, in
 int msm_fft_lane_real_inv(const void* in, void* out, int64_t rows, int log_n, int is_double,
                           int row_form, const void* tw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_form) {
-    return static_cast<int>(
-        is_double ? launch_rows<double, true, false, true>(in, out, rows, log_n, s)
-                  : launch_rows<float, true, false, true>(in, out, rows, log_n, s));
-  }
   return static_cast<int>(
-      is_double ? launch_lane<double, true, false, true>(in, out, rows, log_n, tw, s)
-                : launch_lane<float, true, false, true>(in, out, rows, log_n, tw, s));
+      is_double ? rows_pass<double, true, false, true>(in, out, rows, log_n, row_form, tw, s)
+                : rows_pass<float, true, false, true>(in, out, rows, log_n, row_form, tw, s));
 }
 
 // K18. in, out: (b1, 2^log_n, lanes) interleaved complex as for K5; map:

@@ -3,7 +3,10 @@
 // N in {128, 256, 512, 1024}, as radix-16 register passes over whole rows in
 // shared memory. Replaces msm_tpu/ops/mxu_fft.py _lane_kernel (K14),
 // _lane_kernel_real_fwd (K15) and _lane_kernel_real_inv (K16); one template,
-// lane_fft_kernel<T, N, INV, IN_REAL, OUT_REAL>, serves all three.
+// lane_fft_kernel<T, N, INV, IN_REAL, OUT_REAL>, serves all three, and is
+// also the row half of K6, K17 and K9's split form at N = 512 and 1024
+// (fft_kernels.cu `plane`, `plane_real_fwd`, `plane_real_inv`: K17 with
+// K15's real load, K9 with K16's real store).
 //
 // What bounds them: device memory at many rows (at (9 * 256^2, 256)
 // complex64 the grid is read once and written once, 0.72 ms at 3.35 TB/s),

@@ -58,17 +58,21 @@ plain torch.fft version beside it; any other device raises. Sizes are the
 engine's, N = 128 * {1, 2, 4, 8} (`supported`), on both routes. `launches`
 counts kernel launches per wrapper.
 
-K6, K17, K9, K4, K2, K10, K11 and K7 take one of two forms, chosen by
-shape (`_plane_form`): at N = 128 and 256 the one-pass plane on a
-thread-block cluster (`csrc/plane_cluster.cuh`: the plane in the cluster's
-shared memory, one HBM read of each input and one write of each output;
-K11 writes only a maximum a block); at N = 512 and 1024, whose planes
-exceed a portable cluster's 8 x 227 KB, the split form (a row pass and a
-column pass with the intermediate in device memory). For K4, K2, K10, K11
-and K7 (`SPLIT_RADIX_KERNELS`) the split form is `csrc/split_radix.cuh`'s
-radix-16 row kernel between radix column passes, and `form="stages"`
-forces the radix-2 split form before it (`row_fused_kernel`), for timing
-and tests only. `form_launches` counts their launches per form.
+K6, K17, K9, K4, K2, K10, K11 and K7 (`PLANE_FORM_KERNELS`) take one of
+two forms, chosen by shape (`_plane_form`): at N = 128 and 256 the one-pass
+plane on a thread-block cluster (`csrc/plane_cluster.cuh`: the plane in the
+cluster's shared memory, one HBM read of each input and one write of each
+output; K11 writes only a maximum a block); at N = 512 and 1024, whose
+planes exceed a portable cluster's 8 x 227 KB, the split form: a radix row
+pass and the radix column pass (`csrc/axis_radix.cuh` `axis_pass_kernel`)
+with the intermediate in device memory. The row pass of K6, K17 and K9 is
+the lane kernels' `lane_fft_kernel` (K17 with K15's real load, K9 with
+K16's real store; K9 runs its columns first, into a complex scratch grid);
+that of K4, K2, K10, K11 and K7 is `csrc/split_radix.cuh`'s radix-16 row
+kernel with the kernel's middle step in registers. `form="stages"` forces
+the radix-2 split form each had before (`row_fft_kernel` and
+`axis_fft_kernel`; `row_fused_kernel`), for timing and tests only.
+`form_launches` counts their launches per form.
 
 K14-K16 run the radix form (`csrc/lane_radix.cuh` `lane_fft_kernel`: whole
 rows a block, radix-16 register passes, the `_twiddles` table); `form="row"`
@@ -115,14 +119,12 @@ launches = {
     "lane_pass_real_inv": 0,
     "axis_inv_map": 0,
 }
-# the plane kernels with a cluster and a split form (`_plane_form`)
+# the plane kernels with a cluster, a split and a (forced) stages form
+# (`_plane_form`)
 PLANE_FORM_KERNELS = (
     "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv", "plane_potkick_fwd",
     "plane_inv_density", "plane_inv_density_rho_only", "plane_real_inv_max", "plane_density_fwd",
 )
-# those whose split form is the radix row kernel (csrc/split_radix.cuh),
-# with the radix-2 split form before it as a forced "stages"
-SPLIT_RADIX_KERNELS = PLANE_FORM_KERNELS[3:]
 # the column-tile kernels with a radix and a stages form (`_axis_form`):
 # the round trips and the column passes
 AXIS_FORM_KERNELS = (
@@ -132,8 +134,11 @@ AXIS_FORM_KERNELS = (
 # launches of the plane kernels, of K14-K16 and of the column-tile kernels,
 # by form ("<kernel>/<form>")
 form_launches = {
-    **{f"{name}/{form}": 0 for name in PLANE_FORM_KERNELS for form in ("cluster", "split")},
-    **{f"{name}/stages": 0 for name in SPLIT_RADIX_KERNELS},
+    **{
+        f"{name}/{form}": 0
+        for name in PLANE_FORM_KERNELS
+        for form in ("cluster", "split", "stages")
+    },
     **{
         f"{name}/{form}": 0
         for name in ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -159,15 +164,15 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _plane_form(n: int, dtype: torch.dtype, form=None, name=None) -> tuple[str, int]:
-    """(form, cluster size) of the plane kernel `name` (`PLANE_FORM_KERNELS`)
-    for (N, N) planes of `dtype` (complex, or the real operand of K17): the
+def _plane_form(n: int, dtype: torch.dtype, form=None) -> tuple[str, int]:
+    """(form, cluster size) of a plane kernel (`PLANE_FORM_KERNELS`) for
+    (N, N) planes of `dtype` (complex, or the real operand of K17): the
     cluster form at N = 128, 256 (8 blocks a plane at 256; at 128, 2 at
     complex64 and float32, 4 at complex128 and float64: about 70 KB of
     shared memory a block, as `cluster_size` in csrc/plane_cluster.cuh),
-    else ("split", 0). `form` forces one where a caller asks: "split"
-    exists at every size, "cluster" only where the shape takes it, and
-    "stages" at every size for `SPLIT_RADIX_KERNELS` only."""
+    else ("split", 0). `form` forces one where a caller asks: "split" and
+    "stages" exist at every size, "cluster" only where the shape takes
+    it."""
     if n in (128, 256):
         single = dtype in (torch.complex64, torch.float32)
         shape_form = ("cluster", 8 if n == 256 else (2 if single else 4))
@@ -175,7 +180,7 @@ def _plane_form(n: int, dtype: torch.dtype, form=None, name=None) -> tuple[str, 
         shape_form = ("split", 0)
     if form is None or form == shape_form[0]:
         return shape_form
-    if form == "split" or (form == "stages" and name in SPLIT_RADIX_KERNELS):
+    if form in ("split", "stages"):
         return form, 0
     raise ValueError(f"no {form!r} form for {n}^2 planes of {dtype}")
 
@@ -184,6 +189,15 @@ def _maxes_per_plane(n: int, form: str, cluster: int) -> int:
     """Partial maxima K4 and K11 leave per plane: one per row block of the
     split and stages forms, one per block of the cluster."""
     return cluster if form == "cluster" else n * n // _ROW_TILE
+
+
+def _plane_args(x: torch.Tensor, form: str, cluster: int) -> tuple:
+    """(cluster, stages, twiddles) of a plane kernel's entry point in
+    `form`, x its complex operand (or output): the (N,) table for the
+    cluster and split forms, none for the stages form."""
+    stages = form == "stages"
+    tw = None if stages else _twiddles(x.shape[-1], x.dtype, x.device).data_ptr()
+    return cluster, int(stages), tw
 
 
 def _twiddles(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -315,8 +329,8 @@ def axis_pass(z: torch.Tensor, axis: int, inverse: bool, *, form=None) -> torch.
 
 def plane_pass(z: torch.Tensor, inverse: bool, *, form=None) -> torch.Tensor:
     """Ortho DFT of complex z over its last two axes (K6). form: None for
-    the shape's (`_plane_form`); "split" forces the split form (tests and
-    chip_smoke.py compare the two)."""
+    the shape's (`_plane_form`); "split" or "stages" forces that split form
+    (tests and chip_smoke.py compare them)."""
     m, log_n = _planes(z)
     form, cluster = _plane_form(z.shape[-1], z.dtype, form)
     if not _route(z, "plane_pass"):
@@ -324,12 +338,11 @@ def plane_pass(z: torch.Tensor, inverse: bool, *, form=None) -> torch.Tensor:
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_pass")
     z = _aligned(z)
     out = torch.empty_like(z)
-    tw = _twiddles(z.shape[-1], z.dtype, z.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(z.device):
         rc = lib.msm_fft_plane(
-            z.data_ptr(), out.data_ptr(), m, log_n, int(inverse), is_double, cluster,
-            None if tw is None else tw.data_ptr(), _stream(z),
+            z.data_ptr(), out.data_ptr(), m, log_n, int(inverse), is_double,
+            *_plane_args(z, form, cluster), _stream(z),
         )
     build.check(rc, "plane_pass")
     launches["plane_pass"] += 1
@@ -348,12 +361,11 @@ def plane_pass_real_fwd(x: torch.Tensor, *, form=None) -> torch.Tensor:
     x = _aligned(x)
     cdtype = torch.complex128 if is_double else torch.complex64
     out = torch.empty(x.shape, dtype=cdtype, device=x.device)
-    tw = _twiddles(x.shape[-1], cdtype, x.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(x.device):
         rc = lib.msm_fft_plane_real_fwd(
-            x.data_ptr(), out.data_ptr(), m, log_n, is_double, cluster,
-            None if tw is None else tw.data_ptr(), _stream(x),
+            x.data_ptr(), out.data_ptr(), m, log_n, is_double,
+            *_plane_args(out, form, cluster), _stream(x),
         )
     build.check(rc, "plane_pass_real_fwd")
     launches["plane_pass_real_fwd"] += 1
@@ -363,8 +375,8 @@ def plane_pass_real_fwd(x: torch.Tensor, *, form=None) -> torch.Tensor:
 
 def plane_pass_real_inv(z: torch.Tensor, *, form=None) -> torch.Tensor:
     """Real part of the ortho inverse DFT of complex z over its last two
-    axes (K9). form: as for `plane_pass`; the split form goes through a
-    complex scratch grid, the cluster form through none."""
+    axes (K9). form: as for `plane_pass`; the split and stages forms go
+    through a complex scratch grid, the cluster form through none."""
     m, log_n = _planes(z)
     form, cluster = _plane_form(z.shape[-1], z.dtype, form)
     if not _route(z, "plane_pass_real_inv"):
@@ -373,12 +385,11 @@ def plane_pass_real_inv(z: torch.Tensor, *, form=None) -> torch.Tensor:
     z = _aligned(z)
     tmp = None if cluster else torch.empty_like(z)
     out = torch.empty(z.shape, dtype=z.real.dtype, device=z.device)
-    tw = _twiddles(z.shape[-1], z.dtype, z.device) if cluster else None
     lib = build.load()
     with torch.cuda.device(z.device):
         rc = lib.msm_fft_plane_real_inv(
             z.data_ptr(), None if tmp is None else tmp.data_ptr(), out.data_ptr(), m, log_n,
-            is_double, cluster, None if tw is None else tw.data_ptr(), _stream(z),
+            is_double, *_plane_args(z, form, cluster), _stream(z),
         )
     build.check(rc, "plane_pass_real_inv")
     launches["plane_pass_real_inv"] += 1
@@ -877,21 +888,12 @@ def axis_roundtrip_map(x, pmap, *, form=None):
     return out
 
 
-def _fused_plane_args(x: torch.Tensor, form: str, cluster: int) -> tuple:
-    """(cluster, stages, twiddles) of a `SPLIT_RADIX_KERNELS` entry point
-    in `form`: the (N,) table for the cluster and split forms, none for the
-    stages form."""
-    stages = form == "stages"
-    tw = None if stages else _twiddles(x.shape[-1], x.dtype, x.device).data_ptr()
-    return cluster, int(stages), tw
-
-
 def _inv_density(name: str, x, prefactor: float, form, write_psi: bool):
     """K2 (write_psi) and K10: (psi, rho) from one launch in `form`
     (`_plane_form`), psi None for K10 on the card; the plain version's
     (psi, rho) on the CPU."""
     m, log_n = _planes(x)
-    form, cluster = _plane_form(x.shape[-1], x.dtype, form, name)
+    form, cluster = _plane_form(x.shape[-1], x.dtype, form)
     if not _route(x, name):
         return plane_inv_density_plain(x, prefactor)
     is_double = _check_dtype(x, (torch.complex64, torch.complex128), name)
@@ -903,12 +905,12 @@ def _inv_density(name: str, x, prefactor: float, form, write_psi: bool):
         if write_psi:
             rc = lib.msm_plane_inv_density(
                 x.data_ptr(), psi.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor),
-                is_double, *_fused_plane_args(x, form, cluster), _stream(x),
+                is_double, *_plane_args(x, form, cluster), _stream(x),
             )
         else:
             rc = lib.msm_plane_inv_density_rho_only(
                 x.data_ptr(), rho.data_ptr(), m, log_n, float(prefactor), is_double,
-                *_fused_plane_args(x, form, cluster), _stream(x),
+                *_plane_args(x, form, cluster), _stream(x),
             )
     build.check(rc, name)
     launches[name] += 1
@@ -938,7 +940,7 @@ def plane_real_inv_max(z, *, form=None):
     scratch grid, the cluster form through none."""
     m, log_n = _planes(z)
     n = z.shape[-1]
-    form, cluster = _plane_form(n, z.dtype, form, "plane_real_inv_max")
+    form, cluster = _plane_form(n, z.dtype, form)
     if not _route(z, "plane_real_inv_max"):
         return plane_real_inv_max_plain(z)
     is_double = _check_dtype(z, (torch.complex64, torch.complex128), "plane_real_inv_max")
@@ -950,7 +952,7 @@ def plane_real_inv_max(z, *, form=None):
     with torch.cuda.device(z.device):
         rc = lib.msm_plane_real_inv_max(
             z.data_ptr(), None if tmp is None else tmp.data_ptr(), maxes.data_ptr(), m, log_n,
-            is_double, *_fused_plane_args(z, form, cluster), _stream(z),
+            is_double, *_plane_args(z, form, cluster), _stream(z),
         )
     build.check(rc, "plane_real_inv_max")
     launches["plane_real_inv_max"] += 1
@@ -966,7 +968,7 @@ def plane_potkick_fwd(phik, psi, coeff, *, form=None):
     `plane_inv_density`."""
     m, log_n = _planes(phik)
     n = phik.shape[-1]
-    form, cluster = _plane_form(n, phik.dtype, form, "plane_potkick_fwd")
+    form, cluster = _plane_form(n, phik.dtype, form)
     if psi.shape != phik.shape or psi.dtype != phik.dtype or psi.device != phik.device:
         raise ValueError(f"psi {tuple(psi.shape)} {psi.dtype} does not match phik")
     c = coeff.to(device=phik.device, dtype=phik.real.dtype).reshape(-1).contiguous()
@@ -985,7 +987,7 @@ def plane_potkick_fwd(phik, psi, coeff, *, form=None):
     with torch.cuda.device(phik.device):
         rc = lib.msm_plane_potkick_fwd(
             phik.data_ptr(), psi.data_ptr(), out.data_ptr(), maxes.data_ptr(), c.data_ptr(),
-            m, m // c.numel(), log_n, is_double, *_fused_plane_args(phik, form, cluster),
+            m, m // c.numel(), log_n, is_double, *_plane_args(phik, form, cluster),
             _stream(phik),
         )
     build.check(rc, "plane_potkick_fwd")
@@ -998,7 +1000,7 @@ def plane_density_fwd(psi, prefactor: float, *, form=None):
     """K7: ortho forward DFT over the last two axes of prefactor * |psi|^2.
     form: as for `plane_inv_density`."""
     m, log_n = _planes(psi)
-    form, cluster = _plane_form(psi.shape[-1], psi.dtype, form, "plane_density_fwd")
+    form, cluster = _plane_form(psi.shape[-1], psi.dtype, form)
     if not _route(psi, "plane_density_fwd"):
         return plane_density_fwd_plain(psi, prefactor)
     is_double = _check_dtype(psi, (torch.complex64, torch.complex128), "plane_density_fwd")
@@ -1008,7 +1010,7 @@ def plane_density_fwd(psi, prefactor: float, *, form=None):
     with torch.cuda.device(psi.device):
         rc = lib.msm_plane_density_fwd(
             psi.data_ptr(), out.data_ptr(), m, log_n, float(prefactor), is_double,
-            *_fused_plane_args(psi, form, cluster), _stream(psi),
+            *_plane_args(psi, form, cluster), _stream(psi),
         )
     build.check(rc, "plane_density_fwd")
     launches["plane_density_fwd"] += 1

@@ -574,7 +574,8 @@ def test_plane_real_inv_max_forms_match_jax(rng, form):
 def test_plane_form_dispatch(n, cdtype):
     """The cluster form at N = 128 and 256 (8 blocks at 256; at 128 2 or 4,
     about 70 KB of shared memory a block), the split form above; "split"
-    can be forced at every size, "cluster" only where the shape takes it."""
+    and "stages" can be forced at every size, "cluster" only where the
+    shape takes it."""
     form, cl = mxu_fft._plane_form(n, cdtype)
     # K17's real operand takes its complex counterpart's form
     assert mxu_fft._plane_form(n, torch.empty(0, dtype=cdtype).real.dtype) == (form, cl)
@@ -592,6 +593,7 @@ def test_plane_form_dispatch(n, cdtype):
         assert n // cl % cl == 0  # the radix-C stage splits the rows evenly
     assert mxu_fft._plane_form(n, cdtype, None) == (form, cl)
     assert mxu_fft._plane_form(n, cdtype, "split") == ("split", 0)
+    assert mxu_fft._plane_form(n, cdtype, "stages") == ("stages", 0)
     if form == "split":
         with pytest.raises(ValueError, match="no 'cluster' form"):
             mxu_fft._plane_form(n, cdtype, "cluster")
@@ -611,8 +613,9 @@ def test_plane_form_dispatch(n, cdtype):
     }
     assert tuple(calls) == mxu_fft.PLANE_FORM_KERNELS
     for name, call in calls.items():
-        assert {f"{name}/cluster", f"{name}/split"} <= set(mxu_fft.form_launches)
-        for f in (None, "split", "cluster"):
+        assert {f"{name}/cluster", f"{name}/split", f"{name}/stages"} <= set(
+            mxu_fft.form_launches)
+        for f in (None, "split", "stages", "cluster"):
             refused = f == "cluster" and form == "split"
             match = "no 'cluster' form" if refused else f"no {name} kernel for device meta"
             with pytest.raises(ValueError, match=match):

@@ -53,6 +53,9 @@ torch.set_num_threads(1)
 RTOL = 1e-12
 SIZES = (128, 256, 512, 1024)
 BODIES = ("density", "inv_density", "rho_only", "potkick", "real_max")
+# the kernels whose split form is split_radix.cuh's row kernel
+FUSED_FIVE = ("plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only",
+              "plane_real_inv_max", "plane_density_fwd")
 PREF = 3.0
 THREADS = 128  # kSplitThreads
 # the one- and two-transform gates of chip_smoke.py (PERF.md section 2)
@@ -380,24 +383,24 @@ def test_plane_density_fwd_forms_on_the_cpu(rng, n):
 
 @pytest.mark.parametrize("n", [256, 512])
 def test_stages_is_forced_only_for_the_split_radix_kernels(n):
-    """"stages" exists for K4, K2, K10, K11 and K7 at every size and for no
-    other plane kernel; the shape's form is the cluster form at 256 and the
-    split form at 512."""
+    """"stages" (the radix-2 split form) exists for every plane kernel at
+    every size, K6, K17 and K9 included, and is never the shape's form: the
+    shape's form is the cluster form at 256 and the split form at 512, for
+    K6, K17 and K9 the radix split form (lane_fft_kernel rows and
+    axis_pass_kernel columns) as for the five kernels of this file."""
     cdtype = torch.complex64
-    assert mxu_fft.SPLIT_RADIX_KERNELS == (
-        "plane_potkick_fwd", "plane_inv_density", "plane_inv_density_rho_only",
-        "plane_real_inv_max", "plane_density_fwd",
-    )
+    assert mxu_fft.PLANE_FORM_KERNELS[:3] == (
+        "plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv")
+    assert mxu_fft.PLANE_FORM_KERNELS[3:] == FUSED_FIVE
+    assert not hasattr(mxu_fft, "SPLIT_RADIX_KERNELS")
     for name in mxu_fft.PLANE_FORM_KERNELS:
-        shape_form = mxu_fft._plane_form(n, cdtype, None, name)
+        shape_form = mxu_fft._plane_form(n, cdtype, None)
         assert shape_form == (("cluster", 8) if n == 256 else ("split", 0))
-        if name in mxu_fft.SPLIT_RADIX_KERNELS:
-            assert mxu_fft._plane_form(n, cdtype, "stages", name) == ("stages", 0)
-            assert f"{name}/stages" in mxu_fft.form_launches
-        else:
-            with pytest.raises(ValueError, match="no 'stages' form"):
-                mxu_fft._plane_form(n, cdtype, "stages", name)
-            assert f"{name}/stages" not in mxu_fft.form_launches
+        assert mxu_fft._plane_form(n, cdtype, "stages") == ("stages", 0)
+        assert {f"{name}/{f}" for f in ("cluster", "split", "stages")} <= set(
+            mxu_fft.form_launches)
+    with pytest.raises(ValueError, match="no 'row' form"):
+        mxu_fft._plane_form(n, cdtype, "row")
 
 
 # ---------------------------------------------------------------------------
@@ -472,8 +475,8 @@ def test_cuda_split_form_matches_plain_and_stages(cuda_device, rng, cdtype, shap
         _held(got[name], want, rtol, name)
         _held(got[name], stages[name], rtol, f"{name} vs stages")
     assert {k: c for k, c in mxu_fft.form_launches.items() if c} == {
-        **{f"{k}/split": 1 for k in mxu_fft.SPLIT_RADIX_KERNELS},
-        **{f"{k}/stages": 1 for k in mxu_fft.SPLIT_RADIX_KERNELS},
+        **{f"{k}/split": 1 for k in FUSED_FIVE},
+        **{f"{k}/stages": 1 for k in FUSED_FIVE},
     }
     again = _calls(z, w, coeff, forced)
     for name in got:
