@@ -85,10 +85,12 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             1e-10: the tophat-collapse physics at 64^3, MFT only,
             complex128, 2 dumps, in optimistic and exact dt on `xla` and on
             `matmul` (MSM_FFT=matmul); the golden config on the card
-            against its frozen fixture; at 128^3 over t = 20 the unfused
-            `mxu` path (MSM_FFT=mxu, MSM_FUSE_PHASES=0) and, in 2-D at
-            512^2 (tests/test_torch_stepper_mxu.py's config, 3 Wigner + MFT
-            sampled on the CPU as one batch, through the Stepper to its
+            against its frozen fixtures (the MFT run and, since its draws
+            are JAX's, the Wigner stream of seed 3, sampled on the card);
+            at 128^3 over t = 20 the unfused `mxu` path (MSM_FFT=mxu,
+            MSM_FUSE_PHASES=0) and, in 2-D at 512^2
+            (tests/test_torch_stepper_mxu.py's config, 3 Wigner + MFT as
+            one batch, sampled on each device, through the Stepper to its
             first dump at t = 8, every K6, K17 and K9 launch in the split
             form, the counters bit for bit), the fused, skewed
             engine (MSM_FFT=mxu alone) in optimistic, exact and lagged dt,
@@ -149,6 +151,17 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             TPU kernel) against torch.where bit for bit at (9, 256^3) and
             (256, 1024), c64 and c128, every stream advancing, half and all
             frozen: the medians of each, torch.where's, and their bounds
+  2e prng   the threefry kernel (csrc/random_kernels.cu, no TPU kernel:
+            JAX draws the streams with jax.random) against its plain
+            version run on the card: the 32-/64-bit words and uniforms bit
+            for bit, normals within 4 ulp, at (9, 256^3) float32 (the main
+            runs' draws) and (2, 128^3) float64, each the median of 20
+            launches beside the plain version's, torch.rand / torch.randn's
+            and the bound; then a Poisson and a Wigner sample_stream_batch
+            of the tophat-collapse config at 64^3 x 3 seeds, c64 and c128,
+            on the card against the CPU (psi within 4 ulp of its max: the
+            same draws); every main run samples its 8 (1-D: 255) Wigner
+            streams on the card and must launch the kernel
   5 simulate-flags
             the rest of `simulate` through the CLI on the card (each
             item's line with the card's name and power limit): --resume
@@ -232,12 +245,14 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             transfer, transforms, sort, eigvalsh) on each; TF32 refused
             for the complex64 density matrices
 
-It then prints the kernels record (each kernel's launches from the main
+It then prints each phase's wall seconds (`phase-seconds`, `main` by
+run), the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
 and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
-from the engine check; P1/P2 from the probe run; masked_restore, which replaces no TPU kernel, the
-fused run's), with `floor_ms` (its
+from the engine check; P1/P2 from the probe run; masked_restore and
+threefry, which replace no TPU kernel, the fused run's; threefry with each
+output's record at both shapes, `outputs`), with `floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2, K10, K11
 and K7 with their form, cluster size and the forced split form's median,
@@ -280,6 +295,7 @@ PHASE_SOURCE = "msm_tpu_torch/ops/csrc/phase_kernels.cu"
 FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
 RESTORE_SOURCE = "msm_tpu_torch/ops/csrc/restore_kernels.cu"
+RANDOM_SOURCE = "msm_tpu_torch/ops/csrc/random_kernels.cu"
 # K6, K17, K9, K4, K2, K10, K11 and K7 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
@@ -313,6 +329,8 @@ KERNELS = {
     "copy_pass_lane": (COPY_SOURCE, "scripts/probe_mxu_floor.py:101"),
     # no TPU kernel: JAX's evolve loop freezes with a lax.cond of a select
     "masked_restore": (RESTORE_SOURCE, "msm_tpu/stepper.py:1122"),
+    # no TPU kernel: JAX draws the streams' normals with jax.random (XLA code)
+    "threefry": (RANDOM_SOURCE, "msm_tpu/models/sampling.py:82"),
 }
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
 LANE_KERNELS = ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -323,6 +341,8 @@ EXACT_KERNELS = ("plane_inv_density_rho_only", "plane_real_inv_max")
 UNSKEWED_KERNELS = ("axis_inv_kick", "axis_fwd_reduce")
 # the kernels each main run must launch
 ENGINE_IO = ("axis_pass", "plane_pass", "plane_pass_real_inv")
+# every main run samples its Wigner streams on the card (the threefry kernel)
+SAMPLE_KERNELS = ("threefry",)
 RUN_KERNELS = {
     "xla": PHASE_KERNELS,
     "mxu": PHASE_KERNELS + FFT_KERNELS,
@@ -334,6 +354,7 @@ RUN_KERNELS = {
     "fused-expanding": SKEW_KERNELS + ENGINE_IO,
     "fused-online": SKEW_KERNELS + ENGINE_IO,
 }
+RUN_KERNELS = {run: names + SAMPLE_KERNELS for run, names in RUN_KERNELS.items()}
 # the main run whose launches each kernel reports: the path it was ported
 # for; K18 (on no main run's path) reports the engine check's, the copy
 # probes P1/P2 the probe scripts' run
@@ -349,6 +370,7 @@ OWN_RUN = {
     "axis_inv_map": "engine-check",
     **{k: "probes" for k in PROBE_KERNELS},
     "masked_restore": "fused",
+    "threefry": "fused",
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -538,9 +560,10 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
-    """Median device time of n launches of fn (CUDA events around each)."""
-    for _ in range(3):
+def median_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
+    """Median device time of n launches of fn (CUDA events around each),
+    after `warmup` untimed ones."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
@@ -846,6 +869,145 @@ def phase_restore(card: dict) -> dict:
             torch.cuda.empty_cache()
     return main
 
+
+# the threefry kernel at the main run's sampling (9 Wigner-sized streams of
+# 256^3, complex64: float32 draws) and at (2, 128^3) complex128 (float64)
+PRNG_SHAPES = {torch.float32: MAIN_SHAPE, torch.float64: (2, 128, 128, 128)}
+# floating-point operations a value, counted from csrc/random_kernels.cu
+# (a fused multiply-add 2): the word's xor, the uniform's subtract, fma and
+# max, and the normal's uniform, XLA's log1p (two degree-6 Horner chains,
+# the rational and the sum) and erf_inv (9 or 23 Horner terms) and the
+# scale; the 32-bit integer operations of threefry itself (about 80 a
+# value) have no peak in the bound's table and are left out of it
+PRNG_OPS = {("bits", torch.float32): 1.0, ("bits", torch.float64): 2.0,
+            ("uniform", torch.float32): 4.0, ("uniform", torch.float64): 4.0,
+            ("normal", torch.float32): 60.0, ("normal", torch.float64): 90.0}
+# sample_stream_batch on the card and on the CPU: the tophat-collapse
+# config at 64^3 (lam up to 1.3e6: Knuth, rejection and the Gaussian
+# limit), 3 seeds
+PRNG_SAMPLE = (64, 3)
+# the words compared as signed integers of their width
+SIGNED = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def _ulp_distance(got, want) -> float:
+    """max |got - want| in ulps of |want| (float tensors on one device)."""
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    return ((got - want).abs() / ulp).max().item()
+
+
+def _prng_outputs(k, shape, dtype) -> dict:
+    """output -> (kernel call, plain call on the card, torch's own draw of
+    the shape or None)."""
+    from msm_tpu_torch.models import prng
+    from msm_tpu_torch.ops import threefry
+
+    width = 32 if dtype == torch.float32 else 64
+    return {
+        "bits": (lambda: threefry.random_bits(k, shape, width, "cuda"),
+                 lambda: prng.random_bits(k, shape, width, "cuda"), None),
+        "uniform": (lambda: threefry.uniform(k, shape, dtype, device="cuda"),
+                    lambda: prng.uniform(k, shape, dtype, device="cuda"),
+                    lambda: torch.rand(shape, dtype=dtype, device="cuda")),
+        "normal": (lambda: threefry.normal(k, shape, dtype, "cuda"),
+                   lambda: prng.normal(k, shape, dtype, "cuda"),
+                   lambda: torch.randn(shape, dtype=dtype, device="cuda")),
+    }
+
+
+def _prng_sample_agree(card: dict) -> None:
+    """A Poisson and a Wigner sample_stream_batch on the card and on the CPU
+    (PRNG_SAMPLE, complex64 and complex128): the same ensemble. Both run the
+    same draws (the kernel's words are the plain version's) and the same
+    torch expressions, so psi agrees within 4 ulp of max |psi| (the card's
+    and the CPU's exp, angle and float64 sqrt). A count off by one moves
+    |psi| by 1 / (2 count) of itself, which at complex64 hides under that
+    limit in the largest cells; so the config's Poisson counts (lam of the
+    base field, seed 1) are also held equal on both devices."""
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch.models import prng
+    from msm_tpu_torch.models.ics import build_ics
+    from msm_tpu_torch.models.sampling import sample_stream_batch
+    from msm_tpu_torch.ops import threefry
+
+    size, seeds = PRNG_SAMPLE
+    text = TOPHAT.format(final=40, dumps=3, name="prng", size=size)
+    mft = cfg.resolve_parameters(cfg.parse_toml_str(text))
+    base = build_ics(mft)
+    lam = torch.as_tensor(np.abs(base) ** 2 * mft.dx**3 * mft.n_tot, dtype=torch.float32)
+    counts = {d: threefry.poisson(prng.key(1), lam.to(d)).cpu() for d in ("cuda", "cpu")}
+    same = _bitwise(counts["cuda"], counts["cpu"])
+    lam_max = float(lam.max())
+    emit({"phase": "prng", "check": "poisson counts", "shape": [size] * 3, "lam_max": lam_max,
+          "counts_equal": same, "count_max": float(counts["cpu"].max()), **card})
+    check(same, "Poisson counts differ between the card and the CPU")
+    for scheme in ("Poisson", "Wigner"):
+        for cdtype in (torch.complex64, torch.complex128):
+            psi = torch.as_tensor(base).to(cdtype)
+            walls, out = {}, {}
+            for device in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                out[device] = sample_stream_batch(psi.to(device), mft, list(range(1, seeds + 1)),
+                                                  scheme).cpu()
+                walls[device] = time.perf_counter() - t0
+            eps = torch.finfo(psi.real.dtype).eps
+            err = (out["cuda"] - out["cpu"]).abs().max().item()
+            limit = 4 * eps * out["cpu"].abs().max().item()
+            emit({"phase": "prng", "check": "sample_stream_batch", "scheme": scheme,
+                  "dtype": str(cdtype).split(".")[-1], "shape": [seeds] + [size] * 3,
+                  "lam_max": lam_max, "max_abs_err": err, "limit": limit, "wall_s": walls,
+                  **card})
+            check(bool(torch.isfinite(out["cuda"]).all()), f"{scheme} {cdtype}: not finite")
+            check(err <= limit, f"{scheme} {cdtype}: card and CPU differ by {err} > {limit}")
+
+
+def phase_prng(card: dict) -> dict:
+    """The threefry kernel's three outputs against the plain version, both
+    on the card (words and uniforms bit for bit, normals within 4 ulp), at
+    PRNG_SHAPES: the kernel's median of 20 launches, the plain version's of
+    3 (after one untimed call: it takes up to a second), torch.rand / torch.randn's at the same shape (the yardstick: other
+    numbers, Philox), the bound (the output's bytes at 3.35 TB/s, its
+    floating-point operations at 67 TFLOP/s); then _prng_sample_agree.
+    Returns the float32 normals' record at the main shape, the main run's
+    draw."""
+    from msm_tpu_torch.models import prng
+
+    t0 = time.perf_counter()
+    k = prng.key(1)
+    main = {}
+    for dtype, shape in PRNG_SHAPES.items():
+        for name, (kernel, plain, library) in _prng_outputs(k, shape, dtype).items():
+            got, want = kernel(), plain()
+            if name == "normal":
+                ulps = _ulp_distance(got, want)
+                err = (got - want).abs().max().item()
+                ok = ulps <= 4
+            else:
+                ulps, err = 0.0, 0.0
+                ok = _bitwise(*(t.view(SIGNED.get(t.dtype, t.dtype)) for t in (got, want)))
+            del want
+            torch.cuda.synchronize()
+            rec = {
+                "phase": "prng", "kernel": "threefry", "output": name,
+                "dtype": str(got.dtype).split(".")[-1], "shape": list(shape),
+                "max_abs_err": err, "max_ulps": ulps, "limit_ulps": 4 if name == "normal" else 0,
+                "ms": median_ms(kernel), "plain_ms": median_ms(plain, n=3, warmup=1),
+                "library_ms": median_ms(library) if library else None,
+                **bound([], [got], PRNG_OPS[(name, dtype)] * got.numel()), **card,
+            }
+            del got
+            torch.cuda.empty_cache()
+            emit(rec)
+            check(ok, f"threefry {name} {dtype} {shape}: {ulps} ulps from the plain version")
+            main[f"{name}/{rec['dtype']}"] = rec
+    _prng_sample_agree(card)
+    emit({"phase": "prng", "seconds": time.perf_counter() - t0, **card})
+    rec = dict(main["normal/float32"])
+    rec["outputs"] = {key: {f: r[f] for f in ("shape", "ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by", "max_abs_err", "max_ulps")}
+                      for key, r in main.items()}
+    return {"threefry": rec}
 
 def _form(name: str, n: int, cdtype, forced=None) -> dict:
     """The form fields of a plane kernel's record (`PLANE_FORM_KERNELS`) and
@@ -1576,42 +1738,47 @@ def _cuda_vs_cpu_split(card: dict) -> None:
     """The 2-D unfused `mxu` path at the tophat2d config's 512^2 in c128, 3
     Wigner streams + MFT as one batch, through its first dump interval (t =
     8 of 24, about 57 steps), on the card's kernels and on the plain
-    versions on the CPU, from one batch sampled on the CPU (each device's
-    generators draw other streams): the counters bit for bit, psi within
-    1e-10; every K6, K17 and K9 launch of the card's run took the split
-    form, the radix rows and columns."""
+    versions on the CPU, each device sampling its own batch (JAX's draws on
+    both: the threefry kernel on the card, its plain version on the CPU):
+    the counters bit for bit, psi within 1e-10; every K6, K17 and K9
+    launch of the card's run took the split form, the radix rows and
+    columns."""
     from msm_tpu_torch.ops import mxu_fft
     from msm_tpu_torch.stepper import Stepper
 
     _, _, _, size, streams, _ = CONFIGS["tophat2d"]
     final = 3 * FINAL["tophat2d"]
-    batch, mft = sampled_batch("tophat2d", size, streams, torch.complex128, final, "cpu")
-    states, walls = {}, {}
+    states, walls, batches = {}, {}, {}
     with fft_mode("mxu"):
         for device in ("cuda", "cpu"):
             mxu_fft.reset_launches()
             t0 = time.perf_counter()
+            batch, mft = sampled_batch("tophat2d", size, streams, torch.complex128, final, device)
+            batches[device] = batch.cpu()
             st = Stepper(mft, torch.complex128, device)
-            states[device] = st.evolve_to_next_dump(st.init_state(batch.to(device)))
+            states[device] = st.evolve_to_next_dump(st.init_state(batch))
             walls[device] = time.perf_counter() - t0
             if device == "cuda":
                 forms = dict(mxu_fft.form_launches)
     got, want = states["cuda"], states["cpu"]
     err = (got.psi.cpu() - want.psi).abs().max().item()
+    sample_err = (batches["cuda"] - batches["cpu"]).abs().max().item()
     same = {f: _bitwise(getattr(got, f).cpu(), getattr(want, f)) for f in COUNTER_FIELDS}
     plane = ("plane_pass", "plane_pass_real_fwd", "plane_pass_real_inv")
     by_form = {k: {f: forms[f"{k}/{f}"] for f in ("cluster", "split", "stages")} for k in plane}
     emit({
         "phase": "e2e", "path": "mxu", "dt_mode": "optimistic",
-        "config": f"2-D tophat {size}^2, {streams} Wigner + MFT (sampled on the CPU), c128, "
+        "config": f"2-D tophat {size}^2, {streams} Wigner + MFT (sampled on each device), c128, "
                   f"the first dump interval of 3 over t={final}",
         "n_steps": [got.n_steps.tolist(), want.n_steps.tolist()],
         "replays": [got.replays.tolist(), want.replays.tolist()],
         "counters_equal": same, "launches_by_form": by_form,
-        "max_abs_psi_err": err, "limit": 1e-10, "wall_s": walls, **card,
+        "max_abs_sample_err": sample_err, "max_abs_psi_err": err, "limit": 1e-10,
+        "wall_s": walls, **card,
     })
     check(all(same.values()), f"2-D mxu: counters differ: {same}")
     check(int(want.n_steps.min()) >= 20, "2-D mxu: too few steps to compare")
+    check(sample_err <= 1e-13, f"2-D mxu: the sampled batches differ by {sample_err}")
     check(err <= 1e-10, f"2-D mxu: psi differs by {err}")
     for k in plane:
         check(by_form[k]["split"] > 0 and by_form[k]["cluster"] == by_form[k]["stages"] == 0,
@@ -1733,14 +1900,19 @@ def phase_e2e(card: dict) -> None:
             "total_mass": 1e8, "ntot": 1e6, "hbar_": 0.05, "sim_name": "golden",
             "k2_cutoff": 0.95, "alias_threshold": 0.9, "dims": 3, "size": 8,
             "ics": {"type": "SphericalTophat", "radius": 5.0, "slope": 50, "delta": 10},
+            "sampling": {"seeds": "[3]", "scheme": "Wigner"},
         })
         root = os.path.join(work, "golden")
         simulator.run_config(golden, torch.complex128, device="cuda", data_root=root)
-        got = _load_dumps(root, "golden", 2)[2]
-        want = np.load(os.path.join(HERE, "tests", "golden", "golden_psi_00002.npy"))
-        gerr = float(np.abs(got - want).max())
-        emit({"phase": "golden", "max_abs_err": gerr, "limit": 1e-12, **card})
-        check(gerr <= 1e-12, f"golden fixture differs by {gerr}")
+        # the MFT run and the Wigner stream of seed 3, sampled on the card
+        # with JAX's draws, against the fixtures JAX's tests/test_golden.py holds
+        for run, fixture in (("golden", "golden_psi_00002.npy"),
+                             ("golden-stream00003", "golden-stream00003_psi_00002.npy")):
+            got = _load_dumps(root, run, 2)[2]
+            want = np.load(os.path.join(HERE, "tests", "golden", fixture))
+            gerr = float(np.abs(got - want).max())
+            emit({"phase": "golden", "run": run, "max_abs_err": gerr, "limit": 1e-12, **card})
+            check(gerr <= 1e-12, f"{run}: the golden fixture differs by {gerr}")
 
 
 @contextlib.contextmanager
@@ -1826,17 +1998,19 @@ def _run_cli(argv: list, path: str) -> dict:
     (`_recording`). Its output goes to stderr: stdout keeps the JSON
     lines."""
     from msm_tpu_torch import cli
-    from msm_tpu_torch.ops import kernels, mxu_fft
+    from msm_tpu_torch.ops import kernels, mxu_fft, threefry
 
     out = io.StringIO()
     with fft_mode(path), contextlib.redirect_stdout(out), _recording() as (mans, events):
         kernels.reset_launches()
         mxu_fft.reset_launches()
+        threefry.reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches}
+        launches = {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches,
+                    **threefry.launches}
     sys.stderr.write(out.getvalue())
     check(rc == 0, f"{' '.join(argv)} returned {rc}")
     return {"wall_s": wall, "out": out.getvalue(), "launches": launches, "manifests": mans,
@@ -3480,24 +3654,36 @@ def main() -> int:
 
     smi = probes.nvidia_smi()
     card = probes.card()
-    phase_env(card)
-    phase_build(card)
-    floor = phase_floor(card)
+    started = time.perf_counter()
+    seconds = {}
+
+    def timed(name: str, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("env", phase_env, card)
+    timed("build", phase_build, card)
+    floor = timed("floor", phase_floor, card)
     measured = dict(floor["records"])
-    measured.update(phase_kernels(card))
-    measured.update(phase_restore(card))
-    measured.update(phase_fft_kernels(card))
-    measured.update(phase_fused_kernels(card))
-    measured.update(phase_lane_kernels(card))
-    engine_check = phase_engine_checks(card)
-    probe_run = phase_probes(card)
-    phase_e2e(card)
-    mains = {run: phase_main(card, run) for run in RUNS}
-    phase_simulate_flags(card)
-    phase_bench(card)
-    phase_graphs(card)
-    shards = phase_mesh(card)
-    phase_analysis(card)
+    for name, phase in (("kernels", phase_kernels), ("restore", phase_restore),
+                        ("prng", phase_prng), ("fft-kernels", phase_fft_kernels),
+                        ("fused-kernels", phase_fused_kernels),
+                        ("lane-kernels", phase_lane_kernels)):
+        measured.update(timed(name, phase, card))
+    engine_check = timed("engine-check", phase_engine_checks, card)
+    probe_run = timed("probes", phase_probes, card)
+    timed("e2e", phase_e2e, card)
+    mains = {run: timed(f"main/{run}", phase_main, card, run) for run in RUNS}
+    timed("simulate-flags", phase_simulate_flags, card)
+    timed("bench", phase_bench, card)
+    timed("graphs", phase_graphs, card)
+    shards = timed("mesh", phase_mesh, card)
+    timed("analysis", phase_analysis, card)
+    # each phase's wall seconds, in order: where the script's time goes
+    emit({"phase": "phase-seconds", "seconds": seconds,
+          "total_s": time.perf_counter() - started, **card})
     mains["engine-check"] = engine_check
     mains["probes"] = probe_run
     emit({
@@ -3571,6 +3757,11 @@ def main() -> int:
                     "slope_ms", "ms_half_frozen", "bound_ms_half_frozen", "ms_all_frozen",
                     "bound_ms_all_frozen")}}
                if k == "masked_restore" else {}),
+            # threefry: no TPU kernel; each output's record at both shapes
+            **({"note": "replaces no TPU kernel: JAX draws the streams with jax.random "
+                        "(XLA code); the main run's two normals a stream",
+                "outputs": measured[k]["outputs"]}
+               if k == "threefry" else {}),
             # the twelve kernels of the space-sharded fused engine: rank
             # r's shard at d = 2, 4, 8 against the plain version and the
             # whole grid's slice, and the d = 4 shard's times

@@ -26,7 +26,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(
     os.path.join(_CSRC, name)
     for name in ("phase_kernels.cu", "fft_kernels.cu", "fused_kernels.cu", "copy_kernels.cu",
-                 "restore_kernels.cu")
+                 "restore_kernels.cu", "random_kernels.cu")
 )
 # headers the sources include: part of the library's hash, not compiled alone
 HEADERS = tuple(
@@ -46,6 +46,7 @@ _lib: "ctypes.CDLL | None" = None
 _lock = threading.Lock()
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+_U32 = ctypes.c_uint32
 # entry point -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
     # z, out, scale, batch, n, dims, is_double, stream
@@ -110,6 +111,9 @@ _SIGNATURES = {
     "msm_copy_planes": [_P, _P, _P, _P, _I64, _P],
     # new, old, mask, batch, bytes a stream, stream
     "msm_masked_restore": [_P, _P, _P, _I64, _I64, _P],
+    # out, key words k0 and k1, count, kind (0 words, 1 uniform, 2
+    # normal), width (32, 64), lo, hi, stream
+    "msm_threefry": [_P, _U32, _U32, _I64, _I, _I, _D, _D, _P],
 }
 
 

@@ -2,6 +2,7 @@
 its entry points run on the card unless the caller asks for the CPU, and
 a device it cannot use is refused rather than replaced."""
 
+import json
 import os
 import subprocess
 import sys
@@ -32,6 +33,7 @@ MODULES = (
     "msm_tpu_torch.io.storage",
     "msm_tpu_torch.models.fock",
     "msm_tpu_torch.models.ics",
+    "msm_tpu_torch.models.prng",
     "msm_tpu_torch.models.quantum",
     "msm_tpu_torch.models.sampling",
     "msm_tpu_torch.ops.build",
@@ -40,6 +42,7 @@ MODULES = (
     "msm_tpu_torch.ops.mxu_fft",
     "msm_tpu_torch.ops.phase",
     "msm_tpu_torch.ops.probes",
+    "msm_tpu_torch.ops.threefry",
     "msm_tpu_torch.parallel",
     "msm_tpu_torch.parallel.mesh",
     "msm_tpu_torch.parallel.pfft",
@@ -103,6 +106,7 @@ SCRIPTS = (
     "scripts/torch_probe_plane_cluster.py", "scripts/torch_kernel_resources.py",
     "scripts/torch_probe_lane_radix.py", "scripts/torch_probe_axis_radix.py",
     "scripts/profile_torch_paths.py", "scripts/torch_bench_slope.py",
+    "scripts/torch_time_sampling.py",
 )
 
 
@@ -134,6 +138,30 @@ _BLOCKED = (
     "import sys\n"
     "for m in ('jax', 'jaxlib', 'msm_tpu'): sys.modules[m] = None\n"
 )
+
+
+def test_time_sampling_script_on_the_cpu():
+    """scripts/torch_time_sampling.py at a tiny size on the CPU, with jax and
+    msm_tpu unimportable: one record a measurement, each timed."""
+    code = _BLOCKED + (
+        "import runpy\n"
+        "sys.argv = ['torch_time_sampling.py', '--device', 'cpu', '--size', '8',\n"
+        "            '--streams', '2', '--repeats', '1', '--cpu-size', '8',\n"
+        "            '--cpu-repeats', '1']\n"
+        "runpy.run_path('scripts/torch_time_sampling.py', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120,
+        cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+    recs = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [(r["scheme"], r["device"], r["shape"]) for r in recs] == [
+        ("Poisson", "cpu", [2, 8, 8, 8]), ("Wigner", "cpu", [2, 8, 8, 8]),
+        ("Wigner", "cpu", [1, 8, 8, 8]),
+    ]
+    assert all(r["median_s"] > 0 and r["root"] == REPO for r in recs)
 # an expanding config (cold-gauss-cosmo's cosmology), with Wigner streams
 _COSMO_TOML = """
 axis_length = 25

@@ -1,9 +1,12 @@
-"""The port's quantum sampling: moments, seeding and the no-op rule.
+"""The port's quantum sampling: JAX's draws, moments, seeding and the
+no-op rule.
 
-The port draws from per-seed torch generators and the JAX package from
-threefry keys, so the two can agree only in distribution: each moment is
-held within 5 sigma of its expected value (the estimator's standard error
-over the 16^3 x 64-seed sample), and the no-op rule against the JAX one.
+The port draws from JAX's threefry keys (models/prng.py), so its batch is
+held against msm_tpu's `sample_stream_batch` draw for draw: complex128
+within 1e-13, complex64 within 4 ulp of the perturbation's scale (bit for
+bit on the CPU), every Poisson count equal. The moments stay held within 5
+sigma of their expected values (the estimator's standard error over the
+16^3 x 64-seed sample), and the no-op rule against the JAX one.
 """
 
 import math
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from msm_tpu import config as jcfg
 from msm_tpu.models import sampling as jsampling
 from msm_tpu_torch import config as cfg
 from msm_tpu_torch.models import ics, sampling
@@ -41,8 +45,47 @@ def _params(ntot, dims=3, size=16, L=16.0):
     return cfg.resolve_parameters(toml)
 
 
+def _jparams(ntot, dims=3, size=16, L=16.0):
+    """The JAX package's parameters of `_params`."""
+    toml = jcfg.TomlParameters(
+        axis_length=L, final_sim_time=10.0, cfl=0.5, num_data_dumps=10, total_mass=1e10,
+        sim_name="t", k2_cutoff=0.95, alias_threshold=0.02, dims=dims, size=size,
+        ics=jcfg.ColdGauss(mean=(L / 2,) * dims, std=(L / 5,) * dims), ntot=ntot, hbar_=0.05,
+    )
+    return jcfg.resolve_parameters(toml)
+
+
 def _base_psi(p, dtype=torch.complex128):
     return torch.as_tensor(ics.build_ics(p)).to(dtype)
+
+
+# ntot 1e6: lam up to ~5e3 (Knuth and rejection); 1e13: up to ~5e10 (the
+# Gaussian limit above lam = 1e6 as well)
+@pytest.mark.parametrize("ntot", [1e6, 1e13])
+@pytest.mark.parametrize("dtype,jdtype", [(torch.complex64, jnp.complex64),
+                                          (torch.complex128, jnp.complex128)])
+@pytest.mark.parametrize("scheme", ["Poisson", "Wigner", "Husimi"])
+def test_stream_batch_matches_jax(scheme, dtype, jdtype, ntot):
+    """The port's batch is msm_tpu's for the same base psi and seeds."""
+    p = _params(ntot=ntot)
+    jp = _jparams(ntot)
+    base = ics.build_ics(p)
+    seeds = [0, 1, 3, 2**32 - 1]
+    got = sampling.sample_stream_batch(torch.as_tensor(base).to(dtype), p, seeds, scheme).numpy()
+    want = np.asarray(jsampling.sample_stream_batch(
+        jnp.asarray(base, jdtype), jp, jnp.asarray(seeds, jnp.uint32), scheme))
+    assert got.shape == want.shape == (len(seeds),) + base.shape
+    measure = p.dx ** p.dims
+    if scheme == "Poisson":
+        # counts n |psi|^2 dx^d of the cells below the Gaussian limit
+        small = np.abs(base) ** 2 * measure * p.n_tot <= 1e6
+        counts = [np.rint(np.abs(x) ** 2 * measure * p.n_tot)[:, small] for x in (got, want)]
+        np.testing.assert_array_equal(*counts)
+    if dtype == torch.complex128:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
+    else:
+        scale = sampling._perturbation_scale(scheme, p.n_tot) / math.sqrt(measure)
+        np.testing.assert_allclose(got, want, rtol=0, atol=4 * np.finfo(np.float32).eps * scale)
 
 
 @pytest.mark.parametrize("scheme,c2", [("Wigner", 4.0), ("Husimi", 2.0)])
@@ -68,7 +111,7 @@ def test_poisson_moments():
     amp = math.sqrt(lam / n_tot)
     psi = torch.full((n_cells,), amp * np.exp(0.3j), dtype=torch.complex128)
     out = torch.stack(
-        [sampling._sample(psi, sampling.stream_generator(s, "cpu"), "Poisson", 1, 1.0, n_tot) for s in SEEDS]
+        [sampling._sample(psi, sampling.stream_key(s), "Poisson", 1, 1.0, n_tot) for s in SEEDS]
     )
     counts = (out.abs() ** 2).numpy() * n_tot
     m = counts.size
@@ -83,7 +126,7 @@ def test_poisson_gaussian_branch_moments():
     """Above lam = 1e6 the Gaussian limit is drawn: mean = var = lam."""
     n_tot, lam, n_cells = 1e12, 1.44e6, 1 << 14
     psi = torch.full((n_cells,), math.sqrt(lam / n_tot) + 0j, dtype=torch.complex128)
-    out = sampling._sample(psi, sampling.stream_generator(7, "cpu"), "Poisson", 1, 1.0, n_tot)
+    out = sampling._sample(psi, sampling.stream_key(7), "Poisson", 1, 1.0, n_tot)
     counts = (out.abs() ** 2).numpy() * n_tot
     assert abs(counts.mean() - lam) < 5 * math.sqrt(lam / n_cells)
     assert abs(counts.var() - lam) < 5 * lam * math.sqrt(2.0 / n_cells)

@@ -27,6 +27,7 @@ from msm_tpu_torch.convert import (
 from msm_tpu_torch.errors import FourierAliasingError
 from msm_tpu_torch.io.checkpoint import load_manifest
 from msm_tpu_torch.io.npy import load_complex_pair
+from msm_tpu_torch.models.sampling import sample_stream_batch as port_sample_stream_batch
 from msm_tpu_torch.stepper import Stepper
 
 torch.set_num_threads(1)
@@ -74,10 +75,10 @@ delta  = 10
 
 
 def test_golden_mft_dump(tmp_path):
-    """The port's batched run of the golden config: the MFT dump matches the
-    frozen fixture; the Wigner stream run (other draws than threefry, so
-    no fixture) is written with the dump shape, and its norm (that of the
-    sampled field, ~1) is kept to 1e-12 by the evolution."""
+    """The port's batched run of the golden config: the MFT dump and the
+    Wigner stream's (JAX's threefry draws for seed 3) match their frozen
+    fixtures, which JAX's tests/test_golden.py holds; the stream's norm
+    (that of the sampled field, ~1) is kept to 1e-12 by the evolution."""
     toml = cfg.parse_toml_dict(GOLDEN_TOML)
     simulator.run_config(toml, torch.complex128, device="cpu", data_root=str(tmp_path))
     got = load_complex_pair(str(tmp_path / "golden" / "psi_00002"))
@@ -85,6 +86,8 @@ def test_golden_mft_dump(tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-12)
     stream = load_complex_pair(str(tmp_path / "golden-stream00003" / "psi_00002"))
     assert stream.shape == (8, 8, 8, 1)
+    np.testing.assert_allclose(
+        stream, np.load(os.path.join(GOLDEN_DIR, "golden-stream00003_psi_00002.npy")), atol=1e-12)
     stream0 = load_complex_pair(str(tmp_path / "golden-stream00003" / "psi_00000"))
     norm, norm0 = (np.sum(np.abs(x) ** 2) * (30 / 8) ** 3 for x in (stream, stream0))
     assert abs(norm - norm0) < 1e-12 and abs(norm0 - 1.0) < 1e-2
@@ -121,6 +124,19 @@ def test_jax_sampled_batch_carried_across(tmp_path):
         for k in ("n_steps", "replays", "current_dumps", "aliased"):
             np.testing.assert_array_equal(got[k], np.asarray(getattr(js, k)), err_msg=k)
     assert got["current_dumps"].tolist() == [2, 2, 2, 2]
+
+
+def test_port_sampled_batch_equals_jax():
+    """test_jax_sampled_batch_carried_across's config sampled by the port
+    itself: the batch is JAX's (1e-13 at complex128)."""
+    text = COLLAPSE_TOML + '[sampling]\nseeds = "1 to 3"\nscheme = "Wigner"\n'
+    jp = list(jcfg.iter_stream_parameters(jcfg.parse_toml_str(text)))[-1]
+    tp = list(cfg.iter_stream_parameters(cfg.parse_toml_str(text)))[-1]
+    base = np.asarray(jics.build_ics(jp))
+    want = np.asarray(sample_stream_batch(
+        jnp.asarray(base, jnp.complex128), jp, jnp.asarray([1, 2, 3], jnp.uint32), "Wigner"))
+    got = port_sample_stream_batch(torch.as_tensor(base), tp, [1, 2, 3], "Wigner").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
 
 
 def test_cli_writes_reference_layout(tmp_path):
