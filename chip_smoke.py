@@ -157,11 +157,21 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             for bit, normals within 4 ulp, at (9, 256^3) float32 (the main
             runs' draws) and (2, 128^3) float64, each the median of 20
             launches beside the plain version's, torch.rand / torch.randn's
-            and the bound; then a Poisson and a Wigner sample_stream_batch
-            of the tophat-collapse config at 64^3 x 3 seeds, c64 and c128,
-            on the card against the CPU (psi within 4 ulp of its max: the
-            same draws); every main run samples its 8 (1-D: 255) Wigner
-            streams on the card and must launch the kernel
+            and the bound (with threefry's integer floor, the words' time
+            a value); the Poisson kernels (poisson_first_kernel and
+            poisson_last_kernel: JAX's jax.random.poisson, no host read) on
+            the main config's lam at (1, 256^3) against the plain version
+            on the card, counts bit for bit, timed beside it and
+            torch.poisson, with the rounds they evaluated, and the Poisson
+            sample_stream_batch of the main config's 8 streams at 256^3
+            c64 timed (two launches a stream); then a Poisson and a Wigner
+            sample_stream_batch of the tophat-collapse config at 64^3 x 3
+            seeds, c64 and c128, on the card against the CPU (psi within 4
+            ulp of its max: the same draws; the Poisson counts of the base
+            field equal); every main run samples its 8 (1-D: 255) streams
+            on the card and must launch the threefry kernel: Wigner, but
+            Poisson in the unskewed-lagged run, which must launch the
+            Poisson kernels twice a stream
   5 simulate-flags
             the rest of `simulate` through the CLI on the card (each
             item's line with the card's name and power limit): --resume
@@ -252,7 +262,9 @@ and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
 from the engine check; P1/P2 from the probe run; masked_restore and
 threefry, which replace no TPU kernel, the fused run's; threefry with each
-output's record at both shapes, `outputs`), with `floor_ms` (its
+output's record at both shapes, `outputs`; poisson, which replaces none,
+the unskewed-lagged run's, with its rounds and the 8-stream batch), with
+`floor_ms` (its
 bytes at the measured copy bandwidth) beside `bound_ms`; the card's name
 and power limit as nvidia-smi gives them (K6, K17, K9, K4, K2, K10, K11
 and K7 with their form, cluster size and the forced split form's median,
@@ -331,6 +343,9 @@ KERNELS = {
     "masked_restore": (RESTORE_SOURCE, "msm_tpu/stepper.py:1122"),
     # no TPU kernel: JAX draws the streams' normals with jax.random (XLA code)
     "threefry": (RANDOM_SOURCE, "msm_tpu/models/sampling.py:82"),
+    # no TPU kernel: JAX draws the Poisson counts with jax.random.poisson
+    # (XLA while loops)
+    "poisson": (RANDOM_SOURCE, "msm_tpu/models/sampling.py:68"),
 }
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
 LANE_KERNELS = ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -341,7 +356,8 @@ EXACT_KERNELS = ("plane_inv_density_rho_only", "plane_real_inv_max")
 UNSKEWED_KERNELS = ("axis_inv_kick", "axis_fwd_reduce")
 # the kernels each main run must launch
 ENGINE_IO = ("axis_pass", "plane_pass", "plane_pass_real_inv")
-# every main run samples its Wigner streams on the card (the threefry kernel)
+# every main run samples its streams on the card (the threefry kernel); the
+# Poisson run's counts take the Poisson kernels besides
 SAMPLE_KERNELS = ("threefry",)
 RUN_KERNELS = {
     "xla": PHASE_KERNELS,
@@ -354,7 +370,11 @@ RUN_KERNELS = {
     "fused-expanding": SKEW_KERNELS + ENGINE_IO,
     "fused-online": SKEW_KERNELS + ENGINE_IO,
 }
-RUN_KERNELS = {run: names + SAMPLE_KERNELS for run, names in RUN_KERNELS.items()}
+# each main run's sampling scheme: Wigner, but Poisson in one run whose
+# counters no other check compares with a Wigner run's
+POISSON_RUN = "unskewed-lagged"
+RUN_KERNELS = {run: names + SAMPLE_KERNELS + (("poisson",) if run == POISSON_RUN else ())
+               for run, names in RUN_KERNELS.items()}
 # the main run whose launches each kernel reports: the path it was ported
 # for; K18 (on no main run's path) reports the engine check's, the copy
 # probes P1/P2 the probe scripts' run
@@ -371,6 +391,7 @@ OWN_RUN = {
     **{k: "probes" for k in PROBE_KERNELS},
     "masked_restore": "fused",
     "threefry": "fused",
+    "poisson": POISSON_RUN,
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -877,8 +898,12 @@ PRNG_SHAPES = {torch.float32: MAIN_SHAPE, torch.float64: (2, 128, 128, 128)}
 # (a fused multiply-add 2): the word's xor, the uniform's subtract, fma and
 # max, and the normal's uniform, XLA's log1p (two degree-6 Horner chains,
 # the rational and the sum) and erf_inv (9 or 23 Horner terms) and the
-# scale; the 32-bit integer operations of threefry itself (about 80 a
-# value) have no peak in the bound's table and are left out of it
+# scale. threefry itself is about 80 32-bit integer operations a value,
+# which the FP32 peak does not cover: its floor is the words kernel's
+# device time a value (the same draw with no output arithmetic; its device
+# slope, which leaves out the time around a launch), times the values
+# drawn (`int_floor_ms`), and a bound takes it where it is the largest
+# (bound_by "operations")
 PRNG_OPS = {("bits", torch.float32): 1.0, ("bits", torch.float64): 2.0,
             ("uniform", torch.float32): 4.0, ("uniform", torch.float64): 4.0,
             ("normal", torch.float32): 60.0, ("normal", torch.float64): 90.0}
@@ -888,6 +913,18 @@ PRNG_OPS = {("bits", torch.float32): 1.0, ("bits", torch.float64): 2.0,
 PRNG_SAMPLE = (64, 3)
 # the words compared as signed integers of their width
 SIGNED = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+# the Poisson kernels on the main config's lam at 256^3 (one stream: all
+# rejection, lam 202-20428), and the Poisson batch of its 8 streams
+POISSON_STREAMS = 8
+
+
+def _int_bound(rec_bound: dict, int_floor_ms: float) -> dict:
+    """A bound (`bound`'s fields) with threefry's integer floor beside it,
+    taken where it is the largest."""
+    out = dict(rec_bound, int_floor_ms=int_floor_ms)
+    if int_floor_ms > out["bound_ms"]:
+        out.update(bound_ms=int_floor_ms, bound_by="operations")
+    return out
 
 
 def _ulp_distance(got, want) -> float:
@@ -900,7 +937,7 @@ def _ulp_distance(got, want) -> float:
 def _prng_outputs(k, shape, dtype) -> dict:
     """output -> (kernel call, plain call on the card, torch's own draw of
     the shape or None)."""
-    from msm_tpu_torch.models import prng
+    from msm_tpu_torch.ops import threefry_plain as prng
     from msm_tpu_torch.ops import threefry
 
     width = 32 if dtype == torch.float32 else 64
@@ -926,7 +963,7 @@ def _prng_sample_agree(card: dict) -> None:
     limit in the largest cells; so the config's Poisson counts (lam of the
     base field, seed 1) are also held equal on both devices."""
     from msm_tpu_torch import config as cfg
-    from msm_tpu_torch.models import prng
+    from msm_tpu_torch.ops import threefry_plain as prng
     from msm_tpu_torch.models.ics import build_ics
     from msm_tpu_torch.models.sampling import sample_stream_batch
     from msm_tpu_torch.ops import threefry
@@ -962,21 +999,95 @@ def _prng_sample_agree(card: dict) -> None:
             check(err <= limit, f"{scheme} {cdtype}: card and CPU differ by {err} > {limit}")
 
 
+def _prng_poisson(card: dict, word_ms: float) -> dict:
+    """The Poisson kernels (launch A, launch B) on the main config's lam at
+    (1, 256^3) against the plain version run on the card, counts bit for
+    bit: the kernels' median of 20 draws, the plain version's of 3 (after
+    one untimed), torch.poisson's (the yardstick: other numbers, Philox)
+    and the bound: lam read and the counts written at 3.35 TB/s, or the
+    integer floor of the words the rounds drew (word_ms a word: one a Knuth
+    round, two a rejection round, counted by the kernels' stats). Then the
+    Poisson sample_stream_batch of POISSON_STREAMS streams at 256^3 c64
+    (median of 3 after one untimed), two launches a stream."""
+    from msm_tpu_torch import config as cfg
+    from msm_tpu_torch.models.ics import build_ics
+    from msm_tpu_torch.models.sampling import sample_stream_batch
+    from msm_tpu_torch.ops import threefry
+    from msm_tpu_torch.ops import threefry_plain as prng
+
+    size = MAIN_SHAPE[-1]
+    text = TOPHAT.format(final=40, dumps=3, name="prng", size=size)
+    mft = cfg.resolve_parameters(cfg.parse_toml_str(text))
+    base = build_ics(mft)
+    lam = torch.as_tensor(np.abs(base) ** 2 * mft.dx**3 * mft.n_tot,
+                          dtype=torch.float32).reshape(1, size, size, size).cuda()
+    k = prng.key(1)
+    got, stats = threefry.poisson_kernel(k, lam)
+    want = prng.poisson(k, lam)
+    same = _bitwise(got, want)
+    err = (got - want).abs().max().item()
+    del want
+    stats = dict(zip(threefry.POISSON_STATS, stats.tolist()))
+    words = stats["knuth_rounds"] + 2 * (stats["first_rounds"] + stats["last_rounds"])
+    cells = lam.numel()
+    rec = {
+        "phase": "prng", "kernel": "poisson", "shape": list(lam.shape),
+        "lam_min": lam.min().item(), "lam_max": lam.max().item(), "counts_equal": same,
+        "max_abs_err": err, **stats, "rounds_a_cell": {
+            "first": stats["first_rounds"] / cells, "last": stats["last_rounds"] / cells},
+        "words": words,
+        "ms": median_ms(lambda: threefry.poisson_kernel(k, lam)),
+        "plain_ms": median_ms(lambda: prng.poisson(k, lam), n=3, warmup=1),
+        "library_ms": median_ms(lambda: torch.poisson(lam)),
+        **_int_bound(bound([lam], [got], 0.0), word_ms * words), **card,
+    }
+    del got
+    psi = torch.as_tensor(base).to("cuda", torch.complex64)
+    seeds = list(range(1, POISSON_STREAMS + 1))
+    threefry.reset_launches()
+    batch = sample_stream_batch(psi, mft, seeds, "Poisson")
+    rec["batch"] = {
+        "streams": POISSON_STREAMS, "dtype": "complex64",
+        "finite": bool(torch.isfinite(batch).all()), "launches": dict(threefry.launches),
+    }
+    del batch
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_stream_batch(psi, mft, seeds, "Poisson")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rec["batch"].update(seconds=times, median_s=statistics.median(times))
+    del psi
+    torch.cuda.empty_cache()
+    emit(rec)
+    check(same, f"Poisson kernels at {list(lam.shape)}: counts differ from the plain version")
+    check(rec["batch"]["finite"], "Poisson batch: not finite")
+    check(rec["batch"]["launches"]["poisson"] == 2 * POISSON_STREAMS,
+          f"Poisson batch: {rec['batch']['launches']['poisson']} launches")
+    return rec
+
+
 def phase_prng(card: dict) -> dict:
     """The threefry kernel's three outputs against the plain version, both
     on the card (words and uniforms bit for bit, normals within 4 ulp), at
     PRNG_SHAPES: the kernel's median of 20 launches, the plain version's of
-    3 (after one untimed call: it takes up to a second), torch.rand / torch.randn's at the same shape (the yardstick: other
-    numbers, Philox), the bound (the output's bytes at 3.35 TB/s, its
-    floating-point operations at 67 TFLOP/s); then _prng_sample_agree.
-    Returns the float32 normals' record at the main shape, the main run's
-    draw."""
-    from msm_tpu_torch.models import prng
+    3 (after one untimed call: it takes up to a second), torch.rand /
+    torch.randn's at the same shape (the yardstick: other numbers, Philox),
+    the bound (the output's bytes at 3.35 TB/s, its floating-point
+    operations at 67 TFLOP/s, the words' integer floor: their device slope
+    a value, times the values drawn); then the
+    Poisson kernels (_prng_poisson) and _prng_sample_agree. Returns the
+    float32 normals' record at the main shape, the main run's draw, and the
+    Poisson kernels' record."""
+    from msm_tpu_torch.ops import threefry_plain as prng
 
     t0 = time.perf_counter()
     k = prng.key(1)
     main = {}
     for dtype, shape in PRNG_SHAPES.items():
+        word_ms = None
         for name, (kernel, plain, library) in _prng_outputs(k, shape, dtype).items():
             got, want = kernel(), plain()
             if name == "normal":
@@ -988,26 +1099,33 @@ def phase_prng(card: dict) -> dict:
                 ok = _bitwise(*(t.view(SIGNED.get(t.dtype, t.dtype)) for t in (got, want)))
             del want
             torch.cuda.synchronize()
+            ms = median_ms(kernel)
+            if name == "bits":  # the first output: threefry's integer floor a value
+                word_ms = device_slope_ms(kernel) / got.numel()
             rec = {
                 "phase": "prng", "kernel": "threefry", "output": name,
                 "dtype": str(got.dtype).split(".")[-1], "shape": list(shape),
                 "max_abs_err": err, "max_ulps": ulps, "limit_ulps": 4 if name == "normal" else 0,
-                "ms": median_ms(kernel), "plain_ms": median_ms(plain, n=3, warmup=1),
+                "ms": ms, "plain_ms": median_ms(plain, n=3, warmup=1),
                 "library_ms": median_ms(library) if library else None,
-                **bound([], [got], PRNG_OPS[(name, dtype)] * got.numel()), **card,
+                **_int_bound(bound([], [got], PRNG_OPS[(name, dtype)] * got.numel()),
+                             word_ms * got.numel()), **card,
             }
             del got
             torch.cuda.empty_cache()
             emit(rec)
             check(ok, f"threefry {name} {dtype} {shape}: {ulps} ulps from the plain version")
             main[f"{name}/{rec['dtype']}"] = rec
+        if dtype == torch.float32:
+            poisson = _prng_poisson(card, word_ms)
     _prng_sample_agree(card)
     emit({"phase": "prng", "seconds": time.perf_counter() - t0, **card})
     rec = dict(main["normal/float32"])
     rec["outputs"] = {key: {f: r[f] for f in ("shape", "ms", "plain_ms", "library_ms",
-                                              "bound_ms", "bound_by", "max_abs_err", "max_ulps")}
+                                              "bound_ms", "bound_by", "int_floor_ms",
+                                              "max_abs_err", "max_ulps")}
                       for key, r in main.items()}
-    return {"threefry": rec}
+    return {"threefry": rec, "poisson": poisson}
 
 def _form(name: str, n: int, cdtype, forced=None) -> dict:
     """The form fields of a plane kernel's record (`PLANE_FORM_KERNELS`) and
@@ -2022,7 +2140,8 @@ def phase_main(card: dict, run: str) -> dict:
     (256^3 x (8 streams + MFT), or 1-D 1024 x (255 streams + MFT)); the
     launch counts are set to 0 just before and read just after, and the run
     must have launched each of its kernels (the exact run K10/K11 and the
-    unskewed run K12/K13 once per iteration, the expanding run K1-K4). An
+    unskewed run K12/K13 once per iteration, the expanding run K1-K4; the
+    Poisson run, POISSON_RUN, the Poisson kernels twice a stream). An
     expanding run's a must grow and its norms use the supercomoving volume
     element; an online run is checked against the offline synthesize."""
     from msm_tpu_torch import cli
@@ -2033,9 +2152,11 @@ def phase_main(card: dict, run: str) -> dict:
 
     path, dt_mode, config = RUNS[run]
     template, name, dims, size, streams, desc = CONFIGS[config]
+    scheme = "Poisson" if run == POISSON_RUN else "Wigner"
+    desc = desc.replace("Wigner", scheme)
     n_dumps = 3
     text = template.format(final=FINAL.get(config, 40), dumps=n_dumps, name=name, size=size)
-    text += f'\n[sampling]\nseeds  = "1 to {streams}"\nscheme = "Wigner"\n'
+    text += f'\n[sampling]\nseeds  = "1 to {streams}"\nscheme = "{scheme}"\n'
     online = run in ONLINE_RUNS
     with tempfile.TemporaryDirectory() as work:
         toml_path = os.path.join(work, f"{name}.toml")
@@ -2054,6 +2175,11 @@ def phase_main(card: dict, run: str) -> dict:
         check(f"dt {dt_mode}" in out_text, f"the {run} run took another dt mode")
         for k in RUN_KERNELS[run]:
             check(launches[k] > 0, f"the {run} main run launched {k} no time")
+        # a Poisson stream's counts: the Poisson kernels' two launches
+        if scheme == "Poisson":
+            check(launches["poisson"] == 2 * streams,
+                  f"the {run} run launched the Poisson kernels {launches['poisson']} times "
+                  f"for {streams} streams")
         timer = re.search(r"(\d+) steps in ([0-9.]+)s", out_text)
         check(timer is not None, "no StepTimer line in the verbose output")
         iterations = launches[ITERATION_KERNEL[path]]
@@ -3760,8 +3886,15 @@ def main() -> int:
             # threefry: no TPU kernel; each output's record at both shapes
             **({"note": "replaces no TPU kernel: JAX draws the streams with jax.random "
                         "(XLA code); the main run's two normals a stream",
+                "int_floor_ms": measured[k]["int_floor_ms"],
                 "outputs": measured[k]["outputs"]}
                if k == "threefry" else {}),
+            # poisson: no TPU kernel; its rounds and the 8-stream batch
+            **({"note": "replaces no TPU kernel: JAX's jax.random.poisson (XLA while "
+                        "loops); two launches a stream, the Poisson run's counts",
+                **{key: measured[k][key] for key in (
+                    "shape", "int_floor_ms", "last_round", "rounds_a_cell", "batch")}}
+               if k == "poisson" else {}),
             # the twelve kernels of the space-sharded fused engine: rank
             # r's shard at d = 2, 4, 8 against the plain version and the
             # whole grid's slice, and the d = 4 shard's times

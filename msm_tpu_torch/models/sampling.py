@@ -14,7 +14,7 @@ where n = total_mass / particle_mass is the total particle number.
 The draws are JAX's: each stream's key is `jax.random.key(seed)` and every
 draw the JAX module makes (its Poisson counts, its normals from the key and
 from `fold_in(key, 1 | 2)`) is made here from the same key and counters
-(`models/prng.py`; on the card the kernel of `ops/threefry.py`). A seed
+(`ops/threefry_plain.py`; on the card the kernels of `ops/threefry.py`). A seed
 therefore gives msm_tpu's ensemble on either device: the Poisson counts
 exactly, the normals to a few ulp (float32 bit for bit on the CPU). The
 counters are the row-major flat index of psi's shape, which is JAX's grid
@@ -35,7 +35,7 @@ import torch
 
 from ..config import SimulationParameters
 from ..ops import threefry
-from . import prng
+from ..ops import threefry_plain as prng
 
 
 def stream_key(seed) -> prng.Key:

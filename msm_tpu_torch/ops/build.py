@@ -114,6 +114,9 @@ _SIGNATURES = {
     # out, key words k0 and k1, count, kind (0 words, 1 uniform, 2
     # normal), width (32, 64), lo, hi, stream
     "msm_threefry": [_P, _U32, _U32, _I64, _I, _I, _D, _D, _P],
+    # lam (float32), out (float32 counts), stats (int64 x 4), count, key
+    # words k0 and k1, table rounds, stream
+    "msm_poisson": [_P, _P, _P, _I64, _U32, _U32, _I, _P],
 }
 
 

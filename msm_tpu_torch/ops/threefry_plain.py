@@ -19,7 +19,7 @@ in JAX's default partitionable layout (`jax_threefry_partitionable`):
 A key is a pair of Python ints (two 32-bit words): keys are derived on the
 host, and only the draws are tensors. torch has no unsigned 32-bit
 arithmetic, so the words ride in int64 tensors masked to 32 bits. This is
-the plain version of the kernel in `ops/csrc/random_kernels.cu`;
+the plain version of the kernels in `ops/csrc/random_kernels.cu`;
 `ops/threefry.py` dispatches between the two by device.
 
 Floating point: the words and uniforms are exact. XLA's CPU code fuses
@@ -295,13 +295,6 @@ def normal(k: Key, shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
 # HLO of `jax.random.poisson`, their log and log1p XLA's own polynomials
 # (`log_f32`, `log1p_f32`), and every fused multiply-add `fma32`.
 
-Uniform = Callable[..., torch.Tensor]
-
-
-def _plain_uniform(k: Key, shape, dtype, device) -> torch.Tensor:
-    return uniform(k, shape, dtype, device=device)
-
-
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
@@ -399,7 +392,14 @@ def lgamma_f32(k: torch.Tensor) -> torch.Tensor:
     return fma32((k + 0.5) - t_over_log_t, log_t, c(0.918938518)) + log_f32(acc)
 
 
-def poisson_knuth(k: Key, lam: torch.Tensor, draw: Uniform = _plain_uniform) -> torch.Tensor:
+def uniform_at(k: Key, idx: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 uniform on [0, 1) of key k at the flat indices idx
+    (int64): `uniform(k, shape)` read at those cells."""
+    x0, x1 = threefry2x32(k[0], k[1], idx >> 32, idx & MASK)
+    return _unit_floats(x0, x1, torch.float32) - 1.0
+
+
+def poisson_knuth(k: Key, lam: torch.Tensor) -> torch.Tensor:
     """`_poisson_knuth` (float32 lam): one uniform a round from the second
     key of `split(rng)`, until no cell has log_prod > -lam; returns k - 1.
     A finished cell never changes, so the rounds a stream runs do not
@@ -412,59 +412,70 @@ def poisson_knuth(k: Key, lam: torch.Tensor, draw: Uniform = _plain_uniform) -> 
     while bool((live := log_prod > neg_lam).any()):
         rng, sub = split(rng)
         count = torch.where(live, count + 1.0, count)
-        log_prod = log_prod + log_f32(draw(sub, shape, torch.float32, device))
+        log_prod = log_prod + log_f32(uniform(sub, shape, torch.float32, device=device))
     return count - 1.0
 
 
-def poisson_rejection(k: Key, lam: torch.Tensor, draw: Uniform = _plain_uniform) -> torch.Tensor:
+def rejection_constants(lam: torch.Tensor) -> tuple:
+    """A cell's constants of `_poisson_rejection` (float32 lam): lam,
+    log(lam), a, b, 1 / alpha and v_r, as XLA folds them."""
+    c = lambda v: _f32(v, lam)  # noqa: E731
+    root = sqrt_rn(lam)
+    b = fma32(root, c(2.53), c(0.931))
+    a = fma32(b, c(0.02483), c(-0.059))
+    inv_alpha = c(1.1328) / fma32(root, c(2.53), c(-2.469)) + c(1.1239)
+    v_r = c(0.9277) - c(3.6224) / fma32(root, c(2.53), c(-1.069))
+    return lam, log_f32(lam), a, b, inv_alpha, v_r
+
+
+def rejection_round(consts: tuple, u01: torch.Tensor, v: torch.Tensor) -> tuple:
+    """One round of `_poisson_rejection` from its two uniforms on [0, 1)
+    (of `split(rng, 3)`'s second and third keys): the round's count kk and
+    whether it accepts."""
+    lam, log_lam, a, b, inv_alpha, v_r = consts
+    c = lambda v: _f32(v, lam)  # noqa: E731
+    u = u01 + c(-0.5)
+    u_shifted = 0.5 - u.abs()
+    kk = torch.floor(fma32((a * 2.0) / u_shifted + b, u, lam) + c(0.43))
+    t = fma32(kk, log_lam, -lam) - lgamma_f32(kk)
+    s = log_f32((v * inv_alpha) / (a / (u_shifted * u_shifted) + b))
+    accept1 = (u_shifted >= c(0.07)) & (v <= v_r)
+    reject = (kk < 0) | ((u_shifted < c(0.013)) & (v > u_shifted))
+    return kk, accept1 | (~reject & (s <= t))
+
+
+def poisson_rejection(k: Key, lam: torch.Tensor) -> torch.Tensor:
     """`_poisson_rejection` (float32 lam >= 10): `split(key, 3)` and two
     uniforms a round, until every cell has accepted once. A cell's count is
     its k at the LAST accepting round, not the first: JAX's select
     (`k_out = select(accept, k, k_out)`) is not masked by `accepted`, so
     every round the stream runs can overwrite it."""
     shape, device = lam.shape, lam.device
-    c = lambda v: _f32(v, lam)  # noqa: E731
-    log_lam = log_f32(lam)
-    neg_lam = -lam
-    root = sqrt_rn(lam)
-    b = fma32(root, c(2.53), c(0.931))
-    a = fma32(b, c(0.02483), c(-0.059))
-    two_a = a * 2.0
-    inv_alpha = c(1.1328) / fma32(root, c(2.53), c(-2.469)) + c(1.1239)
-    v_r = c(0.9277) - c(3.6224) / fma32(root, c(2.53), c(-1.069))
+    consts = rejection_constants(lam)
     k_out = torch.full(shape, -1.0, dtype=torch.float32, device=device)
     accepted = torch.zeros(shape, dtype=torch.bool, device=device)
     rng = k
     while not bool(accepted.all()):
         rng, sub0, sub1 = split(rng, 3)
-        u = draw(sub0, shape, torch.float32, device) + c(-0.5)
-        v = draw(sub1, shape, torch.float32, device)
-        u_shifted = 0.5 - u.abs()
-        kk = torch.floor(fma32(two_a / u_shifted + b, u, lam) + c(0.43))
-        t = fma32(kk, log_lam, neg_lam) - lgamma_f32(kk)
-        s = log_f32((v * inv_alpha) / (a / (u_shifted * u_shifted) + b))
-        accept1 = (u_shifted >= c(0.07)) & (v <= v_r)
-        reject = (kk < 0) | ((u_shifted < c(0.013)) & (v > u_shifted))
-        accept = accept1 | (~reject & (s <= t))
+        kk, accept = rejection_round(consts, uniform(sub0, shape, torch.float32, device=device),
+                                     uniform(sub1, shape, torch.float32, device=device))
         k_out = torch.where(accept, kk, k_out)
         accepted |= accept
     return k_out
 
 
-def poisson(k: Key, lam: torch.Tensor, draw: Uniform = _plain_uniform) -> torch.Tensor:
+def poisson(k: Key, lam: torch.Tensor) -> torch.Tensor:
     """`jax.random.poisson(key, lam)` for one key: float32 counts.
 
     lam is converted to float32, as JAX converts it. Knuth where lam < 10
     or lam is NaN (whose count is -1, as JAX's), transformed rejection
     elsewhere (with Knuth's cells at lam = 1e5, which still count towards
-    the rounds the stream runs), 0 where lam == 0.
-    `draw(key, shape, dtype, device)` gives the uniforms: the plain version
-    here, the kernel on the card."""
+    the rounds the stream runs), 0 where lam == 0."""
     lam = lam.to(torch.float32)
     use_knuth = lam.isnan() | (lam < 10)
-    result = poisson_knuth(k, torch.where(use_knuth, lam, 0.0), draw)
+    result = poisson_knuth(k, torch.where(use_knuth, lam, 0.0))
     if not bool(use_knuth.all()):
         # when every cell is Knuth's, JAX's rejection draws are all discarded
-        rejection = poisson_rejection(k, torch.where(use_knuth, 1e5, lam), draw)
+        rejection = poisson_rejection(k, torch.where(use_knuth, 1e5, lam))
         result = torch.where(use_knuth, result, rejection)
     return torch.where(lam == 0, 0.0, result)

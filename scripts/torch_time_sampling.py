@@ -12,9 +12,12 @@ On chip_smoke.py's tophat-collapse configuration (complex64): a Poisson and
 a Wigner `sample_stream_batch` of --streams seeds at --size on --device (the
 card by default), each timed --repeats times after one untimed call, then a
 Wigner batch of one stream on the CPU at --cpu-size. Every time is the wall
-seconds of one call with the card synchronized. Prints one JSON line a
-measurement: the checkout's root, the scheme, the device, the shape, the
-seconds of each repeat and their median, lam's range (Poisson), and the
+seconds of one call with the card synchronized. On the card it then times
+the threefry kernel's float32 normals and 32-bit words of key (0, 1) at
+--draw-shape (the main run's draw): the median of 20 CUDA-event-timed
+draws after 3 untimed. Prints one JSON line a measurement: the checkout's
+root, the scheme or draw, the device, the shape, the seconds of each repeat
+and their median (a draw's milliseconds), lam's range (Poisson), and the
 card's name and power limit. The package is imported from --root, so each
 checkout is timed with its own code; compare two in one machine call.
 """
@@ -50,6 +53,23 @@ def _timed(fn, device: str, repeats: int) -> list[float]:
     return times
 
 
+def _event_ms(fn, n: int = 20, warmup: int = 3) -> list[float]:
+    """The device milliseconds of n calls of fn, CUDA events around each."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO, help="checkout whose msm_tpu_torch is timed")
@@ -59,6 +79,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--cpu-size", type=int, default=256)
     ap.add_argument("--cpu-repeats", type=int, default=2)
+    ap.add_argument("--draw-shape", default="9,256,256,256",
+                    help="the kernel draws' shape, comma-separated")
     args = ap.parse_args()
 
     root = os.path.abspath(args.root)
@@ -95,6 +117,16 @@ def main() -> int:
               **({"lam_min": float(lam.min()), "lam_max": float(lam.max())}
                  if scheme == "Poisson" else {})})
     del psi
+    if args.device == "cuda":
+        from msm_tpu_torch.ops import threefry
+
+        shape = tuple(int(n) for n in args.draw_shape.split(","))
+        draws = {"normal": lambda: threefry.normal((0, 1), shape, torch.float32, "cuda"),
+                 "bits": lambda: threefry.random_bits((0, 1), shape, 32, "cuda")}
+        for name, draw in draws.items():
+            times = _event_ms(draw)
+            emit({"draw": name, "device": "cuda", "dtype": "float32", "shape": list(shape),
+                  "ms": times, "median_ms": statistics.median(times)})
     psi, mft, _ = setup(args.cpu_size, "cpu")
     times = _timed(lambda: sample_stream_batch(psi, mft, [1], "Wigner"), "cpu",
                    args.cpu_repeats)

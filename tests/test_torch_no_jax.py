@@ -33,7 +33,6 @@ MODULES = (
     "msm_tpu_torch.io.storage",
     "msm_tpu_torch.models.fock",
     "msm_tpu_torch.models.ics",
-    "msm_tpu_torch.models.prng",
     "msm_tpu_torch.models.quantum",
     "msm_tpu_torch.models.sampling",
     "msm_tpu_torch.ops.build",
@@ -43,6 +42,7 @@ MODULES = (
     "msm_tpu_torch.ops.phase",
     "msm_tpu_torch.ops.probes",
     "msm_tpu_torch.ops.threefry",
+    "msm_tpu_torch.ops.threefry_plain",
     "msm_tpu_torch.parallel",
     "msm_tpu_torch.parallel.mesh",
     "msm_tpu_torch.parallel.pfft",

@@ -1,10 +1,14 @@
-"""The port's threefry2x32 draws (models/prng.py, ops/threefry.py) against
+"""The port's threefry2x32 draws (ops/threefry_plain.py, ops/threefry.py) against
 jax.random: keys, split, fold_in, 32- and 64-bit words and uniforms bit for
 bit, normals within 4 ulp (float32 bit for bit), Poisson counts exactly,
-over several seeds and odd and 3-D shapes. The `cuda`-marked tests hold the
-kernel (csrc/random_kernels.cu) against the plain version on a card."""
+over several seeds and odd and 3-D shapes. A host model of the Poisson
+kernels' plan (their key table, Knuth a cell at a time, launch A's first
+accepting rounds and R, launch B's downward scan) is held count for count
+against the plain version. The `cuda`-marked tests hold the kernels
+(csrc/random_kernels.cu) against the plain version on a card."""
 
 import inspect
+import math
 from fractions import Fraction
 
 import jax
@@ -14,7 +18,7 @@ import pytest
 import torch
 from jax import lax
 
-from msm_tpu_torch.models import prng
+from msm_tpu_torch.ops import threefry_plain as prng
 from msm_tpu_torch.ops import threefry
 
 torch.set_num_threads(1)
@@ -26,6 +30,9 @@ DTYPES = ((torch.float32, jnp.float32), (torch.float64, jnp.float64))
 # (lam = 0, 9.99 | 10) and the rejection sampler's large lam, where t is a
 # difference of terms near 1e6 and every rounding step must be XLA's
 LAM_MIX = (0.0, 0.3, 3.0, 9.99, 10.0, 40.0, 1e3, 1e5)
+# the Poisson kernels' cases: both samplers' edges, NaN (Knuth, count -1),
+# tiny and large lam
+PLAN_LAM = (0.0, math.nan, 1e-3, 9.99, 10.0, 1e3, 1e5, 1e6 - 1)
 
 
 def _jkey(seed: int):
@@ -250,6 +257,126 @@ def test_draws_of_any_length_cross_chunks(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the Poisson kernels' plan (csrc/random_kernels.cu), modelled on the host
+
+
+class KeyTable:
+    """The Poisson kernels' key schedule: a block's table of `rounds`
+    rounds (thread 0 walks rng_{r+1} = threefry(rng_r, (0, 0)), then the
+    block derives each round's subkeys threefry(rng_r, (0, 1)) and (0, 2)),
+    and past it the chain walked on from the table's last rng."""
+
+    def __init__(self, key, rounds: int = threefry.TABLE_ROUNDS):
+        self.rng = [key]
+        for _ in range(rounds):
+            self.rng.append(prng.threefry2x32(*self.rng[-1], 0, 0))
+        self.sub = [self.subkeys(rng) for rng in self.rng[:rounds]]
+
+    @staticmethod
+    def subkeys(rng) -> tuple:
+        return prng.threefry2x32(*rng, 0, 1), prng.threefry2x32(*rng, 0, 2)
+
+    def at(self, r: int) -> tuple:
+        if r < len(self.sub):
+            return self.sub[r]
+        rng = self.rng[-1]
+        for _ in range(r - len(self.sub)):
+            rng = prng.threefry2x32(*rng, 0, 0)
+        return self.subkeys(rng)
+
+
+def poisson_plan(key, lam: torch.Tensor, rounds: int = threefry.TABLE_ROUNDS) -> tuple:
+    """The kernels' plan on the host: (float32 counts, R - 1). Launch A runs
+    each Knuth cell's rounds to its end and finds every cell's first
+    accepting rejection round (Knuth's cells at lam = 1e5); launch B scans
+    each rejection cell's rounds down from R - 1 to the first that accepts."""
+    shape = lam.shape
+    lam = lam.to(torch.float32).reshape(-1)
+    idx = torch.arange(lam.numel())
+    table = KeyTable(key, rounds)
+    knuth = lam.isnan() | (lam < 10)
+    out = torch.full_like(lam, math.nan)
+    # launch A: Knuth, a cell at a time (a round for every live cell)
+    count, log_prod = torch.zeros_like(lam), torch.zeros_like(lam)
+    r = 0
+    while bool((live := knuth & (log_prod > -lam)).any()):
+        u = prng.uniform_at(table.at(r)[0], idx[live])
+        count[live] = count[live] + 1.0
+        log_prod[live] = log_prod[live] + prng.log_f32(u)
+        r += 1
+    out[knuth] = torch.where(lam == 0, 0.0, count - 1.0)[knuth]
+    # launch A: each cell's first accepting rejection round
+    consts = prng.rejection_constants(torch.where(knuth, 1e5, lam))
+    first = torch.full(lam.shape, -1, dtype=torch.int64)
+    r = 0
+    while bool((pending := first < 0).any()):
+        cells = idx[pending]
+        a, b = table.at(r)
+        _, accept = prng.rejection_round([c[pending] for c in consts],
+                                         prng.uniform_at(a, cells), prng.uniform_at(b, cells))
+        first[cells[accept]] = r
+        r += 1
+    last = int(first.max())
+    # launch B: rounds R - 1, R - 2, ... until one accepts
+    pending = ~knuth
+    for r in range(last, -1, -1):
+        if not bool(pending.any()):
+            break
+        cells = idx[pending]
+        a, b = table.at(r)
+        kk, accept = prng.rejection_round([c[pending] for c in consts],
+                                          prng.uniform_at(a, cells), prng.uniform_at(b, cells))
+        out[cells[accept]] = kk[accept]
+        pending[cells[accept]] = False
+    assert not bool(pending.any())
+    return out.reshape(shape), last
+
+
+@pytest.mark.parametrize("rounds", [1, 3, threefry.TABLE_ROUNDS])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_table_is_the_split_chain(seed, rounds):
+    """Round r's subkeys, in the table and past it, are the rejection
+    sampler's `split(rng, 3)` keys and Knuth's `split(rng)` second key."""
+    table = KeyTable(prng.key(seed), rounds)
+    rng3 = rng2 = prng.key(seed)
+    for r in range(40):
+        rng3, sub0, sub1 = prng.split(rng3, 3)
+        rng2, sub = prng.split(rng2)
+        assert table.at(r) == (sub0, sub1) and sub == sub0
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5, 7), (2, 9, 4, 3), (6, 6, 6)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_poisson_plan_equals_plain(seed, shape, rng, monkeypatch):
+    """The plan gives prng.poisson's every count, on mixed Knuth and
+    rejection cells, with its R the rounds the plain rejection loop runs;
+    with a table of 1 and 3 rounds (cells past it walk the chain) too."""
+    lam = rng.choice(np.asarray(PLAN_LAM + (0.3, 40.0)), shape).astype(np.float32)
+    lam.reshape(-1)[: len(PLAN_LAM)] = PLAN_LAM[: lam.size]
+    lam = torch.from_numpy(lam)
+    splits = []
+    split = prng.split
+    monkeypatch.setattr(prng, "split", lambda k, num=2: splits.append(num) or split(k, num))
+    want = prng.poisson(prng.key(seed), lam)
+    monkeypatch.setattr(prng, "split", split)
+    for rounds in (threefry.TABLE_ROUNDS, 1, 3):
+        got, last = poisson_plan(prng.key(seed), lam, rounds)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert last + 1 == splits.count(3)
+
+
+def test_poisson_plan_last_accepting_round(rng):
+    """On 4096 rejection cells, where R is several rounds and many cells
+    accept more than once, the plan's downward scan keeps JAX's last
+    accepting round."""
+    lam = torch.from_numpy(rng.uniform(10.0, 60.0, 4096).astype(np.float32))
+    got, last = poisson_plan(prng.key(1), lam)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax.random.poisson(_jkey(1), jnp.asarray(lam.numpy()))))
+    assert last >= 2
+
+
+# ---------------------------------------------------------------------------
 # on a card: the kernel against the plain version
 
 
@@ -295,3 +422,45 @@ def test_cuda_poisson_matches_cpu(cuda_device, rng):
     for seed in SEEDS:
         got = threefry.poisson(prng.key(seed), t.to(cuda_device)).cpu()
         assert torch.equal(got, threefry.poisson(prng.key(seed), t))
+
+
+POISSON_SHAPES = ((1,), (1000,), (3, 37, 41), (2, 64, 64, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POISSON_SHAPES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cuda_poisson_kernel_matches_plain(cuda_device, seed, shape, rng):
+    """The Poisson kernels' counts are the plain version's bit for bit, on
+    mixed Knuth and rejection cells, with a full table and with 1 and 3
+    rounds (cells past the table walk the chain); R - 1 is the plan's; each
+    draw is two launches."""
+    lam = rng.choice(np.asarray(PLAN_LAM + (0.3, 40.0, 2e4)), shape).astype(np.float32)
+    lam = torch.from_numpy(lam)
+    k = prng.key(seed)
+    want = prng.poisson(k, lam)
+    _, last = poisson_plan(k, lam)
+    for rounds in (threefry.TABLE_ROUNDS, 1, 3):
+        before = threefry.launches["poisson"]
+        got, stats = threefry.poisson_kernel(k, lam.to(cuda_device), rounds)
+        assert threefry.launches["poisson"] == before + 2
+        assert got.dtype == torch.float32 and got.shape == lam.shape
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        assert int(stats[0]) == last
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_poisson_has_no_host_read(cuda_device, rng):
+    """A draw on the card reads nothing back to the host: it runs under
+    torch's sync debug mode "error"."""
+    lam = torch.from_numpy(rng.uniform(0.0, 3e4, (4, 64, 64)).astype(np.float32)).to(cuda_device)
+    k = prng.key(2)
+    threefry.poisson(k, lam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = threefry.poisson(k, lam)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.cpu(), prng.poisson(k, lam.cpu()))

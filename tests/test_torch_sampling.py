@@ -1,7 +1,7 @@
 """The port's quantum sampling: JAX's draws, moments, seeding and the
 no-op rule.
 
-The port draws from JAX's threefry keys (models/prng.py), so its batch is
+The port draws from JAX's threefry keys (ops/threefry_plain.py), so its batch is
 held against msm_tpu's `sample_stream_batch` draw for draw: complex128
 within 1e-13, complex64 within 4 ulp of the perturbation's scale (bit for
 bit on the CPU), every Poisson count equal. The moments stay held within 5
@@ -20,6 +20,8 @@ from msm_tpu import config as jcfg
 from msm_tpu.models import sampling as jsampling
 from msm_tpu_torch import config as cfg
 from msm_tpu_torch.models import ics, sampling
+from msm_tpu_torch.ops import threefry
+from test_torch_prng import poisson_plan
 
 torch.set_num_threads(1)
 
@@ -156,3 +158,43 @@ def test_astronomical_n_is_noop_in_f32():
     psi = _base_psi(p, torch.complex64)
     out = sampling.sample_stream_batch(psi, p, [1, 2], "Husimi")
     assert torch.equal(out, torch.stack([psi, psi]))
+
+
+@pytest.mark.parametrize("ntot", [1e6, 1e13])
+def test_poisson_plan_on_the_sampled_lam(ntot, monkeypatch):
+    """The lam a Poisson stream draws from (Knuth, rejection, and 0 where
+    the Gaussian limit takes over): the Poisson kernels' plan gives the
+    plain version's counts, one draw a stream."""
+    p = _params(ntot=ntot)
+    draws = []
+    poisson = threefry.poisson
+    monkeypatch.setattr(threefry, "poisson",
+                        lambda k, lam: draws.append((k, lam, poisson(k, lam))) or draws[-1][2])
+    sampling.sample_stream_batch(_base_psi(p, torch.complex64), p, [0, 5], "Poisson")
+    assert len(draws) == 2
+    for k, lam, counts in draws:
+        np.testing.assert_array_equal(poisson_plan(k, lam)[0].numpy(), counts.numpy())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_cuda_poisson_batch_matches_cpu(cuda_device, dtype):
+    """A Poisson batch on the card draws its counts with the Poisson
+    kernels, two launches a stream, and agrees with the CPU's batch (the
+    same counts; psi within 4 ulp of its max)."""
+    p = _params(ntot=1e13)
+    psi = _base_psi(p, dtype)
+    seeds = [0, 1, 2**32 - 1]
+    before = threefry.launches["poisson"]
+    got = sampling.sample_stream_batch(psi.to(cuda_device), p, seeds, "Poisson").cpu()
+    assert threefry.launches["poisson"] == before + 2 * len(seeds)
+    want = sampling.sample_stream_batch(psi, p, seeds, "Poisson")
+    eps = torch.finfo(psi.real.dtype).eps
+    assert (got - want).abs().max() <= 4 * eps * want.abs().max()
