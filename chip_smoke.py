@@ -581,6 +581,16 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
+def device_work(event) -> bool:
+    """Whether a torch.profiler event is the card's own work: a kernel, a
+    copy or a set. A `record_function` span (the program's `msm.*`) that
+    encloses device work is listed on the device a second time, as a user
+    annotation over that work, and is not counted."""
+    from torch.autograd import DeviceType
+
+    return event.device_type == DeviceType.CUDA and not event.is_user_annotation
+
+
 def median_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
     """Median device time of n launches of fn (CUDA events around each),
     after `warmup` untimed ones."""
@@ -2771,7 +2781,6 @@ def _timed_rerun(r: dict, profile: bool = False) -> dict:
     state: every graph captured): its wall, launches and the loop's counts,
     or with `profile` the device's busy ms per iteration under
     torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
 
@@ -2797,8 +2806,8 @@ def _timed_rerun(r: dict, profile: bool = False) -> dict:
            "launches": {**kernels.launches, **mxu_fft.launches, **mxu_fft.form_launches}}
     if profile:
         out["device_ms_per_iteration"] = sum(
-            e.time_range.elapsed_us() / 1e3 for e in prof.events()
-            if e.device_type == DeviceType.CUDA) / stats["iterations"]
+            e.time_range.elapsed_us() / 1e3 for e in prof.events() if device_work(e)
+        ) / stats["iterations"]
     return out
 
 

@@ -27,7 +27,9 @@ the streams one by one (the reference's shape) instead of as one batch;
 stepper's unitarity monitor and checks every dump's norm and finiteness
 against `--check-eps` (default 1e-4 at f64, 1e-3 at f32);
 `--profile-dir DIR` writes a torch.profiler Chrome trace of the run to
-`DIR/trace.json`.
+`DIR/trace.json`: the program's `msm.*` spans (set-up, the dump loop, the
+device loop's reports, replays and captures) beside torch's ops and the
+card's kernels and copies, on one clock.
 `synthesize` reduces the stream dumps offline into the same files;
 `--dump-range LO:HI` combines only dumps LO..=HI (and skips Qx), and
 `--post-only` then evaluates Qx from the combined files. Both run on the
@@ -306,7 +308,9 @@ def build_parser() -> argparse.ArgumentParser:
     sim.add_argument(
         "--profile-dir",
         default=None,
-        help="write a torch.profiler Chrome trace of the run to DIR/trace.json",
+        help="write a torch.profiler Chrome trace of the run to DIR/trace.json: the "
+        "program's msm.* spans beside torch's ops and the card's kernels and copies, "
+        "on one clock",
     )
     sim.add_argument(
         "--mesh",

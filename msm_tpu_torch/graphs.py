@@ -30,6 +30,10 @@ out once. All graphs of a set share one memory pool.
   back (a capture launches nothing), and the recorded counts are added once
   per replay: `ops.kernels.launches`, `ops.mxu_fft.launches` and
   `ops.mxu_fft.form_launches` stay exact.
+- What capturing costs is counted: `stats["captures"]` and
+  `stats["capture_s"]` (host seconds) in the dict the set is given, the
+  stepper's. A capture is spanned as `msm.loop.capture`, a replay as
+  `msm.loop.replay` (`utils.profiling.span`).
 - A capture or replay that fails raises; nothing falls back to the eager
   chunk. The eager chunk runs on the card only where a caller asks for it
   (`Stepper(graphs=False)`), and it is what the CPU runs.
@@ -40,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from .ops import kernels, mxu_fft
+from .utils.profiling import span
 
 
 def _counters() -> tuple:
@@ -77,9 +82,11 @@ class ChunkGraphs:
     time `group` runs, else by replaying the graph captured for `key` at
     its first use, writes the outputs back into the static buffers and
     returns the report; `unload()` returns copies of the static buffers. An
-    output that is its static buffer itself is not copied."""
+    output that is its static buffer itself is not copied. `stats` (the
+    stepper's) takes the `captures` and `capture_s` counts."""
 
-    def __init__(self) -> None:
+    def __init__(self, stats: dict) -> None:
+        self.stats = stats
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream()
         self.static: "list[torch.Tensor] | None" = None
@@ -117,9 +124,12 @@ class ChunkGraphs:
             self.warm.add(group)
             return report
         if key not in self.graphs:
-            self.graphs[key] = self._capture(fn)
+            with span("msm.loop.capture", self.stats, "capture_s"):
+                self.graphs[key] = self._capture(fn)
+            self.stats["captures"] += 1
         graph, report, delta = self.graphs[key]
-        graph.replay()
+        with span("msm.loop.replay"):
+            graph.replay()
         _add(delta)
         return report
 

@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 
+from ..utils.profiling import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(
@@ -184,15 +186,17 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, spanned as
+    `msm.setup.library`)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = argtypes
+            with span("msm.setup.library"):
+                lib = ctypes.CDLL(build())
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = argtypes
             _lib = lib
         return _lib
 

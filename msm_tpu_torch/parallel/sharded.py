@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from ..config import SimulationParameters
-from ..stepper import SimState, StepConsts, Stepper
+from ..stepper import SimState, StepConsts, Stepper, host_read
 from .mesh import SPACE2_AXIS, SPACE_AXIS, STREAM_AXIS, Mesh
 
 # how each StepConsts field is sharded: "psik" in psik's layout (k-space
@@ -184,6 +184,12 @@ class MeshStepper:
     def dt_mode(self):
         return self.stepper.dt_mode
 
+    @property
+    def stats(self) -> dict:
+        """The inner stepper's counters (`Stepper.stats`), which the dump
+        loop adds its fetches to."""
+        return self.stepper.stats
+
     def init_state(self, psi0: torch.Tensor) -> SimState:
         """The state of this rank's streams and shard, from the global
         (streams, *grid) batch."""
@@ -261,5 +267,5 @@ class MeshStepper:
         """Whether any stream of the whole batch still has evolution left
         (collective over the stream axis)."""
         done = (state.current_dumps >= self.params.num_data_dumps) | state.aliased
-        return not bool(self.global_streams(done).all())
+        return not host_read(self.stats, self.global_streams(done).all())
 

@@ -87,8 +87,8 @@ from .io.npy import AsyncGridWriter, dump_dir, load_complex_pair, psi_path
 from .models.ics import build_ics
 from .models.sampling import sample_quantum_perturbation, sample_stream_batch
 from .parallel import mesh as mesh_mod
-from .stepper import SimState, Stepper
-from .utils.profiling import ProgressReporter, StepTimer, profiler_trace
+from .stepper import SimState, Stepper, host_read
+from .utils.profiling import ProgressReporter, StepTimer, profiler_trace, span
 
 log = logging.getLogger(__name__)
 
@@ -465,10 +465,11 @@ def _bounded_prelude(stepper: Stepper, state: SimState, chunk: int) -> SimState:
     (`Stepper.evolve_bounded`) until every stream reaches its boundary; the
     interval block that follows then finds its first loop done and builds
     its payload as without chunking. Each dispatch's `more` is one host
-    read."""
+    read, counted in the stepper's `stats["host_reads"]` where it has them."""
+    stats = getattr(stepper, "stats", None)
     while True:
         state, more = stepper.evolve_bounded(state, chunk)
-        if not bool(more):
+        if not host_read(stats, more):
             return state
 
 
@@ -494,28 +495,35 @@ class _Fetch:
     block ends, so the next block computes while it travels; `wait` blocks
     until it has arrived and returns numpy arrays (which keep the pinned
     memory alive while the async writer holds them). On the CPU (`stream`
-    None) the payload is already there."""
+    None) the payload is already there. Each block counts in the stepper's
+    `stats["fetches"]`, and the host seconds of starting it and of waiting
+    for it in `fetch_enqueue_s` and `fetch_wait_s` (spans `msm.drive.fetch`
+    and `msm.drive.fetch_wait`)."""
 
-    def __init__(self, outs: dict, stream: "torch.cuda.Stream | None"):
-        self.host = outs
-        self.event = None
-        if stream is None:
-            return
-        stream.wait_stream(torch.cuda.current_stream(stream.device))
-        with torch.cuda.stream(stream):
-            self.host = {
-                k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
-                for k, v in outs.items()
-            }
-            self.event = torch.cuda.Event()
-            self.event.record(stream)
-        self._device = outs  # alive until the copy has run
+    def __init__(self, outs: dict, stream: "torch.cuda.Stream | None", stats: dict):
+        self.stats = stats
+        stats["fetches"] += 1
+        with span("msm.drive.fetch", stats, "fetch_enqueue_s"):
+            self.host = outs
+            self.event = None
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(stream.device))
+                with torch.cuda.stream(stream):
+                    self.host = {
+                        k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                            v, non_blocking=True)
+                        for k, v in outs.items()
+                    }
+                    self.event = torch.cuda.Event()
+                    self.event.record(stream)
+                self._device = outs  # alive until the copy has run
 
     def wait(self) -> dict:
-        if self.event is not None:
-            self.event.synchronize()
-            self._device = None
-        return {k: v.numpy() for k, v in self.host.items()}
+        with span("msm.drive.fetch_wait", self.stats, "fetch_wait_s"):
+            if self.event is not None:
+                self.event.synchronize()
+                self._device = None
+            return {k: v.numpy() for k, v in self.host.items()}
 
 
 def _drive(
@@ -541,9 +549,12 @@ def _drive(
     iterations a dispatch when `chunk`), block i+1 dispatched before block
     i's host work when `speculate`, and every stream that reached its dump
     written, until every stream is done or aliased. Returns the final
-    state."""
+    state. Each stage is spanned (`msm.drive.*`, `utils.profiling.span`),
+    and the fetches are counted in the stepper's `stats`. The progress
+    line and its telemetry are built only when `verbose` prints them."""
     p = runs[-1].params
     n = len(runs)
+    stats = stepper.stats
     # the streams of the (padded) batch this process holds, from row lo
     # on, and the runs it writes (`owned`)
     rank0 = mesh_mod.world()[0] == 0
@@ -561,37 +572,41 @@ def _drive(
     want_pot = bool(p.output_potential)
 
     if not resumed:
-        psi = stepper.gather_spatial(state.psi).cpu().numpy()
-        scalars = {name: stepper.global_streams(getattr(state, name)).cpu().numpy()
-                   for name in _MANIFEST_FIELDS}
-        for i in sorted(owned):
-            runs[i].dump_field(psi[i - lo], 0)
-            runs[i].write_manifest(_run_scalars(scalars, i))
-        if want_pot:
-            # simulation_object.rs:1166-1180
-            pot = stepper.gather_spatial(stepper.potential(state.psi)).cpu().numpy()
+        with span("msm.drive.dump0"):
+            psi = stepper.gather_spatial(state.psi).cpu().numpy()
+            scalars = {name: stepper.global_streams(getattr(state, name)).cpu().numpy()
+                       for name in _MANIFEST_FIELDS}
             for i in sorted(owned):
-                runs[i].dump_field(pot[i - lo].astype(psi.dtype), 0, "potential")
-        del psi
-        if combiner is not None:
-            # every stream, the MFT (the last) left out, rank 0 writing; a
-            # mesh holds no batch whole, so its stepper reduces the row
-            if stepper.mesh is None:
-                if rank0:
-                    combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
-            else:
-                row = stepper.combine_dump(state, n, combiner.dv)
-                if rank0:
-                    combiner.write_row({k: v.cpu().numpy() for k, v in row.items()}, 0)
+                runs[i].dump_field(psi[i - lo], 0)
+                runs[i].write_manifest(_run_scalars(scalars, i))
+            if want_pot:
+                # simulation_object.rs:1166-1180
+                pot = stepper.gather_spatial(stepper.potential(state.psi)).cpu().numpy()
+                for i in sorted(owned):
+                    runs[i].dump_field(pot[i - lo].astype(psi.dtype), 0, "potential")
+            del psi
+            if combiner is not None:
+                # every stream, the MFT (the last) left out, rank 0 writing; a
+                # mesh holds no batch whole, so its stepper reduces the row
+                with span("msm.drive.combine"):
+                    if stepper.mesh is None:
+                        if rank0:
+                            combiner.on_dump(state.psi, np.arange(n) < n - 1, 0)
+                    else:
+                        row = stepper.combine_dump(state, n, combiner.dv)
+                        if rank0:
+                            combiner.write_row({k: v.cpu().numpy() for k, v in row.items()}, 0)
     combine = None if combiner is None else (n, combiner.dv)
     copies = torch.cuda.Stream(stepper.device) if stepper.device.type == "cuda" else None
 
     def advance(s):
         if chunk:
-            s = _bounded_prelude(stepper, s, chunk)
-        final, outs = stepper.evolve_intervals(s, kblock, with_potential=want_pot,
-                                               combine=combine)
-        return final, _Fetch(outs, copies)
+            with span("msm.drive.prelude"):
+                s = _bounded_prelude(stepper, s, chunk)
+        with span("msm.drive.intervals"):
+            final, outs = stepper.evolve_intervals(s, kblock, with_potential=want_pot,
+                                                   combine=combine)
+        return final, _Fetch(outs, copies, stats)
 
     total_steps = prev_steps = start_steps
     inflight = advance(state) if stepper.not_finished(state) else None
@@ -602,60 +617,64 @@ def _drive(
         # dispatch, since a finished state's loop does not start
         speculative = advance(state) if speculate else None
         host = fetch.wait()
-        for j in range(kblock):
-            jd, al = host["just_dumped"][j], host["aliased"][j]
-            # rows with nothing to do: no dump and no newly aliased stream
-            if not (jd.any() or (al & ~reported_alias).any()):
-                continue
-            total_steps = max(total_steps, int(host["n_steps"][j].max()))
-            row = {k: v[j] for k, v in host.items()}
-            dumps_j = row["current_dumps"]
-            for i, r in enumerate(runs):
-                if al[i]:
-                    if not reported_alias[i]:
-                        reported_alias[i] = True
-                        # manifest before the (possibly raising) report, so
-                        # the run's record shows aliased=True; a strict
-                        # abort raises on every rank, or the others would
-                        # wait in the next collective (msm_tpu :1104-1125)
-                        if i in owned:
-                            r.write_manifest(_run_scalars(row, i))
-                        if i in owned or strict_alias:
-                            _report_aliasing(r.params, float(row["alias_mass"][i]),
-                                             strict_alias)
+        with span("msm.drive.deliver"):
+            for j in range(kblock):
+                jd, al = host["just_dumped"][j], host["aliased"][j]
+                # rows with nothing to do: no dump and no newly aliased stream
+                if not (jd.any() or (al & ~reported_alias).any()):
                     continue
-                if not jd[i] or i not in owned:
-                    continue
-                psi = row["psi"][i - lo]
-                scalars = _run_scalars(row, i)
-                if debug_checks:
-                    _debug_validate(psi, r.params, f"{r.params.sim_name} dump", eps)
-                    err = float(row["max_norm_err"][i])
-                    _check_norm_monitor(err, eps, r.params.sim_name)
-                    scalars["max_norm_err"] = err
-                r.dump_field(psi, int(dumps_j[i]))
-                scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
-                r.write_manifest(scalars)
-                if want_pot:
-                    r.dump_field(row["pot"][i - lo].astype(psi.dtype), int(dumps_j[i]),
-                                 "potential")
-            valid = jd[: n - 1] & ~al[: n - 1]
-            if (combine is not None and rank0 and valid.any()
-                    and float(row["comb_n"]) > 0):
-                combiner.write_row(row, int(dumps_j[int(np.flatnonzero(valid)[0])]))
-            extra = _telemetry_suffix(
-                total_steps - prev_steps,
-                float(row["dt_min"][:n].min()),
-                float(row["dt_max"][:n].max()),
-                int(row["replays"][:n].sum()),
-            )
-            prev_steps = max(prev_steps, total_steps)
-            if p.expanding:
-                progress.update(int(dumps_j[:n].min()),
-                                redshift=1.0 / float(row["a"][:n].min()) - 1.0, extra=extra)
-            else:
-                progress.update(int(dumps_j[:n].min()), sim_time=float(row["time"][:n].min()),
-                                extra=extra)
+                total_steps = max(total_steps, int(host["n_steps"][j].max()))
+                row = {k: v[j] for k, v in host.items()}
+                dumps_j = row["current_dumps"]
+                for i, r in enumerate(runs):
+                    if al[i]:
+                        if not reported_alias[i]:
+                            reported_alias[i] = True
+                            # manifest before the (possibly raising) report, so
+                            # the run's record shows aliased=True; a strict
+                            # abort raises on every rank, or the others would
+                            # wait in the next collective (msm_tpu :1104-1125)
+                            if i in owned:
+                                r.write_manifest(_run_scalars(row, i))
+                            if i in owned or strict_alias:
+                                _report_aliasing(r.params, float(row["alias_mass"][i]),
+                                                 strict_alias)
+                        continue
+                    if not jd[i] or i not in owned:
+                        continue
+                    psi = row["psi"][i - lo]
+                    scalars = _run_scalars(row, i)
+                    if debug_checks:
+                        _debug_validate(psi, r.params, f"{r.params.sim_name} dump", eps)
+                        err = float(row["max_norm_err"][i])
+                        _check_norm_monitor(err, eps, r.params.sim_name)
+                        scalars["max_norm_err"] = err
+                    r.dump_field(psi, int(dumps_j[i]))
+                    scalars["wall_time_ms"] = (_time.monotonic() - t_start) * 1e3
+                    r.write_manifest(scalars)
+                    if want_pot:
+                        r.dump_field(row["pot"][i - lo].astype(psi.dtype), int(dumps_j[i]),
+                                     "potential")
+                valid = jd[: n - 1] & ~al[: n - 1]
+                if (combine is not None and rank0 and valid.any()
+                        and float(row["comb_n"]) > 0):
+                    with span("msm.drive.combine"):
+                        combiner.write_row(row, int(dumps_j[int(np.flatnonzero(valid)[0])]))
+                if verbose:
+                    extra = _telemetry_suffix(
+                        total_steps - prev_steps,
+                        float(row["dt_min"][:n].min()),
+                        float(row["dt_max"][:n].max()),
+                        int(row["replays"][:n].sum()),
+                    )
+                    prev_steps = max(prev_steps, total_steps)
+                    if p.expanding:
+                        progress.update(int(dumps_j[:n].min()),
+                                        redshift=1.0 / float(row["a"][:n].min()) - 1.0,
+                                        extra=extra)
+                    else:
+                        progress.update(int(dumps_j[:n].min()),
+                                        sim_time=float(row["time"][:n].min()), extra=extra)
         if np.all((host["current_dumps"][-1] >= p.num_data_dumps) | host["aliased"][-1]):
             if speculative is not None:
                 # a finished state's dispatch returns it as it is
@@ -826,7 +845,8 @@ def _run_config(toml, all_params, dtype, *, device, data_root, verbose, test_onl
             if stream_params:
                 seeds = [p.sampling.seed for p in stream_params]
                 scheme = stream_params[0].sampling.scheme
-                parts.insert(0, sample_stream_batch(base_psi, mft_params, seeds, scheme))
+                with span("msm.setup.sample"):
+                    parts.insert(0, sample_stream_batch(base_psi, mft_params, seeds, scheme))
             batch = torch.cat(parts)
             state = stepper.init_state(batch)
             del batch, base_psi, parts

@@ -72,7 +72,11 @@ chosen by the transform mode (`ops.fft.get_mode`):
   is captured once as a CUDA graph and replayed (`graphs.ChunkGraphs`)
   unless the Stepper is built with graphs=False; the CPU runs the same
   chunks eagerly. A stream whose dt is not finite (a NaN state, whose time
-  would never reach its dump) raises FloatingPointError naming it.
+  would never reach its dump) raises FloatingPointError naming it. Every
+  blocking read of the loop goes through `host_read` (counted in
+  `stats["host_reads"]`); the loop's entry, reads, replays, captures and
+  exit are spanned (`msm.loop.*`, `utils.profiling.span`), never inside a
+  captured chunk.
 - `evolve_bounded` (at most max_steps iterations; JAX :1307-1349),
   `evolve_intervals` (k intervals with their dump payloads stacked on the
   device; :1351-1420) and `_chain_n_steps` (the bench's step chain, the
@@ -107,6 +111,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -124,6 +129,7 @@ from .parallel import pfft
 from .parallel import mesh as mesh_mod
 from .parallel.mesh import STREAM_AXIS
 from .parallel.pfft_fused import ShardedEngine
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -254,6 +260,17 @@ MAX_CHUNK = 32
 _NO_CAP = 2**62
 
 
+def host_read(stats: "dict | None", t):
+    """`t.tolist()`: one blocking device->host read of the evolve loop,
+    spanned as `msm.loop.report` and counted in `stats["host_reads"]`
+    (where a dict is given)."""
+    with span("msm.loop.report"):
+        value = t.tolist()
+    if stats is not None:
+        stats["host_reads"] += 1
+    return value
+
+
 def _pow2_floor(x: float) -> int:
     """The largest power of two at most x, within [1, MAX_CHUNK]."""
     n = int(min(max(x, 1.0), MAX_CHUNK)) if x == x else 1
@@ -320,6 +337,7 @@ class Stepper:
     finish over the stream group on any mesh.
     """
 
+    @span("msm.setup.stepper")
     def __init__(
         self,
         params: SimulationParameters,
@@ -332,6 +350,7 @@ class Stepper:
         mesh=None,
         spatial_axis: "tuple | None" = None,
     ):
+        t0 = time.perf_counter()
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"dtype must be complex64/complex128, got {dtype}")
         if dt_mode not in DT_MODES:
@@ -343,9 +362,14 @@ class Stepper:
         # did: its chunks, the iterations it ran (JAX's while_loop would run
         # the same), those it executed (the chunks' lengths: the surplus
         # are no-ops past the loop's end or before a branch switch) and its
-        # device->host reads
+        # blocking device->host reads; the blocks the dump loop sent to the
+        # host (`simulator._Fetch`) with the host seconds spent starting
+        # their copies and waiting for them; the chunk graphs captured, with
+        # their host seconds; and this constructor's seconds
         self._graphs = None
-        self.stats = {"chunks": 0, "iterations": 0, "executed": 0, "host_reads": 0}
+        self.stats = {"chunks": 0, "iterations": 0, "executed": 0, "host_reads": 0,
+                      "fetches": 0, "fetch_enqueue_s": 0.0, "fetch_wait_s": 0.0,
+                      "captures": 0, "capture_s": 0.0, "init_s": 0.0}
         self.dt_safety = min(1.0, max(1e-3, float(os.environ.get("MSM_DT_SAFETY", DT_SAFETY))))
         self.dt_decay = min(1.0, max(0.0, float(os.environ.get("MSM_DT_DECAY", DT_DECAY))))
         self.dt_init_bound_scale = max(
@@ -482,6 +506,7 @@ class Stepper:
             spec_axis12=spec_axis12,
             spec_grid=spec_grid,
         )
+        self.stats["init_s"] = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     # Grid helpers
@@ -562,6 +587,7 @@ class Stepper:
     # State construction
     # ------------------------------------------------------------------
 
+    @span("msm.setup.init_state")
     def init_state(self, psi0: torch.Tensor) -> SimState:
         """Initial state for a (B, *grid) batch of fields; psik = F[psi]."""
         p = self.params
@@ -1113,11 +1139,11 @@ class Stepper:
         the Stepper was built with graphs=False. Raises FloatingPointError
         when an active stream's dt was not finite (its state is NaN: its
         time would never reach the dump)."""
-        rep = _Report(self._report(s, ctl).tolist())
-        self.stats["host_reads"] += 1
-        graphs = self._chunk_graphs() if self.graphs else None
-        if graphs is not None:
-            graphs.load(_flatten(s, ctl))
+        with span("msm.loop.enter"):
+            rep = _Report(host_read(self.stats, self._report(s, ctl)))
+            graphs = self._chunk_graphs() if self.graphs else None
+            if graphs is not None:
+                graphs.load(_flatten(s, ctl))
         while (rep.go if loop else rep.it < n):
             mode = None
             if not self.skew:
@@ -1135,8 +1161,7 @@ class Stepper:
             else:
                 s, ctl, report = self._chunk(s, ctl, size, mode, loop)
             done = rep.it
-            rep = _Report(report.tolist())
-            self.stats["host_reads"] += 1
+            rep = _Report(host_read(self.stats, report))
             self.stats["chunks"] += 1
             self.stats["executed"] += size
             self.stats["iterations"] += int(rep.it - done)
@@ -1147,12 +1172,13 @@ class Stepper:
                     "not finite, so its time would never reach the dump)"
                 )
         if graphs is not None:
-            s, ctl = _unflatten(graphs.unload())
+            with span("msm.loop.exit"):
+                s, ctl = _unflatten(graphs.unload())
         return s
 
     def _chunk_graphs(self) -> "graphs_mod.ChunkGraphs":
         if self._graphs is None:
-            self._graphs = graphs_mod.ChunkGraphs()
+            self._graphs = graphs_mod.ChunkGraphs(self.stats)
         return self._graphs
 
     def _evolve(self, state: SimState, max_steps: "int | None") -> SimState:
@@ -1160,15 +1186,21 @@ class Stepper:
         `_evolve_to_next_dump_skewed`, :1155-1220), at most `max_steps`
         iterations when given. A loop that would not start returns the
         state as it is (the skewed engine's entry and exit skipped)."""
-        ctl = self._new_ctl(state, max_steps)
+        with span("msm.loop.enter"):
+            ctl = self._new_ctl(state, max_steps)
+            if not self.skew:
+                entry = state
+            elif _Report(host_read(self.stats, self._report(state, ctl))).go:
+                entry = self._carrier(state)
+            else:
+                return state
+        final = self._run_chunks(entry, ctl, loop=True, cap=max_steps)
         if not self.skew:
-            return self._run_chunks(state, ctl, loop=True, cap=max_steps)
-        rep = _Report(self._report(state, ctl).tolist())
-        self.stats["host_reads"] += 1
-        if not rep.go:
-            return state
-        final = self._run_chunks(self._carrier(state), ctl, loop=True, cap=max_steps)
-        return self._skew_exit(state, final)
+            return final
+        # the carrier (a grid a stream) goes before the exit allocates
+        del entry
+        with span("msm.loop.exit"):
+            return self._skew_exit(state, final)
 
     def evolve_to_next_dump(self, state: SimState) -> SimState:
         """Advance every active stream until its step lands on the next dump
@@ -1323,4 +1355,4 @@ class Stepper:
         """Whether any stream still has evolution left (not_finished,
         :1226-1228)."""
         done = (state.current_dumps >= self.params.num_data_dumps) | state.aliased
-        return not bool(done.all())
+        return not host_read(self.stats, done.all())

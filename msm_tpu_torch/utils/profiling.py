@@ -1,5 +1,5 @@
-"""Progress line and step timer that `--verbose` prints, and the
-`--profile-dir` trace.
+"""Progress line and step timer that `--verbose` prints, the
+`--profile-dir` trace, and the program's spans.
 
 Counterpart of msm_tpu/utils/profiling.py: the reference's progress bar
 with ETA and live t readout (`simulation_object.rs:440-447,1210-1222`), a
@@ -8,16 +8,28 @@ steps/s and cell-updates/s counter, and a profiler trace of the whole run
 progress line and timer use host clocks only; a run that must be timed on
 the card ends its timed region with a device->host read (run_config's dump
 fetches do).
+
+`span` marks a stretch of the program's host work (the `msm.*` names):
+while a torch profiler records (`profiler_trace`, or any caller's
+`torch.profiler.profile`) it is a `record_function` event on the trace's
+clock, beside torch's ops and the card's kernels and copies, so an idle
+gap of the card can be put down to the span the host was in; with no
+profiler it enters nothing. Given a counter dict and a key, it also adds
+its host seconds there (a `Stepper.stats` counter). It reads nothing from
+the device and synchronizes nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import time
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
 
 
 @dataclass
@@ -114,8 +126,6 @@ def profiler_trace(log_dir: Optional[str]):
     if not log_dir:
         yield
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -127,3 +137,41 @@ def profiler_trace(log_dir: Optional[str]):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, TRACE_NAME))
+
+
+class span:
+    """`with span(name, stats=None, key=None):` a named stretch of host
+    work. It enters `torch.profiler.record_function(name)` only while a
+    profiler records (`record_function` costs about 10 us a call even with
+    none), and adds its `time.perf_counter` seconds to `stats[key]` where a
+    dict is given. `@span(name)` spans each call of the function it
+    decorates."""
+
+    __slots__ = ("name", "stats", "key", "_event", "_t0")
+
+    def __init__(self, name: str, stats: Optional[dict] = None, key: Optional[str] = None):
+        self.name = name
+        self.stats = stats
+        self.key = key
+
+    def __enter__(self) -> "span":
+        self._event = None
+        if torch.autograd._profiler_enabled():
+            self._event = torch.profiler.record_function(self.name)
+            self._event.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.stats is not None:
+            self.stats[self.key] += time.perf_counter() - self._t0
+        if self._event is not None:
+            self._event.__exit__(*exc)
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(self.name, self.stats, self.key):
+                return fn(*args, **kwargs)
+
+        return spanned

@@ -145,14 +145,13 @@ def short_name(name: str) -> str:
 
 def profile_interval(path: str, dt_mode: str, batch, mft, out_dir: str, unprofiled_s: float,
                      card, graphs: bool, chain: int, interval: int) -> None:
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     rec = timed_interval(path, dt_mode, batch, mft, graphs, chain, interval, profile=prof)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        if chip_smoke.device_work(evt):
             entry = by_name[short_name(evt.name)]
             entry[0] += evt.time_range.elapsed_us() / 1e3
             entry[1] += 1
