@@ -151,7 +151,17 @@ Phases, each printing one JSON line (any failure raises and exits 1):
             TPU kernel) against torch.where bit for bit at (9, 256^3) and
             (256, 1024), c64 and c128, every stream advancing, half and all
             frozen: the medians of each, torch.where's, and their bounds
-  2e prng   the threefry kernel (csrc/random_kernels.cu, no TPU kernel:
+  2e store-to-host
+            the evolve loop's blocking reads (csrc/read_kernels.cu, no TPU
+            kernel: JAX's host loop reads with a device_get) against
+            tolist() bit for bit on card tensors at the loop's shapes (a
+            chunk's 9-float64 report, a 0-dim bool, int64 and int32
+            vectors, a strided view, NaN, -0.0 and a subnormal), one
+            launch a read; the report's read and tolist()'s, host-clock
+            medians of 20 with the device idle, and of 5 each just after a
+            dump fetch's 1.48 GB device-to-host copy was issued on a side
+            stream: the kernel's read must return with the copy in flight
+  2f prng   the threefry kernel (csrc/random_kernels.cu, no TPU kernel:
             JAX draws the streams with jax.random) against its plain
             version run on the card: the 32-/64-bit words and uniforms bit
             for bit, normals within 4 ulp, at (9, 256^3) float32 (the main
@@ -260,8 +270,11 @@ run), the kernels record (each kernel's launches from the main
 run of its own path: K19/K21 `xla`, K5/K6/K17/K9 unfused `mxu`, K1-K4, K7
 and K8 the fused run, K10/K11 the exact run, K12/K13 the unskewed run, K20
 the `matmul` run, K14-K16 the 1-D `mxu` run; K18, on no main run's path,
-from the engine check; P1/P2 from the probe run; masked_restore and
-threefry, which replace no TPU kernel, the fused run's; threefry with each
+from the engine check; P1/P2 from the probe run; masked_restore,
+store_to_host and threefry, which replace no TPU kernel, the fused run's
+(every main run must launch store_to_host once a blocking read its
+steppers counted, `host_reads`); store_to_host with its reads beside the
+copy; threefry with each
 output's record at both shapes, `outputs`; poisson, which replaces none,
 the unskewed-lagged run's, with its rounds and the 8-stream batch), with
 `floor_ms` (its
@@ -295,6 +308,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -308,6 +322,7 @@ FFT_SOURCE = "msm_tpu_torch/ops/csrc/fft_kernels.cu"
 COPY_SOURCE = "msm_tpu_torch/ops/csrc/copy_kernels.cu"
 RESTORE_SOURCE = "msm_tpu_torch/ops/csrc/restore_kernels.cu"
 RANDOM_SOURCE = "msm_tpu_torch/ops/csrc/random_kernels.cu"
+READ_SOURCE = "msm_tpu_torch/ops/csrc/read_kernels.cu"
 # K6, K17, K9, K4, K2, K10, K11 and K7 at the main shape: the cluster form
 CLUSTER_SOURCE = "msm_tpu_torch/ops/csrc/plane_cluster.cuh"
 # K14-K16: the radix form
@@ -346,6 +361,8 @@ KERNELS = {
     # no TPU kernel: JAX draws the Poisson counts with jax.random.poisson
     # (XLA while loops)
     "poisson": (RANDOM_SOURCE, "msm_tpu/models/sampling.py:68"),
+    # no TPU kernel: JAX's host loop reads its scalars with a device_get
+    "store_to_host": (READ_SOURCE, "msm_tpu/simulator.py:208"),
 }
 PHASE_KERNELS = ("kinetic_phase", "phase_rotate")
 LANE_KERNELS = ("lane_pass", "lane_pass_real_fwd", "lane_pass_real_inv")
@@ -392,6 +409,7 @@ OWN_RUN = {
     "masked_restore": "fused",
     "threefry": "fused",
     "poisson": POISSON_RUN,
+    "store_to_host": "fused",
 }
 MAIN_SHAPE = (9, 256, 256, 256)
 KERNEL_SHAPES = (MAIN_SHAPE, (3, 96, 96, 96), (2, 128, 128), (4, 512))
@@ -899,6 +917,122 @@ def phase_restore(card: dict) -> dict:
             del new, old
             torch.cuda.empty_cache()
     return main
+
+
+# the evolve loop's blocking reads as the loop makes them: a chunk's report
+# (`Stepper._report`: 9 float64, the infinities of a report with no active
+# stream among them), the 0-dim bool of `not_finished` and of the bounded
+# prelude's `more`, an int64 vector of step counts, an int32 vector, and a
+# strided view; and floats whose bits a read must keep (NaN, -0.0, a
+# subnormal)
+def _read_values(device) -> dict:
+    values = {
+        "report": torch.tensor([1.0, 0.0, math.inf, -math.inf, 31.0, 2.0**40 + 1, 0.0, 8.0,
+                                float(2**62)], dtype=torch.float64),
+        "not_finished": torch.tensor(True),
+        "steps": torch.arange(9, dtype=torch.int64) * 3_000_000_007 - 5,
+        "int32": torch.arange(7, dtype=torch.int32) - 3,
+        "strided": torch.arange(18, dtype=torch.float64) / 3,
+        "bits": torch.tensor([math.nan, -0.0, 5e-324, -math.inf, 1.0 / 3.0], dtype=torch.float64),
+    }
+    out = {name: value.to(device) for name, value in values.items()}
+    out["strided"] = out["strided"][::2]
+    return out
+
+
+# the dump fetch of every benchmark cell: 11 streams of 256^3 complex64
+FETCH_BYTES = 11 * 256**3 * 8
+READS_BESIDE_COPY = 5
+
+
+def _same_values(got, want) -> bool:
+    """Two `tolist()` results alike to the bit: floats by their float64
+    bits (NaN and -0.0 included), other values by type and value."""
+    if isinstance(want, list):
+        return (isinstance(got, list) and len(got) == len(want)
+                and all(_same_values(g, w) for g, w in zip(got, want)))
+    if isinstance(want, float):
+        return isinstance(got, float) and struct.pack("<d", got) == struct.pack("<d", want)
+    return type(got) is type(want) and got == want
+
+
+def _host_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
+    """Median host-clock ms of n calls of a blocking fn, the device idle
+    before each."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_store_to_host(card: dict) -> dict:
+    """store_to_host (`ops.kernels.read_to_host`, the evolve loop's blocking
+    reads; replaces no TPU kernel) against `tolist()` bit for bit on card
+    tensors at the loop's shapes (`_read_values`), each launching the
+    kernel once; its host-clock median of 20 reads of the report (Python,
+    the launch and the stream's synchronize: the read is synchronous)
+    beside `tolist()`'s, with the device idle; then READS_BESIDE_COPY reads
+    of each just after a dump fetch's FETCH_BYTES device-to-host copy was
+    issued on a side stream into pinned memory: the kernel's read must
+    return while the copy is still in flight, `tolist()`'s waits it out.
+    Returns its record, keyed `store_to_host`."""
+    from msm_tpu_torch.ops import kernels
+
+    exact = {}
+    want = {name: value.tolist() for name, value in _read_values("cpu").items()}
+    for name, t in _read_values("cuda").items():
+        before = kernels.launches["store_to_host"]
+        got = kernels.read_to_host(t)
+        exact[name] = _same_values(got, t.tolist()) and _same_values(got, want[name])
+        check(exact[name], f"store_to_host {name}: {got} is not tolist()'s {want[name]}")
+        check(kernels.launches["store_to_host"] == before + 1,
+              f"store_to_host {name}: {kernels.launches['store_to_host'] - before} launches")
+    report = _read_values("cuda")["report"]
+    ms = _host_ms(lambda: kernels.read_to_host(report))
+    tolist_ms = _host_ms(lambda: report.tolist())
+
+    big = torch.ones(FETCH_BYTES // 4, dtype=torch.float32, device="cuda")
+    pinned = torch.empty(big.shape, dtype=big.dtype, pin_memory=True)
+    side = torch.cuda.Stream()
+    beside = {"store_to_host": [], "tolist": []}
+    in_flight, copy_ms = [], []
+    for _ in range(READS_BESIDE_COPY):
+        for key, read in (("store_to_host", kernels.read_to_host), ("tolist", torch.Tensor.tolist)):
+            torch.cuda.synchronize()
+            start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(side):
+                start.record(side)
+                pinned.copy_(big, non_blocking=True)
+                done.record(side)
+            t0 = time.perf_counter()
+            got = read(report)
+            beside[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "store_to_host":
+                in_flight.append(not done.query())
+            done.synchronize()
+            copy_ms.append(start.elapsed_time(done))
+            check(_same_values(got, want["report"]), f"{key} beside the copy: {got}")
+    check(all(in_flight), f"store_to_host waited for the copy in flight: {in_flight}")
+    del big, pinned
+    torch.cuda.empty_cache()
+    # bound: the report's bytes read and stored once, far below the
+    # latency of a launch and a synchronize, which bounds the read
+    rec = {
+        "phase": "kernels", "kernel": "store_to_host", "dtype": "float64",
+        "shape": list(report.shape), "clock": "host", "bit_exact": exact, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": tolist_ms, "library_ms": None, **bound([report], [report], 0.0),
+        "ms_beside_copy": statistics.median(beside["store_to_host"]),
+        "plain_ms_beside_copy": statistics.median(beside["tolist"]),
+        "copy_ms": statistics.median(copy_ms), "copy_bytes": FETCH_BYTES,
+        "returned_with_copy_in_flight": in_flight, **card,
+    }
+    emit(rec)
+    return {"store_to_host": rec}
 
 
 # the threefry kernel at the main run's sampling (9 Wigner-sized streams of
@@ -2129,7 +2263,8 @@ def _run_cli(argv: list, path: str) -> dict:
     from msm_tpu_torch.ops import kernels, mxu_fft, threefry
 
     out = io.StringIO()
-    with fft_mode(path), contextlib.redirect_stdout(out), _recording() as (mans, events):
+    with (fft_mode(path), contextlib.redirect_stdout(out), _recording() as (mans, events),
+          _steppers() as steppers):
         kernels.reset_launches()
         mxu_fft.reset_launches()
         threefry.reset_launches()
@@ -2142,7 +2277,27 @@ def _run_cli(argv: list, path: str) -> dict:
     sys.stderr.write(out.getvalue())
     check(rc == 0, f"{' '.join(argv)} returned {rc}")
     return {"wall_s": wall, "out": out.getvalue(), "launches": launches, "manifests": mans,
-            "events": events}
+            "events": events, "host_reads": sum(st.stats["host_reads"] for st in steppers)}
+
+
+@contextlib.contextmanager
+def _steppers():
+    """The `Stepper`s built meanwhile (a `MeshStepper`'s inner one among
+    them), whose `stats` count the loop's blocking reads."""
+    from msm_tpu_torch.stepper import Stepper
+
+    built, init = [], Stepper.__init__
+
+    @functools.wraps(init)
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    Stepper.__init__ = recorded
+    try:
+        yield built
+    finally:
+        Stepper.__init__ = init
 
 
 def phase_main(card: dict, run: str) -> dict:
@@ -2185,6 +2340,10 @@ def phase_main(card: dict, run: str) -> dict:
         check(f"dt {dt_mode}" in out_text, f"the {run} run took another dt mode")
         for k in RUN_KERNELS[run]:
             check(launches[k] > 0, f"the {run} main run launched {k} no time")
+        # every blocking read of the loop is one store_to_host launch
+        check(launches["store_to_host"] == cli_run["host_reads"] > 0,
+              f"the {run} run launched store_to_host {launches['store_to_host']} times "
+              f"for {cli_run['host_reads']} host reads")
         # a Poisson stream's counts: the Poisson kernels' two launches
         if scheme == "Poisson":
             check(launches["poisson"] == 2 * streams,
@@ -2258,7 +2417,7 @@ def phase_main(card: dict, run: str) -> dict:
             "loop_ms_per_iteration": float(timer.group(2)) * 1e3 / iterations,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            **extra, "launches": launches, **card,
+            **extra, "launches": launches, "host_reads": cli_run["host_reads"], **card,
         }
         emit(rec)
         if run == ANALYSED_RUN:
@@ -3803,7 +3962,7 @@ def main() -> int:
     floor = timed("floor", phase_floor, card)
     measured = dict(floor["records"])
     for name, phase in (("kernels", phase_kernels), ("restore", phase_restore),
-                        ("prng", phase_prng), ("fft-kernels", phase_fft_kernels),
+                        ("store-to-host", phase_store_to_host), ("prng", phase_prng), ("fft-kernels", phase_fft_kernels),
                         ("fused-kernels", phase_fused_kernels),
                         ("lane-kernels", phase_lane_kernels)):
         measured.update(timed(name, phase, card))
@@ -3898,6 +4057,14 @@ def main() -> int:
                 "int_floor_ms": measured[k]["int_floor_ms"],
                 "outputs": measured[k]["outputs"]}
                if k == "threefry" else {}),
+            # store_to_host: no TPU kernel; host-clock reads, alone and
+            # beside a dump fetch's copy
+            **({"note": "replaces no TPU kernel: the evolve loop's blocking reads (JAX's "
+                        "device_get); host clock, one launch and a synchronize a read",
+                **{key: measured[k][key] for key in (
+                    "clock", "ms_beside_copy", "plain_ms_beside_copy", "copy_ms",
+                    "copy_bytes")}}
+               if k == "store_to_host" else {}),
             # poisson: no TPU kernel; its rounds and the 8-stream batch
             **({"note": "replaces no TPU kernel: JAX's jax.random.poisson (XLA while "
                         "loops); two launches a stream, the Poisson run's counts",

@@ -6,10 +6,12 @@ Counterparts of msm_tpu/ops/pallas_kernels.py:
   poisson_multiply : z * scale_b / q^2, q = 0 -> 0, q^2 from indices (K20)
   phase_rotate     : z * exp(i * coeff_b * field)                     (K21)
 
-and the evolve loop's per-stream freeze, which replaces no TPU kernel:
+and two kernels of the evolve loop, which replace no TPU kernel:
 
   masked_restore   : new[b] = old[b] where mask[b] is False, in place
                      (JAX's `lax.cond(all(mask), new, select)`)
+  read_to_host     : t.tolist() by a kernel's stores into pinned memory,
+                     with no copy engine (the loop's blocking reads)
 
 A CUDA tensor goes to the hand-written Hopper kernel in
 `csrc/phase_kernels.cu` (built by `ops.build`); a CPU tensor goes to the
@@ -31,7 +33,8 @@ import torch
 from . import build
 from .phase import apply_potential_phase, rotate
 
-launches = {"kinetic_phase": 0, "poisson_multiply": 0, "phase_rotate": 0, "masked_restore": 0}
+launches = {"kinetic_phase": 0, "poisson_multiply": 0, "phase_rotate": 0, "masked_restore": 0,
+            "store_to_host": 0}
 
 
 def reset_launches() -> None:
@@ -242,3 +245,30 @@ def masked_restore(new: torch.Tensor, old: torch.Tensor, mask: torch.Tensor) -> 
     build.check(rc, "masked_restore")
     launches["masked_restore"] += 1
     return new
+
+
+def read_to_host(t: torch.Tensor):
+    """`t.tolist()` for a small tensor: the evolve loop's blocking reads.
+
+    On the card the bytes are stored into pinned host memory by a one-block
+    kernel on the current stream (`csrc/read_kernels.cu`), which then is
+    synchronized: a device-to-host copy would wait behind whatever copy the
+    copy engine is serving, a dump's whole payload on the fetch's side
+    stream among them. A CPU tensor, or an array that is no tensor, is read
+    as it is.
+    """
+    if not isinstance(t, torch.Tensor) or t.device.type == "cpu":
+        return t.tolist()
+    if t.device.type != "cuda":
+        raise ValueError(f"no store_to_host kernel for device {t.device}")
+    t = t.contiguous()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    lib = build.load()
+    stream = torch.cuda.current_stream(t.device)
+    with torch.cuda.device(t.device):
+        rc = lib.msm_store_to_host(t.data_ptr(), host.data_ptr(), t.numel() * t.element_size(),
+                                   stream.cuda_stream)
+    build.check(rc, "store_to_host")
+    launches["store_to_host"] += 1
+    stream.synchronize()
+    return host.tolist()

@@ -16,15 +16,21 @@ and speculative loops of `run_single` :690-796 and `run_config`
 :1044-1250): each dispatch advances `_interval_block_k` dump intervals
 (`Stepper.evolve_intervals`) and returns their stacked dump payload; with
 `_chunk_steps_per_dispatch` above 0 the interval is first stepped in
-bounded dispatches (`_bounded_prelude`); when `_speculation_ok`, block i+1
-is dispatched before block i's host work, while block i's payload travels
-to pinned host memory on a side stream (`_Fetch`) and its files go through
-the async writer. The stepper's evolve loop itself runs on the device in
-chunks, replayed as CUDA graphs on the card (`Stepper`). JAX donates the
-state it dispatches (MSM_DONATE, msm_tpu/stepper.py:123); torch has no
-donation, and the port's loop updates its own state buffers in place
-instead, so no MSM_DONATE is read and `_speculation_ok` budgets one state
-unless its caller says otherwise, as JAX's default does.
+bounded dispatches (`_bounded_prelude`). Block i's payload travels to
+pinned host memory on a side stream (`_Fetch`) and its files go through
+the async writer. Block i+1 is dispatched before block i's wait (unless
+block i ends the job), so it computes while the payload travels, when
+`_speculation_ok`, or when the dispatch is one interval on a plain
+`Stepper`: that payload is the state's own tensors (a view, no copy),
+which the next block keeps alive anyway, so overlapping it holds no
+second payload on the device. The loop's blocking
+reads take no copy engine (`stepper.host_read`), so they do not queue
+behind the payload's copy. The stepper's evolve loop itself runs on the
+device in chunks, replayed as CUDA graphs on the card (`Stepper`). JAX
+donates the state it dispatches (MSM_DONATE, msm_tpu/stepper.py:123);
+torch has no donation, and the port's loop updates its own state buffers
+in place instead, so no MSM_DONATE is read and `_speculation_ok` budgets
+one state unless its caller says otherwise, as JAX's default does.
 
 An aliased stream is frozen and its FourierAliasingError logged, and the
 others go on, as msm_tpu's `run_config` does by default; with
@@ -491,14 +497,16 @@ def _speculation_ok(params, n_batch: int, dtype, kblock: int, donated: bool = Tr
 
 class _Fetch:
     """A block's payload on its way to the host. On the card the copy runs
-    on the side stream `stream` into pinned host memory, started as the
-    block ends, so the next block computes while it travels; `wait` blocks
-    until it has arrived and returns numpy arrays (which keep the pinned
-    memory alive while the async writer holds them). On the CPU (`stream`
-    None) the payload is already there. Each block counts in the stepper's
-    `stats["fetches"]`, and the host seconds of starting it and of waiting
-    for it in `fetch_enqueue_s` and `fetch_wait_s` (spans `msm.drive.fetch`
-    and `msm.drive.fetch_wait`)."""
+    on the side stream `stream` into pinned host memory, after the block's
+    last kernel, so a block dispatched meanwhile computes while it travels;
+    `wait` blocks until it has arrived and returns numpy arrays (which keep
+    the pinned memory alive while the async writer holds them). The device
+    tensors are held until then, so a payload that is the state's own
+    tensors outlives its copy. On the CPU (`stream` None) the payload is
+    already there. Each block counts in the stepper's `stats["fetches"]`,
+    and the host seconds of starting it and of waiting for it in
+    `fetch_enqueue_s` and `fetch_wait_s` (spans `msm.drive.fetch` and
+    `msm.drive.fetch_wait`)."""
 
     def __init__(self, outs: dict, stream: "torch.cuda.Stream | None", stats: dict):
         self.stats = stats
@@ -546,12 +554,17 @@ def _drive(
     the dump count, potential output and cosmology; msm_tpu's `run_config`
     :1044-1201 and `run_single` :690-796): dump 0 unless resumed, then
     dispatches of `kblock` intervals (after a bounded prelude of `chunk`
-    iterations a dispatch when `chunk`), block i+1 dispatched before block
-    i's host work when `speculate`, and every stream that reached its dump
-    written, until every stream is done or aliased. Returns the final
-    state. Each stage is spanned (`msm.drive.*`, `utils.profiling.span`),
-    and the fetches are counted in the stepper's `stats`. The progress
-    line and its telemetry are built only when `verbose` prints them."""
+    iterations a dispatch when `chunk`), and every stream that reached its
+    dump written, until every stream is done or aliased. Block i+1 is
+    dispatched before block i's fetch is waited for when `speculate`, or at
+    one interval a dispatch on a plain `Stepper`, whose payload is the
+    state's own tensors (`Stepper.evolve_intervals`), unless block i-1's
+    dumps show that block i ends the job; its fetch starts once block i's
+    has arrived and the job goes on. Returns the final state.
+    Each stage is spanned (`msm.drive.*`, `utils.profiling.span`), and the
+    fetches are counted in the stepper's `stats`, those whose next block
+    went first in `fetches_overlapped`. The progress line and its telemetry
+    are built only when `verbose` prints them."""
     p = runs[-1].params
     n = len(runs)
     stats = stepper.stats
@@ -598,25 +611,40 @@ def _drive(
                             combiner.write_row({k: v.cpu().numpy() for k, v in row.items()}, 0)
     combine = None if combiner is None else (n, combiner.dv)
     copies = torch.cuda.Stream(stepper.device) if stepper.device.type == "cuda" else None
+    # block i+1 goes before block i's wait when `speculate`, or where the
+    # payload is the state's own tensors (one interval a dispatch on a plain
+    # Stepper): then no second payload is live, only the state the next
+    # block reads anyway
+    ahead = speculate or (kblock == 1 and isinstance(stepper, Stepper))
 
     def advance(s):
         if chunk:
             with span("msm.drive.prelude"):
                 s = _bounded_prelude(stepper, s, chunk)
         with span("msm.drive.intervals"):
-            final, outs = stepper.evolve_intervals(s, kblock, with_potential=want_pot,
-                                                   combine=combine)
-        return final, _Fetch(outs, copies, stats)
+            return stepper.evolve_intervals(s, kblock, with_potential=want_pot,
+                                            combine=combine)
 
     total_steps = prev_steps = start_steps
-    inflight = advance(state) if stepper.not_finished(state) else None
-    while inflight is not None:
-        state, fetch = inflight
-        # block i+1 before block i's host work: its payload copies to the
-        # host meanwhile; a wrong speculation (the final block) is a no-op
-        # dispatch, since a finished state's loop does not start
-        speculative = advance(state) if speculate else None
+    block = advance(state) if stepper.not_finished(state) else None
+    fetch = None if block is None else _Fetch(block[1], copies, stats)
+    host = None
+    while fetch is not None:
+        state = block[0]
+        # block i+1 computes while block i's payload travels to the host,
+        # unless block i-1's rows show that block i ends the job (an
+        # interval takes every live stream one dump on); a wrong guess (a
+        # stream that aliased in block i) is a no-op dispatch, since a
+        # finished state's loop does not start, and its payload is never
+        # fetched
+        ends = host is not None and np.all(
+            (host["current_dumps"][-1] + kblock >= p.num_data_dumps) | host["aliased"][-1])
+        block = advance(state) if ahead and not ends else None
         host = fetch.wait()
+        if block is not None:
+            stats["fetches_overlapped"] += 1
+        finished = np.all((host["current_dumps"][-1] >= p.num_data_dumps) | host["aliased"][-1])
+        fetch = None if block is None or finished else _Fetch(block[1], copies, stats)
         with span("msm.drive.deliver"):
             for j in range(kblock):
                 jd, al = host["just_dumped"][j], host["aliased"][j]
@@ -675,13 +703,13 @@ def _drive(
                     else:
                         progress.update(int(dumps_j[:n].min()),
                                         sim_time=float(row["time"][:n].min()), extra=extra)
-        if np.all((host["current_dumps"][-1] >= p.num_data_dumps) | host["aliased"][-1]):
-            if speculative is not None:
+        if finished:
+            if block is not None:
                 # a finished state's dispatch returns it as it is
-                state = speculative[0]
-            inflight = None
-        else:
-            inflight = speculative if speculate else advance(state)
+                state = block[0]
+        elif fetch is None:
+            block = advance(state)
+            fetch = _Fetch(block[1], copies, stats)
     if combiner is not None and rank0:
         combiner.finalize()
     timer.stop(n_steps=total_steps - start_steps)
@@ -868,7 +896,8 @@ def _run_config(toml, all_params, dtype, *, device, data_root, verbose, test_onl
         )
         # k intervals a dispatch; one a dispatch falls back to JAX's
         # one-interval loop's policy: bounded dispatches for a big
-        # state, and speculation budgeted for two states
+        # state, and speculation budgeted for two states (`_drive`
+        # overlaps a plain Stepper's one-interval fetch regardless)
         kblock = _interval_block_k(mft_params, pad_to, dtype, stepper,
                                    online=combiner is not None)
         if kblock > 1:

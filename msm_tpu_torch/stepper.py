@@ -261,11 +261,13 @@ _NO_CAP = 2**62
 
 
 def host_read(stats: "dict | None", t):
-    """`t.tolist()`: one blocking device->host read of the evolve loop,
-    spanned as `msm.loop.report` and counted in `stats["host_reads"]`
-    (where a dict is given)."""
+    """`t.tolist()`: one blocking device->host read of the evolve loop
+    (`ops.kernels.read_to_host`: on the card a kernel's stores, so the read
+    never queues behind a dump's fetch on the copy engine), spanned as
+    `msm.loop.report` and counted in `stats["host_reads"]` (where a dict
+    is given)."""
     with span("msm.loop.report"):
-        value = t.tolist()
+        value = kernels.read_to_host(t)
     if stats is not None:
         stats["host_reads"] += 1
     return value
@@ -364,11 +366,13 @@ class Stepper:
         # are no-ops past the loop's end or before a branch switch) and its
         # blocking device->host reads; the blocks the dump loop sent to the
         # host (`simulator._Fetch`) with the host seconds spent starting
-        # their copies and waiting for them; the chunk graphs captured, with
+        # their copies and waiting for them, and those whose next block was
+        # dispatched before their wait; the chunk graphs captured, with
         # their host seconds; and this constructor's seconds
         self._graphs = None
         self.stats = {"chunks": 0, "iterations": 0, "executed": 0, "host_reads": 0,
                       "fetches": 0, "fetch_enqueue_s": 0.0, "fetch_wait_s": 0.0,
+                      "fetches_overlapped": 0,
                       "captures": 0, "capture_s": 0.0, "init_s": 0.0}
         self.dt_safety = min(1.0, max(1e-3, float(os.environ.get("MSM_DT_SAFETY", DT_SAFETY))))
         self.dt_decay = min(1.0, max(0.0, float(os.environ.get("MSM_DT_DECAY", DT_DECAY))))
@@ -1244,7 +1248,15 @@ class Stepper:
         Intervals after every stream has finished are no-ops: the loop does
         not start and the snap changes nothing, so their rows carry
         just_dumped False. JAX donates the input state; the port's loop
-        works on its own buffers and leaves the input as it is."""
+        works on its own buffers and leaves the input as it is.
+
+        At k = 1 the payload is the row itself, each tensor viewed with a
+        leading axis of 1: psi and the scalars share storage with the
+        returned state (and with `state` where the loop did not start), and
+        nothing is copied. That is safe because no call writes its input:
+        the loop reads it through `graphs.ChunkGraphs.load`'s copy, or
+        eagerly into new tensors, and hands back new tensors. At k > 1 the
+        rows are stacked into new tensors."""
         s, outs = state, {}
         for j in range(k):
             raw = self.evolve_to_next_dump(s)
@@ -1255,6 +1267,8 @@ class Stepper:
                 row["pot"] = self.potential(s.psi)
             if combine is not None:
                 row.update(self.combine_row(raw, s, *combine))
+            if k == 1:
+                return s, {name: value.unsqueeze(0) for name, value in row.items()}
             for name, value in row.items():
                 if name not in outs:
                     outs[name] = value.new_empty((k,) + tuple(value.shape))

@@ -395,3 +395,115 @@ def test_run_single_blocked_and_chunked(tmp_path, monkeypatch):
         np.testing.assert_allclose(arr, want["files"][key], atol=1e-12, err_msg=str(key))
     for k in ("current_dumps", "n_steps", "replays", "aliased"):
         assert got["k1"]["manifest"][k] == want["manifest"][k], k
+
+
+def _block_params():
+    toml = cfg.parse_toml_str(BLOCK_TOML.format(name="blk"))
+    return list(cfg.iter_stream_parameters(toml))[-1]
+
+
+class _MemRun:
+    """A run as `_drive` uses it, keeping what it is handed in memory."""
+
+    def __init__(self, params):
+        self.params = params
+        self.dumps = []
+
+    def dump_field(self, psi, dump_index, field="psi"):
+        self.dumps.append((int(dump_index), field, np.array(psi)))
+
+    def write_manifest(self, scalars):
+        pass
+
+
+def _block_job(monkeypatch, stepper, params, kblock: int, speculate: bool):
+    """A three-run job of BLOCK_TOML's physics through `_drive`, recording
+    in order each `Stepper.evolve_intervals` dispatch ("d") and each
+    `_Fetch.wait` ("w"); returns (events, runs)."""
+    events = []
+    dispatch, wait = Stepper.evolve_intervals, simulator._Fetch.wait
+
+    def recorded_dispatch(self, *args, **kwargs):
+        events.append("d")
+        return dispatch(self, *args, **kwargs)
+
+    def recorded_wait(self):
+        events.append("w")
+        return wait(self)
+
+    monkeypatch.setattr(Stepper, "evolve_intervals", recorded_dispatch)
+    monkeypatch.setattr(simulator._Fetch, "wait", recorded_wait)
+    psi0 = torch.as_tensor(ics.build_ics(params))
+    batch = torch.stack([psi0, psi0.roll(2, 0), psi0.roll(3, 1)])
+    runs = [_MemRun(params) for _ in range(3)]
+    simulator._drive(
+        stepper, runs, stepper.init_state(batch), resumed=False, name="blk", verbose=False,
+        strict_alias=False, debug_checks=False, eps=1e-4, kblock=kblock, chunk=0,
+        speculate=speculate,
+    )
+    monkeypatch.setattr(Stepper, "evolve_intervals", dispatch)
+    monkeypatch.setattr(simulator._Fetch, "wait", wait)
+    return events, runs
+
+
+def _dispatched_before_each_wait(events) -> list:
+    """For the i-th wait, the blocks dispatched before it, less i."""
+    out, dispatched = [], 0
+    for e in events:
+        if e == "d":
+            dispatched += 1
+        else:
+            out.append(dispatched - (len(out) + 1))
+    return out
+
+
+@pytest.mark.parametrize("engine,kblock", [("stepper", 1), ("stepper", 2), ("mesh", 1)])
+def test_fetch_overlaps_the_next_block(monkeypatch, engine, kblock):
+    """With speculation off, one interval a dispatch on a plain Stepper
+    dispatches block i+1 before block i's wait (its payload is the state's
+    own tensors) and counts those fetches overlapped, but for the last
+    block, which the one before it shows to end the job; two a dispatch, and a
+    MeshStepper (whose payload is gathered into new tensors), overlap
+    nothing. The dumps are those of the sequential run at two a dispatch."""
+    from msm_tpu_torch.parallel import mesh as mesh_mod
+    from msm_tpu_torch.parallel.sharded import MeshStepper
+
+    params = _block_params()
+    if engine == "mesh":
+        stepper = MeshStepper(params, mesh_mod.Mesh((1, 1, 1), "cpu"), torch.complex128)
+    else:
+        stepper = Stepper(params, torch.complex128, "cpu")
+    events, runs = _block_job(monkeypatch, stepper, params, kblock, speculate=False)
+    stats = stepper.stats
+    assert stats["fetches"] == events.count("w") == -(-params.num_data_dumps // kblock)
+    ahead = _dispatched_before_each_wait(events)
+    if engine == "stepper" and kblock == 1:
+        # the last block's rows are known to end the job before its wait
+        assert ahead == [1] * (stats["fetches"] - 1) + [0]
+        assert stats["fetches_overlapped"] == stats["fetches"] - 1
+    else:
+        assert ahead == [0] * stats["fetches"]
+        assert stats["fetches_overlapped"] == 0
+    _, want = _block_job(monkeypatch, Stepper(params, torch.complex128, "cpu"), params, 2, False)
+    for got_run, want_run in zip(runs, want):
+        assert [d[:2] for d in got_run.dumps] == [d[:2] for d in want_run.dumps]
+        for (_, _, a), (_, _, b) in zip(got_run.dumps, want_run.dumps):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_one_interval_payload_is_the_state(k):
+    """At k = 1 `evolve_intervals`' payload is the returned state's own
+    tensors, viewed with a leading axis of 1; at k = 2 it is a stacked
+    copy."""
+    params = _block_params()
+    st = Stepper(params, torch.complex128, "cpu")
+    psi0 = torch.as_tensor(ics.build_ics(params))
+    state = st.init_state(torch.stack([psi0, psi0.roll(2, 0)]))
+    final, outs = st.evolve_intervals(state, k, with_potential=True)
+    assert outs["psi"].shape == (k,) + tuple(final.psi.shape)
+    torch.testing.assert_close(outs["psi"][-1], final.psi, rtol=0, atol=0)
+    for name in ("psi", "time", "current_dumps"):
+        shared = (outs[name].untyped_storage().data_ptr()
+                  == getattr(final, name).untyped_storage().data_ptr())
+        assert shared == (k == 1), name

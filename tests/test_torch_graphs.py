@@ -15,7 +15,10 @@ imports no JAX, so it runs as it is on the card's machine):
   same;
 - the bench's step chain the same way;
 - a chunk that reads the host inside its capture raises, and the eager
-  loop is not taken instead.
+  loop is not taken instead;
+- the loop's reads (`read_to_host`, csrc/read_kernels.cu) give `tolist()`'s
+  values, and return while a 1 GiB device-to-host copy on another stream
+  is still in flight: they take no copy engine.
 """
 
 import dataclasses
@@ -95,6 +98,40 @@ def _cosmo_toml(size):
         cosmology=cfg.CosmologyConfig(omega_matter_now=1.0, omega_radiation_now=0.0, h=h,
                                       z0=z0, max_dloga=0.005),
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [
+    torch.arange(9, dtype=torch.float64) / 7, torch.tensor(True), torch.tensor([True, False, True]),
+    torch.arange(5, dtype=torch.int32) - 2, torch.tensor(2**40 + 3),
+])
+def test_read_to_host_matches_tolist(cuda_device, value):
+    t = value.to(cuda_device)
+    assert kernels.read_to_host(t) == value.tolist()
+    assert kernels.read_to_host(value) == value.tolist()
+    if value.numel() > 2:  # a strided view
+        assert kernels.read_to_host(t[::2]) == value[::2].tolist()
+
+
+@pytest.mark.cuda
+def test_read_to_host_passes_a_copy_in_flight(cuda_device):
+    """A device-to-host copy queues behind one already on the copy engine,
+    whatever its stream; the kernel's read does not."""
+    big = torch.ones(2**28, dtype=torch.float32, device=cuda_device)
+    pinned = torch.empty(big.shape, dtype=big.dtype, pin_memory=True)
+    small = torch.arange(9, dtype=torch.float64, device=cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    torch.cuda.synchronize()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pinned.copy_(big, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    got = kernels.read_to_host(small)
+    in_flight = not done.query()
+    assert got == [float(i) for i in range(9)]
+    done.synchronize()
+    assert in_flight
 
 
 # case -> (MSM_FFT, MSM_SKEW_STEP, dt mode, toml)

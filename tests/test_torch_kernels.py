@@ -125,7 +125,7 @@ def test_cpu_wrappers_count_no_launches(rng):
     kernels.phase_rotate(torch.as_tensor(z), torch.as_tensor(field), torch.as_tensor(coeff))
     kernels.poisson_multiply(torch.as_tensor(z), torch.as_tensor(coeff), 2)
     assert kernels.launches == {"kinetic_phase": 0, "poisson_multiply": 0, "phase_rotate": 0,
-                                "masked_restore": 0}
+                                "masked_restore": 0, "store_to_host": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -153,6 +153,6 @@ def test_cuda_kernels_match_plain(cuda_device, rng, cdtype, atol, batch, size, d
     k21 = kernels.phase_rotate(z, field, coeff)
     torch.cuda.synchronize()
     assert kernels.launches == {"kinetic_phase": 1, "poisson_multiply": 0, "phase_rotate": 1,
-                                "masked_restore": 0}
+                                "masked_restore": 0, "store_to_host": 0}
     assert (k19 - kernels.kinetic_phase_plain(z, scale, dims)).abs().max().item() <= atol
     assert (k21 - kernels.phase_rotate_plain(z, field, coeff)).abs().max().item() <= atol
